@@ -29,6 +29,26 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    torch.where (a yardstick the port never calls) are timed on them
    (device time, replayed from a CUDA graph; the eager per-call time is
    printed beside it) against the bytes bound at 3.35 TB/s.
+6. matmul and sumsq kernels vs plain: bf16 and f32 products on
+   [256,128]@[128,384], a multi-K [128,512]@[512,128], an edge case
+   [32,32]@[32,32], and the full [8192]^3 in bf16; bf16 within 2 bf16 ulps
+   of max|ref|, f32 within 1e-5 of max|ref| scaled by sqrt(K/512) past
+   K=512.  sumsq on [8192, 8192] bf16 within a relative 1e-5 of plain, and
+   two kernel calls bit-equal.
+7. the executor path at full width: TpuExecutor(device="cuda") drives
+   tpu://pallas_matmul n=8192 steps=16 ASSIGNED -> COMPLETE through
+   do_task_state; prints prepare and run seconds, TFLOP/s and launches;
+   checks a finite result and 16 launches of each kernel.  Then
+   tpu://matmul at the same size (torch.matmul, for comparison), axpy and
+   spin through the same executor, and pallas_matmul n=1024 steps=4 on
+   the card and on the CPU: the chains' matrices within rtol=atol=1e-1,
+   the results within the sum of the matrices' differences.
+8. the kernels on the executor path's own inputs: the matmul and sumsq
+   calls of one step of the full-width task are recorded, then kernel,
+   plain version and library call (torch.matmul; the faster of
+   vector_norm**2 and x.float().square().sum()) are timed on them from
+   CUDA-graph replay, against the bound: operations at 989 TFLOP/s bf16
+   for matmul, bytes at 3.35 TB/s for sumsq.
 
 Before the last line it prints the kernels' JSON record and the card's
 `nvidia-smi` name/power line; the last line is the result JSON.  Without a
@@ -38,12 +58,17 @@ it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import asyncio
 import json
+import math
 import subprocess
 import sys
 import time
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device-memory rate (data sheet)
+BF16_FLOP_PER_S = 989e12    # H100 SXM dense bf16 tensor-core rate
+F32_FLOP_PER_S = 67e12      # H100 SXM f32 rate outside the tensor cores
+TASK_N, TASK_STEPS = 8192, 16   # the executor task at full width
 HEADLINE = dict(n=4096, log_len=8192, window=2048, apply_batch=2048,
                 max_props=2048, keep=500, election_tick=24, seed=0,
                 static_members=True, collect_stats=True, peer_chunk=0,
@@ -297,6 +322,213 @@ def phase_main_path_inputs(torch, sim, cuda_ops, st) -> dict:
                 library_ms=mean(times["library"]), bound_ms=mean(bound))
 
 
+def matmul_tol(torch, ref, k: int) -> float:
+    """bf16: 2 bf16 ulps of max|ref|; f32: 1e-5 of max|ref|, scaled by
+    sqrt(K / 512) past K = 512."""
+    top = float(ref.float().abs().max())
+    if ref.dtype == torch.bfloat16:
+        return 2 * 2.0 ** (math.frexp(top)[1] - 8)
+    return 1e-5 * max(1.0, math.sqrt(k / 512)) * top
+
+
+def phase_float_kernels_vs_plain(torch, cuda_ops) -> dict:
+    """Returns the largest |kernel - plain| of each kernel."""
+    g = torch.Generator(device="cuda").manual_seed(6)
+    shapes = [(256, 128, 384), (128, 512, 128), (32, 32, 32)]
+    cases = [(s, dt) for s in shapes
+             for dt in (torch.bfloat16, torch.float32)]
+    cases.append(((TASK_N, TASK_N, TASK_N), torch.bfloat16))
+    worst = {"matmul": 0.0, "sumsq": 0.0}
+    for (m, k, n), dt in cases:
+        a = torch.randn((m, k), device="cuda", generator=g).to(dt)
+        b = torch.randn((k, n), device="cuda", generator=g).to(dt)
+        got = cuda_ops.matmul(a, b, tile_m=m, tile_n=n, tile_k=k)
+        want = cuda_ops.matmul_plain(a, b)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        tol = matmul_tol(torch, want, k)
+        log(f"  matmul {str(dt)[6:]} [{m},{k}]@[{k},{n}]: max|diff|="
+            f"{err:.6g}, tolerance {tol:.6g}")
+        check(err <= tol, f"matmul kernel != plain on [{m},{k}]@[{k},{n}]")
+        worst["matmul"] = max(worst["matmul"], err)
+    x = torch.randn((TASK_N, TASK_N), device="cuda",
+                    generator=g).to(torch.bfloat16)
+    got, again = cuda_ops.sumsq(x), cuda_ops.sumsq(x)
+    want = cuda_ops.sumsq_plain(x)
+    torch.cuda.synchronize()
+    err = abs(float(got) - float(want))
+    log(f"  sumsq bf16 [{TASK_N},{TASK_N}]: kernel {float(got)!r}, plain "
+        f"{float(want)!r}, relative diff {err / float(want):.3g} "
+        f"(tolerance 1e-5); two calls bit-equal: {torch.equal(got, again)}")
+    check(err <= 1e-5 * float(want), "sumsq kernel != plain")
+    check(torch.equal(got, again), "sumsq is not deterministic")
+    worst["sumsq"] = err
+    return worst
+
+
+def drive_task(image: str, args: list, device: str, operands=None):
+    """One task ASSIGNED -> COMPLETE through do_task_state, the way the
+    agent's worker drives a controller.  Returns (controller, prepare s,
+    run s): the seconds of the prepare call and of the start+wait calls."""
+    from swarmkit_tpu_torch.agent.exec import do_task_state
+    from swarmkit_tpu_torch.agent.tpu import TpuExecutor
+    from swarmkit_tpu_torch.api import (
+        ContainerSpec, Task, TaskSpec, TaskState, TaskStatus,
+    )
+
+    async def go():
+        ex = TpuExecutor(hostname="chip", device=device)
+        task = Task(id="t", spec=TaskSpec(container=ContainerSpec(
+            image=image, args=list(args))),
+            status=TaskStatus(state=TaskState.ASSIGNED),
+            desired_state=TaskState.RUNNING)
+        ctl = await ex.controller(task, operands=operands)
+        spent = {}
+        while True:
+            state = task.status.state
+            t0 = time.perf_counter()
+            st = await do_task_state(task, ctl, now=time.time())
+            spent[state] = time.perf_counter() - t0
+            if st is None:
+                break
+            task.status = st
+        check(task.status.state == TaskState.COMPLETE,
+              f"{image} {args} on {device} ended {task.status.state.name}: "
+              f"{task.status.err}")
+        return ctl, (await ex.describe()), spent[TaskState.PREPARING], \
+            spent[TaskState.STARTING] + spent[TaskState.RUNNING]
+
+    return asyncio.run(go())
+
+
+def phase_executor(torch, cuda_ops) -> dict:
+    args = [f"n={TASK_N}", f"steps={TASK_STEPS}", "seed=0"]
+    flop = TASK_STEPS * 2 * TASK_N ** 3
+    torch.cuda.synchronize()
+    cuda_ops.reset_launches()
+    ctl, desc, prep_s, run_s = drive_task("tpu://pallas_matmul", args,
+                                          "cuda")
+    launches = dict(cuda_ops.LAUNCHES)
+    log(f"  tpu://pallas_matmul {' '.join(args)}: prepare {prep_s:.3f} s, "
+        f"run {run_s:.3f} s, {flop / run_s / 1e12:.1f} TFLOP/s "
+        f"({flop / 1e12:.2f} TFLOP), result {ctl.result!r}, launches "
+        f"{launches}")
+    log(f"  describe: {desc.resources.generic} "
+        f"{desc.resources.generic_named}, {desc.engine.engine_version}")
+    check(math.isfinite(ctl.result), "pallas_matmul result is not finite")
+    check(launches["matmul"] == TASK_STEPS,
+          f"matmul launched {launches['matmul']} times, not {TASK_STEPS}")
+    check(launches["sumsq"] == TASK_STEPS,
+          f"sumsq launched {launches['sumsq']} times, not {TASK_STEPS}")
+    check(desc.resources.generic == {"gpu-chip": 1}, "describe on the card")
+    out = dict(prepare_s=prep_s, run_s=run_s, tflop_per_s=flop / run_s / 1e12,
+               launches=launches, a=ctl._args[0])
+    # twice: the first run in a fresh executor thread also sets up cuBLAS
+    out["xla_chain_run_s"] = []
+    for _ in range(2):
+        _, _, prep_x, run_x = drive_task("tpu://matmul", args, "cuda")
+        log(f"  tpu://matmul (torch.matmul chain) same size: prepare "
+            f"{prep_x:.3f} s, run {run_x:.3f} s, {flop / run_x / 1e12:.1f} "
+            f"TFLOP/s")
+        out["xla_chain_run_s"].append(run_x)
+    for image in ("tpu://axpy", "tpu://spin"):
+        c, _, p, r = drive_task(image, [], "cuda")
+        check(math.isfinite(c.result), f"{image} result is not finite")
+        log(f"  {image}: result {c.result!r}, prepare {p:.3f} s, run "
+            f"{r:.3f} s")
+
+    small = ["n=1024", "steps=4", "seed=1"]
+    card = drive_task("tpu://pallas_matmul", small, "cuda")[0]
+    cpu = drive_task("tpu://pallas_matmul", small, "cpu")[0]
+    a_card, a_cpu = card._args[0], cpu._args[0]
+    check(torch.equal(a_card.cpu(), a_cpu), "seeded operands differ")
+    got = cuda_ops.matmul_chain(a_card, a_card, 4).float().cpu()
+    want = cuda_ops.matmul_chain(a_cpu, a_cpu, 4).float()
+    diff = (got - want).abs()
+    check(bool((diff <= 1e-1 + 1e-1 * want.abs()).all()),
+          "card and CPU chains differ beyond rtol=atol=1e-1")
+    bound = float(diff.sum() + 1e-5 * want.abs().sum())
+    log(f"  pallas_matmul n=1024 steps=4: card {card.result!r}, cpu "
+        f"{cpu.result!r}, |diff| {abs(card.result - cpu.result):.6g} <= "
+        f"{bound:.6g} (sum of the chains' |diff| {float(diff.sum()):.6g}, "
+        f"max {float(diff.max()):.6g}; tolerance rtol=atol=1e-1)")
+    check(abs(card.result - cpu.result) <= bound, "card and CPU results")
+    return out
+
+
+def phase_float_kernels_on_path(torch, cuda_ops, a) -> dict:
+    """Time matmul and sumsq on the calls one step of the task makes."""
+    calls = {"matmul": [], "sumsq": []}
+    kernel = {"matmul": cuda_ops.matmul, "sumsq": cuda_ops.sumsq}
+
+    def rec_matmul(x, b, **kw):
+        calls["matmul"].append((x, b, kw))
+        return kernel["matmul"](x, b, **kw)
+
+    def rec_sumsq(x, **kw):
+        calls["sumsq"].append((x, kw))
+        return kernel["sumsq"](x, **kw)
+
+    cuda_ops.matmul, cuda_ops.sumsq = rec_matmul, rec_sumsq
+    try:
+        cuda_ops.matmul_chain(a, a, 1)
+    finally:
+        cuda_ops.matmul, cuda_ops.sumsq = kernel["matmul"], kernel["sumsq"]
+    torch.cuda.synchronize()
+    check(len(calls["matmul"]) == 1 and len(calls["sumsq"]) == 1,
+          f"one step made {len(calls['matmul'])} matmul and "
+          f"{len(calls['sumsq'])} sumsq calls")
+    (x, b, kw), = calls["matmul"]
+    (y, skw), = calls["sumsq"]
+    m, k = x.shape
+    n = b.shape[1]
+    err_mm = float((kernel["matmul"](x, b, **kw).float()
+                    - cuda_ops.matmul_plain(x, b).float()).abs().max())
+    plain_ss = float(cuda_ops.sumsq_plain(y))
+    err_ss = abs(float(kernel["sumsq"](y, **skw)) - plain_ss)
+
+    def timed(fns: dict, reps: int, replays: int) -> dict:
+        # in turns (plain, kernel, kernel, plain) so drift hits both alike
+        t = {"plain": [graph_ms(torch, fns["plain"], reps, replays)]}
+        t["kernel"] = [graph_ms(torch, fns["kernel"], reps, replays)
+                       for _ in range(2)]
+        t["plain"].append(graph_ms(torch, fns["plain"], reps, replays))
+        out = {name: sum(v) / len(v) for name, v in t.items()}
+        out["library"] = min(graph_ms(torch, f, reps, replays)
+                             for f in fns["library"])
+        return out
+
+    mm = timed({"kernel": lambda: kernel["matmul"](x, b, **kw),
+                "plain": lambda: cuda_ops.matmul_plain(x, b),
+                "library": [lambda: torch.matmul(x, b)]}, 4, 3)
+    flop = 2 * m * n * k
+    mm_bytes = (m * k + k * n + m * n) * x.element_size()
+    mm["bound"] = max(flop / BF16_FLOP_PER_S, mm_bytes / HBM_BYTES_PER_S) \
+        * 1e3
+    mm["err"] = err_mm
+    log(f"  matmul [{m},{k}]@[{k},{n}] bf16: device kernel "
+        f"{mm['kernel']:.4f} ms ({flop / mm['kernel'] / 1e9:.1f} TFLOP/s), "
+        f"plain {mm['plain']:.4f} ms, torch.matmul {mm['library']:.4f} ms, "
+        f"bound {mm['bound']:.4f} ms (operations); max|diff| {err_mm:.6g}")
+
+    ss = timed({"kernel": lambda: kernel["sumsq"](y, **skw),
+                "plain": lambda: cuda_ops.sumsq_plain(y),
+                "library": [
+                    lambda: torch.linalg.vector_norm(
+                        y, dtype=torch.float32) ** 2,
+                    lambda: y.float().square().sum()]}, 20, 5)
+    ss_bytes = y.numel() * y.element_size()
+    ss["bound"] = max(ss_bytes / HBM_BYTES_PER_S,
+                      2 * y.numel() / F32_FLOP_PER_S) * 1e3
+    ss["err"] = err_ss
+    log(f"  sumsq [{y.shape[0]},{y.shape[1]}] bf16: device kernel "
+        f"{ss['kernel']:.4f} ms ({ss_bytes / ss['kernel'] / 1e6:.0f} GB/s), "
+        f"plain {ss['plain']:.4f} ms, library {ss['library']:.4f} ms, bound "
+        f"{ss['bound']:.4f} ms (bytes); |diff| {err_ss:.6g} (relative "
+        f"{err_ss / plain_ss:.3g})")
+    return {"matmul": mm, "sumsq": ss}
+
+
 def main() -> int:
     try:
         import torch
@@ -340,15 +572,39 @@ def main() -> int:
     log("phase 5: append_band_copy on the main path's inputs")
     k = phase_main_path_inputs(torch, sim, cuda_ops, head.pop("state"))
 
+    log("phase 6: matmul and sumsq kernels vs plain")
+    torch.backends.cuda.matmul.allow_tf32 = False   # plain f32 is full f32
+    err6 = phase_float_kernels_vs_plain(torch, cuda_ops)
+
+    log(f"phase 7: the executor path at full width (n={TASK_N}, "
+        f"steps={TASK_STEPS})")
+    task = phase_executor(torch, cuda_ops)
+
+    log("phase 8: matmul and sumsq on the executor path's inputs")
+    f8 = phase_float_kernels_on_path(torch, cuda_ops, task.pop("a"))
+
     log("summary " + json.dumps({"card": card, **head,
-                                 "band_copy_calls_per_tick": k["calls"]}))
-    print(json.dumps({"kernels": [{
+                                 "band_copy_calls_per_tick": k["calls"],
+                                 "task": task}))
+    records = [{
         "name": "append_band_copy", "route": "cuda",
         "source": "swarmkit_tpu_torch/csrc/band_copy.cu",
         "replaces": "swarmkit_tpu/parallel/pallas_ops.py:174",
         "launches": head["launches"], "max_abs_err": max(err2, k["err"]),
         "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
-        "bound_by": "bytes", "library_ms": k["library_ms"]}]}), flush=True)
+        "bound_by": "bytes", "library_ms": k["library_ms"]}]
+    for name, line, bound_by in (("matmul", 76, "operations"),
+                                 ("sumsq", 141, "bytes")):
+        t = f8[name]
+        records.append({
+            "name": name, "route": "cuda",
+            "source": f"swarmkit_tpu_torch/csrc/{name}.cu",
+            "replaces": f"swarmkit_tpu/parallel/pallas_ops.py:{line}",
+            "launches": task["launches"][name],
+            "max_abs_err": max(err6[name], t["err"]), "ms": t["kernel"],
+            "plain_ms": t["plain"], "bound_ms": t["bound"],
+            "bound_by": bound_by, "library_ms": t["library"]})
+    print(json.dumps({"kernels": records}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

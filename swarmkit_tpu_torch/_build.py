@@ -5,7 +5,9 @@ plain C interface under `build/kernels/` at the checkout root (listed in
 .gitignore), then loaded with ctypes.  A library is rebuilt when it is
 missing or older than its source.  Nothing happens at import: the first
 launch of a kernel builds it, and `build_all` compiles every source at once
-(one nvcc process each, started together).
+(one nvcc process each, started together).  A lock serialises building and
+loading, so threads that need the same kernel at once (two tasks preparing
+on the executor's worker threads) run one nvcc, not two.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -23,6 +26,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _loaded: dict[str, ctypes.CDLL] = {}
+_lock = threading.Lock()
 
 
 def nvcc() -> str:
@@ -65,16 +69,18 @@ def build_all() -> dict[str, str]:
     """Compile every stale source in parallel; returns nvcc's output (the
     -Xptxas -v register and spill report) per rebuilt source."""
     names = sorted(p.stem for p in CSRC.glob("*.cu"))
-    started = {nm: _start(nm) for nm in names if _stale(nm)}
-    return {nm: _finish(nm, *pt) for nm, pt in started.items()}
+    with _lock:
+        started = {nm: _start(nm) for nm in names if _stale(nm)}
+        return {nm: _finish(nm, *pt) for nm, pt in started.items()}
 
 
 def load(name: str) -> ctypes.CDLL:
     """The built library for csrc/<name>.cu, building it if needed."""
-    lib = _loaded.get(name)
-    if lib is None:
-        if _stale(name):
-            _finish(name, *_start(name))
-        lib = ctypes.CDLL(str(lib_path(name)))
-        _loaded[name] = lib
-    return lib
+    with _lock:
+        lib = _loaded.get(name)
+        if lib is None:
+            if _stale(name):
+                _finish(name, *_start(name))
+            lib = ctypes.CDLL(str(lib_path(name)))
+            _loaded[name] = lib
+        return lib

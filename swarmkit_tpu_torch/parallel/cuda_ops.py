@@ -11,26 +11,81 @@ the kernels.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
 from swarmkit_tpu_torch import _build
 
-LAUNCHES: dict[str, int] = {"append_band_copy": 0}
+LAUNCHES: dict[str, int] = {"append_band_copy": 0, "matmul": 0, "sumsq": 0}
+_launches_lock = threading.Lock()   # tasks launch from executor threads
+
+_P, _I64, _I32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+# (csrc/<source>.cu, C function) -> its argument types; all return int
+_ENTRY = {
+    ("band_copy", "band_copy"): [_P] * 5 + [_I64] * 4 + [_P],
+    ("matmul", "matmul"): [_P] * 3 + [_I64] * 3 + [_I32, _P],
+    ("sumsq", "sumsq"): [_P, _I64, _I32, _P, _P],
+    ("sumsq", "sumsq_scratch_floats"): [],
+}
+# kernel dtype codes shared by matmul.cu and sumsq.cu
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    with _launches_lock:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
 
 
-def _band_copy_fn():
-    fn = _build.load("band_copy").band_copy
+def _count(name: str) -> None:
+    with _launches_lock:
+        LAUNCHES[name] += 1
+
+
+def _kernel(source: str, name: str | None = None):
+    """C function `name` (default: `source`) of csrc/<source>.cu, built,
+    loaded and typed."""
+    name = name or source
+    fn = getattr(_build.load(source), name)
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 4 \
-            + [ctypes.c_void_p]
+        fn.argtypes = _ENTRY[source, name]
         fn.restype = ctypes.c_int
     return fn
+
+
+def load_kernels(*sources: str) -> None:
+    """Build and load csrc/<source>.cu for each source now, so a build or
+    loader failure surfaces here rather than at the first launch."""
+    for source in sources:
+        _kernel(source)
+
+
+def _launch(source: str, device: torch.device, *args) -> None:
+    """Launch `source`'s kernel on `device`'s current stream; raise on a
+    CUDA error."""
+    fn = _kernel(source)
+    with torch.cuda.device(device):
+        rc = fn(*args, torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{source} launch failed: CUDA error {rc}")
+
+
+def _check_tensors(**tensors) -> torch.device:
+    """A kernel dtype, contiguity and a shared device for each named
+    tensor; returns the device."""
+    device = next(iter(tensors.values())).device
+    for name, t in tensors.items():
+        if t.dtype not in _DTYPE_CODE:
+            raise ValueError(f"{name}: dtype {t.dtype} is not one of "
+                             f"{sorted(map(str, _DTYPE_CODE))}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.device != device:
+            raise ValueError(f"{name} is on {t.device}, not {device}")
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no kernel for device {device}")
+    return device
 
 
 def append_band_copy_plain(log_term: torch.Tensor, log_data: torch.Tensor,
@@ -80,12 +135,89 @@ def append_band_copy(log_term: torch.Tensor, log_data: torch.Tensor,
         return
     if log_term.device.type != "cuda":
         raise ValueError(f"no kernel for device {log_term.device}")
-    fn = _band_copy_fn()
-    with torch.cuda.device(log_term.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(log_term.data_ptr(), log_data.data_ptr(),
-                src_term.data_ptr(), src_data.data_ptr(), write.data_ptr(),
-                n, L, off, c, stream)
-    if rc != 0:
-        raise RuntimeError(f"band_copy launch failed: CUDA error {rc}")
-    LAUNCHES["append_band_copy"] += 1
+    _launch("band_copy", log_term.device, log_term.data_ptr(),
+            log_data.data_ptr(), src_term.data_ptr(), src_data.data_ptr(),
+            write.data_ptr(), n, L, off, c)
+    _count("append_band_copy")
+
+
+def matmul_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of matmul: f32 products and sums, rounded
+    once to a's dtype."""
+    return (a.float() @ b.float()).to(a.dtype)
+
+
+def matmul(a: torch.Tensor, b: torch.Tensor, *, tile_m: int = 256,
+           tile_n: int = 256, tile_k: int = 256) -> torch.Tensor:
+    """[M, K] @ [K, N] -> [M, N] in a's dtype, accumulated in f32.
+
+    The tiles are the TPU kernel's contract, kept for its checks in its
+    order: each is clamped to its dimension, then must divide it.  The CUDA
+    kernel tiles on its own terms and takes any shape that passes them.
+    bfloat16 runs on the tensor cores, float32 in full f32 FMA."""
+    if a.dim() != 2 or b.dim() != 2:
+        raise ValueError(f"matmul takes 2-D operands, got {tuple(a.shape)} "
+                         f"@ {tuple(b.shape)}")
+    m, ka = a.shape
+    kb, n = b.shape
+    if ka != kb:
+        raise ValueError(f"contraction mismatch: {tuple(a.shape)} @ "
+                         f"{tuple(b.shape)}")
+    tile_m, tile_n, tile_k = min(tile_m, m), min(tile_n, n), min(tile_k, ka)
+    if m % tile_m or n % tile_n or ka % tile_k:
+        raise ValueError(
+            f"shapes ({m},{ka})@({kb},{n}) must divide tiles "
+            f"({tile_m},{tile_n},{tile_k})")
+    if b.dtype != a.dtype:
+        raise ValueError(f"operand dtypes differ: {a.dtype} @ {b.dtype}")
+    device = _check_tensors(a=a, b=b)
+    if device.type == "cpu":
+        return matmul_plain(a, b)
+    out = torch.empty((m, n), dtype=a.dtype, device=device)
+    _launch("matmul", device, a.data_ptr(), b.data_ptr(), out.data_ptr(),
+            m, n, ka, _DTYPE_CODE[a.dtype])
+    _count("matmul")
+    return out
+
+
+def sumsq_plain(x: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of sumsq."""
+    return x.float().square().sum()
+
+
+def sumsq(x: torch.Tensor, *, tile_m: int = 256) -> torch.Tensor:
+    """Sum of squares of an [M, N] bfloat16 or float32 tensor as a 0-d f32
+    tensor.
+
+    `tile_m` is the TPU kernel's row tile, kept for its check: clamped to
+    M, it must divide M.  On the card two passes (per-block partials, then
+    one block) with no atomics: repeated calls agree bit for bit."""
+    if x.dim() != 2:
+        raise ValueError(f"sumsq takes a 2-D tensor, got {tuple(x.shape)}")
+    m = x.shape[0]
+    tile_m = min(tile_m, m)
+    if m % tile_m:
+        raise ValueError(f"rows {m} must divide tile {tile_m}")
+    device = _check_tensors(x=x)
+    if device.type == "cpu":
+        return sumsq_plain(x)
+    scratch = torch.empty(_kernel("sumsq", "sumsq_scratch_floats")(),
+                          dtype=torch.float32, device=device)
+    _launch("sumsq", device, x.data_ptr(), x.numel(), _DTYPE_CODE[x.dtype],
+            scratch.data_ptr())
+    _count("sumsq")
+    return scratch[0]
+
+
+def matmul_chain(x: torch.Tensor, a: torch.Tensor, steps: int, *,
+                 tile: int = 256) -> torch.Tensor:
+    """`steps` rounds of x <- normalize(x @ a) through the matmul and sumsq
+    kernels, as the JAX package's pallas_ops.matmul_chain.  A host loop
+    takes the place of lax.scan; the norm stays on the device, so a round
+    costs no host sync."""
+    for _ in range(steps):
+        y = matmul(x, a, tile_m=tile, tile_n=tile, tile_k=tile)
+        ss = sumsq(y, tile_m=tile)
+        denom = torch.clamp_min(torch.sqrt(ss / y.numel()), 1e-6)
+        x = (y.float() / denom).to(y.dtype)
+    return x

@@ -20,6 +20,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from swarmkit_tpu_torch.device import resolve_device
 from swarmkit_tpu_torch.raft.sim import u32
 
 # Roles
@@ -53,18 +54,6 @@ U32_FIELDS = frozenset({"log_data", "snap_chk", "apply_chk"})
 def conf_payload(target: int, remove: bool) -> int:
     """uint32 payload encoding one ConfChange (add/remove of `target`)."""
     return CONF_TAG | (CONF_REMOVE if remove else 0) | (target & CONF_TARGET_MASK)
-
-
-def resolve_device(device=None) -> torch.device:
-    """The device an entry point runs on: `device` when given, else the
-    current CUDA card.  Without a card and without an explicit device it
-    raises: the port never drops to the CPU on its own."""
-    if device is not None:
-        return torch.device(device)
-    if not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device is available; pass device='cpu' "
-                           "to run on the CPU")
-    return torch.device("cuda", torch.cuda.current_device())
 
 
 def check_device(state: "SimState", device=None) -> torch.device:

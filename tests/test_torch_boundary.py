@@ -10,6 +10,7 @@ import sys
 import pytest
 import torch
 
+from swarmkit_tpu_torch.agent.tpu import TpuExecutor
 from swarmkit_tpu_torch.raft.sim import kernel, run, state
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
@@ -66,9 +67,11 @@ def test_entry_points_raise_without_a_card(monkeypatch):
     for call in (lambda: kernel.step(st, cfg),
                  lambda: run.run_ticks(st, cfg, 1),
                  lambda: run.run_until_leader(st, cfg, 1),
-                 lambda: state.state_from_numpy(state.state_to_numpy(st))):
+                 lambda: state.state_from_numpy(state.state_to_numpy(st)),
+                 lambda: TpuExecutor(hostname="w1")):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
+    assert TpuExecutor(device="cpu").device.type == "cpu"
 
 
 @pytest.mark.parametrize("lever,kw", [

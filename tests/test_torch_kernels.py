@@ -8,6 +8,9 @@ tests/test_torch_cuda.py compares it with the plain version there.
 
 from __future__ import annotations
 
+import sys
+import threading
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -100,3 +103,42 @@ def test_wrapper_rejects_bad_arguments(bad, match):
     bad(args)
     with pytest.raises(ValueError, match=match):
         cuda_ops.append_band_copy(*args)
+
+
+def test_concurrent_loads_build_once(monkeypatch, tmp_path):
+    """Threads that need one kernel at once (tasks preparing together on
+    the executor's worker threads) run one build and share one library."""
+    builds = []
+
+    def fake_start(name):
+        builds.append(name)
+        return None, None
+
+    def fake_finish(name, proc, tmp):
+        _build.lib_path(name).touch()
+
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build, "_start", fake_start)
+    monkeypatch.setattr(_build, "_finish", fake_finish)
+    monkeypatch.setattr(_build, "_loaded", {})
+    monkeypatch.setattr(_build.ctypes, "CDLL", lambda path: object())
+    barrier = threading.Barrier(16)
+    got = []
+
+    def worker():
+        barrier.wait(timeout=10)
+        got.append(_build.load("sumsq"))
+
+    switch = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=worker) for _ in range(16)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=30)
+    finally:
+        sys.setswitchinterval(switch)
+    assert not any(t.is_alive() for t in threads)
+    assert builds == ["sumsq"]
+    assert len(got) == 16 and all(lib is got[0] for lib in got)
