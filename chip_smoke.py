@@ -9,7 +9,10 @@ toolkit:
 Phases (any failure exits non-zero; nothing is caught and passed over):
 
 1. card: the card's name and power limit (nvidia-smi), then a parallel
-   nvcc build of every CUDA source under swarmkit_tpu_torch/csrc/, timed.
+   nvcc build of every CUDA source under swarmkit_tpu_torch/csrc/, timed,
+   with each kernel's registers, spills and static shared memory from
+   `-Xptxas -v` (and any ptxas warning), and the wgmma kernel's dynamic
+   shared memory.
 2. kernel vs plain: append_band_copy against its plain PyTorch version on
    [4096, 1024] chunks of [4096, 8192] rings at several offsets and mask
    densities, plus an unaligned chunk (the scalar path); exact equality.
@@ -30,15 +33,20 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    (device time, replayed from a CUDA graph; the eager per-call time is
    printed beside it) against the bytes bound at 3.35 TB/s.
 6. matmul and sumsq kernels vs plain: bf16 and f32 products on
-   [256,128]@[128,384], a multi-K [128,512]@[512,128], an edge case
-   [32,32]@[32,32], and the full [8192]^3 in bf16; bf16 within 2 bf16 ulps
-   of max|ref|, f32 within 1e-5 of max|ref| scaled by sqrt(K/512) past
-   K=512.  sumsq on [8192, 8192] bf16 within a relative 1e-5 of plain, and
-   two kernel calls bit-equal.
+   [256,128]@[128,384], a multi-K [128,512]@[512,128] and an edge case
+   [32,32]@[32,32]; in bf16 also ragged wgmma tiles ([384]^3, M=200 K=72
+   N=136), K below one stage (M=128 K=32 N=64), K=70 (not a multiple of
+   8: the WMMA kernel) and the full [8192]^3; bf16 within 2 bf16 ulps of
+   max|ref|, f32 within 1e-5 of max|ref| scaled by sqrt(K/512) past K=512.
+   Each case checks which of the three matmul kernels ran (wgmma for bf16
+   with K and N multiples of 8, WMMA for other bf16, SIMT for f32).
+   sumsq on [8192, 8192] bf16 within a relative 1e-5 of plain, and two
+   kernel calls bit-equal.
 7. the executor path at full width: TpuExecutor(device="cuda") drives
    tpu://pallas_matmul n=8192 steps=16 ASSIGNED -> COMPLETE through
    do_task_state; prints prepare and run seconds, TFLOP/s and launches;
-   checks a finite result and 16 launches of each kernel.  Then
+   checks a finite result and 16 launches of each kernel, the matmul's
+   all on the wgmma kernel.  Then
    tpu://matmul at the same size (torch.matmul, for comparison), axpy and
    spin through the same executor, and pallas_matmul n=1024 steps=4 on
    the card and on the CPU: the chains' matrices within rtol=atol=1e-1,
@@ -48,7 +56,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    plain version and library call (torch.matmul; the faster of
    vector_norm**2 and x.float().square().sum()) are timed on them from
    CUDA-graph replay, against the bound: operations at 989 TFLOP/s bf16
-   for matmul, bytes at 3.35 TB/s for sumsq.
+   for matmul, bytes at 3.35 TB/s for sumsq.  The WMMA matmul kernel,
+   which the wgmma kernel replaced on this path, is timed and checked on
+   the same inputs, in turns with it.
 
 Before the last line it prints the kernels' JSON record and the card's
 `nvidia-smi` name/power line; the last line is the result JSON.  Without a
@@ -61,6 +71,7 @@ from __future__ import annotations
 import asyncio
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -87,6 +98,18 @@ def fail(msg: str) -> None:
 def check(cond: bool, msg: str) -> None:
     if not cond:
         fail(msg)
+
+
+def kernel_name(mangled: str) -> str:
+    """The last name of an Itanium-mangled function (its own name)."""
+    rest = mangled[3:] if mangled.startswith("_ZN") else mangled[2:]
+    names = []
+    while rest[:1].isdigit():
+        digits = re.match(r"\d+", rest).group()
+        end = len(digits) + int(digits)
+        names.append(rest[len(digits):end])
+        rest = rest[end:]
+    return names[-1] if names else mangled
 
 
 def card_line() -> str:
@@ -331,24 +354,38 @@ def matmul_tol(torch, ref, k: int) -> float:
     return 1e-5 * max(1.0, math.sqrt(k / 512)) * top
 
 
+def variant_launches(cuda_ops) -> dict:
+    return {v: cuda_ops.LAUNCHES[f"matmul_{v}"]
+            for v in cuda_ops.MATMUL_VARIANTS}
+
+
 def phase_float_kernels_vs_plain(torch, cuda_ops) -> dict:
     """Returns the largest |kernel - plain| of each kernel."""
     g = torch.Generator(device="cuda").manual_seed(6)
+    bf16, f32 = torch.bfloat16, torch.float32
     shapes = [(256, 128, 384), (128, 512, 128), (32, 32, 32)]
-    cases = [(s, dt) for s in shapes
-             for dt in (torch.bfloat16, torch.float32)]
-    cases.append(((TASK_N, TASK_N, TASK_N), torch.bfloat16))
+    cases = [(s, dt) for s in shapes for dt in (bf16, f32)]
+    cases += [((384, 384, 384), bf16), ((200, 72, 136), bf16),
+              ((128, 32, 64), bf16), ((100, 70, 130), bf16),
+              ((TASK_N, TASK_N, TASK_N), bf16)]
     worst = {"matmul": 0.0, "sumsq": 0.0}
     for (m, k, n), dt in cases:
+        # the shape rule, written out independently of cuda_ops
+        want_variant = "simt" if dt == f32 else \
+            "wgmma" if k % 8 == 0 and n % 8 == 0 else "wmma"
         a = torch.randn((m, k), device="cuda", generator=g).to(dt)
         b = torch.randn((k, n), device="cuda", generator=g).to(dt)
+        before = variant_launches(cuda_ops)
         got = cuda_ops.matmul(a, b, tile_m=m, tile_n=n, tile_k=k)
+        ran = {v: c - before[v] for v, c in variant_launches(cuda_ops).items()}
         want = cuda_ops.matmul_plain(a, b)
         torch.cuda.synchronize()
         err = float((got.float() - want.float()).abs().max())
         tol = matmul_tol(torch, want, k)
-        log(f"  matmul {str(dt)[6:]} [{m},{k}]@[{k},{n}]: max|diff|="
-            f"{err:.6g}, tolerance {tol:.6g}")
+        log(f"  matmul {str(dt)[6:]} [{m},{k}]@[{k},{n}] on {want_variant}: "
+            f"max|diff|={err:.6g}, tolerance {tol:.6g}")
+        check(ran == {v: int(v == want_variant) for v in ran},
+              f"[{m},{k}]@[{k},{n}] {dt} ran {ran}, not {want_variant}")
         check(err <= tol, f"matmul kernel != plain on [{m},{k}]@[{k},{n}]")
         worst["matmul"] = max(worst["matmul"], err)
     x = torch.randn((TASK_N, TASK_N), device="cuda",
@@ -418,6 +455,9 @@ def phase_executor(torch, cuda_ops) -> dict:
     check(math.isfinite(ctl.result), "pallas_matmul result is not finite")
     check(launches["matmul"] == TASK_STEPS,
           f"matmul launched {launches['matmul']} times, not {TASK_STEPS}")
+    check(launches["matmul_wgmma"] == TASK_STEPS,
+          f"the wgmma kernel ran {launches['matmul_wgmma']} of the "
+          f"{TASK_STEPS} products")
     check(launches["sumsq"] == TASK_STEPS,
           f"sumsq launched {launches['sumsq']} times, not {TASK_STEPS}")
     check(desc.resources.generic == {"gpu-chip": 1}, "describe on the card")
@@ -482,17 +522,29 @@ def phase_float_kernels_on_path(torch, cuda_ops, a) -> dict:
     (y, skw), = calls["sumsq"]
     m, k = x.shape
     n = b.shape[1]
-    err_mm = float((kernel["matmul"](x, b, **kw).float()
-                    - cuda_ops.matmul_plain(x, b).float()).abs().max())
+    plain_mm = cuda_ops.matmul_plain(x, b).float()
+    before = variant_launches(cuda_ops)["wgmma"]
+    err_mm = float((kernel["matmul"](x, b, **kw).float() - plain_mm)
+                   .abs().max())
+    check(variant_launches(cuda_ops)["wgmma"] == before + 1,
+          "the task's product did not run on the wgmma kernel")
+    err_wmma = float((cuda_ops._matmul_launch(x, b, "wmma").float()
+                      - plain_mm).abs().max())
+    tol = matmul_tol(torch, plain_mm.to(x.dtype), k)
+    check(max(err_mm, err_wmma) <= tol,
+          f"matmul kernels != plain on the task's inputs ({err_mm}, "
+          f"{err_wmma} > {tol})")
     plain_ss = float(cuda_ops.sumsq_plain(y))
     err_ss = abs(float(kernel["sumsq"](y, **skw)) - plain_ss)
 
     def timed(fns: dict, reps: int, replays: int) -> dict:
-        # in turns (plain, kernel, kernel, plain) so drift hits both alike
-        t = {"plain": [graph_ms(torch, fns["plain"], reps, replays)]}
-        t["kernel"] = [graph_ms(torch, fns["kernel"], reps, replays)
-                       for _ in range(2)]
-        t["plain"].append(graph_ms(torch, fns["plain"], reps, replays))
+        # the kernel in turns with the others (plain, previous, kernel,
+        # kernel, previous, plain) so drift hits them alike
+        others = [name for name in fns if name not in ("kernel", "library")]
+        t = {}
+        for name in others + ["kernel", "kernel"] + others[::-1]:
+            t.setdefault(name, []).append(
+                graph_ms(torch, fns[name], reps, replays))
         out = {name: sum(v) / len(v) for name, v in t.items()}
         out["library"] = min(graph_ms(torch, f, reps, replays)
                              for f in fns["library"])
@@ -500,16 +552,21 @@ def phase_float_kernels_on_path(torch, cuda_ops, a) -> dict:
 
     mm = timed({"kernel": lambda: kernel["matmul"](x, b, **kw),
                 "plain": lambda: cuda_ops.matmul_plain(x, b),
+                "previous": lambda: cuda_ops._matmul_launch(x, b, "wmma"),
                 "library": [lambda: torch.matmul(x, b)]}, 4, 3)
     flop = 2 * m * n * k
     mm_bytes = (m * k + k * n + m * n) * x.element_size()
     mm["bound"] = max(flop / BF16_FLOP_PER_S, mm_bytes / HBM_BYTES_PER_S) \
         * 1e3
     mm["err"] = err_mm
-    log(f"  matmul [{m},{k}]@[{k},{n}] bf16: device kernel "
+    log(f"  matmul [{m},{k}]@[{k},{n}] bf16: device wgmma kernel "
         f"{mm['kernel']:.4f} ms ({flop / mm['kernel'] / 1e9:.1f} TFLOP/s), "
-        f"plain {mm['plain']:.4f} ms, torch.matmul {mm['library']:.4f} ms, "
-        f"bound {mm['bound']:.4f} ms (operations); max|diff| {err_mm:.6g}")
+        f"WMMA kernel {mm['previous']:.4f} ms "
+        f"({flop / mm['previous'] / 1e9:.1f} TFLOP/s, "
+        f"{mm['previous'] / mm['kernel']:.2f}x the wgmma time), plain "
+        f"{mm['plain']:.4f} ms, torch.matmul {mm['library']:.4f} ms, "
+        f"bound {mm['bound']:.4f} ms (operations); max|diff| wgmma "
+        f"{err_mm:.6g}, WMMA {err_wmma:.6g} (tolerance {tol:.6g})")
 
     ss = timed({"kernel": lambda: kernel["sumsq"](y, **skw),
                 "plain": lambda: cuda_ops.sumsq_plain(y),
@@ -556,9 +613,17 @@ def main() -> int:
     log(f"  nvcc built {sorted(reports) or 'nothing (up to date)'} in "
         f"{time.perf_counter() - t0:.2f} s")
     for name, text in reports.items():
+        kernel = "?"
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  [{name}] {line.strip()}")
+            entry = re.search(r"Compiling entry function '(\w+)'", line)
+            if entry:
+                kernel = kernel_name(entry.group(1))
+            elif ("registers" in line or "spill" in line
+                  or "warning" in line.lower()):
+                log(f"  [{name}:{kernel}] {line.strip()}")
+    smem = cuda_ops._kernel("matmul", "matmul_wgmma_smem_bytes")()
+    log(f"  [matmul:mm_bf16_wgmma] dynamic shared memory {smem} bytes per "
+        f"block")
 
     log("phase 2: append_band_copy kernel vs plain")
     err2 = phase_kernel_vs_plain(torch, cuda_ops)
@@ -604,6 +669,8 @@ def main() -> int:
             "max_abs_err": max(err6[name], t["err"]), "ms": t["kernel"],
             "plain_ms": t["plain"], "bound_ms": t["bound"],
             "bound_by": bound_by, "library_ms": t["library"]})
+    # the WMMA kernel that the wgmma kernel replaced, on the same inputs
+    records[1]["previous_ms"] = f8["matmul"]["previous"]
     print(json.dumps({"kernels": records}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -5,7 +5,8 @@ checks its arguments, runs the plain PyTorch version when the tensors lie
 on the CPU, and otherwise launches its CUDA kernel (csrc/, built by
 _build.py for sm_90a) or raises — it never falls back.  `LAUNCHES` counts
 kernel launches per wrapper, so a run can show that its path went through
-the kernels.
+the kernels; matmul also counts each of its three kernels under
+`matmul_<variant>`.
 """
 
 from __future__ import annotations
@@ -17,18 +18,23 @@ import torch
 
 from swarmkit_tpu_torch import _build
 
-LAUNCHES: dict[str, int] = {"append_band_copy": 0, "matmul": 0, "sumsq": 0}
+MATMUL_VARIANTS = ("wgmma", "wmma", "simt")
+LAUNCHES: dict[str, int] = {
+    "append_band_copy": 0, "matmul": 0, "sumsq": 0,
+    **{f"matmul_{v}": 0 for v in MATMUL_VARIANTS}}
 _launches_lock = threading.Lock()   # tasks launch from executor threads
 
 _P, _I64, _I32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 # (csrc/<source>.cu, C function) -> its argument types; all return int
 _ENTRY = {
     ("band_copy", "band_copy"): [_P] * 5 + [_I64] * 4 + [_P],
-    ("matmul", "matmul"): [_P] * 3 + [_I64] * 3 + [_I32, _P],
+    **{("matmul", f"matmul_{v}"): [_P] * 3 + [_I64] * 3 + [_P]
+       for v in MATMUL_VARIANTS},
+    ("matmul", "matmul_wgmma_smem_bytes"): [],
     ("sumsq", "sumsq"): [_P, _I64, _I32, _P, _P],
     ("sumsq", "sumsq_scratch_floats"): [],
 }
-# kernel dtype codes shared by matmul.cu and sumsq.cu
+# the dtypes the kernels take, with sumsq.cu's codes for them
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -58,17 +64,23 @@ def load_kernels(*sources: str) -> None:
     """Build and load csrc/<source>.cu for each source now, so a build or
     loader failure surfaces here rather than at the first launch."""
     for source in sources:
-        _kernel(source)
+        _build.load(source)
 
 
-def _launch(source: str, device: torch.device, *args) -> None:
-    """Launch `source`'s kernel on `device`'s current stream; raise on a
-    CUDA error."""
-    fn = _kernel(source)
+def _launch(source: str, device: torch.device, *args,
+            name: str | None = None) -> None:
+    """Launch C function `name` (default: `source`) of csrc/<source>.cu on
+    `device`'s current stream; raise on a CUDA error (a negative code is
+    the CUresult of encoding a TMA tensor map)."""
+    name = name or source
+    fn = _kernel(source, name)
     with torch.cuda.device(device):
         rc = fn(*args, torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"{source} launch failed: CUDA error {rc}")
+    if rc > 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+    if rc < 0:
+        raise RuntimeError(f"{name}: cuTensorMapEncodeTiled failed "
+                           f"(CUresult {-rc})")
 
 
 def _check_tensors(**tensors) -> torch.device:
@@ -147,14 +159,48 @@ def matmul_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return (a.float() @ b.float()).to(a.dtype)
 
 
+def _matmul_variant(a: torch.Tensor, b: torch.Tensor) -> str:
+    """The kernel that takes a @ b, from dtype, shape and alignment alone:
+    "wgmma" for bfloat16 that TMA can load (K and N multiples of 8, so
+    every row pitch is a multiple of 16 bytes, and 16-byte aligned bases;
+    the output is allocated aligned), "wmma" for other bfloat16, "simt"
+    for float32."""
+    if a.dtype == torch.float32:
+        return "simt"
+    k, n = b.shape
+    if k % 8 == 0 and n % 8 == 0 and a.data_ptr() % 16 == 0 \
+            and b.data_ptr() % 16 == 0:
+        return "wgmma"
+    return "wmma"
+
+
+def _matmul_launch(a: torch.Tensor, b: torch.Tensor,
+                   variant: str) -> torch.Tensor:
+    """Launch one matmul kernel on checked CUDA operands and count it.
+    `matmul` passes the variant its shape rule names; only the card's
+    tests and chip_smoke.py pass another, to hold two kernels side by
+    side on the same inputs."""
+    m, k = a.shape
+    n = b.shape[1]
+    out = torch.empty((m, n), dtype=a.dtype, device=a.device)
+    _launch("matmul", a.device, a.data_ptr(), b.data_ptr(), out.data_ptr(),
+            m, n, k, name=f"matmul_{variant}")
+    _count("matmul")
+    _count(f"matmul_{variant}")
+    return out
+
+
 def matmul(a: torch.Tensor, b: torch.Tensor, *, tile_m: int = 256,
            tile_n: int = 256, tile_k: int = 256) -> torch.Tensor:
     """[M, K] @ [K, N] -> [M, N] in a's dtype, accumulated in f32.
 
     The tiles are the TPU kernel's contract, kept for its checks in its
     order: each is clamped to its dimension, then must divide it.  The CUDA
-    kernel tiles on its own terms and takes any shape that passes them.
-    bfloat16 runs on the tensor cores, float32 in full f32 FMA."""
+    kernels tile on their own terms and take any shape that passes them.
+    bfloat16 runs on the tensor cores (the wgmma kernel where TMA can load
+    the operands, else the WMMA one), float32 in full f32 FMA; see
+    `_matmul_variant`.  A kernel that fails raises: no other kernel and no
+    plain version stands in for it."""
     if a.dim() != 2 or b.dim() != 2:
         raise ValueError(f"matmul takes 2-D operands, got {tuple(a.shape)} "
                          f"@ {tuple(b.shape)}")
@@ -173,11 +219,7 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *, tile_m: int = 256,
     device = _check_tensors(a=a, b=b)
     if device.type == "cpu":
         return matmul_plain(a, b)
-    out = torch.empty((m, n), dtype=a.dtype, device=device)
-    _launch("matmul", device, a.data_ptr(), b.data_ptr(), out.data_ptr(),
-            m, n, ka, _DTYPE_CODE[a.dtype])
-    _count("matmul")
-    return out
+    return _matmul_launch(a, b, _matmul_variant(a, b))
 
 
 def sumsq_plain(x: torch.Tensor) -> torch.Tensor:

@@ -13,7 +13,8 @@ The float kernels are held to their plain versions on the same card
 tensors: bf16 matmul within 2 bf16 ulps of max|ref| (both round one f32
 sum, summed in another order), f32 matmul within 1e-5 of max|ref|, scaled
 by sqrt(K / 512) past K = 512 (f32 sums in another order), sumsq within a
-relative 1e-5 and bit-equal from call to call.
+relative 1e-5 and bit-equal from call to call.  Each matmul case also
+checks which of the three matmul kernels its shape ran on.
 """
 
 from __future__ import annotations
@@ -120,27 +121,99 @@ def _matmul_tol(ref: torch.Tensor, k: int) -> float:
     return 1e-5 * max(1.0, math.sqrt(k / 512)) * top
 
 
+def _variant_launches() -> dict:
+    return {v: cuda_ops.LAUNCHES[f"matmul_{v}"]
+            for v in cuda_ops.MATMUL_VARIANTS}
+
+
+def _randn(shape, dtype, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randn(shape, device="cuda", generator=g).to(dtype)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("m,k,n", [(256, 128, 384), (128, 512, 128),
-                                   (32, 32, 32), (100, 70, 130),
-                                   (384, 384, 384), (1, 8, 1)])
-def test_matmul_kernel_matches_plain(dtype, m, k, n):
-    """Aligned, multi-K and edge shapes (K = 70 is not a multiple of 8, so
-    the bf16 kernel loads those tiles element by element)."""
+@pytest.mark.parametrize("m,k,n,bf16_variant", [
+    (256, 128, 384, "wgmma"), (128, 512, 128, "wgmma"), (32, 32, 32, "wgmma"),
+    (100, 70, 130, "wmma"), (384, 384, 384, "wgmma"), (1, 8, 1, "wmma"),
+    (200, 72, 136, "wgmma"), (128, 32, 64, "wgmma")])
+def test_matmul_kernel_matches_plain(dtype, m, k, n, bf16_variant):
+    """Aligned, multi-K and edge shapes, each on the kernel its shape
+    names: wgmma tiles ragged in M, N and K (384, 200 x 72 x 136) and K
+    below one stage (32); the WMMA kernel where K = 70 or N = 1 is not a
+    multiple of 8 (it loads those tiles element by element); f32 on the
+    SIMT kernel."""
     _need_card()
     torch.backends.cuda.matmul.allow_tf32 = False
-    g = torch.Generator(device="cuda").manual_seed(m + k + n)
-    a = torch.randn((m, k), device="cuda", generator=g).to(dtype)
-    b = torch.randn((k, n), device="cuda", generator=g).to(dtype)
-    before = cuda_ops.LAUNCHES["matmul"]
+    a = _randn((m, k), dtype, m + k + n)
+    b = _randn((k, n), dtype, m + k + n + 1)
+    before, by_variant = cuda_ops.LAUNCHES["matmul"], _variant_launches()
     got = cuda_ops.matmul(a, b, tile_m=m, tile_n=n, tile_k=k)
     want = cuda_ops.matmul_plain(a, b)
     torch.cuda.synchronize()
+    variant = bf16_variant if dtype == torch.bfloat16 else "simt"
     assert cuda_ops.LAUNCHES["matmul"] == before + 1
+    assert _variant_launches() == {
+        v: c + (v == variant) for v, c in by_variant.items()}
     assert got.dtype == dtype and got.shape == (m, n)
     err = float((got.float() - want.float()).abs().max())
     assert err <= _matmul_tol(want, k), (err, _matmul_tol(want, k))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("encode", ["column", "row"])
+def test_wgmma_layout_on_one_tile(encode):
+    """One 128 x 256 tile, K = 64: A is a permutation (each row picks one
+    K), B holds its own column or row index (integers below 256, exact in
+    bf16), so any misplaced element of either operand's shared-memory
+    layout shows as a wrong value."""
+    _need_card()
+    m, k, n = 128, 64, 256
+    rng = np.random.default_rng(3)
+    pick = np.concatenate([rng.permutation(k) for _ in range(m // k)])
+    a = np.zeros((m, k), np.float32)
+    a[np.arange(m), pick] = 1
+    col, row = np.meshgrid(np.arange(n), np.arange(k))
+    b = col if encode == "column" else row
+    want = b[pick]                      # out[i, j] = b[pick[i], j]
+    before = _variant_launches()["wgmma"]
+    got = cuda_ops.matmul(*(torch.from_numpy(x.astype(np.float32))
+                            .to("cuda", torch.bfloat16) for x in (a, b)))
+    torch.cuda.synchronize()
+    assert _variant_launches()["wgmma"] == before + 1
+    np.testing.assert_array_equal(got.float().cpu().numpy(), want)
+
+
+@pytest.mark.cuda
+def test_wgmma_and_wmma_kernels_on_the_same_inputs():
+    """The two bf16 kernels on one [512]^3 product, each within the
+    tolerance of the plain version."""
+    _need_card()
+    a = _randn((512, 512), torch.bfloat16, 5)
+    b = _randn((512, 512), torch.bfloat16, 6)
+    assert cuda_ops._matmul_variant(a, b) == "wgmma"
+    want = cuda_ops.matmul_plain(a, b)
+    tol = _matmul_tol(want, 512)
+    for variant in ("wgmma", "wmma"):
+        before = _variant_launches()[variant]
+        got = cuda_ops._matmul_launch(a, b, variant)
+        torch.cuda.synchronize()
+        assert _variant_launches()[variant] == before + 1
+        err = float((got.float() - want.float()).abs().max())
+        assert err <= tol, (variant, err, tol)
+
+
+@pytest.mark.cuda
+def test_wgmma_kernel_raises_on_a_shape_it_does_not_take():
+    """K = 70 breaks TMA's 16-byte row pitch: forced onto the wgmma kernel,
+    the launch raises; nothing re-routes it."""
+    _need_card()
+    a = _randn((64, 70), torch.bfloat16, 7)
+    b = _randn((70, 64), torch.bfloat16, 8)
+    before = dict(cuda_ops.LAUNCHES)
+    with pytest.raises(RuntimeError, match="matmul_wgmma launch failed"):
+        cuda_ops._matmul_launch(a, b, "wgmma")
+    assert cuda_ops.LAUNCHES == before
 
 
 @pytest.mark.cuda
@@ -167,17 +240,30 @@ def test_sumsq_kernel_matches_plain_and_repeats(dtype, m, n, offset):
 
 @pytest.mark.cuda
 def test_float_kernels_never_take_the_plain_versions(monkeypatch):
+    """With the plain versions and the WMMA and SIMT kernels refused, a
+    [256, 256] bf16 chain still runs: each product is a wgmma launch."""
     _need_card()
 
     def refuse(*a):
         raise AssertionError("plain version called on CUDA tensors")
 
+    real = cuda_ops._kernel
+
+    def kernel(source, name=None):
+        if name in ("matmul_wmma", "matmul_simt"):
+            raise AssertionError(f"{name} called for a TMA-able bf16 chain")
+        return real(source, name)
+
     monkeypatch.setattr(cuda_ops, "matmul_plain", refuse)
     monkeypatch.setattr(cuda_ops, "sumsq_plain", refuse)
-    x = torch.ones((64, 64), dtype=torch.bfloat16, device="cuda")
-    y = cuda_ops.matmul_chain(x, x, 2, tile=64)
+    monkeypatch.setattr(cuda_ops, "_kernel", kernel)
+    x = _randn((256, 256), torch.bfloat16, 9)
+    before = _variant_launches()
+    y = cuda_ops.matmul_chain(x, x, 3)
     torch.cuda.synchronize()
     assert torch.isfinite(y.float()).all()
+    assert _variant_launches() == {**before,
+                                   "wgmma": before["wgmma"] + 3}
 
 
 @pytest.mark.cuda
@@ -208,6 +294,7 @@ def test_pallas_matmul_task_on_the_card_matches_the_cpu():
     cuda_ops.reset_launches()
     on_card, a_card = asyncio.run(run("cuda"))
     assert cuda_ops.LAUNCHES["matmul"] == steps
+    assert cuda_ops.LAUNCHES["matmul_wgmma"] == steps
     assert cuda_ops.LAUNCHES["sumsq"] == steps
     on_cpu, a_cpu = asyncio.run(run("cpu"))
     assert torch.equal(a_card.cpu(), a_cpu)
