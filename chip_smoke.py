@@ -17,16 +17,28 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    [4096, 1024] chunks of [4096, 8192] rings at several offsets and mask
    densities, plus an unaligned chunk (the scalar path); exact equality.
 3. card vs CPU: the port's run at n=256 (L=8192, log_chunk=1024, the
-   headline chunk width) on the card and on the CPU, through an election
-   and 128 ticks with 5% drops and leader crashes; every SimState field
-   and every trace row equal, and the kernel launched.
+   headline chunk width) on the card and on the CPU, twice.  Dense peers
+   and progress through an election and 128 ticks with 5% drops and
+   leader crashes; then peer_chunk=64 and active_rows=16 through
+   run_schedule, 160 ticks with 2% drops and a 30-tick storm in which
+   every non-self edge drops, so the progress slab overflows and the
+   dense fallback runs.  Every SimState field (active_ttl included) and
+   every trace row equal, the kernel launched, and the card took both
+   progress branches (the counts are printed).
 4. the main path at full width: the bench headline (n=4096, L=8192,
    window/apply/props 2048, keep 500, election_tick 24, static members,
-   tiled log, dense peers and progress): chunked election, then 2 x 64
-   ticks of run_ticks(prop_count=2048).  Prints election ticks/seconds,
-   ms/tick, committed entries/s, kernel launches, full-pass fallback
-   ticks and peak device memory; checks exactly one leader, a commit
-   advance and checksum agreement (equal applied -> equal apply_chk).
+   tiled log, and the SimConfig defaults that bench.py runs: banded peer
+   counts (peer_chunk=1024) and role-sparse progress (active_rows=16)):
+   chunked election, then 2 x 64 ticks of run_ticks(prop_count=2048).
+   Prints election ticks/seconds, ms/tick on the host clock and between
+   CUDA events, committed entries/s, step host syncs per tick, slab and
+   dense-fallback ticks, kernel launches, full-pass ring-write ticks and
+   peak device memory; checks exactly one leader, a commit advance,
+   checksum agreement (equal applied -> equal apply_chk) and that the
+   steady ticks ran on the slab.
+4b. the same shape with both lowerings pinned dense, 64 ticks at a time
+   in turns with the levers (dense, levers, levers, dense, twice) from
+   one state; prints both ms/tick and the levers/dense ratios.
 5. the kernel on the main path's own inputs: the band-copy calls of one
    more headline tick are recorded, then kernel, plain version and
    torch.where (a yardstick the port never calls) are timed on them
@@ -80,10 +92,12 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM device-memory rate (data sheet)
 BF16_FLOP_PER_S = 989e12    # H100 SXM dense bf16 tensor-core rate
 F32_FLOP_PER_S = 67e12      # H100 SXM f32 rate outside the tensor cores
 TASK_N, TASK_STEPS = 8192, 16   # the executor task at full width
+# bench.py::measure's headline configuration; peer_chunk and active_rows
+# stay at their SimConfig defaults (1024 and 16), as bench.py runs them
 HEADLINE = dict(n=4096, log_len=8192, window=2048, apply_batch=2048,
                 max_props=2048, keep=500, election_tick=24, seed=0,
-                static_members=True, collect_stats=True, peer_chunk=0,
-                active_rows=0)
+                static_members=True, collect_stats=True)
+DENSE = dict(peer_chunk=0, active_rows=0)   # both lowerings pinned dense
 
 
 def log(msg: str) -> None:
@@ -197,9 +211,10 @@ def phase_kernel_vs_plain(torch, cuda_ops) -> int:
 
 
 def phase_card_vs_cpu(torch, sim, cuda_ops, card: str = "cuda") -> None:
-    cfg = sim.SimConfig(**{**HEADLINE, "n": 256})
+    cfg = sim.SimConfig(**{**HEADLINE, **DENSE, "n": 256})
     kw = dict(prop_count=cfg.max_props, drop_rate=0.05, crash_every=40,
               down_for=8)
+    log("  dense peers and progress, run_until_leader + run_ticks:")
     results = {}
     for dev in (card, "cpu"):
         cuda_ops.reset_launches()
@@ -225,11 +240,80 @@ def phase_card_vs_cpu(torch, sim, cuda_ops, card: str = "cuda") -> None:
         f"kernel launches on the card: {launches}")
     check(launches > 0, "the card run never launched append_band_copy")
 
+    # the bench's lowerings at n=256: two peer bands of 64 per count and a
+    # 16-row progress slab, through run_schedule with a storm window in
+    # which every non-self edge drops, so the slab overflows and the dense
+    # fallback runs on the card
+    cfg = sim.SimConfig(**{**HEADLINE, "n": 256, "peer_chunk": 64,
+                           "active_rows": 16})
+    T, n = 160, cfg.n
+    g = torch.Generator().manual_seed(3)
+    drop = torch.rand((T, n, n), generator=g) < 0.02
+    drop[70:100] |= ~torch.eye(n, dtype=torch.bool)
+    alive = torch.ones((T, n), dtype=torch.bool)
+    log(f"  peer_chunk=64, active_rows=16, run_schedule of {T} ticks with "
+        f"a storm at ticks 70-99:")
+    results = {}
+    for dev in (card, "cpu"):
+        cuda_ops.reset_launches()
+        sim.kernel.reset_counts()
+        t0 = time.perf_counter()
+        st, trace = sim.run_schedule(
+            sim.init_state(cfg, device=dev), cfg, drop.to(dev),
+            alive.to(dev), prop_count=cfg.max_props, device=dev)
+        trace = trace.cpu()
+        counts = dict(sim.kernel.COUNTS)
+        log(f"  {dev}: {T} ticks in {time.perf_counter() - t0:.2f} s; slab "
+            f"ticks {counts['slab_ticks']}, dense-fallback ticks "
+            f"{counts['dense_fallback_ticks']}, step host syncs "
+            f"{counts['host_syncs']}, band-copy launches "
+            f"{cuda_ops.LAUNCHES['append_band_copy']}")
+        results[dev] = (trace, sim.state_to_numpy(st), counts)
+    (trg, sg, cg), (trc, sc, cc) = results[card], results["cpu"]
+    check(torch.equal(trg, trc), "run_schedule trace rows differ")
+    check(sorted(sg) == sorted(sc) and "active_ttl" in sg,
+          "state field sets differ (or no active_ttl)")
+    for name in sg:
+        check((sg[name] == sc[name]).all(), f"field {name} differs")
+    check(cg == cc, f"branch counts differ: card {cg}, cpu {cc}")
+    check(cg["slab_ticks"] > 0 and cg["dense_fallback_ticks"] > 0,
+          f"the card did not take both progress branches: {cg}")
+    check(int(trc[:, 1].max()) > 0, "nothing committed at n=256")
+    log(f"  all {len(sg)} fields (active_ttl included) and {T} trace rows "
+        f"equal; the card took both branches")
+
+
+def _checksums_agree(sim, st) -> bool:
+    applied, chk = (x.cpu().tolist() for x in sim.quorum_applied_checksum(st))
+    seen = {}
+    return all(seen.setdefault(a, c) == c for a, c in zip(applied, chk))
+
+
+def _timed_ticks(torch, sim, cfg, st, ticks: int):
+    """run_ticks(prop_count=max_props) for `ticks` ticks: (state, host ms
+    per tick ending in a synchronize, ms per tick between CUDA events,
+    entries committed)."""
+    base = int(sim.committed_entries(st))
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    st, _ = sim.run_ticks(st, cfg, ticks, prop_count=cfg.max_props)
+    end.record()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3 / ticks
+    return st, host_ms, start.elapsed_time(end) / ticks, \
+        int(sim.committed_entries(st)) - base
+
 
 def phase_headline(torch, sim, cuda_ops) -> dict:
     cfg = sim.SimConfig(**HEADLINE)
+    check(cfg.peer_tiled and cfg.active_rows_on,
+          "the headline must run banded peers and role-sparse progress")
     torch.cuda.reset_peak_memory_stats()
     cuda_ops.reset_launches()
+    sim.kernel.reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     st, ticks = sim.init_state(cfg), 0
@@ -239,45 +323,96 @@ def phase_headline(torch, sim, cuda_ops) -> dict:
     torch.cuda.synchronize()
     t_elect = time.perf_counter() - t0
     check(bool(sim.has_leader(st)), "n=4096: no leader within 2000 ticks")
-    log(f"  election: {ticks} ticks, {t_elect:.3f} s")
-    base = int(sim.committed_entries(st))
-    chunk_ms = []
-    t_run = 0.0
+    elect_counts = dict(sim.kernel.COUNTS)
+    log(f"  election: {ticks} ticks, {t_elect:.3f} s; slab ticks "
+        f"{elect_counts['slab_ticks']}, dense-fallback ticks "
+        f"{elect_counts['dense_fallback_ticks']}, step host syncs "
+        f"{elect_counts['host_syncs']} (plus one has_leader read per tick)")
+    sim.kernel.reset_counts()
+    host_ms, event_ms, committed, t_run = [], [], 0, 0.0
     for _ in range(2):
-        t0 = time.perf_counter()
-        st, trace = sim.run_ticks(st, cfg, 64, prop_count=cfg.max_props)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        t_run += dt
-        chunk_ms.append(dt / 64 * 1e3)
+        st, h, e, c = _timed_ticks(torch, sim, cfg, st, 64)
+        host_ms.append(h)
+        event_ms.append(e)
+        committed += c
+        t_run += h * 64 / 1e3
+    counts = dict(sim.kernel.COUNTS)
     launches = cuda_ops.LAUNCHES["append_band_copy"]
     # a banded tick launches the kernel once per band chunk, a full-pass
     # tick once over the whole ring: that splits the ticks
     n_ticks, bc = ticks + 128, cfg.band_chunks
-    fallback, rem = divmod(bc * n_ticks - launches, bc - 1)
-    check(rem == 0 and 0 <= fallback <= n_ticks,
+    full_pass, rem = divmod(bc * n_ticks - launches, bc - 1)
+    check(rem == 0 and 0 <= full_pass <= n_ticks,
           f"{launches} launches in {n_ticks} ticks is not a mix of banded "
           f"({bc} launches) and full-pass (1 launch) ticks")
-    committed = int(sim.committed_entries(st)) - base
     n_leaders = int(sim.leader_mask(st).sum())
-    applied, chk = (x.cpu().tolist() for x in sim.quorum_applied_checksum(st))
-    seen = {}
-    agree = all(seen.setdefault(a, c) == c for a, c in zip(applied, chk))
+    agree = _checksums_agree(sim, st)
     peak = torch.cuda.max_memory_allocated() / 2**30
     out = dict(election_ticks=ticks, election_s=t_elect,
-               ms_per_tick=chunk_ms, entries_per_s=committed / t_run,
-               committed=committed, launches=launches,
-               launches_per_tick=launches / n_ticks,
-               fallback_ticks=fallback, peak_gib=peak)
-    log(f"  run_ticks 2x64: ms/tick {chunk_ms[0]:.3f} / {chunk_ms[1]:.3f}, "
-        f"committed {committed} entries, {committed / t_run:.1f} entries/s")
+               ms_per_tick=host_ms, event_ms_per_tick=event_ms,
+               entries_per_s=committed / t_run, committed=committed,
+               launches=launches, launches_per_tick=launches / n_ticks,
+               ring_full_pass_ticks=full_pass, peak_gib=peak,
+               host_syncs_per_tick=counts["host_syncs"] / 128,
+               slab_ticks=counts["slab_ticks"],
+               dense_fallback_ticks=counts["dense_fallback_ticks"],
+               election_counts=elect_counts)
+    log(f"  run_ticks 2x64: ms/tick (host clock) {host_ms[0]:.3f} / "
+        f"{host_ms[1]:.3f}, (CUDA events) {event_ms[0]:.3f} / "
+        f"{event_ms[1]:.3f}; committed {committed} entries, "
+        f"{committed / t_run:.1f} entries/s")
+    log(f"  steady 128 ticks: step host syncs "
+        f"{counts['host_syncs'] / 128:.3f}/tick, slab ticks "
+        f"{counts['slab_ticks']}, dense-fallback ticks "
+        f"{counts['dense_fallback_ticks']}")
     log(f"  append_band_copy launches {launches} over {n_ticks} ticks; "
-        f"full-pass fallback ticks {fallback}; peak device memory "
+        f"full-pass ring-write ticks {full_pass}; peak device memory "
         f"{peak:.3f} GiB")
     check(n_leaders == 1, f"expected exactly one leader, got {n_leaders}")
     check(committed > 0, "commit did not advance")
     check(agree, "rows with equal applied disagree on apply_chk")
     check(launches > 0, "the main path never launched append_band_copy")
+    check(counts["slab_ticks"] + counts["dense_fallback_ticks"] == 128
+          and counts["slab_ticks"] > 0,
+          f"the steady ticks did not run on the progress slab: {counts}")
+    out["state"] = st
+    return out
+
+
+def phase_lever_ab(torch, sim, st) -> dict:
+    """64-tick chunks of the headline dense and with the bench's levers, in
+    turns (dense, levers, levers, dense, twice), continuing one state.  A
+    dense step carries active_ttl unchanged, and in steady state every row
+    that the slab needs is hot by its role, so the two configs can share
+    it.  The tick is host-bound, so the CUDA events around a chunk time
+    the host's pace too; the device's busy time is profile_tick's."""
+    cfgs = {"levers": sim.SimConfig(**HEADLINE),
+            "dense": sim.SimConfig(**{**HEADLINE, **DENSE})}
+    t = {k: {"host": [], "event": [], "committed": 0, "s": 0.0}
+         for k in cfgs}
+    for name in ("dense", "levers", "levers", "dense") * 2:
+        st, h, e, c = _timed_ticks(torch, sim, cfgs[name], st, 64)
+        t[name]["host"].append(h)
+        t[name]["event"].append(e)
+        t[name]["committed"] += c
+        t[name]["s"] += h * 64 / 1e3
+        log(f"  {name}: ms/tick (host) {h:.3f}, (events) {e:.3f}, "
+            f"committed {c}")
+    out = {}
+    for name, v in t.items():
+        out[name] = dict(host_ms=sum(v["host"]) / len(v["host"]),
+                         event_ms=sum(v["event"]) / len(v["event"]),
+                         entries_per_s=v["committed"] / v["s"])
+    out["levers_over_dense_entries_per_s"] = \
+        out["levers"]["entries_per_s"] / out["dense"]["entries_per_s"]
+    out["levers_over_dense_event_ms"] = \
+        out["levers"]["event_ms"] / out["dense"]["event_ms"]
+    log(f"  levers/dense: entries/s "
+        f"{out['levers_over_dense_entries_per_s']:.3f}x, CUDA-event ms/tick "
+        f"{out['levers_over_dense_event_ms']:.3f}x")
+    n_leaders = int(sim.leader_mask(st).sum())
+    check(n_leaders == 1, f"after 4b: {n_leaders} leaders")
+    check(_checksums_agree(sim, st), "after 4b: checksums disagree")
     out["state"] = st
     return out
 
@@ -631,11 +766,14 @@ def main() -> int:
     log("phase 3: the port on the card vs on the CPU (n=256)")
     phase_card_vs_cpu(torch, sim, cuda_ops)
 
-    log("phase 4: the main path at full width (n=4096)")
+    log("phase 4: the main path at full width (n=4096, the bench's levers)")
     head = phase_headline(torch, sim, cuda_ops)
 
+    log("phase 4b: the same shape dense and with the levers, in turns")
+    ab = phase_lever_ab(torch, sim, head.pop("state"))
+
     log("phase 5: append_band_copy on the main path's inputs")
-    k = phase_main_path_inputs(torch, sim, cuda_ops, head.pop("state"))
+    k = phase_main_path_inputs(torch, sim, cuda_ops, ab.pop("state"))
 
     log("phase 6: matmul and sumsq kernels vs plain")
     torch.backends.cuda.matmul.allow_tf32 = False   # plain f32 is full f32
@@ -648,7 +786,7 @@ def main() -> int:
     log("phase 8: matmul and sumsq on the executor path's inputs")
     f8 = phase_float_kernels_on_path(torch, cuda_ops, task.pop("a"))
 
-    log("summary " + json.dumps({"card": card, **head,
+    log("summary " + json.dumps({"card": card, **head, "lever_ab": ab,
                                  "band_copy_calls_per_tick": k["calls"],
                                  "task": task}))
     records = [{

@@ -14,16 +14,29 @@ phase for phase so every SimState field matches it bit for bit:
 - Phase E apply + checksum, Phase F ring-pressure compaction.
 
 This slice implements the configuration of the bench's headline: the
-tick-synchronous wire, static membership, dense peer reductions and dense
-progress, with or without the tiled log and the fused propose.
-`check_slice` raises NotImplementedError for every other lever.
+tick-synchronous wire and static membership, with or without the tiled log,
+the fused propose, banded peer counts (cfg.peer_tiled) and role-sparse
+progress (cfg.active_rows_on).  `check_slice` raises NotImplementedError for
+every other lever.
+
+As in the JAX package, the per-peer progress work runs in two segments,
+`_progress_a` (Phase A's matrix tail, Phase B, Phase C's send/deliver half)
+and `_progress_b` (ack folds, progress integration, transfer completion,
+the Phase D bisect), each instantiated on a `_Rows`: all n rows (the dense
+code, op for op) or, under role-sparse progress, an [A, N] slab of the
+active rows, with the dense rows as the fallback when more rows are active
+than the slab holds.  JAX picks the branch on the device with lax.cond;
+here the choice is a host `if`, and the slab's fit is read back in the same
+device->host read as the tiled ring write's band probe, so a steady tick
+still syncs once (see `step`).
 
 The ring buffers are written IN PLACE: `step` and `propose_dense` consume
 the `log_term`/`log_data` tensors of the state they are given (the
-returned state holds the same storage).  Callers that keep an old state
-clone its rings first.  Every ring read of a tick happens before that
-tick's ring write, which is what the JAX package's functional update gives
-for free.
+returned state holds the same storage), and a tick on the slab merges its
+rows back into the given state's progress matrices (match, next_, granted,
+rejected, recent_active) in place too.  Callers that keep an old state
+clone it first.  Every ring read of a tick happens before that tick's ring
+write, which is what the JAX package's functional update gives for free.
 """
 
 from __future__ import annotations
@@ -44,6 +57,24 @@ I32 = torch.int32
 BIG = 2 ** 31 - 1            # int32 max: the "no index" sentinel of min folds
 PAYLOAD_MASK = 0x7FFF_FFFF   # bit 31 of a payload is reserved for conf tags
 
+# Host-side counts of the tick's control flow (reset_counts() zeroes them):
+# device->host read-backs made by `step` and `propose_dense`, and, under
+# role-sparse progress, the ticks whose progress segments ran on the slab
+# and those that fell back to the dense rows.
+COUNTS: dict[str, int] = {"host_syncs": 0, "slab_ticks": 0,
+                          "dense_fallback_ticks": 0}
+
+
+def reset_counts() -> None:
+    for k in COUNTS:
+        COUNTS[k] = 0
+
+
+def _read_back(xs: list) -> list:
+    """Scalar tensors to host ints in one device->host read (one sync)."""
+    COUNTS["host_syncs"] += 1
+    return torch.stack([x.to(torch.int64) for x in xs]).tolist()
+
 
 def check_slice(cfg: SimConfig) -> None:
     """Raise NotImplementedError for a config lever this port does not yet
@@ -53,10 +84,6 @@ def check_slice(cfg: SimConfig) -> None:
         (cfg.mailboxes, "the mailbox wire (latency/latency_jitter/"
                         "force_mailboxes)"),
         (cfg.pre_vote, "PreVote (pre_vote=True)"),
-        (cfg.peer_tiled, "banded peer reductions (0 < peer_chunk < n); "
-                         "set peer_chunk=0"),
-        (cfg.active_rows_on, "role-sparse progress (0 < active_rows < n); "
-                             "set active_rows=0"),
         (cfg.read_batch > 0, "the read path (read_batch > 0)"),
         (cfg.record_events, "the flight recorder (record_events=True)"),
         (cfg.collect_telemetry, "telemetry (collect_telemetry=True)"),
@@ -148,6 +175,83 @@ def _count(mask: torch.Tensor, dim: int) -> torch.Tensor:
     return mask.sum(dim, dtype=I32)
 
 
+def _pcount(cfg: SimConfig, band: Callable, banded: bool) -> torch.Tensor:
+    """Per-row int32 count of the peers j where `band(j0, w)`, the [R, w]
+    predicate over columns [j0, j0 + w), is true.
+
+    One pass over all n columns; or, when `banded`, one [R, peer_chunk]
+    column band at a time with the band counts summed, so no temporary is
+    wider than peer_chunk (the JAX package's _pcount, whose fori_loop over
+    bands is a Python loop over column views here).  Integer sums commute:
+    both forms give the same bits."""
+    if not banded:
+        return _count(band(0, cfg.n), 1)
+    pc = cfg.peer_chunk
+    total = _count(band(0, pc), 1)
+    for j0 in range(pc, cfg.n, pc):
+        total = total + _count(band(j0, pc), 1)
+    return total
+
+
+class _Rows:
+    """The rows one progress segment runs on (the JAX package's _slabify).
+
+    Dense (`idx` None): all n rows, and every helper is the identity, so a
+    segment instantiated on it is the dense code op for op; its peer counts
+    go band by band under cfg.peer_tiled.  Sparse: `idx`, the [A] int64 ids
+    of the slab's rows (active rows first, ascending); row-indexed operands
+    are gathered into [A, N] slabs, and the slab's peer counts take one pass
+    (an [A, N] temporary is no wider than peer_chunk rows of n columns)."""
+
+    def __init__(self, cfg: SimConfig, node: torch.Tensor, eye: torch.Tensor,
+                 drop: torch.Tensor, drop_t: torch.Tensor,
+                 idx: Optional[torch.Tensor] = None):
+        self.n = cfg.n
+        self.dense = idx is None
+        self.banded = cfg.peer_tiled and self.dense
+        self.idx = idx
+        if self.dense:
+            self.ids, self.eye, self.drop, self.drop_t = node, eye, drop, drop_t
+        else:
+            self.ids = idx.to(I32)
+            self.eye = self.ids[:, None] == node[None, :]
+            # drop_t[idx] is drop[:, idx].T, gathered as contiguous rows
+            self.drop, self.drop_t = drop[idx], drop_t[idx]
+
+    def g(self, x: torch.Tensor) -> torch.Tensor:
+        """The segment's rows of a row-indexed [N] or [N, N] operand."""
+        return x if self.dense else x[self.idx]
+
+    def merge(self, full: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+        """A segment's matrix output as the full [N, N] matrix: the slab's
+        rows are written into `full` in place (the dense output already is
+        the full matrix)."""
+        return rows if self.dense else full.index_copy_(0, self.idx, rows)
+
+    def sfull(self, vals: torch.Tensor, fill) -> torch.Tensor:
+        """A per-row [R] result at [N]: `fill` lands on the rows outside the
+        slab, whose consumers are role-gated off."""
+        if self.dense:
+            return vals
+        base = torch.full((self.n,), fill, dtype=vals.dtype,
+                          device=vals.device)
+        return base.index_copy_(0, self.idx, vals)
+
+    def row_of(self, sel: torch.Tensor, gate: torch.Tensor) -> torch.Tensor:
+        """Row id of the segment position `sel` (a _first_true over the row
+        axis), 0 where `gate` is False, as the dense first-true gives."""
+        if self.dense:
+            return sel
+        return torch.where(gate, self.ids[sel.to(torch.int64)], 0)
+
+    def eye_cols(self, j0: int, w: int) -> torch.Tensor:
+        """Columns [j0, j0 + w) of the segment's rows of the identity."""
+        if w == self.n:
+            return self.eye
+        cols = torch.arange(j0, j0 + w, dtype=I32, device=self.ids.device)
+        return self.ids[:, None] == cols[None, :]
+
+
 def _leader_ok(state: SimState, cfg: SimConfig,
                alive: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Rows that accept proposals: leaders in their own applied config, with
@@ -181,10 +285,18 @@ def step(state: SimState, cfg: SimConfig,
     uint32 payload bits (run._payload_at).
 
     Runs on `device` (the CUDA card unless the caller names another) and
-    consumes the state's ring buffers (see the module docstring).  On a
-    tiled config the choice between the banded and the full ring write
-    reads one small tensor back to the host: one device->host sync per
-    tick, where the JAX package branches on the device with lax.cond.
+    consumes the state's ring buffers and, on a slab tick, its progress
+    matrices (see the module docstring).
+
+    Host syncs: where the JAX package branches on the device with lax.cond,
+    the port reads a few scalars back and branches on the host.  A tiled
+    config reads the band of this tick's ring writes (one sync).  Under
+    role-sparse progress the first segment runs on the slab speculatively
+    (it writes nothing in place), and whether the active rows fit the slab
+    rides the same read-back; only on a tick where they do not (an election
+    storm) is the segment recomputed on the dense rows and the band read
+    again.  An untiled sparse config reads the fit alone before the
+    segment.  COUNTS records the syncs and the branch taken.
     """
     check_slice(cfg)
     dev = check_device(state, device)
@@ -205,14 +317,13 @@ def step(state: SimState, cfg: SimConfig,
     snap_idx, snap_term = state.snap_idx, state.snap_term
     snap_chk, apply_chk = state.snap_chk, state.apply_chk
     log_term, log_data = state.log_term, state.log_data
-    match, next_, granted = state.match, state.next_, state.granted
-    rejected, recent_active = state.rejected, state.recent_active
     pre = state.pre
     pending_conf = state.pending_conf
     now = state.tick
 
     # Fused dense propose: cursor effects now, ring stores in Phase C's
-    # ring write.  Rows are judged on the pre-tick state.
+    # ring write, the match-diagonal bump in the first progress segment.
+    # Rows are judged on the pre-tick state.
     fused_prop = payload_fn is not None
     if fused_prop:
         prop_ok = _leader_ok(state, cfg, alive)
@@ -231,222 +342,307 @@ def step(state: SimState, cfg: SimConfig,
     contact = torch.where(alive, state.contact + 1, state.contact)
     hb_elapsed = torch.where(is_leader, hb_elapsed + 1, hb_elapsed)
 
-    # last/last_term are read before anything appends this tick; a
-    # proposing row's new last entry carries its own pre-tick term
+    # last/last_term are read before anything appends this tick (above the
+    # progress segments, which read no ring); a proposing row's new last
+    # entry carries its own pre-tick term
     last_term = _term_own(cfg, log_term, snap_idx, snap_term, last, last)
     if fused_prop and prop_cnt > 0:
         last_term = torch.where(prop_ok, state.term, last_term)
 
-    if fused_prop:
-        match = torch.where(prop_ok[:, None] & eye, last[:, None], match)
+    # ---- role-sparse progress: the active-row set ------------------------
+    # A superset of the rows that can mutate their progress row this tick,
+    # taken before any of its role changes: leaders and candidates, rows
+    # whose election timer is due, TIMEOUT_NOW targets, and rows still in
+    # their active_ttl drain window.  The stable sort of an integer key
+    # puts the active rows first in ascending order, so slab tie-breaks
+    # (lowest row wins) match the dense ones.
+    sparse_on = cfg.active_rows_on
+    dense_rows = _Rows(cfg, node, eye, drop, drop_t)
+    if sparse_on:
+        sp_act = (role != FOLLOWER) | (state.active_ttl > 0) \
+            | (alive & self_mem & (elapsed >= timeout)) | (state.tn_at > 0)
+        sp_fits = sp_act.sum(dtype=I32) <= cfg.active_rows
+        sp_rows = torch.argsort((~sp_act).to(I32),
+                                stable=True)[:cfg.active_rows]
+        slab_rows = _Rows(cfg, node, eye, drop, drop_t, sp_rows)
 
-    # CheckQuorum: every election_tick a leader confirms it heard from a
-    # quorum since the last round, else steps down
-    check_due = is_leader & (elapsed >= cfg.election_tick)
-    if cfg.check_quorum:
-        n_heard = _count(recent_active | eye, 1)
-        cq_fail = check_due & (n_heard < quorum)
-        role = torch.where(cq_fail, FOLLOWER, role)
-        lead = torch.where(cq_fail, NONE, lead)
-        contact = torch.where(check_due & ~cq_fail, 0, contact)
-        recent_active = torch.where(check_due[:, None], False, recent_active)
-    elapsed = torch.where(check_due, 0, elapsed)
-    is_leader = (role == LEADER) & alive
-    # a transfer not completed within an election timeout is aborted
-    transferee = torch.where(check_due, NONE, state.transferee)
-    transferee = torch.where(role != LEADER, NONE, transferee)
+    def _progress_a(sl: _Rows, term=term, vote=vote, role=role, lead=lead,
+                    elapsed=elapsed, contact=contact, timeout=timeout,
+                    pre=pre, last=last, is_leader=is_leader,
+                    hb_elapsed=hb_elapsed, pending_conf=pending_conf):
+        """Progress segment 1: Phase A's matrix tail (CheckQuorum count,
+        campaign tally resets), Phase B and Phase C's send/deliver half, on
+        the rows `sl`.  [N] vector logic runs at full width either way;
+        only row-indexed matrices go through `sl`.  Sender-axis reductions
+        are exact on the slab because every sender row is active and
+        padding rows reduce at the identity under the same role masks.
+        Returns [N] vectors and the segment's matrices (slabs on a slab);
+        writes nothing in place."""
+        g, eye_r = sl.g, sl.eye
+        match, next_ = g(state.match), g(state.next_)
+        granted, rejected = g(state.granted), g(state.rejected)
+        recent_active = g(state.recent_active)
+        if fused_prop:
+            match = torch.where(g(prop_ok)[:, None] & eye_r,
+                                g(last)[:, None], match)
 
-    # TIMEOUT_NOW delivery: the transfer target campaigns immediately
-    tx_cand = state.tx_cand
-    tn_at, tn_term, tn_from = state.tn_at, state.tn_term, state.tn_from
-    tn_due = (tn_at > 0) & (now + 1 >= tn_at)
-    tn_ok = tn_due & alive & self_mem & (role != LEADER) \
-        & (tn_term >= term) & ((role == FOLLOWER) | (tn_term > term))
-    term = torch.where(tn_ok & (tn_term > term), tn_term, term)
-    tn_at = torch.where(tn_due, 0, tn_at)
+        # CheckQuorum: every election_tick a leader confirms it heard from
+        # a quorum since the last round, else steps down
+        check_due = is_leader & (elapsed >= cfg.election_tick)
+        if cfg.check_quorum:
+            n_heard = sl.sfull(_pcount(
+                cfg, lambda j0, w: recent_active[:, j0:j0 + w]
+                | sl.eye_cols(j0, w), sl.banded), 0)
+            cq_fail = check_due & (n_heard < quorum)
+            role = torch.where(cq_fail, FOLLOWER, role)
+            lead = torch.where(cq_fail, NONE, lead)
+            contact = torch.where(check_due & ~cq_fail, 0, contact)
+            recent_active = torch.where(g(check_due)[:, None], False,
+                                        recent_active)
+        elapsed = torch.where(check_due, 0, elapsed)
+        is_leader = (role == LEADER) & alive
+        # a transfer not completed within an election timeout is aborted
+        transferee = torch.where(check_due, NONE, state.transferee)
+        transferee = torch.where(role != LEADER, NONE, transferee)
 
-    # election timeouts -> campaigns (hup_conf is all-False under static
-    # membership, kept for parity with the reference's gate)
-    want_campaign = (alive & self_mem & (role != LEADER)
-                     & (elapsed >= timeout)) & ~tn_ok
-    elapsed = torch.where(want_campaign, 0, elapsed)
-    campaign = want_campaign & ~state.hup_conf
-    term = term + campaign.to(I32)
-    vote = torch.where(campaign, node, vote)
-    role = torch.where(campaign, CANDIDATE, role)
-    lead = torch.where(campaign, NONE, lead)
-    timeout = torch.where(campaign, rand_timeout(cfg, node, term), timeout)
-    granted = torch.where(campaign[:, None], eye, granted)
-    rejected = torch.where(campaign[:, None], False, rejected)
-    tx_cand = tx_cand & ~campaign
-    # forced (transfer) campaign
-    term = term + tn_ok.to(I32)
-    vote = torch.where(tn_ok, node, vote)
-    role = torch.where(tn_ok, CANDIDATE, role)
-    pre = pre & ~tn_ok
-    lead = torch.where(tn_ok, NONE, lead)
-    elapsed = torch.where(tn_ok, 0, elapsed)
-    timeout = torch.where(tn_ok, rand_timeout(cfg, node, term), timeout)
-    granted = torch.where(tn_ok[:, None], eye, granted)
-    rejected = torch.where(tn_ok[:, None], False, rejected)
-    tx_cand = torch.where(tn_ok, True, tx_cand)
+        # TIMEOUT_NOW delivery: the transfer target campaigns immediately
+        tx_cand = state.tx_cand
+        tn_at, tn_term, tn_from = state.tn_at, state.tn_term, state.tn_from
+        tn_due = (tn_at > 0) & (now + 1 >= tn_at)
+        tn_ok = tn_due & alive & self_mem & (role != LEADER) \
+            & (tn_term >= term) & ((role == FOLLOWER) | (tn_term > term))
+        term = torch.where(tn_ok & (tn_term > term), tn_term, term)
+        tn_at = torch.where(tn_due, 0, tn_at)
 
-    # ---- Phase B: vote exchange -----------------------------------------
-    is_cand = (role == CANDIDATE) & alive
-    if cfg.check_quorum:
-        # leader lease: a receiver in contact with a live leader ignores
-        # vote requests (unless the candidacy is a forced transfer)
-        leased = (lead != NONE) & (contact < cfg.election_tick)
-    else:
-        leased = torch.zeros((n,), dtype=torch.bool, device=dev)
-    req = is_cand[:, None] & alive[None, :] & ~eye & ~drop \
-        & (~leased[None, :] | tx_cand[:, None]) & ~pre[:, None]
-    lt_i, lt_j = last_term[:, None], last_term[None, :]
-    log_ok = (lt_i > lt_j) | ((lt_i == lt_j) & (last[:, None] >= last[None, :]))
+        # election timeouts -> campaigns (hup_conf is all-False under
+        # static membership, kept for parity with the reference's gate)
+        want_campaign = (alive & self_mem & (role != LEADER)
+                         & (elapsed >= timeout)) & ~tn_ok
+        elapsed = torch.where(want_campaign, 0, elapsed)
+        campaign = want_campaign & ~state.hup_conf
+        term = term + campaign.to(I32)
+        vote = torch.where(campaign, node, vote)
+        role = torch.where(campaign, CANDIDATE, role)
+        lead = torch.where(campaign, NONE, lead)
+        timeout = torch.where(campaign, rand_timeout(cfg, node, term),
+                              timeout)
+        granted = torch.where(g(campaign)[:, None], eye_r, granted)
+        rejected = torch.where(g(campaign)[:, None], False, rejected)
+        tx_cand = tx_cand & ~campaign
+        # forced (transfer) campaign
+        term = term + tn_ok.to(I32)
+        vote = torch.where(tn_ok, node, vote)
+        role = torch.where(tn_ok, CANDIDATE, role)
+        pre = pre & ~tn_ok
+        lead = torch.where(tn_ok, NONE, lead)
+        elapsed = torch.where(tn_ok, 0, elapsed)
+        timeout = torch.where(tn_ok, rand_timeout(cfg, node, term), timeout)
+        granted = torch.where(g(tn_ok)[:, None], eye_r, granted)
+        rejected = torch.where(g(tn_ok)[:, None], False, rejected)
+        tx_cand = torch.where(tn_ok, True, tx_cand)
 
-    # receiver-side term catch-up
-    req_term = torch.where(req, term[:, None], -1)
-    mt = req_term.amax(0)
-    newer = mt > term
-    term = torch.where(newer, mt, term)
-    role = torch.where(newer, FOLLOWER, role)
-    vote = torch.where(newer, NONE, vote)
-    lead = torch.where(newer, NONE, lead)
-    elapsed = torch.where(newer, 0, elapsed)
-    timeout = torch.where(newer, rand_timeout(cfg, node, term), timeout)
-    is_cand = (role == CANDIDATE) & alive
+        # ---- Phase B: vote exchange -------------------------------------
+        is_cand = (role == CANDIDATE) & alive
+        if cfg.check_quorum:
+            # leader lease: a receiver in contact with a live leader
+            # ignores vote requests (unless the candidacy is a forced
+            # transfer)
+            leased = (lead != NONE) & (contact < cfg.election_tick)
+        else:
+            leased = torch.zeros((n,), dtype=torch.bool, device=dev)
+        req = g(is_cand)[:, None] & alive[None, :] & ~eye_r & ~sl.drop \
+            & (~leased[None, :] | g(tx_cand)[:, None]) & ~g(pre)[:, None]
+        lt_i, lt_j = g(last_term)[:, None], last_term[None, :]
+        log_ok = (lt_i > lt_j) \
+            | ((lt_i == lt_j) & (g(last)[:, None] >= last[None, :]))
 
-    can_vote = (vote[None, :] == NONE) | (vote[None, :] == node[:, None])
-    cur = req & (req_term == term[None, :])   # requests at the rx term
-    grantable = cur & can_vote & log_ok
-    any_grant = grantable.any(0)
-    chosen_cand = torch.where(any_grant, _first_true(grantable, 0), 0)
-    grant_mat = grantable & (node[:, None] == chosen_cand[None, :])
-    vote = torch.where(any_grant, chosen_cand, vote)
-    elapsed = torch.where(any_grant, 0, elapsed)
-    real_cand = is_cand & ~pre
-    resp_arrive = grant_mat & ~drop_t
-    granted = granted | (resp_arrive & real_cand[:, None])
-    reject_arrive = cur & ~grant_mat & ~drop_t
-    rejected = rejected | (reject_arrive & real_cand[:, None])
-    polled = ((resp_arrive | reject_arrive) & real_cand[:, None]).any(1)
+        # receiver-side term catch-up
+        req_term = torch.where(req, g(term)[:, None], -1)
+        mt = req_term.amax(0)
+        newer = mt > term
+        term = torch.where(newer, mt, term)
+        role = torch.where(newer, FOLLOWER, role)
+        vote = torch.where(newer, NONE, vote)
+        lead = torch.where(newer, NONE, lead)
+        elapsed = torch.where(newer, 0, elapsed)
+        timeout = torch.where(newer, rand_timeout(cfg, node, term), timeout)
+        is_cand = (role == CANDIDATE) & alive
 
-    fresh_real = tn_ok | campaign
-    votes = _count(granted, 1)
-    win = is_cand & ~pre & (votes >= quorum) & (fresh_real | polled)
-    n_rej = _count(rejected & ~granted, 1)
-    lose = is_cand & ~win & (n_rej >= quorum) & (fresh_real | polled)
-    role = torch.where(lose, FOLLOWER, role)
-    lead = torch.where(lose, NONE, lead)
-    elapsed = torch.where(lose, 0, elapsed)
-    pre = pre & ~lose
-    # becomeLeader: reset progress, append a no-op entry at the new term
-    role = torch.where(win, LEADER, role)
-    lead = torch.where(win, node, lead)
-    hb_elapsed = torch.where(win, 0, hb_elapsed)
-    elapsed = torch.where(win, 0, elapsed)
-    contact = torch.where(win, 0, contact)
-    pending_conf = torch.where(win, state.tail_conf, pending_conf)
-    next_ = torch.where(win[:, None], (last + 1)[:, None], next_)
-    match = torch.where(win[:, None], 0, match)
-    recent_active = torch.where(win[:, None], eye, recent_active)
-    noop_term = term   # the winner's candidacy term, captured here
-    last = last + win.to(I32)
-    is_leader = (role == LEADER) & alive
-    match = torch.where(win[:, None] & eye, last[:, None], match)
+        can_vote = (vote[None, :] == NONE) | (vote[None, :] == sl.ids[:, None])
+        cur = req & (req_term == term[None, :])   # requests at the rx term
+        grantable = cur & can_vote & log_ok
+        any_grant = grantable.any(0)
+        chosen_cand = sl.row_of(_first_true(grantable, 0), any_grant)
+        grant_mat = grantable & (sl.ids[:, None] == chosen_cand[None, :])
+        vote = torch.where(any_grant, chosen_cand, vote)
+        elapsed = torch.where(any_grant, 0, elapsed)
+        real_cand = is_cand & ~pre
+        resp_arrive = grant_mat & ~sl.drop_t
+        granted = granted | (resp_arrive & g(real_cand)[:, None])
+        reject_arrive = cur & ~grant_mat & ~sl.drop_t
+        rejected = rejected | (reject_arrive & g(real_cand)[:, None])
+        polled = sl.sfull(((resp_arrive | reject_arrive)
+                           & g(real_cand)[:, None]).any(1), False)
 
-    # ---- Phase C: append / snapshot fan-out ------------------------------
-    prev_mat = next_ - 1
-    can_ring = prev_mat >= snap_idx[:, None]
-    send_base = is_leader[:, None] & alive[None, :] & ~eye & ~drop
-    send_app = send_base & can_ring
-    send_snap = send_base & ~can_ring
-    msg_term = torch.where(send_app | send_snap, term[:, None], -1)
-    mt2 = msg_term.amax(0)
-    newer2 = mt2 > term
-    term = torch.where(newer2, mt2, term)
-    role = torch.where(newer2, FOLLOWER, role)
-    vote = torch.where(newer2, NONE, vote)
-    lead = torch.where(newer2, NONE, lead)
-    elapsed = torch.where(newer2, 0, elapsed)
-    timeout = torch.where(newer2, rand_timeout(cfg, node, term), timeout)
+        fresh_real = tn_ok | campaign
+        votes = sl.sfull(_pcount(cfg, lambda j0, w: granted[:, j0:j0 + w],
+                                 sl.banded), 0)
+        win = is_cand & ~pre & (votes >= quorum) & (fresh_real | polled)
+        n_rej = sl.sfull(_pcount(
+            cfg, lambda j0, w: rejected[:, j0:j0 + w]
+            & ~granted[:, j0:j0 + w], sl.banded), 0)
+        lose = is_cand & ~win & (n_rej >= quorum) & (fresh_real | polled)
+        role = torch.where(lose, FOLLOWER, role)
+        lead = torch.where(lose, NONE, lead)
+        elapsed = torch.where(lose, 0, elapsed)
+        pre = pre & ~lose
+        # becomeLeader: reset progress, append a no-op entry at the new term
+        role = torch.where(win, LEADER, role)
+        lead = torch.where(win, node, lead)
+        hb_elapsed = torch.where(win, 0, hb_elapsed)
+        elapsed = torch.where(win, 0, elapsed)
+        contact = torch.where(win, 0, contact)
+        pending_conf = torch.where(win, state.tail_conf, pending_conf)
+        next_ = torch.where(g(win)[:, None], (g(last) + 1)[:, None], next_)
+        match = torch.where(g(win)[:, None], 0, match)
+        recent_active = torch.where(g(win)[:, None], eye_r, recent_active)
+        noop_term = term   # the winner's candidacy term, captured here
+        last = last + win.to(I32)
+        is_leader = (role == LEADER) & alive
+        match = torch.where(g(win)[:, None] & eye_r, g(last)[:, None], match)
 
-    # each receiver picks its current-term leader, judged by the send-time
-    # sender term (lowest row on ties)
-    eligible = (send_app | send_snap) & (msg_term == term[None, :])
-    has_lmsg = eligible.any(0)
-    src = _first_true(eligible, 0)           # 0 where has_lmsg is False
-    src_l = src.to(torch.int64)
-    role = torch.where(has_lmsg & (role == CANDIDATE), FOLLOWER, role)
-    lead = torch.where(has_lmsg, src, lead)
-    elapsed = torch.where(has_lmsg, 0, elapsed)
-    contact = torch.where(has_lmsg, 0, contact)
-    is_leader = (role == LEADER) & alive
-    got_app = has_lmsg & send_app[src_l, node_l]
-    got_snap = has_lmsg & send_snap[src_l, node_l]
-    p = prev_mat[src_l, node_l]
+        # ---- Phase C: append / snapshot fan-out ----------------------------
+        prev_mat = next_ - 1
+        can_ring = prev_mat >= g(snap_idx)[:, None]
+        send_base = g(is_leader)[:, None] & alive[None, :] & ~eye_r \
+            & ~sl.drop
+        send_app = send_base & can_ring
+        send_snap = send_base & ~can_ring
+        msg_term = torch.where(send_app | send_snap, g(term)[:, None], -1)
+        mt2 = msg_term.amax(0)
+        newer2 = mt2 > term
+        term = torch.where(newer2, mt2, term)
+        role = torch.where(newer2, FOLLOWER, role)
+        vote = torch.where(newer2, NONE, vote)
+        lead = torch.where(newer2, NONE, lead)
+        elapsed = torch.where(newer2, 0, elapsed)
+        timeout = torch.where(newer2, rand_timeout(cfg, node, term), timeout)
 
-    if not cfg.tiled:
-        # untiled noop store, before the append reads (as in the reference:
-        # a just-elected leader replicates its no-op the same tick);
-        # non-winners rewrite their own slot unchanged
-        noop_slot = _slot(cfg, torch.where(win, last, last + 1))
-        log_term[node_l, noop_slot] = torch.where(
-            win, noop_term, log_term[node_l, noop_slot])
-        log_data[node_l, noop_slot] = torch.where(
-            win, 0, log_data[node_l, noop_slot])
-
-    # -- append receive.  Every ring read below precedes the ring write.
-    last_src, snap_src = last[src_l], snap_idx[src_l]
-    p_ring_term = log_term[src_l, _slot(cfg, p)]
-    p_term_sent = torch.where(
-        p == snap_src, snap_term[src_l],
-        torch.where((p > snap_src) & (p <= last_src), p_ring_term, 0))
-    # window clamp for ring safety (never wrap over unapplied entries)
-    ring_cap = snap_idx + L - p
-    n_avail = torch.clamp(torch.minimum(last_src - p, ring_cap), 0, W)
-    hi = p + n_avail                                             # lastnewi
-
-    commit0 = commit
-    q_p = torch.minimum(p, last)
-    local_p_term = _term_own(cfg, log_term, snap_idx, snap_term, last, q_p)
-    if fused_prop:
-        # a stale co-leader's prev can reach this row's pending proposals
-        local_p_term = torch.where(prop_ok & (q_p > prop_last0), state.term,
-                                   local_p_term)
-    if cfg.tiled:
-        # likewise a fresh winner's pending noop entry (idx == last)
-        local_p_term = torch.where(win & (q_p == last), noop_term,
-                                   local_p_term)
-    prev_ok = (p <= last) & (p >= snap_idx) & (local_p_term == p_term_sent)
-    stale = p < commit0
-    accept = got_app & prev_ok & ~stale
-
-    # snapshot-receive decision (the wipe rides the ring write)
-    snap_pt = torch.minimum(snap_src, last)
-    have_term = _term_own(cfg, log_term, snap_idx, snap_term, last, snap_pt)
-    if fused_prop:
-        have_term = torch.where(prop_ok & (snap_pt > prop_last0), state.term,
-                                have_term)
-    if cfg.tiled:
-        have_term = torch.where(win & (snap_pt == last), noop_term, have_term)
-    already = (snap_src <= last) & (have_term == snap_term[src_l])
-    advance = got_snap & (snap_src > commit)
-    do_restore = advance & ~already
+        # each receiver picks its current-term leader, judged by the
+        # send-time sender term (lowest row on ties).  src_sel is the
+        # segment position (it indexes the [R, N] send matrices), src the
+        # row id.
+        eligible = (send_app | send_snap) & (msg_term == term[None, :])
+        has_lmsg = eligible.any(0)
+        src_sel = _first_true(eligible, 0)
+        src = sl.row_of(src_sel, has_lmsg)       # 0 where has_lmsg is False
+        role = torch.where(has_lmsg & (role == CANDIDATE), FOLLOWER, role)
+        lead = torch.where(has_lmsg, src, lead)
+        elapsed = torch.where(has_lmsg, 0, elapsed)
+        contact = torch.where(has_lmsg, 0, contact)
+        is_leader = (role == LEADER) & alive
+        sel_l = src_sel.to(torch.int64)
+        return dict(
+            term=term, vote=vote, role=role, lead=lead, elapsed=elapsed,
+            contact=contact, hb_elapsed=hb_elapsed, timeout=timeout,
+            pre=pre, last=last, pending_conf=pending_conf,
+            campaign=campaign, tn_ok=tn_ok, transferee=transferee,
+            tn_at=tn_at, tn_term=tn_term, tn_from=tn_from, tx_cand=tx_cand,
+            win=win, noop_term=noop_term, is_leader=is_leader,
+            has_lmsg=has_lmsg, src=src,
+            got_app=has_lmsg & send_app[sel_l, node_l],
+            got_snap=has_lmsg & send_snap[sel_l, node_l],
+            p=prev_mat[sel_l, node_l],
+            match=match, next_=next_, granted=granted, rejected=rejected,
+            recent_active=recent_active)
 
     def payloads(k):
         return payload_fn(now, torch.clamp(k, min=0).to(torch.int64)) \
             & PAYLOAD_MASK
 
-    def prop_write(lt, ld, new_idx):
-        """The fused propose's stores into a chunk or full view (in place):
-        new_idx is the slot->index map anchored one batch ahead."""
-        k_of = new_idx - prop_last0[:, None] - 1
-        valid = prop_ok[:, None] & (k_of >= 0) & (k_of < prop_cnt)
-        _put(lt, valid, state.term[:, None])
-        _put(ld, valid, payloads(k_of))
+    # Segment 1 and the append receive up to the ring write's band probe.
+    # On a tiled config this loop only reads the rings (the noop store
+    # rides the ring write), so a speculative slab pass that does not fit
+    # is dropped and redone on the dense rows.  An untiled config, whose
+    # noop store is made here, knows its rows before the loop and makes
+    # one pass.
+    if not sparse_on:
+        tries = [dense_rows]
+    elif cfg.tiled:
+        tries = [slab_rows, dense_rows]
+    else:
+        # no band probe to share: read the fit alone, before the segment
+        tries = [slab_rows if _read_back([sp_fits])[0] else dense_rows]
+    for sl in tries:
+        oa = _progress_a(sl)
+        term, vote, role = oa["term"], oa["vote"], oa["role"]
+        lead, elapsed, contact = oa["lead"], oa["elapsed"], oa["contact"]
+        hb_elapsed, timeout, pre = oa["hb_elapsed"], oa["timeout"], oa["pre"]
+        last, pending_conf = oa["last"], oa["pending_conf"]
+        campaign, tn_ok, transferee = (oa["campaign"], oa["tn_ok"],
+                                       oa["transferee"])
+        tn_at, tn_term, tn_from = oa["tn_at"], oa["tn_term"], oa["tn_from"]
+        tx_cand, win, noop_term = oa["tx_cand"], oa["win"], oa["noop_term"]
+        is_leader, has_lmsg, src = (oa["is_leader"], oa["has_lmsg"],
+                                    oa["src"])
+        got_app, got_snap, p = oa["got_app"], oa["got_snap"], oa["p"]
+        src_l = src.to(torch.int64)
 
-    if cfg.tiled:
+        if not cfg.tiled:
+            # untiled noop store, before the append reads (as in the
+            # reference: a just-elected leader replicates its no-op the same
+            # tick); non-winners rewrite their own slot unchanged
+            noop_slot = _slot(cfg, torch.where(win, last, last + 1))
+            log_term[node_l, noop_slot] = torch.where(
+                win, noop_term, log_term[node_l, noop_slot])
+            log_data[node_l, noop_slot] = torch.where(
+                win, 0, log_data[node_l, noop_slot])
+
+        # -- append receive.  Every ring read below precedes the ring write.
+        last_src, snap_src = last[src_l], snap_idx[src_l]
+        p_ring_term = log_term[src_l, _slot(cfg, p)]
+        p_term_sent = torch.where(
+            p == snap_src, snap_term[src_l],
+            torch.where((p > snap_src) & (p <= last_src), p_ring_term, 0))
+        # window clamp for ring safety (never wrap over unapplied entries)
+        ring_cap = snap_idx + L - p
+        n_avail = torch.clamp(torch.minimum(last_src - p, ring_cap), 0, W)
+        hi = p + n_avail                                         # lastnewi
+
+        commit0 = commit
+        q_p = torch.minimum(p, last)
+        local_p_term = _term_own(cfg, log_term, snap_idx, snap_term, last,
+                                 q_p)
+        if fused_prop:
+            # a stale co-leader's prev can reach this row's pending
+            # proposals
+            local_p_term = torch.where(prop_ok & (q_p > prop_last0),
+                                       state.term, local_p_term)
+        if cfg.tiled:
+            # likewise a fresh winner's pending noop entry (idx == last)
+            local_p_term = torch.where(win & (q_p == last), noop_term,
+                                       local_p_term)
+        prev_ok = (p <= last) & (p >= snap_idx) \
+            & (local_p_term == p_term_sent)
+        stale = p < commit0
+        accept = got_app & prev_ok & ~stale
+
+        # snapshot-receive decision (the wipe rides the ring write)
+        snap_pt = torch.minimum(snap_src, last)
+        have_term = _term_own(cfg, log_term, snap_idx, snap_term, last,
+                              snap_pt)
+        if fused_prop:
+            have_term = torch.where(prop_ok & (snap_pt > prop_last0),
+                                    state.term, have_term)
+        if cfg.tiled:
+            have_term = torch.where(win & (snap_pt == last), noop_term,
+                                    have_term)
+        already = (snap_src <= last) & (have_term == snap_term[src_l])
+        advance = got_snap & (snap_src > commit)
+        do_restore = advance & ~already
+
+        if not cfg.tiled:
+            break
         # Window extraction: every entry value the append can copy lives in
         # the sender's (p, p + window]; gather it before the ring write and
         # patch entries still pending in this tick's write (fused
@@ -477,6 +673,38 @@ def step(state: SimState, cfg: SimConfig,
         any_mism = w_mism.any(1)
         ci_idx = torch.where(w_mism, widx, BIG).amin(1)
 
+        # The band of this tick's writes, read back to pick the ring write
+        # (with the slab's fit, on a speculative slab pass).  Election
+        # ticks (pending noop) and restore ticks (full-width wipe) take
+        # the full pass.
+        probe = [torch.where(got_app, p, BIG).amin(),
+                 torch.where(got_app, hi, 0).amax(),
+                 do_restore.any(), win.any()]
+        if fused_prop:
+            probe += [torch.where(prop_ok, prop_last0, BIG).amin(),
+                      torch.where(prop_ok, prop_anchor, 0).amax()]
+        if not sl.dense:
+            probe.append(sp_fits)
+        host = _read_back(probe)
+        if sl.dense or host[-1]:
+            break
+    if sparse_on:
+        COUNTS["dense_fallback_ticks" if sl.dense else "slab_ticks"] += 1
+    match = sl.merge(state.match, oa["match"])
+    next_ = sl.merge(state.next_, oa["next_"])
+    granted = sl.merge(state.granted, oa["granted"])
+    rejected = sl.merge(state.rejected, oa["rejected"])
+    recent_active = sl.merge(state.recent_active, oa["recent_active"])
+
+    def prop_write(lt, ld, new_idx):
+        """The fused propose's stores into a chunk or full view (in place):
+        new_idx is the slot->index map anchored one batch ahead."""
+        k_of = new_idx - prop_last0[:, None] - 1
+        valid = prop_ok[:, None] & (k_of >= 0) & (k_of < prop_cnt)
+        _put(lt, valid, state.term[:, None])
+        _put(ld, valid, payloads(k_of))
+
+    if cfg.tiled:
         def write_at(lead_idx, off):
             """Masked append write-back of the chunk at `off` whose sender
             index map is lead_idx; values come from the window buffers."""
@@ -489,16 +717,6 @@ def step(state: SimState, cfg: SimConfig,
                                       wsrc_t.gather(1, wk),
                                       wsrc_d.gather(1, wk), write)
 
-        # The band of this tick's writes, read back to pick the branch
-        # (the one host sync of the tick).  Election ticks (pending noop)
-        # and restore ticks (full-width wipe) take the full pass.
-        probe = [torch.where(got_app, p, BIG).amin(),
-                 torch.where(got_app, hi, 0).amax(),
-                 do_restore.any(), win.any()]
-        if fused_prop:
-            probe += [torch.where(prop_ok, prop_last0, BIG).amin(),
-                      torch.where(prop_ok, prop_anchor, 0).amax()]
-        host = torch.stack([x.to(torch.int64) for x in probe]).tolist()
         c0u, nch = _band_origin(cfg, host[0], host[1])
         fits = nch <= cfg.band_chunks and not host[2] and not host[3]
         if fused_prop:
@@ -568,45 +786,75 @@ def step(state: SimState, cfg: SimConfig,
     resp_reject = got_app & ~prev_ok & ~stale
     reject_hint = last
 
-    # ---- progress integration ---------------------------------------------
-    arrive_back = ~drop_t & (node[:, None] == src[None, :]) \
-        & is_leader[:, None] & has_lmsg[None, :]
-    ok_mat = arrive_back & resp_ok[None, :]
-    rej_mat = arrive_back & resp_reject[None, :]
-    recent_active = recent_active | ok_mat | rej_mat
-    match = torch.where(ok_mat, torch.maximum(match, resp_match[None, :]),
-                        match)
-    next_ = torch.where(ok_mat, torch.maximum(next_, (resp_match + 1)[None]),
-                        next_)
-    # probe decrement (coarse): jump next back to the hint
-    next_ = torch.where(rej_mat, torch.clamp(
-        torch.minimum(next_ - 1, (reject_hint + 1)[None, :]), min=1), next_)
+    def _progress_b(sl: _Rows, match=match, next_=next_,
+                    recent_active=recent_active, tn_at=tn_at,
+                    tn_term=tn_term, tn_from=tn_from):
+        """Progress segment 2: ack folds, progress integration, transfer
+        completion and the Phase D bisect, on the rows `sl` (the branch
+        segment 1 took).  Returns the segment's matrices (slabs on a slab),
+        [N] vectors, `mci` (the bisect's result; a row outside the slab
+        reports its own commit, a no-advance) and `got_resp` (rows that
+        received a response, for active_ttl)."""
+        g, eye_r = sl.g, sl.eye
+        match, next_, recent_active = g(match), g(next_), g(recent_active)
+        arrive_back = ~sl.drop_t & (sl.ids[:, None] == src[None, :]) \
+            & g(is_leader)[:, None] & has_lmsg[None, :]
+        ok_mat = arrive_back & resp_ok[None, :]
+        rej_mat = arrive_back & resp_reject[None, :]
+        got_resp = sl.sfull((ok_mat | rej_mat).any(1), False) \
+            if sparse_on else None
+        recent_active = recent_active | ok_mat | rej_mat
+        match = torch.where(ok_mat, torch.maximum(match, resp_match[None, :]),
+                            match)
+        next_ = torch.where(ok_mat,
+                            torch.maximum(next_, (resp_match + 1)[None]),
+                            next_)
+        # probe decrement (coarse): jump next back to the hint
+        next_ = torch.where(rej_mat, torch.clamp(
+            torch.minimum(next_ - 1, (reject_hint + 1)[None, :]), min=1),
+            next_)
 
-    # leader transfer completion: fire TIMEOUT_NOW once the target caught up
-    tgt = torch.clamp(transferee, 0, n - 1).to(torch.int64)
-    has_tx = is_leader & (transferee != NONE) & (tgt != node_l)
-    caught = has_tx & (match.gather(1, tgt[:, None])[:, 0] == last)
-    want_tn = caught & (tn_at[tgt] == 0) \
-        & ~drop.gather(1, tgt[:, None])[:, 0]
-    send_tn = want_tn[:, None] & (tgt[:, None] == node_l[None, :])
-    any_tn = send_tn.any(0)
-    tn_src = _first_true(send_tn, 0)     # lowest leader wins
-    tn_at = torch.where(any_tn, now + 1, tn_at)
-    tn_term = torch.where(any_tn, term[tn_src.to(torch.int64)], tn_term)
-    tn_from = torch.where(any_tn, tn_src, tn_from)
+        # leader transfer completion: fire TIMEOUT_NOW once the target
+        # caught up
+        tgt = torch.clamp(transferee, 0, n - 1).to(torch.int64)
+        has_tx = is_leader & (transferee != NONE) & (tgt != node_l)
+        tgt_r = g(tgt)
+        caught = g(has_tx) \
+            & (match.gather(1, tgt_r[:, None])[:, 0] == g(last))
+        want_tn = caught & (tn_at[tgt_r] == 0) \
+            & ~sl.drop.gather(1, tgt_r[:, None])[:, 0]
+        send_tn = want_tn[:, None] & (tgt_r[:, None] == node_l[None, :])
+        any_tn = send_tn.any(0)
+        tn_src = sl.row_of(_first_true(send_tn, 0), any_tn)  # lowest leader
+        tn_at = torch.where(any_tn, now + 1, tn_at)
+        tn_term = torch.where(any_tn, term[tn_src.to(torch.int64)], tn_term)
+        tn_from = torch.where(any_tn, tn_src, tn_from)
 
-    # ---- Phase D: leader commit (quorum on the match row) ----------------
-    # the largest X in (commit, last] acked by a quorum, by a fixed-depth
-    # bisection instead of a sort of the match plane
-    match = torch.where(is_leader[:, None] & eye, last[:, None], match)
-    lo, hi_b = commit, last
-    for _ in range(max(1, L.bit_length() + 1)):
-        mid = (lo + hi_b + 1) >> 1
-        cnt = _count(match >= mid[:, None], 1)
-        ok = (cnt >= quorum) & (hi_b >= mid) & (mid > lo)
-        lo = torch.where(ok, mid, lo)
-        hi_b = torch.where(ok, hi_b, mid - 1)
-    mci = lo
+        # ---- Phase D: leader commit (quorum on the match row) ------------
+        # the largest X in (commit, last] acked by a quorum, by a
+        # fixed-depth bisection instead of a sort of the match plane
+        match = torch.where(g(is_leader)[:, None] & eye_r, g(last)[:, None],
+                            match)
+        lo, hi_b = g(commit), g(last)
+        for _ in range(max(1, L.bit_length() + 1)):
+            mid = (lo + hi_b + 1) >> 1
+            cnt = _pcount(cfg, lambda j0, w: match[:, j0:j0 + w]
+                          >= mid[:, None], sl.banded)
+            ok = (cnt >= quorum) & (hi_b >= mid) & (mid > lo)
+            lo = torch.where(ok, mid, lo)
+            hi_b = torch.where(ok, hi_b, mid - 1)
+        mci = lo if sl.dense else commit.index_copy(0, sl.idx, lo)
+        return dict(match=match, next_=next_, recent_active=recent_active,
+                    tn_at=tn_at, tn_term=tn_term, tn_from=tn_from, mci=mci,
+                    got_resp=got_resp)
+
+    ob = _progress_b(sl)
+    match = sl.merge(match, ob["match"])
+    next_ = sl.merge(next_, ob["next_"])
+    recent_active = sl.merge(recent_active, ob["recent_active"])
+    tn_at, tn_term, tn_from = ob["tn_at"], ob["tn_term"], ob["tn_from"]
+    mci = ob["mci"]
+    # commit fold, outside the segments (mci_term is a ring read)
     mci_term = _term_own(cfg, log_term, snap_idx, snap_term, last, mci)
     can_commit = is_leader & (mci > commit) & (mci_term == term)
     commit = torch.where(can_commit, mci, commit)
@@ -658,6 +906,17 @@ def step(state: SimState, cfg: SimConfig,
     tx_cand = tx_cand & (role == CANDIDATE) & ~pre
     transferee = torch.where(role == LEADER, transferee, NONE)
 
+    # active-row TTL: leaders and candidates pin their row hot; a row that
+    # stepped down, or is still receiving responses, keeps its slab seat
+    # for a round trip of the wire (2 * (latency + jitter) + 2 ticks).
+    # From end-of-tick values only, so both branches give the same ttl.
+    active_ttl = state.active_ttl
+    if sparse_on:
+        ttl_w = 2 * (cfg.latency + cfg.latency_jitter) + 2
+        keep_hot = (role == CANDIDATE) | (role == LEADER) | ob["got_resp"]
+        active_ttl = torch.where(keep_hot, ttl_w,
+                                 torch.clamp(state.active_ttl - 1, min=0))
+
     stats = state.stats
     if cfg.collect_stats and stats is not None:
         inc = torch.stack([
@@ -676,7 +935,8 @@ def step(state: SimState, cfg: SimConfig,
         match=match, next_=next_, granted=granted, rejected=rejected,
         recent_active=recent_active, pre=pre, transferee=transferee,
         tx_cand=tx_cand, tn_at=tn_at, tn_term=tn_term, tn_from=tn_from,
-        pending_conf=pending_conf, tick=state.tick + 1, stats=stats)
+        pending_conf=pending_conf, tick=state.tick + 1, stats=stats,
+        active_ttl=active_ttl)
 
 
 def propose_dense(state: SimState, cfg: SimConfig,
@@ -701,9 +961,8 @@ def propose_dense(state: SimState, cfg: SimConfig,
 
     lt, ld = state.log_term, state.log_data
     if cfg.tiled:
-        lo_p, hi_p = torch.stack([
-            torch.where(ok, state.last, BIG).amin(),
-            torch.where(ok, anchor, 0).amax()]).tolist()
+        lo_p, hi_p = _read_back([torch.where(ok, state.last, BIG).amin(),
+                                 torch.where(ok, anchor, 0).amax()])
         c0p, nch_p = _band_origin(cfg, lo_p, hi_p)
         if nch_p <= cfg.band_chunks:
             C = cfg.log_chunk

@@ -2,8 +2,8 @@
 
 The JAX package compiles these as `lax.scan` / `lax.while_loop` programs;
 here they are host loops over `kernel.step`, one tick per iteration.
-`run_until_leader` reads `has_leader` back every tick; `run_ticks` only
-syncs where `step` does (the tiled ring write's branch choice).
+`run_until_leader` reads `has_leader` back every tick; `run_ticks` and
+`run_schedule` only sync where `step` does (its branch choices).
 """
 
 from __future__ import annotations
@@ -40,6 +40,21 @@ def _trace_row(st: SimState) -> torch.Tensor:
                         st.term.amax()])
 
 
+def _tick(st: SimState, cfg: SimConfig, alive, drop, prop_count: int, dev):
+    """One step, proposing `prop_count` entries through the fused propose
+    when it is nonzero."""
+    if prop_count:
+        return step(st, cfg, alive=alive, drop=drop, prop_count=prop_count,
+                    payload_fn=_payload_at, device=dev)
+    return step(st, cfg, alive=alive, drop=drop, device=dev)
+
+
+def _stack_trace(trace: list, dev) -> torch.Tensor:
+    if not trace:
+        return torch.zeros((0, 3), dtype=I32, device=dev)
+    return torch.stack(trace)
+
+
 def run_ticks(state: SimState, cfg: SimConfig, n_ticks: int,
               prop_count: int = 0, drop_rate: float = 0.0,
               crash_every: int = 0, down_for: int = 5, device=None):
@@ -49,7 +64,7 @@ def run_ticks(state: SimState, cfg: SimConfig, n_ticks: int,
     `crash_every` ticks for `down_for` ticks.
 
     Returns (final_state, trace) where trace is [n_ticks, 3] int32 rows
-    [n_leaders, max_commit, max_term].  Consumes the state's rings.
+    [n_leaders, max_commit, max_term].  Consumes the state (see step).
     """
     dev = check_device(state, device)
     n = cfg.n
@@ -68,21 +83,34 @@ def run_ticks(state: SimState, cfg: SimConfig, n_ticks: int,
                                     torch.clamp(down_left - 1, min=0))
             alive = alive & ~((rows == downed) & (down_left > 0))
         drop = drop_matrix(cfg, tick, drop_rate) if drop_rate else None
-        if prop_count:
-            st = step(st, cfg, alive=alive, drop=drop, prop_count=prop_count,
-                      payload_fn=_payload_at, device=dev)
-        else:
-            st = step(st, cfg, alive=alive, drop=drop, device=dev)
+        st = _tick(st, cfg, alive, drop, prop_count, dev)
         trace.append(_trace_row(st))
-    if not trace:
-        return st, torch.zeros((0, 3), dtype=I32, device=dev)
-    return st, torch.stack(trace)
+    return st, _stack_trace(trace, dev)
+
+
+def run_schedule(state: SimState, cfg: SimConfig, drop: torch.Tensor,
+                 alive: torch.Tensor, prop_count: int = 0, device=None):
+    """Advance len(drop) ticks under a fault schedule given as tensors: drop
+    is [T, N, N] per-tick edge drops, alive is [T, N] row liveness (the
+    schedule shape the JAX package's DST layer generates; run_ticks instead
+    derives its faults from scalar knobs).  Optionally proposes
+    `prop_count` entries per tick through the fused propose.
+
+    Returns (final_state, trace) with run_ticks' trace rows.  Consumes the
+    state (see step).
+    """
+    dev = check_device(state, device)
+    st, trace = state, []
+    for drop_t, alive_t in zip(drop, alive):
+        st = _tick(st, cfg, alive_t, drop_t, prop_count, dev)
+        trace.append(_trace_row(st))
+    return st, _stack_trace(trace, dev)
 
 
 def run_until_leader(state: SimState, cfg: SimConfig, max_ticks: int = 1000,
                      device=None):
     """Tick until some node is leader (or max_ticks pass).  Returns
-    (state, ticks_taken).  Consumes the state's rings."""
+    (state, ticks_taken).  Consumes the state (see step)."""
     dev = check_device(state, device)
     st, t = state, 0
     while t < max_ticks and not bool(has_leader(st)):

@@ -1,9 +1,12 @@
 """Where a headline tick's time goes on the CUDA card.
 
     python -m swarmkit_tpu_torch.tools.profile_tick [--n 4096] [--ticks 16]
+        [--dense]
 
 Elects a leader at the bench headline configuration (n=4096 unless --n
-says otherwise), warms up with proposing ticks, then runs --ticks ticks of
+says otherwise; banded peer counts and role-sparse progress at their
+SimConfig defaults, as bench.py runs them, or both pinned dense with
+--dense), warms up with proposing ticks, then runs --ticks ticks of
 run_ticks(prop_count=max_props) three ways:
 
 1. host clock around the window, ending in a synchronize: ms/tick;
@@ -27,11 +30,12 @@ import torch
 
 from swarmkit_tpu_torch.parallel import cuda_ops
 from swarmkit_tpu_torch.raft import sim
+from swarmkit_tpu_torch.raft.sim import kernel
 
 HEADLINE = dict(n=4096, log_len=8192, window=2048, apply_batch=2048,
                 max_props=2048, keep=500, election_tick=24, seed=0,
-                static_members=True, collect_stats=True, peer_chunk=0,
-                active_rows=0)
+                static_members=True, collect_stats=True)
+DENSE = dict(peer_chunk=0, active_rows=0)
 
 
 def _device_us(evt) -> float:
@@ -47,6 +51,9 @@ def main() -> None:
     ap.add_argument("--ticks", type=int, default=16)
     ap.add_argument("--warm", type=int, default=8)
     ap.add_argument("--top", type=int, default=15)
+    ap.add_argument("--dense", action="store_true",
+                    help="pin peer counts and progress dense (peer_chunk=0, "
+                         "active_rows=0)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_tick: needs a CUDA card")
@@ -55,7 +62,8 @@ def main() -> None:
                           text=True, timeout=60, check=True).stdout.strip()
     print(card, flush=True)
 
-    cfg = sim.SimConfig(**{**HEADLINE, "n": args.n})
+    cfg = sim.SimConfig(**{**HEADLINE, "n": args.n,
+                           **(DENSE if args.dense else {})})
     st, ticks = sim.run_until_leader(sim.init_state(cfg), cfg,
                                      max_ticks=2000)
     if not bool(sim.has_leader(st)):
@@ -83,12 +91,14 @@ def main() -> None:
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     cuda_ops.reset_launches()
+    kernel.reset_counts()
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         st, _ = window(st)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     launches = cuda_ops.LAUNCHES["append_band_copy"]
+    counts = dict(kernel.COUNTS)
 
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -103,7 +113,10 @@ def main() -> None:
           f"wall, {device_us / 1e3:.3f} ms of kernels "
           f"({100 * device_us / wall_us:.1f}% busy under the profiler, "
           f"{100 * busy:.1f}% of the event-timed window); "
-          f"append_band_copy launches {launches}", flush=True)
+          f"append_band_copy launches {launches}; step host syncs "
+          f"{counts['host_syncs'] / args.ticks:.2f}/tick, slab ticks "
+          f"{counts['slab_ticks']}, dense-fallback ticks "
+          f"{counts['dense_fallback_ticks']}", flush=True)
     print("top kernels by self device time (µs per tick, calls per tick):")
     for e in sorted(kernels, key=_device_us, reverse=True)[:args.top]:
         print(f"  {_device_us(e) / args.ticks:10.1f}  "
@@ -115,13 +128,18 @@ def main() -> None:
               f"{e.count / args.ticks:7.1f}  {e.key[:100]}")
     print(json.dumps({
         "card": card, "n": args.n, "ticks": args.ticks,
+        "levers": {"peer_chunk": cfg.peer_chunk,
+                   "active_rows": cfg.active_rows},
         "election_ticks": ticks, "host_ms_per_tick": host_ms,
         "event_ms_per_tick": event_ms, "profiled_wall_ms": wall_us / 1e3,
         "kernel_ms": device_us / 1e3, "busy_share": busy,
         "busy_share_profiled": device_us / wall_us,
         "kernel_launches_per_tick": sum(e.count for e in kernels)
         / args.ticks,
-        "band_copy_launches": launches}), flush=True)
+        "band_copy_launches": launches,
+        "host_syncs_per_tick": counts["host_syncs"] / args.ticks,
+        "slab_ticks": counts["slab_ticks"],
+        "dense_fallback_ticks": counts["dense_fallback_ticks"]}), flush=True)
 
 
 if __name__ == "__main__":

@@ -1,0 +1,57 @@
+"""The port's bench entry (swarmkit_tpu_torch.tools.bench) on the CPU.
+
+A small run (n=64, a few thousand entries, 8-tick chunks, no secondary
+configurations) prints bench.py's JSON line with every key, passes its own
+safety check, and says what the port does not measure yet; without a card
+and without --device cpu it raises instead of running on the CPU.
+"""
+
+from __future__ import annotations
+
+import json
+
+import pytest
+import torch
+
+from swarmkit_tpu_torch.tools import bench
+
+KEYS = {"metric", "value", "unit", "vs_baseline", "election_ticks",
+        "election_s_incl_compile", "election_s_post_compile",
+        "safety_ok", "replicas_near_tip", "peak_bytes",
+        "configs_entries_per_s", "card", "device", "absent",
+        "ms_per_tick", "host_syncs_per_tick", "slab_ticks",
+        "dense_fallback_ticks", "warm_pass_s"}
+
+
+def test_cpu_run_prints_the_bench_line(capsys):
+    out = bench.main(["--device", "cpu", "--n", "64", "--entries", "4000",
+                      "--chunk-ticks", "8", "--no-configs"])
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line == json.loads(json.dumps(out))
+    assert KEYS <= set(line), KEYS - set(line)
+    assert "error" not in line
+    assert line["safety_ok"] is True
+    assert line["replicas_near_tip"] == 64
+    assert line["value"] > 0 and line["unit"] == "entries/s"
+    assert line["election_ticks"] > 0
+    # 8 timed ticks at n=64 > A=16: every steady tick on the slab, one
+    # host read-back each (the band probe carries the slab's fit)
+    assert line["slab_ticks"] == 8 and line["dense_fallback_ticks"] == 0
+    assert line["host_syncs_per_tick"] == 1.0
+    assert line["device"] == {"platform": "cpu", "kind": "cpu"}
+    assert line["card"] is None and line["peak_bytes"] is None
+    assert any("KernelObs" in a for a in line["absent"])
+    assert line["configs_entries_per_s"] == "skipped (--no-configs)"
+
+
+def test_election_tick_for_matches_bench_py():
+    import bench as jax_bench   # the repo's bench.py; imports no JAX at load
+    for n in (3, 16, 64, 256, 1024, 4096, 32768):
+        assert bench.election_tick_for(n) == jax_bench.election_tick_for(n)
+    assert bench.election_tick_for(4096) == 24
+
+
+def test_needs_a_card_unless_asked_for_the_cpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        bench.main(["--n", "64", "--entries", "100", "--no-configs"])

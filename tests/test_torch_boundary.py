@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import dataclasses
 import pathlib
 import re
 import subprocess
@@ -78,8 +79,6 @@ def test_entry_points_raise_without_a_card(monkeypatch):
     ("dynamic membership", dict(static_members=False)),
     ("mailbox wire", dict(latency=1, election_tick=14)),
     ("PreVote", dict(pre_vote=True)),
-    ("banded peer", dict(n=16, peer_chunk=8)),
-    ("role-sparse", dict(n=32, active_rows=8)),
     ("read path", dict(read_batch=2)),
     ("flight recorder", dict(record_events=True)),
     ("telemetry", dict(collect_telemetry=True)),
@@ -94,3 +93,19 @@ def test_unported_levers_raise(lever, kw):
     st = state.init_state(cfg, device="cpu")
     with pytest.raises(NotImplementedError, match=lever):
         kernel.step(st, cfg, device="cpu")
+
+
+def test_unported_lever_raises_with_both_ported_levers_on():
+    """Banded peers and role-sparse progress are ported; a lever still
+    unported raises by name with both of them on."""
+    cfg = state.SimConfig(n=32, log_len=1024, window=64, apply_batch=64,
+                          max_props=64, keep=32, peer_chunk=8,
+                          active_rows=8)
+    assert cfg.peer_tiled and cfg.active_rows_on
+    st = state.init_state(cfg, device="cpu")
+    with pytest.raises(NotImplementedError, match="dynamic membership"):
+        kernel.step(st, cfg, device="cpu")
+    st = kernel.step(state.init_state(
+        dataclasses.replace(cfg, static_members=True), device="cpu"),
+        dataclasses.replace(cfg, static_members=True), device="cpu")
+    assert int(st.tick) == 1

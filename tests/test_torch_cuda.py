@@ -114,6 +114,37 @@ def test_tick_on_the_card_matches_the_cpu(log_chunk):
     assert cuda_ops.LAUNCHES["append_band_copy"] > before
 
 
+@pytest.mark.cuda
+def test_levers_on_the_card_match_the_cpu():
+    """Banded peer counts and role-sparse progress through run_schedule,
+    with a storm window that overflows the slab: card and CPU equal on
+    every field, and the card took both the slab and the dense branch."""
+    _need_card()
+    from swarmkit_tpu_torch.raft.sim import kernel
+    cfg = sim.SimConfig(n=32, log_len=1024, window=64, apply_batch=64,
+                        max_props=64, keep=32, election_tick=10, seed=4,
+                        static_members=True, collect_stats=True,
+                        log_chunk=128, peer_chunk=8, active_rows=8)
+    rng = np.random.default_rng(11)
+    drop = rng.random((160, 32, 32)) < 0.03
+    drop[60:90] |= ~np.eye(32, dtype=bool)
+    alive = np.ones((160, 32), bool)
+    out, counts = {}, {}
+    for d in ("cuda", "cpu"):
+        kernel.reset_counts()
+        st, trace = sim.run_schedule(
+            sim.init_state(cfg, device=d), cfg, torch.from_numpy(drop).to(d),
+            torch.from_numpy(alive).to(d), prop_count=32, device=d)
+        out[d] = (sim.state_to_numpy(st), trace.cpu())
+        counts[d] = dict(kernel.COUNTS)
+    assert torch.equal(out["cuda"][1], out["cpu"][1])
+    for name, want in out["cpu"][0].items():
+        assert np.array_equal(out["cuda"][0][name], want), name
+    assert counts["cuda"] == counts["cpu"]
+    assert counts["cuda"]["slab_ticks"] > 0
+    assert counts["cuda"]["dense_fallback_ticks"] > 0
+
+
 def _matmul_tol(ref: torch.Tensor, k: int) -> float:
     top = float(ref.float().abs().max())
     if ref.dtype == torch.bfloat16:
