@@ -24,7 +24,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    every non-self edge drops, so the progress slab overflows and the
    dense fallback runs.  Every SimState field (active_ttl included) and
    every trace row equal, the kernel launched, and the card took both
-   progress branches (the counts are printed).
+   progress branches (the counts are printed).  Third, the mailbox wire
+   (latency 2, jitter 1, inflight 4) with PreVote, dynamic membership,
+   peer_chunk=64 and active_rows=16: 180 ticks, card and CPU in lockstep
+   with every field compared after every call, a follower removed through
+   propose_conf at tick 80 and re-added at 110, a storm at 140-169; both
+   progress branches on the card, the flips on every row.
 4. the main path at full width: the bench headline (n=4096, L=8192,
    window/apply/props 2048, keep 500, election_tick 24, static members,
    tiled log, and the SimConfig defaults that bench.py runs: banded peer
@@ -72,6 +77,26 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    which the wgmma kernel replaced on this path, is timed and checked on
    the same inputs, in turns with it.
 
+9. the mailbox path at full width: bench.py's
+   1024-mailbox-lat2-jitter1-inflight4 as measure() builds it (n=1024,
+   L=8192, window/apply/props 2048, keep 500, seed 7, election_tick 20,
+   latency 2, jitter 1, inflight 4, heartbeat_tick 1, static members, the
+   levers at their defaults: tiled log, one-pass counts, the [16, N]
+   progress slab): chunked election, 2 x 64 ticks of run_ticks, then 16
+   profiled ticks and 16 more counting the ticks whose leader had ring
+   room for a batch.  Prints election ticks/seconds, ms/tick (host clock
+   and CUDA events), entries/s, kernel launches and kernel ms per tick,
+   the device's busy share, step host syncs per tick, append_band_copy
+   launches, full-pass ring-write ticks and peak memory; checks exactly one leader, a commit advance,
+   checksum agreement, band-copy launches and at most one step host sync
+   per steady tick.  Then phase 5's check on this path: the band-copy
+   calls of one more mailbox tick, kernel against plain, exact.
+9b. the same shape with pre_vote=True and static_members=False: elect,
+   remove a follower through propose_conf until every other row's view
+   drops it, re-add it until every row's view holds it again (within 200
+   ticks each); prints the ticks each took and the step host syncs.
+   Phase 3 also runs this wire at n=256, card against CPU in lockstep.
+
 Before the last line it prints the kernels' JSON record and the card's
 `nvidia-smi` name/power line; the last line is the result JSON.  Without a
 CUDA card, or run from a directory that holds nothing else of the repo,
@@ -98,6 +123,13 @@ HEADLINE = dict(n=4096, log_len=8192, window=2048, apply_batch=2048,
                 max_props=2048, keep=500, election_tick=24, seed=0,
                 static_members=True, collect_stats=True)
 DENSE = dict(peer_chunk=0, active_rows=0)   # both lowerings pinned dense
+MAILBOX = dict(latency=2, latency_jitter=1, inflight=4)
+# bench.py's 1024-mailbox-lat2-jitter1-inflight4 as measure() builds it:
+# seed 7, election_tick_for(1024), the levers at their SimConfig defaults
+MAILBOX_PATH = dict(n=1024, log_len=8192, window=2048, apply_batch=2048,
+                    max_props=2048, keep=500, election_tick=20, seed=7,
+                    heartbeat_tick=1, static_members=True,
+                    collect_stats=True, **MAILBOX)
 
 
 def log(msg: str) -> None:
@@ -281,6 +313,84 @@ def phase_card_vs_cpu(torch, sim, cuda_ops, card: str = "cuda") -> None:
     check(int(trc[:, 1].max()) > 0, "nothing committed at n=256")
     log(f"  all {len(sg)} fields (active_ttl included) and {T} trace rows "
         f"equal; the card took both branches")
+    phase_mailbox_card_vs_cpu(torch, sim, card)
+
+
+def _member_flipped(st, target: int, removed: bool, rows) -> bool:
+    """Whether every row in `rows` sees `target` removed (or re-added)."""
+    col = st.member[:, target].cpu()[list(rows)]
+    return bool((~col).all() if removed else col.all())
+
+
+def phase_mailbox_card_vs_cpu(torch, sim, card: str) -> None:
+    """The mailbox wire with PreVote and dynamic membership at n=256, card
+    and CPU in lockstep, every field compared after every call: 2% drops,
+    a conf remove of a follower at tick 80 and its re-add at tick 110
+    through propose_conf, and a storm (every non-self edge dropped) at
+    ticks 140-169 so the dense fallback runs."""
+    cfg = sim.SimConfig(**{**HEADLINE, **MAILBOX, "n": 256, "pre_vote": True,
+                           "static_members": False, "peer_chunk": 64,
+                           "active_rows": 16})
+    T, n = 180, cfg.n
+    g = torch.Generator().manual_seed(5)
+    drop = torch.rand((T, n, n), generator=g) < 0.02
+    drop[140:170] |= ~torch.eye(n, dtype=torch.bool)
+    log(f"  mailbox (latency 2, jitter 1, inflight 4), PreVote, dynamic "
+        f"membership, peer_chunk=64, active_rows=16: {T} ticks in lockstep, "
+        f"conf remove at tick 80, re-add at 110, storm at ticks 140-169:")
+    states = {d: sim.init_state(cfg, device=d) for d in (card, "cpu")}
+    counts = {d: {k: 0 for k in sim.kernel.COUNTS} for d in states}
+    spent = {d: 0.0 for d in states}
+    target = None
+
+    def compare(tag):
+        got, want = (sim.state_to_numpy(states[d]) for d in (card, "cpu"))
+        check(sorted(got) == sorted(want), f"{tag}: field sets differ")
+        for name in want:
+            check((got[name] == want[name]).all(),
+                  f"{tag}: field {name} differs")
+        return len(want)
+
+    for t in range(T):
+        if t in (80, 110):
+            if target is None:
+                roles = states["cpu"].role.tolist()
+                target = next(i for i in range(n - 1, -1, -1)
+                              if roles[i] != sim.LEADER)
+            for d in states:
+                states[d] = sim.propose_conf(states[d], cfg, target, t == 80,
+                                             device=d)
+            compare(f"propose_conf at tick {t}")
+        for d in states:
+            sim.kernel.reset_counts()
+            t0 = time.perf_counter()
+            states[d] = sim.step(states[d], cfg, drop=drop[t].to(d),
+                                 prop_count=cfg.max_props,
+                                 payload_fn=sim.run._payload_at, device=d)
+            spent[d] += time.perf_counter() - t0
+            for k, v in sim.kernel.COUNTS.items():
+                counts[d][k] += v
+        fields = compare(f"tick {t}")
+        if t == 109:
+            flipped = _member_flipped(states["cpu"], target, True,
+                                      set(range(n)) - {target})
+            check(flipped, f"row {target}'s removal did not land on every "
+                  f"other row by tick 109")
+    check(_member_flipped(states["cpu"], target, False, range(n)),
+          f"row {target}'s re-add did not land on every row")
+    cc = counts[card]
+    log(f"  {card}: {spent[card]:.2f} s, cpu: {spent['cpu']:.2f} s; slab "
+        f"ticks {cc['slab_ticks']}, dense-fallback ticks "
+        f"{cc['dense_fallback_ticks']}, step host syncs {cc['host_syncs']}; "
+        f"commit {int(states['cpu'].commit.max())}, max term "
+        f"{int(states['cpu'].term.max())}")
+    check(counts[card] == counts["cpu"],
+          f"branch counts differ: {counts[card]} vs {counts['cpu']}")
+    check(cc["slab_ticks"] > 0 and cc["dense_fallback_ticks"] > 0,
+          f"the card did not take both progress branches: {cc}")
+    check(int(states["cpu"].commit.max()) > 0, "nothing committed")
+    log(f"  all {fields} fields equal after every call and tick; row "
+        f"{target} left every other row's view and came back to all")
 
 
 def _checksums_agree(sim, st) -> bool:
@@ -307,13 +417,8 @@ def _timed_ticks(torch, sim, cfg, st, ticks: int):
         int(sim.committed_entries(st)) - base
 
 
-def phase_headline(torch, sim, cuda_ops) -> dict:
-    cfg = sim.SimConfig(**HEADLINE)
-    check(cfg.peer_tiled and cfg.active_rows_on,
-          "the headline must run banded peers and role-sparse progress")
-    torch.cuda.reset_peak_memory_stats()
-    cuda_ops.reset_launches()
-    sim.kernel.reset_counts()
+def _elect(torch, sim, cfg, label: str):
+    """bench.py::measure's chunked election: (state, ticks, seconds)."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     st, ticks = sim.init_state(cfg), 0
@@ -321,8 +426,18 @@ def phase_headline(torch, sim, cuda_ops) -> dict:
         st, t = sim.run_until_leader(st, cfg, max_ticks=256)
         ticks += t
     torch.cuda.synchronize()
-    t_elect = time.perf_counter() - t0
-    check(bool(sim.has_leader(st)), "n=4096: no leader within 2000 ticks")
+    check(bool(sim.has_leader(st)), f"{label}: no leader within 2000 ticks")
+    return st, ticks, time.perf_counter() - t0
+
+
+def phase_headline(torch, sim, cuda_ops) -> dict:
+    cfg = sim.SimConfig(**HEADLINE)
+    check(cfg.peer_tiled and cfg.active_rows_on,
+          "the headline must run banded peers and role-sparse progress")
+    torch.cuda.reset_peak_memory_stats()
+    cuda_ops.reset_launches()
+    sim.kernel.reset_counts()
+    st, ticks, t_elect = _elect(torch, sim, cfg, "n=4096")
     elect_counts = dict(sim.kernel.COUNTS)
     log(f"  election: {ticks} ticks, {t_elect:.3f} s; slab ticks "
         f"{elect_counts['slab_ticks']}, dense-fallback ticks "
@@ -379,6 +494,144 @@ def phase_headline(torch, sim, cuda_ops) -> dict:
     return out
 
 
+def _device_window(torch, sim, cfg, st, ticks: int):
+    """`ticks` proposing ticks under torch.profiler: (state, kernel
+    launches per tick, kernel ms per tick)."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        st, _ = sim.run_ticks(st, cfg, ticks, prop_count=cfg.max_props)
+        torch.cuda.synchronize()
+    from swarmkit_tpu_torch.tools.profile_tick import _device_us
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    us = sum(_device_us(e) for e in kernels)
+    return st, sum(e.count for e in kernels) / ticks, us / 1e3 / ticks
+
+
+def phase_mailbox_path(torch, sim, cuda_ops) -> dict:
+    """bench.py's 1024-mailbox-lat2-jitter1-inflight4 at full width: the
+    chunked election, then 2 x 64 ticks of run_ticks(prop_count=2048),
+    then 16 more under the profiler (launches and kernel time per tick)."""
+    cfg = sim.SimConfig(**MAILBOX_PATH)
+    check(cfg.mailboxes and cfg.tiled and cfg.active_rows_on
+          and not cfg.peer_tiled,
+          "the mailbox path must run the mailbox wire, the tiled log and "
+          "the progress slab with one-pass counts")
+    torch.cuda.reset_peak_memory_stats()
+    cuda_ops.reset_launches()
+    sim.kernel.reset_counts()
+    st, ticks, t_elect = _elect(torch, sim, cfg, "n=1024 mailbox")
+    elect_counts = dict(sim.kernel.COUNTS)
+    log(f"  election: {ticks} ticks, {t_elect:.3f} s; slab ticks "
+        f"{elect_counts['slab_ticks']}, dense-fallback ticks "
+        f"{elect_counts['dense_fallback_ticks']}, step host syncs "
+        f"{elect_counts['host_syncs']}")
+    sim.kernel.reset_counts()
+    host_ms, event_ms, committed, t_run = [], [], 0, 0.0
+    for _ in range(2):
+        st, h, e, c = _timed_ticks(torch, sim, cfg, st, 64)
+        host_ms.append(h)
+        event_ms.append(e)
+        committed += c
+        t_run += h * 64 / 1e3
+    counts = dict(sim.kernel.COUNTS)
+    launches = cuda_ops.LAUNCHES["append_band_copy"]
+    # a banded tick launches the kernel once per band chunk, a full-pass
+    # tick once over the whole ring
+    n_ticks, bc = ticks + 128, cfg.band_chunks
+    full_pass, rem = divmod(bc * n_ticks - launches, bc - 1)
+    check(rem == 0 and 0 <= full_pass <= n_ticks,
+          f"{launches} launches in {n_ticks} ticks is not a mix of banded "
+          f"and full-pass ticks")
+    st, per_tick, kernel_ms = _device_window(torch, sim, cfg, st, 16)
+    # how often the leader's ring has room for a batch (_leader_ok): the
+    # protocol's own bound on this path's entries per tick
+    accepted = 0
+    for _ in range(16):
+        accepted += int(bool(sim.kernel._leader_ok(st, cfg).any()))
+        st, _ = sim.run_ticks(st, cfg, 1, prop_count=cfg.max_props)
+    n_leaders = int(sim.leader_mask(st).sum())
+    agree = _checksums_agree(sim, st)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    syncs = counts["host_syncs"] / 128
+    out = dict(election_ticks=ticks, election_s=t_elect,
+               ms_per_tick=host_ms, event_ms_per_tick=event_ms,
+               entries_per_s=committed / t_run, committed=committed,
+               band_copy_launches=launches, ring_full_pass_ticks=full_pass,
+               kernel_launches_per_tick=per_tick,
+               kernel_ms_per_tick=kernel_ms,
+               busy_share=kernel_ms / (sum(event_ms) / 2),
+               host_syncs_per_tick=syncs, peak_gib=peak,
+               proposals_accepted_of_16=accepted,
+               slab_ticks=counts["slab_ticks"],
+               dense_fallback_ticks=counts["dense_fallback_ticks"])
+    log(f"  run_ticks 2x64: ms/tick (host clock) {host_ms[0]:.3f} / "
+        f"{host_ms[1]:.3f}, (CUDA events) {event_ms[0]:.3f} / "
+        f"{event_ms[1]:.3f}; committed {committed} entries, "
+        f"{committed / t_run:.1f} entries/s")
+    log(f"  steady 128 ticks: step host syncs {syncs:.3f}/tick, slab ticks "
+        f"{counts['slab_ticks']}, dense-fallback ticks "
+        f"{counts['dense_fallback_ticks']}; 16 profiled ticks: "
+        f"{per_tick:.1f} kernel launches/tick, {kernel_ms:.3f} ms of "
+        f"kernels/tick, busy share {out['busy_share']:.3f} of the "
+        f"CUDA-event tick; the leader took a proposal batch on "
+        f"{accepted} of 16 more ticks")
+    log(f"  append_band_copy launches {launches} over {n_ticks} ticks; "
+        f"full-pass ring-write ticks {full_pass}; peak device memory "
+        f"{peak:.3f} GiB")
+    check(n_leaders == 1, f"expected exactly one leader, got {n_leaders}")
+    check(committed > 0, "commit did not advance")
+    check(agree, "rows with equal applied disagree on apply_chk")
+    check(launches > 0, "the mailbox path never launched append_band_copy")
+    check(syncs <= 1.0, f"{syncs} step host syncs per steady tick")
+    out["state"] = st
+    return out
+
+
+def phase_dynamic_members(torch, sim) -> dict:
+    """The mailbox path's shape with PreVote and dynamic membership: a
+    follower removed through propose_conf must leave every other row's
+    view, and re-added, come back to every row's."""
+    cfg = sim.SimConfig(**{**MAILBOX_PATH, "pre_vote": True,
+                           "static_members": False})
+    sim.kernel.reset_counts()
+    st, ticks, t_elect = _elect(torch, sim, cfg, "n=1024 dynamic")
+    n = cfg.n
+    roles = st.role.tolist()
+    target = next(i for i in range(n - 1, -1, -1) if roles[i] != sim.LEADER)
+    t0, spent = time.perf_counter(), {}
+    for removed in (True, False):
+        st = sim.propose_conf(st, cfg, target, removed)
+        rows = set(range(n)) - {target} if removed else range(n)
+        spent[removed] = 0
+        while spent[removed] < 200 \
+                and not _member_flipped(st, target, removed, rows):
+            st, _ = sim.run_ticks(st, cfg, 4, prop_count=cfg.max_props)
+            spent[removed] += 4
+        check(_member_flipped(st, target, removed, rows),
+              f"row {target}'s {'removal' if removed else 're-add'} did not "
+              f"land within 200 ticks")
+    torch.cuda.synchronize()
+    counts = dict(sim.kernel.COUNTS)
+    all_ticks = ticks + spent[True] + spent[False]
+    out = dict(election_ticks=ticks, election_s=t_elect, target=target,
+               remove_ticks=spent[True], readd_ticks=spent[False],
+               seconds=time.perf_counter() - t0,
+               host_syncs_per_tick=counts["host_syncs"] / all_ticks,
+               slab_ticks=counts["slab_ticks"],
+               dense_fallback_ticks=counts["dense_fallback_ticks"])
+    log(f"  election {ticks} ticks in {t_elect:.3f} s; row {target} left "
+        f"every other row's view within {spent[True]} ticks and was back "
+        f"on every row within {spent[False]} more ({out['seconds']:.3f} "
+        f"s); step host syncs {out['host_syncs_per_tick']:.3f}/tick "
+        f"(election included), slab ticks {counts['slab_ticks']}, "
+        f"dense-fallback ticks {counts['dense_fallback_ticks']}")
+    check(int(sim.leader_mask(st).sum()) == 1, "not exactly one leader")
+    check(_checksums_agree(sim, st), "checksums disagree")
+    return out
+
+
 def phase_lever_ab(torch, sim, st) -> dict:
     """64-tick chunks of the headline dense and with the bench's levers, in
     turns (dense, levers, levers, dense, twice), continuing one state.  A
@@ -417,9 +670,9 @@ def phase_lever_ab(torch, sim, st) -> dict:
     return out
 
 
-def phase_main_path_inputs(torch, sim, cuda_ops, st) -> dict:
-    """Time the kernel on the inputs one more headline tick gives it."""
-    cfg = sim.SimConfig(**HEADLINE)
+def _record_band_copies(torch, sim, cuda_ops, cfg, st) -> list:
+    """The band-copy calls of one more proposing tick, with their inputs
+    as the tick gave them."""
     calls = []
     launch = cuda_ops.append_band_copy
 
@@ -434,19 +687,48 @@ def phase_main_path_inputs(torch, sim, cuda_ops, st) -> dict:
     finally:
         cuda_ops.append_band_copy = launch
     torch.cuda.synchronize()
-    check(len(calls) > 0, "the timing tick made no band-copy call")
+    check(len(calls) > 0, "the recorded tick made no band-copy call")
+    return calls
+
+
+def _kernel_vs_plain(torch, cuda_ops, call) -> int:
+    """max |kernel - plain| of one recorded band-copy call."""
+    lt, ld, off, s_t, s_d, w = call
+    kt, kd, pt, pd = lt.clone(), ld.clone(), lt.clone(), ld.clone()
+    cuda_ops.append_band_copy(kt, kd, off, s_t, s_d, w)
+    cuda_ops.append_band_copy_plain(pt, pd, off, s_t, s_d, w)
+    torch.cuda.synchronize()
+    return max(int((kt.long() - pt.long()).abs().max()),
+               int((kd.long() - pd.long()).abs().max()))
+
+
+def phase_mailbox_inputs(torch, sim, cuda_ops, st) -> int:
+    """The kernel against its plain version on one mailbox-path tick's
+    calls; returns the largest |diff|."""
+    calls = _record_band_copies(torch, sim, cuda_ops,
+                                sim.SimConfig(**MAILBOX_PATH), st)
+    err = max(_kernel_vs_plain(torch, cuda_ops, c) for c in calls)
+    log(f"  {len(calls)} band-copy calls of one mailbox tick (chunks "
+        f"{[c[2] for c in calls]}, {sum(int(c[5].sum()) for c in calls)} "
+        f"slots written): max|kernel - plain| = {err}")
+    check(err == 0, f"kernel != plain on the mailbox path's inputs ({err})")
+    return err
+
+
+def phase_main_path_inputs(torch, sim, cuda_ops, st) -> dict:
+    """Time the kernel on the inputs one more headline tick gives it."""
+    launch = cuda_ops.append_band_copy
+    calls = _record_band_copies(torch, sim, cuda_ops,
+                                sim.SimConfig(**HEADLINE), st)
     err = 0
     times = {"kernel": [], "plain": [], "library": []}
     bound = []
-    for lt, ld, off, s_t, s_d, w in calls:
+    for call in calls:
+        lt, ld, off, s_t, s_d, w = call
         c = w.shape[1]
+        err = max(err, _kernel_vs_plain(torch, cuda_ops, call))
         kt, kd = lt.clone(), ld.clone()
         pt, pd = lt.clone(), ld.clone()
-        launch(kt, kd, off, s_t, s_d, w)
-        cuda_ops.append_band_copy_plain(pt, pd, off, s_t, s_d, w)
-        torch.cuda.synchronize()
-        err = max(err, int((kt.long() - pt.long()).abs().max()),
-                  int((kd.long() - pd.long()).abs().max()))
         ct, cd = lt[:, off:off + c], ld[:, off:off + c]
 
         def run_kernel():
@@ -786,14 +1068,26 @@ def main() -> int:
     log("phase 8: matmul and sumsq on the executor path's inputs")
     f8 = phase_float_kernels_on_path(torch, cuda_ops, task.pop("a"))
 
+    log("phase 9: the mailbox path at full width (bench.py's "
+        "1024-mailbox-lat2-jitter1-inflight4)")
+    cuda_ops.reset_launches()
+    mbox = phase_mailbox_path(torch, sim, cuda_ops)
+    mbox_launches = mbox["band_copy_launches"]
+    err9 = phase_mailbox_inputs(torch, sim, cuda_ops, mbox.pop("state"))
+    log("phase 9b: the same shape with PreVote and dynamic membership, a "
+        "follower removed and re-added through propose_conf")
+    dyn = phase_dynamic_members(torch, sim)
+
     log("summary " + json.dumps({"card": card, **head, "lever_ab": ab,
                                  "band_copy_calls_per_tick": k["calls"],
-                                 "task": task}))
+                                 "task": task, "mailbox": mbox,
+                                 "dynamic_members": dyn}))
     records = [{
         "name": "append_band_copy", "route": "cuda",
         "source": "swarmkit_tpu_torch/csrc/band_copy.cu",
         "replaces": "swarmkit_tpu/parallel/pallas_ops.py:174",
-        "launches": head["launches"], "max_abs_err": max(err2, k["err"]),
+        "launches": head["launches"], "mailbox_launches": mbox_launches,
+        "max_abs_err": max(err2, k["err"], err9),
         "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
         "bound_by": "bytes", "library_ms": k["library_ms"]}]
     for name, line, bound_by in (("matmul", 76, "operations"),

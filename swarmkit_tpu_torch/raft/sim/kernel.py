@@ -13,11 +13,20 @@ phase for phase so every SimState field matches it bit for bit:
 - progress integration, leader-transfer completion, Phase D commit bisect;
 - Phase E apply + checksum, Phase F ring-pressure compaction.
 
-This slice implements the configuration of the bench's headline: the
-tick-synchronous wire and static membership, with or without the tiled log,
-the fused propose, banded peer counts (cfg.peer_tiled) and role-sparse
-progress (cfg.active_rows_on).  `check_slice` raises NotImplementedError for
-every other lever.
+Two wires share the delivery path, as in the JAX package: the
+tick-synchronous wire (cfg.latency == 0) and the device-mailbox wire
+(cfg.mailboxes), whose per-edge in-flight slots hold vote requests and
+responses, a K-deep append pipeline (cfg.inflight), snapshot slots,
+heartbeats with their responses and append acks, each delivered after its
+edge's latency plus hash jitter.  PreVote (cfg.pre_vote) and log-driven
+membership (static_members=False: CONF entries flip each row's view of
+`member` at its own apply point; every quorum counts over the deciding
+row's view) are implemented too, with the host `propose` / `propose_conf`
+APIs.  Every one of these is Python-gated exactly as in JAX, so the bench
+headline (sync wire, static members) runs the same ops as before.  The
+levers `check_slice` names (the read path, the flight recorder, telemetry,
+trace tags, the storage model, the vote guard, transfer cooldown) raise
+NotImplementedError.
 
 As in the JAX package, the per-peer progress work runs in two segments,
 `_progress_a` (Phase A's matrix tail, Phase B, Phase C's send/deliver half)
@@ -44,12 +53,14 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 
 from swarmkit_tpu_torch.parallel import cuda_ops
 from swarmkit_tpu_torch.raft.sim import u32
 from swarmkit_tpu_torch.raft.sim.state import (
-    CANDIDATE, FOLLOWER, LEADER, NONE, SimConfig, SimState, check_device,
+    CANDIDATE, CONF_REMOVE, CONF_TARGET_MASK, FOLLOWER, LEADER, NONE,
+    SimConfig, SimState, check_device, conf_payload, latency_at,
     rand_timeout,
 )
 
@@ -80,10 +91,6 @@ def check_slice(cfg: SimConfig) -> None:
     """Raise NotImplementedError for a config lever this port does not yet
     implement, naming it (rather than silently ignoring it)."""
     levers = (
-        (not cfg.static_members, "dynamic membership (static_members=False)"),
-        (cfg.mailboxes, "the mailbox wire (latency/latency_jitter/"
-                        "force_mailboxes)"),
-        (cfg.pre_vote, "PreVote (pre_vote=True)"),
         (cfg.read_batch > 0, "the read path (read_batch > 0)"),
         (cfg.record_events, "the flight recorder (record_events=True)"),
         (cfg.collect_telemetry, "telemetry (collect_telemetry=True)"),
@@ -133,6 +140,11 @@ def _term_own(cfg, log_term, snap_idx, snap_term, last, idx):
                        torch.where(in_ring, ring, 0))
 
 
+def _is_conf(data: torch.Tensor) -> torch.Tensor:
+    """Conf-change entries carry CONF_TAG, bit 31: a negative int32."""
+    return data < 0
+
+
 def _entry_chk(idx: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
     """Order-independent checksum contribution of one entry, unsigned form
     (data is uint32 bits)."""
@@ -175,15 +187,23 @@ def _count(mask: torch.Tensor, dim: int) -> torch.Tensor:
     return mask.sum(dim, dtype=I32)
 
 
-def _pcount(cfg: SimConfig, band: Callable, banded: bool) -> torch.Tensor:
+def _pcount(cfg: SimConfig, band: Callable, banded: bool,
+            mem: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Per-row int32 count of the peers j where `band(j0, w)`, the [R, w]
-    predicate over columns [j0, j0 + w), is true.
+    predicate over columns [j0, j0 + w), is true; with `mem` (the [R, N]
+    membership views of the deciding rows) only peers in the row's view
+    count, the view folded into each band.
 
     One pass over all n columns; or, when `banded`, one [R, peer_chunk]
     column band at a time with the band counts summed, so no temporary is
     wider than peer_chunk (the JAX package's _pcount, whose fori_loop over
     bands is a Python loop over column views here).  Integer sums commute:
     both forms give the same bits."""
+    if mem is not None:
+        pred = band
+
+        def band(j0, w):
+            return pred(j0, w) & mem[:, j0:j0 + w]
     if not banded:
         return _count(band(0, cfg.n), 1)
     pc = cfg.peer_chunk
@@ -205,11 +225,13 @@ class _Rows:
 
     def __init__(self, cfg: SimConfig, node: torch.Tensor, eye: torch.Tensor,
                  drop: torch.Tensor, drop_t: torch.Tensor,
+                 member: torch.Tensor, now: torch.Tensor,
                  idx: Optional[torch.Tensor] = None):
-        self.n = cfg.n
+        self.cfg, self.n, self.node, self.now = cfg, cfg.n, node, now
         self.dense = idx is None
         self.banded = cfg.peer_tiled and self.dense
         self.idx = idx
+        self._lat = None
         if self.dense:
             self.ids, self.eye, self.drop, self.drop_t = node, eye, drop, drop_t
         else:
@@ -217,15 +239,46 @@ class _Rows:
             self.eye = self.ids[:, None] == node[None, :]
             # drop_t[idx] is drop[:, idx].T, gathered as contiguous rows
             self.drop, self.drop_t = drop[idx], drop_t[idx]
+        self.set_member(member)
+
+    def set_member(self, member: torch.Tensor) -> None:
+        """The segment's rows of the membership views (None under static
+        membership, where every view is all rows and folds away)."""
+        self.member_r = None if self.cfg.static_members else self.g(member)
+
+    def mview(self, x: torch.Tensor) -> torch.Tensor:
+        """Mask a segment matrix by the deciding rows' views."""
+        return x if self.member_r is None else x & self.member_r
+
+    def count(self, band: Callable) -> torch.Tensor:
+        """_pcount over the segment's rows, in their views."""
+        return _pcount(self.cfg, band, self.banded, self.member_r)
+
+    def lat(self) -> tuple:
+        """(lat, lat_T): the latency of this tick's sends from and to the
+        segment's rows, [R, N] (latency_matrix and its transpose, rebuilt
+        for the slab's rows); computed once per segment instance."""
+        if self._lat is None:
+            cfg, now, node = self.cfg, self.now, self.node
+            if self.dense:
+                lat = latency_at(cfg, now, node[:, None], node[None, :])
+                self._lat = (lat, lat.T)
+            else:
+                self._lat = (latency_at(cfg, now, self.ids[:, None],
+                                        node[None, :]),
+                             latency_at(cfg, now, node[None, :],
+                                        self.ids[:, None]))
+        return self._lat
 
     def g(self, x: torch.Tensor) -> torch.Tensor:
-        """The segment's rows of a row-indexed [N] or [N, N] operand."""
+        """The segment's rows of a row-indexed [N], [N, N] or [N, N, K]
+        operand."""
         return x if self.dense else x[self.idx]
 
     def merge(self, full: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
-        """A segment's matrix output as the full [N, N] matrix: the slab's
-        rows are written into `full` in place (the dense output already is
-        the full matrix)."""
+        """A segment's matrix output as the full [N, N(, K)] tensor: the
+        slab's rows are written into `full` in place (the dense output
+        already is the full tensor)."""
         return rows if self.dense else full.index_copy_(0, self.idx, rows)
 
     def sfull(self, vals: torch.Tensor, fill) -> torch.Tensor:
@@ -296,7 +349,11 @@ def step(state: SimState, cfg: SimConfig,
     rides the same read-back; only on a tick where they do not (an election
     storm) is the segment recomputed on the dense rows and the band read
     again.  An untiled sparse config reads the fit alone before the
-    segment.  COUNTS records the syncs and the branch taken.
+    segment.  Under dynamic membership a tiled config also picks the
+    end-of-tick conf-gate scan's band from that same read (a superset of
+    the band JAX computes at the end of the tick; see the probe), so the
+    mailbox wire, PreVote and membership add no sync.  COUNTS records the
+    syncs and the branch taken.
     """
     check_slice(cfg)
     dev = check_device(state, device)
@@ -332,9 +389,18 @@ def step(state: SimState, cfg: SimConfig,
         prop_anchor = prop_last0 + prop_cnt
         last = last + torch.where(prop_ok, prop_cnt, 0).to(I32)
 
-    # static membership: every view is all rows, quorum is a constant
-    self_mem = torch.ones((n,), dtype=torch.bool, device=dev)
-    quorum = n // 2 + 1
+    # Per-row membership views: every quorum counts over the deciding row's
+    # applied configuration.  Under static membership every view is all
+    # rows and the quorum a constant, and every view mask folds away.
+    static_m = cfg.static_members
+    mail = cfg.mailboxes
+    member = state.member
+    if static_m:
+        self_mem = torch.ones((n,), dtype=torch.bool, device=dev)
+        quorum = n // 2 + 1
+    else:
+        self_mem = torch.diagonal(member)
+        quorum = member.sum(1, dtype=I32) // 2 + 1               # [N]
 
     # ---- Phase A: timers ----------------------------------------------
     is_leader = (role == LEADER) & alive
@@ -357,18 +423,19 @@ def step(state: SimState, cfg: SimConfig,
     # puts the active rows first in ascending order, so slab tie-breaks
     # (lowest row wins) match the dense ones.
     sparse_on = cfg.active_rows_on
-    dense_rows = _Rows(cfg, node, eye, drop, drop_t)
+    dense_rows = _Rows(cfg, node, eye, drop, drop_t, member, now)
     if sparse_on:
         sp_act = (role != FOLLOWER) | (state.active_ttl > 0) \
             | (alive & self_mem & (elapsed >= timeout)) | (state.tn_at > 0)
         sp_fits = sp_act.sum(dtype=I32) <= cfg.active_rows
         sp_rows = torch.argsort((~sp_act).to(I32),
                                 stable=True)[:cfg.active_rows]
-        slab_rows = _Rows(cfg, node, eye, drop, drop_t, sp_rows)
+        slab_rows = _Rows(cfg, node, eye, drop, drop_t, member, now,
+                          sp_rows)
 
     def _progress_a(sl: _Rows, term=term, vote=vote, role=role, lead=lead,
                     elapsed=elapsed, contact=contact, timeout=timeout,
-                    pre=pre, last=last, is_leader=is_leader,
+                    pre=pre, last=last, commit=commit, is_leader=is_leader,
                     hb_elapsed=hb_elapsed, pending_conf=pending_conf):
         """Progress segment 1: Phase A's matrix tail (CheckQuorum count,
         campaign tally resets), Phase B and Phase C's send/deliver half, on
@@ -376,9 +443,10 @@ def step(state: SimState, cfg: SimConfig,
         only row-indexed matrices go through `sl`.  Sender-axis reductions
         are exact on the slab because every sender row is active and
         padding rows reduce at the identity under the same role masks.
-        Returns [N] vectors and the segment's matrices (slabs on a slab);
-        writes nothing in place."""
+        Returns [N] vectors and the segment's matrices and mailbox slots
+        (slabs on a slab); writes nothing in place."""
         g, eye_r = sl.g, sl.eye
+        out = {}
         match, next_ = g(state.match), g(state.next_)
         granted, rejected = g(state.granted), g(state.rejected)
         recent_active = g(state.recent_active)
@@ -390,9 +458,9 @@ def step(state: SimState, cfg: SimConfig,
         # a quorum since the last round, else steps down
         check_due = is_leader & (elapsed >= cfg.election_tick)
         if cfg.check_quorum:
-            n_heard = sl.sfull(_pcount(
-                cfg, lambda j0, w: recent_active[:, j0:j0 + w]
-                | sl.eye_cols(j0, w), sl.banded), 0)
+            n_heard = sl.sfull(sl.count(
+                lambda j0, w: recent_active[:, j0:j0 + w]
+                | sl.eye_cols(j0, w)), 0)
             cq_fail = check_due & (n_heard < quorum)
             role = torch.where(cq_fail, FOLLOWER, role)
             lead = torch.where(cq_fail, NONE, lead)
@@ -414,18 +482,25 @@ def step(state: SimState, cfg: SimConfig,
         term = torch.where(tn_ok & (tn_term > term), tn_term, term)
         tn_at = torch.where(tn_due, 0, tn_at)
 
-        # election timeouts -> campaigns (hup_conf is all-False under
-        # static membership, kept for parity with the reference's gate)
+        # election timeouts -> campaigns; the HUP step refuses to campaign
+        # while a conf entry sits committed but unapplied (hup_conf, the
+        # previous tick's end scan; all-False under static membership)
         want_campaign = (alive & self_mem & (role != LEADER)
                          & (elapsed >= timeout)) & ~tn_ok
         elapsed = torch.where(want_campaign, 0, elapsed)
         campaign = want_campaign & ~state.hup_conf
-        term = term + campaign.to(I32)
-        vote = torch.where(campaign, node, vote)
-        role = torch.where(campaign, CANDIDATE, role)
-        lead = torch.where(campaign, NONE, lead)
-        timeout = torch.where(campaign, rand_timeout(cfg, node, term),
-                              timeout)
+        if cfg.pre_vote:
+            # becomePreCandidate: a non-binding poll, no term bump, no vote
+            # change, the known leader kept; only the tallies reset
+            pre = torch.where(campaign, True, pre)
+            role = torch.where(campaign, CANDIDATE, role)
+        else:
+            term = term + campaign.to(I32)
+            vote = torch.where(campaign, node, vote)
+            role = torch.where(campaign, CANDIDATE, role)
+            lead = torch.where(campaign, NONE, lead)
+            timeout = torch.where(campaign, rand_timeout(cfg, node, term),
+                                  timeout)
         granted = torch.where(g(campaign)[:, None], eye_r, granted)
         rejected = torch.where(g(campaign)[:, None], False, rejected)
         tx_cand = tx_cand & ~campaign
@@ -450,11 +525,91 @@ def step(state: SimState, cfg: SimConfig,
             leased = (lead != NONE) & (contact < cfg.election_tick)
         else:
             leased = torch.zeros((n,), dtype=torch.bool, device=dev)
-        req = g(is_cand)[:, None] & alive[None, :] & ~eye_r & ~sl.drop \
-            & (~leased[None, :] | g(tx_cand)[:, None]) & ~g(pre)[:, None]
+        if mail:
+            # Device-mailbox wire: one in-flight message per class per
+            # directed edge; *_at stores the deliver tick + 1 (0 = empty).
+            # Drops act at send, the receiver's guards at delivery.
+            lat, lat_T = sl.lat()
+            vreq_at, vreq_term = g(state.vreq_at), g(state.vreq_term)
+            vreq_pre = g(state.vreq_pre)
+            vresp_at, vresp_term = g(state.vresp_at), g(state.vresp_term)
+            vresp_grant, vresp_pre = g(state.vresp_grant), g(state.vresp_pre)
+            term_r, pre_r = g(term)[:, None], g(pre)[:, None]
+            # candidates (re-)request on every edge with no message of the
+            # same candidacy (term, pre) in flight, to peers in their view
+            free = (vreq_at == 0) | (vreq_term != term_r) \
+                | (vreq_pre != pre_r)
+            send_vr = sl.mview(g(is_cand)[:, None] & ~eye_r & ~sl.drop
+                               & free)
+            vreq_at = torch.where(send_vr, now + 1 + lat, vreq_at)
+            vreq_term = torch.where(send_vr, term_r, vreq_term)
+            vreq_pre = torch.where(send_vr, pre_r, vreq_pre)
+            # deliveries: a request whose sender left the captured
+            # candidacy vanishes
+            due_vr = (vreq_at > 0) & (now + 1 >= vreq_at)
+            deliv = due_vr & (g(role)[:, None] == CANDIDATE) \
+                & (term_r == vreq_term) & (pre_r == vreq_pre) \
+                & alive[None, :] & (~leased[None, :] | g(tx_cand)[:, None])
+            req = deliv & ~pre_r
+            preq = deliv & pre_r
+            vreq_at = torch.where(due_vr, 0, vreq_at)
+        else:
+            base_req = sl.mview(
+                g(is_cand)[:, None] & alive[None, :] & ~eye_r & ~sl.drop
+                & (~leased[None, :] | g(tx_cand)[:, None]))
+            req = base_req & ~g(pre)[:, None]
+            if cfg.pre_vote:
+                preq = base_req & g(pre)[:, None]
         lt_i, lt_j = g(last_term)[:, None], last_term[None, :]
         log_ok = (lt_i > lt_j) \
             | ((lt_i == lt_j) & (g(last)[:, None] >= last[None, :]))
+
+        if cfg.pre_vote:
+            # PreVote exchange, before the real votes, against the
+            # receiver's pre-catch-up state; a grant changes nothing on the
+            # receiver
+            term_r = g(term)[:, None]
+            pv_term = torch.where(preq, term_r + 1, -1)          # msg term
+            pv_cur = preq & (pv_term >= term[None, :])
+            pv_can = (vote[None, :] == NONE) | (pv_term > term[None, :]) \
+                | (vote[None, :] == sl.ids[:, None])
+            pv_grant = pv_cur & pv_can & log_ok
+            # a rejection counts only at the candidacy's own term
+            pv_reject = pv_cur & ~pv_grant & (term[None, :] == term_r)
+            pre_cand = is_cand & pre
+            if mail:
+                send_pv = (pv_grant | pv_reject) & ~sl.drop_t
+                vresp_at = torch.where(send_pv, now + 1 + lat_T, vresp_at)
+                vresp_term = torch.where(send_pv, term_r, vresp_term)
+                vresp_pre = torch.where(send_pv, True, vresp_pre)
+                vresp_grant = torch.where(send_pv, pv_grant, vresp_grant)
+                due_pv = (vresp_at > 0) & (now + 1 >= vresp_at) & vresp_pre
+                rv_pv = due_pv & g(pre_cand)[:, None] \
+                    & (term_r == vresp_term)
+                granted = granted | (rv_pv & vresp_grant)
+                rejected = rejected | (rv_pv & ~vresp_grant)
+                vresp_at = torch.where(due_pv, 0, vresp_at)
+                pv_polled = sl.sfull(rv_pv.any(1), False)
+            else:
+                pv_arrive = ~sl.drop_t & g(pre_cand)[:, None]
+                granted = granted | (pv_grant & pv_arrive)
+                rejected = rejected | (pv_reject & pv_arrive)
+                pv_polled = sl.sfull(((pv_grant | pv_reject) & pv_arrive)
+                                     .any(1), False)
+            # pre-quorum -> the real campaign, on poll events only
+            votes_pv = sl.sfull(sl.count(
+                lambda j0, w: granted[:, j0:j0 + w]), 0)
+            pre_win = pre_cand & (votes_pv >= quorum) \
+                & (campaign | pv_polled)
+            term = term + pre_win.to(I32)
+            vote = torch.where(pre_win, node, vote)
+            pre = torch.where(pre_win, False, pre)
+            lead = torch.where(pre_win, NONE, lead)
+            elapsed = torch.where(pre_win, 0, elapsed)
+            timeout = torch.where(pre_win, rand_timeout(cfg, node, term),
+                                  timeout)
+            granted = torch.where(g(pre_win)[:, None], eye_r, granted)
+            rejected = torch.where(g(pre_win)[:, None], False, rejected)
 
         # receiver-side term catch-up
         req_term = torch.where(req, g(term)[:, None], -1)
@@ -476,21 +631,47 @@ def step(state: SimState, cfg: SimConfig,
         grant_mat = grantable & (sl.ids[:, None] == chosen_cand[None, :])
         vote = torch.where(any_grant, chosen_cand, vote)
         elapsed = torch.where(any_grant, 0, elapsed)
-        real_cand = is_cand & ~pre
-        resp_arrive = grant_mat & ~sl.drop_t
-        granted = granted | (resp_arrive & g(real_cand)[:, None])
-        reject_arrive = cur & ~grant_mat & ~sl.drop_t
-        rejected = rejected | (reject_arrive & g(real_cand)[:, None])
-        polled = sl.sfull(((resp_arrive | reject_arrive)
-                           & g(real_cand)[:, None]).any(1), False)
+        if mail:
+            # responses ride the reverse edge; one already in flight there
+            # is superseded
+            send_vresp = cur & ~sl.drop_t
+            vresp_at = torch.where(send_vresp, now + 1 + lat_T, vresp_at)
+            vresp_term = torch.where(send_vresp, term[None, :], vresp_term)
+            vresp_pre = torch.where(send_vresp, False, vresp_pre)
+            vresp_grant = torch.where(send_vresp, grant_mat, vresp_grant)
+            due_vs = (vresp_at > 0) & (now + 1 >= vresp_at)
+            rvalid = due_vs & g(is_cand)[:, None] \
+                & (g(term)[:, None] == vresp_term) \
+                & (g(pre)[:, None] == vresp_pre)
+            granted = granted | (rvalid & vresp_grant)
+            rejected = rejected | (rvalid & ~vresp_grant)
+            vresp_at = torch.where(due_vs, 0, vresp_at)
+            polled = sl.sfull((rvalid & ~vresp_pre).any(1), False)
+            out.update(vreq_at=vreq_at, vreq_term=vreq_term,
+                       vreq_pre=vreq_pre, vresp_at=vresp_at,
+                       vresp_term=vresp_term, vresp_grant=vresp_grant,
+                       vresp_pre=vresp_pre)
+        else:
+            real_cand = is_cand & ~pre
+            resp_arrive = grant_mat & ~sl.drop_t
+            granted = granted | (resp_arrive & g(real_cand)[:, None])
+            reject_arrive = cur & ~grant_mat & ~sl.drop_t
+            rejected = rejected | (reject_arrive & g(real_cand)[:, None])
+            polled = sl.sfull(((resp_arrive | reject_arrive)
+                               & g(real_cand)[:, None]).any(1), False)
 
-        fresh_real = tn_ok | campaign
-        votes = sl.sfull(_pcount(cfg, lambda j0, w: granted[:, j0:j0 + w],
-                                 sl.banded), 0)
+        # win/lose count only peers in the candidate's own view, and only
+        # on poll events (candidacy start or a response arrival)
+        if cfg.pre_vote:
+            fresh_real = tn_ok | pre_win
+            polled = polled | pv_polled
+        else:
+            fresh_real = tn_ok | campaign
+        votes = sl.sfull(sl.count(lambda j0, w: granted[:, j0:j0 + w]), 0)
         win = is_cand & ~pre & (votes >= quorum) & (fresh_real | polled)
-        n_rej = sl.sfull(_pcount(
-            cfg, lambda j0, w: rejected[:, j0:j0 + w]
-            & ~granted[:, j0:j0 + w], sl.banded), 0)
+        n_rej = sl.sfull(sl.count(
+            lambda j0, w: rejected[:, j0:j0 + w]
+            & ~granted[:, j0:j0 + w]), 0)
         lose = is_cand & ~win & (n_rej >= quorum) & (fresh_real | polled)
         role = torch.where(lose, FOLLOWER, role)
         lead = torch.where(lose, NONE, lead)
@@ -506,18 +687,141 @@ def step(state: SimState, cfg: SimConfig,
         next_ = torch.where(g(win)[:, None], (g(last) + 1)[:, None], next_)
         match = torch.where(g(win)[:, None], 0, match)
         recent_active = torch.where(g(win)[:, None], eye_r, recent_active)
+        if mail:
+            # becomeLeader resets every Progress to StateProbe
+            probing = torch.where(g(win)[:, None], True, g(state.probing))
         noop_term = term   # the winner's candidacy term, captured here
         last = last + win.to(I32)
         is_leader = (role == LEADER) & alive
         match = torch.where(g(win)[:, None] & eye_r, g(last)[:, None], match)
 
         # ---- Phase C: append / snapshot fan-out ----------------------------
-        prev_mat = next_ - 1
-        can_ring = prev_mat >= g(snap_idx)[:, None]
-        send_base = g(is_leader)[:, None] & alive[None, :] & ~eye_r \
-            & ~sl.drop
-        send_app = send_base & can_ring
-        send_snap = send_base & ~can_ring
+        if mail:
+            K, kh_idx = cfg.inflight, torch.arange(
+                cfg.ack_depth, dtype=I32, device=dev)[None, None]
+            k_idx = torch.arange(K, dtype=I32, device=dev)[None, None]
+            app_at, app_prev = g(state.app_at), g(state.app_prev)
+            app_term_box = g(state.app_term)
+            snp_at, snp_term_box = g(state.snp_at), g(state.snp_term)
+            term_e = g(term)[:, None]          # sender term per edge
+            term_k = term_e[:, :, None]        # per slot
+            # sends: up to K appends pipeline per edge, one new message a
+            # tick; replicate edges send only when there is content, probe
+            # edges one (possibly empty) append at a time, and next_
+            # advances optimistically in replicate state
+            free_k = (app_at == 0) | (app_term_box != term_k)    # [R, N, K]
+            any_free = free_k.any(2)
+            slot_sel = _first_true(free_k, 2)
+            onehot = slot_sel[:, :, None] == k_idx
+            inflight_same = ((app_at != 0) & (app_term_box == term_k)).any(2)
+            snp_free = (snp_at == 0) | (snp_term_box != term_e)
+            prev_send = next_ - 1
+            can_ring_send = prev_send >= g(snap_idx)[:, None]
+            has_new = next_ <= g(last)[:, None]
+            send_base = sl.mview(g(is_leader)[:, None] & ~eye_r & ~sl.drop) \
+                & snp_free
+            may = torch.where(probing, ~inflight_same, has_new)
+            s_app = send_base & can_ring_send & any_free & may
+            s_snp = send_base & ~can_ring_send
+            put = s_app[:, :, None] & onehot
+            app_at = torch.where(put, (now + 1 + lat)[:, :, None], app_at)
+            app_prev = torch.where(put, prev_send[:, :, None], app_prev)
+            app_term_box = torch.where(put, term_k, app_term_box)
+            n_send = torch.clamp(g(last)[:, None] - prev_send, 0, W)
+            next_ = torch.where(s_app & has_new & ~probing, next_ + n_send,
+                                next_)
+            snp_at = torch.where(s_snp, now + 1 + lat, snp_at)
+            snp_term_box = torch.where(s_snp, term_e, snp_term_box)
+
+            # heartbeats every heartbeat_tick, carrying the commit captured
+            # at send as min(match, commit)
+            hb_at_box, hb_term_box = g(state.hb_at), g(state.hb_term)
+            hb_commit_box = g(state.hb_commit)
+            hbr_at_box, hbr_term_box = g(state.hbr_at), g(state.hbr_term)
+            hb_due_send = is_leader & (hb_elapsed >= cfg.heartbeat_tick)
+            hb_elapsed = torch.where(hb_due_send, 0, hb_elapsed)
+            send_hb = sl.mview(g(hb_due_send)[:, None] & ~eye_r & ~sl.drop)
+            hb_slot = _first_true(hb_at_box == 0, 2)
+            put_hb = send_hb[:, :, None] & (hb_slot[:, :, None] == kh_idx)
+            hb_at_box = torch.where(put_hb, (now + 1 + lat)[:, :, None],
+                                    hb_at_box)
+            hb_term_box = torch.where(put_hb, term_k, hb_term_box)
+            hb_commit_box = torch.where(
+                put_hb, torch.minimum(match, g(commit)[:, None])[:, :, None],
+                hb_commit_box)
+
+            # heartbeat deliveries, before the appends' (a higher-term one
+            # demotes first); every due heartbeat integrates, stale ones
+            # (sender no longer the leader of the captured term) vanish
+            due_hb = (hb_at_box > 0) & (now + 1 >= hb_at_box)
+            valid_hb = due_hb & (g(role)[:, None, None] == LEADER) \
+                & (hb_term_box == term_k) & alive[None, :, None]
+            hb_at_box = torch.where(due_hb, 0, hb_at_box)
+            mt_hb = torch.where(valid_hb, hb_term_box, -1).amax(dim=(0, 2))
+            newer_hb = mt_hb > term
+            term = torch.where(newer_hb, mt_hb, term)
+            role = torch.where(newer_hb, FOLLOWER, role)
+            vote = torch.where(newer_hb, NONE, vote)
+            lead = torch.where(newer_hb, NONE, lead)
+            elapsed = torch.where(newer_hb, 0, elapsed)
+            timeout = torch.where(newer_hb, rand_timeout(cfg, node, term),
+                                  timeout)
+            cur_hb = valid_hb & (hb_term_box == term[None, :, None])
+            cur_hb_e = cur_hb.any(2)
+            got_hb = cur_hb_e.any(0)
+            src_hb = sl.row_of(_first_true(cur_hb_e, 0), got_hb)
+            role = torch.where(got_hb & (role == CANDIDATE), FOLLOWER, role)
+            lead = torch.where(got_hb, src_hb, lead)
+            elapsed = torch.where(got_hb, 0, elapsed)
+            contact = torch.where(got_hb, 0, contact)
+            # commit_to(min(m.commit, last)) per message, as a max
+            hbc = torch.where(cur_hb, hb_commit_box, -1).amax(dim=(0, 2))
+            commit = torch.where(
+                got_hb, torch.maximum(commit, torch.minimum(hbc, last)),
+                commit)
+            # one response per edge per tick
+            send_hbr = cur_hb_e & ~sl.drop_t
+            hbr_slot = _first_true(hbr_at_box == 0, 2)
+            put_hbr = send_hbr[:, :, None] & (hbr_slot[:, :, None] == kh_idx)
+            hbr_at_box = torch.where(put_hbr, (now + 1 + lat_T)[:, :, None],
+                                     hbr_at_box)
+            hbr_term_box = torch.where(put_hbr, term[None, :, None],
+                                       hbr_term_box)
+            term_k = g(term)[:, None, None]   # heartbeats may have caught
+            term_e = g(term)[:, None]         # senders up
+
+            # append deliveries: at most one per edge per tick, the
+            # deliverable one with the smallest prev; the sender must still
+            # be the same-term leader, and a prev compacted since send is
+            # undeliverable
+            due_k = (app_at > 0) & (now + 1 >= app_at)
+            valid_k = due_k & (g(role)[:, None, None] == LEADER) \
+                & (app_term_box == term_k) & alive[None, :, None] \
+                & (app_prev >= g(snap_idx)[:, None, None])
+            key = torch.where(valid_k, app_prev, BIG)
+            sel_prev = key.amin(2)
+            sel_slot = _first_true(key == sel_prev[:, :, None], 2)
+            send_app = valid_k.any(2)
+            taken = send_app[:, :, None] & (sel_slot[:, :, None] == k_idx)
+            # clear the delivered slot and every due-but-invalid one
+            app_at = torch.where(taken | (due_k & ~valid_k), 0, app_at)
+            due_s = (snp_at > 0) & (now + 1 >= snp_at)
+            send_snap = due_s & (g(role)[:, None] == LEADER) \
+                & (term_e == snp_term_box) & alive[None, :]
+            prev_mat = sel_prev
+            snp_at = torch.where(due_s, 0, snp_at)
+            out.update(probing=probing, app_at=app_at, app_prev=app_prev,
+                       app_term=app_term_box, snp_at=snp_at,
+                       snp_term=snp_term_box, hb_at=hb_at_box,
+                       hb_term=hb_term_box, hb_commit=hb_commit_box,
+                       hbr_at=hbr_at_box, hbr_term=hbr_term_box)
+        else:
+            prev_mat = next_ - 1
+            can_ring = prev_mat >= g(snap_idx)[:, None]
+            send_base = sl.mview(g(is_leader)[:, None] & alive[None, :]
+                                 & ~eye_r & ~sl.drop)
+            send_app = send_base & can_ring
+            send_snap = send_base & ~can_ring
         msg_term = torch.where(send_app | send_snap, g(term)[:, None], -1)
         mt2 = msg_term.amax(0)
         newer2 = mt2 > term
@@ -543,9 +847,10 @@ def step(state: SimState, cfg: SimConfig,
         is_leader = (role == LEADER) & alive
         sel_l = src_sel.to(torch.int64)
         return dict(
+            out,
             term=term, vote=vote, role=role, lead=lead, elapsed=elapsed,
             contact=contact, hb_elapsed=hb_elapsed, timeout=timeout,
-            pre=pre, last=last, pending_conf=pending_conf,
+            pre=pre, last=last, commit=commit, pending_conf=pending_conf,
             campaign=campaign, tn_ok=tn_ok, transferee=transferee,
             tn_at=tn_at, tn_term=tn_term, tn_from=tn_from, tx_cand=tx_cand,
             win=win, noop_term=noop_term, is_leader=is_leader,
@@ -578,7 +883,8 @@ def step(state: SimState, cfg: SimConfig,
         term, vote, role = oa["term"], oa["vote"], oa["role"]
         lead, elapsed, contact = oa["lead"], oa["elapsed"], oa["contact"]
         hb_elapsed, timeout, pre = oa["hb_elapsed"], oa["timeout"], oa["pre"]
-        last, pending_conf = oa["last"], oa["pending_conf"]
+        last, commit, pending_conf = (oa["last"], oa["commit"],
+                                      oa["pending_conf"])
         campaign, tn_ok, transferee = (oa["campaign"], oa["tn_ok"],
                                        oa["transferee"])
         tn_at, tn_term, tn_from = oa["tn_at"], oa["tn_term"], oa["tn_from"]
@@ -683,6 +989,20 @@ def step(state: SimState, cfg: SimConfig,
         if fused_prop:
             probe += [torch.where(prop_ok, prop_last0, BIG).amin(),
                       torch.where(prop_ok, prop_anchor, 0).amax()]
+        if not static_m:
+            # The end-of-tick conf-gate scans' band, bounded from here: a
+            # row's end-of-tick (applied, last] lies inside (pre-tick
+            # applied, gate_hi] (applied only grows; last ends at most at
+            # the append's or the restore's end).  Any band covering every
+            # such row gives the full scan's bits, so a fit of this
+            # superset picks the banded scan exactly.
+            gate_hi = torch.maximum(last, torch.maximum(
+                torch.where(got_app, hi, 0),
+                torch.where(do_restore, snap_src, 0)))
+            gate_work = gate_hi > applied
+            gate_at = len(probe)
+            probe += [torch.where(gate_work, applied, BIG).amin(),
+                      torch.where(gate_work, gate_hi, 0).amax()]
         if not sl.dense:
             probe.append(sp_fits)
         host = _read_back(probe)
@@ -695,6 +1015,12 @@ def step(state: SimState, cfg: SimConfig,
     granted = sl.merge(state.granted, oa["granted"])
     rejected = sl.merge(state.rejected, oa["rejected"])
     recent_active = sl.merge(state.recent_active, oa["recent_active"])
+    if mail:
+        boxes = {f: sl.merge(getattr(state, f), oa[f]) for f in (
+            "probing", "vreq_at", "vreq_term", "vreq_pre", "vresp_at",
+            "vresp_term", "vresp_grant", "vresp_pre", "app_at", "app_prev",
+            "app_term", "snp_at", "snp_term", "hb_at", "hb_term",
+            "hb_commit", "hbr_at", "hbr_term")}
 
     def prop_write(lt, ld, new_idx):
         """The fused propose's stores into a chunk or full view (in place):
@@ -778,6 +1104,11 @@ def step(state: SimState, cfg: SimConfig,
     snap_term = torch.where(do_restore, snap_term[src_l], snap_term)
     snap_chk = torch.where(do_restore, snap_chk[src_l], snap_chk)
     snap_idx = torch.where(do_restore, snap_src, snap_idx)
+    if not static_m:
+        # the snapshot carries the sender's configuration; the second
+        # segment counts in the views as they stand after it
+        member = torch.where(do_restore[:, None], member[src_l], member)
+        sl.set_member(member)
 
     # responses back to senders (j -> i), may be dropped
     resp_match = torch.where(stale & got_app, commit0,
@@ -791,33 +1122,122 @@ def step(state: SimState, cfg: SimConfig,
                     tn_term=tn_term, tn_from=tn_from):
         """Progress segment 2: ack folds, progress integration, transfer
         completion and the Phase D bisect, on the rows `sl` (the branch
-        segment 1 took).  Returns the segment's matrices (slabs on a slab),
-        [N] vectors, `mci` (the bisect's result; a row outside the slab
-        reports its own commit, a no-advance) and `got_resp` (rows that
-        received a response, for active_ttl)."""
+        segment 1 took).  Returns the segment's matrices and mailbox slots
+        (slabs on a slab), [N] vectors, `mci` (the bisect's result; a row
+        outside the slab reports its own commit, a no-advance) and
+        `got_resp` (rows that received a response, for active_ttl)."""
         g, eye_r = sl.g, sl.eye
         match, next_, recent_active = g(match), g(next_), g(recent_active)
-        arrive_back = ~sl.drop_t & (sl.ids[:, None] == src[None, :]) \
-            & g(is_leader)[:, None] & has_lmsg[None, :]
-        ok_mat = arrive_back & resp_ok[None, :]
-        rej_mat = arrive_back & resp_reject[None, :]
-        got_resp = sl.sfull((ok_mat | rej_mat).any(1), False) \
-            if sparse_on else None
+        out = {}
+        if mail:
+            lat, lat_T = sl.lat()
+            probing = g(boxes["probing"])
+            app_at, app_prev = g(boxes["app_at"]), g(boxes["app_prev"])
+            app_term_box = g(boxes["app_term"])
+            snp_at, snp_term_box = g(boxes["snp_at"]), g(boxes["snp_term"])
+            hbr_at_box, hbr_term_box = g(boxes["hbr_at"]), g(boxes["hbr_term"])
+            aresp_at, aresp_term = g(state.aresp_at), g(state.aresp_term)
+            aresp_match, aresp_ok = g(state.aresp_match), g(state.aresp_ok)
+            kr_idx = torch.arange(cfg.ack_depth, dtype=I32,
+                                  device=dev)[None, None]
+            term_r, term_k = g(term)[:, None], g(term)[:, None, None]
+            # ack enqueue into the first free of ack_depth slots (one
+            # always is: acks arrive once per tick per edge and live at
+            # most latency + jitter ticks)
+            send_ar = (sl.ids[:, None] == src[None, :]) & has_lmsg[None, :] \
+                & ~sl.drop_t
+            wslot = _first_true(aresp_at == 0, 2)
+            put_r = send_ar[:, :, None] & (wslot[:, :, None] == kr_idx)
+            aresp_at = torch.where(put_r, (now + 1 + lat_T)[:, :, None],
+                                   aresp_at)
+            aresp_term = torch.where(put_r, term[None, :, None], aresp_term)
+            aresp_ok = torch.where(put_r, resp_ok[None, :, None], aresp_ok)
+            aresp_match = torch.where(
+                put_r, torch.where(resp_reject, reject_hint,
+                                   resp_match)[None, :, None], aresp_match)
+            # deliveries: every due ack integrates, aggregated (ok: max
+            # match; reject: min hint, applied after the ok advance)
+            due_r = (aresp_at > 0) & (now + 1 >= aresp_at)
+            val_r = due_r & g(is_leader)[:, None, None] \
+                & (term_k == aresp_term)
+            ok_k = val_r & aresp_ok
+            rej_k = val_r & ~aresp_ok
+            ok_mat, rej_mat = ok_k.any(2), rej_k.any(2)
+            resp_match_del = torch.where(ok_k, aresp_match, -1).amax(2)
+            reject_hint_del = torch.where(rej_k, aresp_match, BIG).amin(2)
+            aresp_at = torch.where(due_r, 0, aresp_at)
+        else:
+            arrive_back = ~sl.drop_t & (sl.ids[:, None] == src[None, :]) \
+                & g(is_leader)[:, None] & has_lmsg[None, :]
+            ok_mat = arrive_back & resp_ok[None, :]
+            rej_mat = arrive_back & resp_reject[None, :]
+        got_resp = (ok_mat | rej_mat).any(1) if sparse_on else None
+        # any response marks the peer recently active; progress follows
+        # only peers in the leader's view
         recent_active = recent_active | ok_mat | rej_mat
-        match = torch.where(ok_mat, torch.maximum(match, resp_match[None, :]),
-                            match)
-        next_ = torch.where(ok_mat,
-                            torch.maximum(next_, (resp_match + 1)[None]),
-                            next_)
-        # probe decrement (coarse): jump next back to the hint
-        next_ = torch.where(rej_mat, torch.clamp(
-            torch.minimum(next_ - 1, (reject_hint + 1)[None, :]), min=1),
-            next_)
+        ok_mat, rej_mat = sl.mview(ok_mat), sl.mview(rej_mat)
+        if mail:
+            # a match advance on a probing edge enters replicate with
+            # next = match + 1 exactly
+            to_repl = ok_mat & (resp_match_del > match) & probing
+            match = torch.where(ok_mat, torch.maximum(match, resp_match_del),
+                                match)
+            next_ = torch.where(
+                to_repl, resp_match_del + 1,
+                torch.where(ok_mat, torch.maximum(next_, resp_match_del + 1),
+                            next_))
+            probing = probing & ~to_repl
+            next_ = torch.where(rej_mat, torch.clamp(
+                torch.minimum(next_ - 1, reject_hint_del + 1), min=1), next_)
+            # becomeProbe on rejection; the edge's same-term pipelined
+            # appends are flushed and the backtracked probe goes out now
+            probing = probing | rej_mat
+            app_at = torch.where(
+                rej_mat[:, :, None] & (app_term_box == term_k), 0, app_at)
+            snp_busy = (snp_at != 0) & (snp_term_box == term_r)
+            prev_rs = next_ - 1
+            rs = sl.mview(rej_mat & g(is_leader)[:, None] & ~eye_r
+                          & ~sl.drop & ~snp_busy
+                          & (prev_rs >= g(snap_idx)[:, None]))
+            free_rs = (app_at == 0) | (app_term_box != term_k)
+            rslot = _first_true(free_rs, 2)
+            put_rs = rs[:, :, None] & (rslot[:, :, None] == torch.arange(
+                cfg.inflight, dtype=I32, device=dev)[None, None])
+            app_at = torch.where(put_rs, (now + 1 + lat)[:, :, None], app_at)
+            app_prev = torch.where(put_rs, prev_rs[:, :, None], app_prev)
+            app_term_box = torch.where(put_rs, term_k, app_term_box)
+            # heartbeat responses: liveness only
+            due_hbr = (hbr_at_box > 0) & (now + 1 >= hbr_at_box)
+            val_hbr = (due_hbr & g(is_leader)[:, None, None]
+                       & (term_k == hbr_term_box)).any(2)
+            recent_active = recent_active | val_hbr
+            hbr_at_box = torch.where(due_hbr, 0, hbr_at_box)
+            if sparse_on:
+                got_resp = got_resp | val_hbr.any(1)
+            out.update(probing=probing, app_at=app_at, app_prev=app_prev,
+                       app_term=app_term_box, aresp_at=aresp_at,
+                       aresp_term=aresp_term, aresp_match=aresp_match,
+                       aresp_ok=aresp_ok, hbr_at=hbr_at_box)
+        else:
+            match = torch.where(ok_mat,
+                                torch.maximum(match, resp_match[None, :]),
+                                match)
+            next_ = torch.where(ok_mat,
+                                torch.maximum(next_, (resp_match + 1)[None]),
+                                next_)
+            # probe decrement (coarse): jump next back to the hint
+            next_ = torch.where(rej_mat, torch.clamp(
+                torch.minimum(next_ - 1, (reject_hint + 1)[None, :]), min=1),
+                next_)
+        if sparse_on:
+            got_resp = sl.sfull(got_resp, False)
 
         # leader transfer completion: fire TIMEOUT_NOW once the target
-        # caught up
+        # caught up (a target outside the leader's view never fires)
         tgt = torch.clamp(transferee, 0, n - 1).to(torch.int64)
         has_tx = is_leader & (transferee != NONE) & (tgt != node_l)
+        if not static_m:
+            has_tx = has_tx & member.gather(1, tgt[:, None])[:, 0]
         tgt_r = g(tgt)
         caught = g(has_tx) \
             & (match.gather(1, tgt_r[:, None])[:, 0] == g(last))
@@ -825,27 +1245,35 @@ def step(state: SimState, cfg: SimConfig,
             & ~sl.drop.gather(1, tgt_r[:, None])[:, 0]
         send_tn = want_tn[:, None] & (tgt_r[:, None] == node_l[None, :])
         any_tn = send_tn.any(0)
-        tn_src = sl.row_of(_first_true(send_tn, 0), any_tn)  # lowest leader
-        tn_at = torch.where(any_tn, now + 1, tn_at)
+        tn_sel = _first_true(send_tn, 0)
+        tn_src = sl.row_of(tn_sel, any_tn)       # lowest leader
+        if mail:
+            tn_lat = lat.gather(1, tgt_r[:, None])[:, 0]
+            tn_at = torch.where(any_tn, now + 1 + tn_lat[tn_sel.to(
+                torch.int64)], tn_at)
+        else:
+            tn_at = torch.where(any_tn, now + 1, tn_at)
         tn_term = torch.where(any_tn, term[tn_src.to(torch.int64)], tn_term)
         tn_from = torch.where(any_tn, tn_src, tn_from)
 
         # ---- Phase D: leader commit (quorum on the match row) ------------
-        # the largest X in (commit, last] acked by a quorum, by a
-        # fixed-depth bisection instead of a sort of the match plane
+        # the largest X in (commit, last] acked by a quorum of the row's
+        # view, by a fixed-depth bisection instead of a sort of the match
+        # plane
         match = torch.where(g(is_leader)[:, None] & eye_r, g(last)[:, None],
                             match)
+        q_row = quorum if static_m else g(quorum)
         lo, hi_b = g(commit), g(last)
         for _ in range(max(1, L.bit_length() + 1)):
             mid = (lo + hi_b + 1) >> 1
-            cnt = _pcount(cfg, lambda j0, w: match[:, j0:j0 + w]
-                          >= mid[:, None], sl.banded)
-            ok = (cnt >= quorum) & (hi_b >= mid) & (mid > lo)
+            cnt = sl.count(lambda j0, w: match[:, j0:j0 + w] >= mid[:, None])
+            ok = (cnt >= q_row) & (hi_b >= mid) & (mid > lo)
             lo = torch.where(ok, mid, lo)
             hi_b = torch.where(ok, hi_b, mid - 1)
         mci = lo if sl.dense else commit.index_copy(0, sl.idx, lo)
-        return dict(match=match, next_=next_, recent_active=recent_active,
-                    tn_at=tn_at, tn_term=tn_term, tn_from=tn_from, mci=mci,
+        return dict(out, match=match, next_=next_,
+                    recent_active=recent_active, tn_at=tn_at,
+                    tn_term=tn_term, tn_from=tn_from, mci=mci,
                     got_resp=got_resp)
 
     ob = _progress_b(sl)
@@ -854,12 +1282,21 @@ def step(state: SimState, cfg: SimConfig,
     recent_active = sl.merge(recent_active, ob["recent_active"])
     tn_at, tn_term, tn_from = ob["tn_at"], ob["tn_term"], ob["tn_from"]
     mci = ob["mci"]
+    if mail:
+        for f in ("probing", "app_at", "app_prev", "app_term", "hbr_at"):
+            boxes[f] = sl.merge(boxes[f], ob[f])
+        for f in ("aresp_at", "aresp_term", "aresp_match", "aresp_ok"):
+            boxes[f] = sl.merge(getattr(state, f), ob[f])
     # commit fold, outside the segments (mci_term is a ring read)
     mci_term = _term_own(cfg, log_term, snap_idx, snap_term, last, mci)
     can_commit = is_leader & (mci > commit) & (mci_term == term)
     commit = torch.where(can_commit, mci, commit)
 
     # ---- Phase E: apply + checksum ---------------------------------------
+    # Conf entries activate here, at each row's own apply point; the batch
+    # stops AT the first conf entry, so at most one membership flip lands
+    # per row per tick.  (Static membership has no conf entries: propose
+    # masks the tag bit and propose_conf refuses.)
     base_applied = torch.minimum(commit, applied + cfg.apply_batch)
     new_applied = torch.where(alive, base_applied, applied)  # crashed: frozen
     if cfg.tiled:
@@ -868,15 +1305,52 @@ def step(state: SimState, cfg: SimConfig,
         aidx = applied[:, None] + 1 \
             + torch.arange(cfg.apply_batch, dtype=I32, device=dev)[None]
         avals = log_data.gather(1, _slot(cfg, aidx))
-        chk = torch.where(aidx <= new_applied[:, None],
-                          _entry_chk(aidx, avals), 0)
+        in_win = aidx <= new_applied[:, None]
+        if not static_m:
+            first_conf = torch.where(in_win & _is_conf(avals), aidx,
+                                     BIG).amin(1)
+            in_win = in_win & (aidx <= first_conf[:, None])
+        chk = torch.where(in_win, _entry_chk(aidx, avals), 0)
     else:
         own_idx = _idx_at_slots(cfg, last)
         app_mask = (own_idx > applied[:, None]) \
             & (own_idx <= new_applied[:, None])
+        if not static_m:
+            first_conf = torch.where(app_mask & _is_conf(log_data), own_idx,
+                                     BIG).amin(1)
+            app_mask = app_mask & (own_idx <= first_conf[:, None])
         chk = torch.where(app_mask, _entry_chk(own_idx, log_data), 0)
     apply_chk = u32.to_bits(u32.unsigned(apply_chk) + u32.wrap_sum(chk, 1))
+    if not static_m:
+        has_conf = first_conf < BIG
+        new_applied = torch.minimum(new_applied, first_conf)
     applied = new_applied
+
+    if not static_m:
+        # decode and apply the (single) conf entry at new_applied
+        cslot = _slot(cfg, torch.where(has_conf, first_conf, 1))
+        cdata = log_data.gather(1, cslot[:, None])[:, 0]
+        ctgt = torch.clamp(cdata & CONF_TARGET_MASK, 0, n - 1)
+        c_rm = (cdata & CONF_REMOVE) != 0
+        tgt_onehot = node[None, :] == ctgt[:, None]
+        was_member = member.gather(1, ctgt.to(torch.int64)[:, None])[:, 0]
+        newly_added = has_conf & ~c_rm & ~was_member
+        member = torch.where(has_conf[:, None] & tgt_onehot, ~c_rm[:, None],
+                             member)
+        # add_node starts a fresh Progress (next = last + 1, match 0,
+        # recently active, probing) on every row; a re-add of a member
+        # keeps its progress
+        reset_pr = newly_added[:, None] & tgt_onehot
+        match = torch.where(reset_pr, 0, match)
+        next_ = torch.where(reset_pr, (last + 1)[:, None], next_)
+        recent_active = torch.where(reset_pr, True, recent_active)
+        if mail:
+            boxes["probing"] = torch.where(reset_pr, True, boxes["probing"])
+        # remove_node aborts a transfer to the removed peer; both clear the
+        # leader's propose gate
+        transferee = torch.where(has_conf & c_rm & (transferee == ctgt),
+                                 NONE, transferee)
+        pending_conf = pending_conf & ~has_conf
 
     # ---- Phase F: compaction (ring-pressure driven) ----------------------
     pressure = (last - snap_idx) > (L - 2 * cfg.max_props - 1)
@@ -917,6 +1391,36 @@ def step(state: SimState, cfg: SimConfig,
         active_ttl = torch.where(keep_hot, ttl_w,
                                  torch.clamp(state.active_ttl - 1, min=0))
 
+    # End-of-tick conf-gate scans for the next tick's Phase A/B: a conf
+    # entry committed but unapplied (hup_conf), or uncommitted (tail_conf).
+    if static_m:
+        hup_conf, tail_conf = state.hup_conf, state.tail_conf  # all-False
+    else:
+        def gates(ld, own_idx):
+            icr = _is_conf(ld)
+            hup = ((own_idx > applied[:, None]) & (own_idx <= commit[:, None])
+                   & icr).any(1)
+            tail = ((own_idx > commit[:, None]) & (own_idx <= last[:, None])
+                    & icr).any(1)
+            return hup, tail
+
+        gate_band = None
+        if cfg.tiled:
+            # the band read back with the ring write's probe (see there)
+            c0g, nch_g = _band_origin(cfg, host[gate_at], host[gate_at + 1])
+            if nch_g <= cfg.band_chunks:
+                gate_band = _band_offsets(cfg, c0g)
+        if gate_band is None:
+            hup_conf, tail_conf = gates(log_data, _idx_at_slots(cfg, last))
+        else:
+            C = cfg.log_chunk
+            hup_conf = tail_conf = None
+            for off in gate_band:
+                h, t = gates(log_data[:, off:off + C],
+                             _idx_at_band(cfg, last, off))
+                hup_conf = h if hup_conf is None else hup_conf | h
+                tail_conf = t if tail_conf is None else tail_conf | t
+
     stats = state.stats
     if cfg.collect_stats and stats is not None:
         inc = torch.stack([
@@ -935,8 +1439,9 @@ def step(state: SimState, cfg: SimConfig,
         match=match, next_=next_, granted=granted, rejected=rejected,
         recent_active=recent_active, pre=pre, transferee=transferee,
         tx_cand=tx_cand, tn_at=tn_at, tn_term=tn_term, tn_from=tn_from,
-        pending_conf=pending_conf, tick=state.tick + 1, stats=stats,
-        active_ttl=active_ttl)
+        member=member, pending_conf=pending_conf, hup_conf=hup_conf,
+        tail_conf=tail_conf, tick=state.tick + 1, stats=stats,
+        active_ttl=active_ttl, **(boxes if mail else {}))
 
 
 def propose_dense(state: SimState, cfg: SimConfig,
@@ -977,6 +1482,63 @@ def propose_dense(state: SimState, cfg: SimConfig,
     eye = torch.eye(cfg.n, dtype=torch.bool, device=lt.device)
     match = torch.where(ok[:, None] & eye, new_last[:, None], state.match)
     return dataclasses.replace(state, last=new_last, match=match)
+
+
+def propose(state: SimState, cfg: SimConfig, payloads, count, alive=None,
+            device=None) -> SimState:
+    """Append up to `count` host payload entries (payloads: [max_props]
+    uint32 values, array-like; bit 31 is reserved for conf entries and
+    masked off) to every row accepting proposals.  Writes the state's rings in place."""
+    check_slice(cfg)
+    dev = check_device(state, device)
+    n, count = cfg.n, int(count)
+    ok = _leader_ok(state, cfg, alive)
+    k = torch.arange(cfg.max_props, dtype=I32, device=dev)
+    valid = (k[None, :] < count) & ok[:, None]                   # [N, B]
+    slot = _slot(cfg, state.last[:, None] + 1 + k[None, :])
+    rows = torch.arange(n, device=dev)[:, None]
+    pl = u32.to_bits(torch.as_tensor(np.asarray(payloads, dtype=np.int64),
+                                     device=dev) & PAYLOAD_MASK)[None, :]
+    lt, ld = state.log_term, state.log_data
+    lt[rows, slot] = torch.where(valid, state.term[:, None], lt[rows, slot])
+    ld[rows, slot] = torch.where(valid, pl, ld[rows, slot])
+    new_last = state.last + torch.where(ok, count, 0).to(I32)
+    eye = torch.eye(n, dtype=torch.bool, device=dev)
+    match = torch.where(ok[:, None] & eye, new_last[:, None], state.match)
+    return dataclasses.replace(state, last=new_last, match=match)
+
+
+def propose_conf(state: SimState, cfg: SimConfig, target, remove,
+                 alive=None, device=None) -> SimState:
+    """Propose ONE membership change (add or remove `target`) to every row
+    accepting proposals, as a CONF entry that activates at each row's apply
+    point.  While an earlier conf change is in flight on that leader
+    (pending_conf), or for a target outside [0, n), the entry degrades to
+    an empty normal entry.  Writes the state's rings in place; raises on a
+    static_members config."""
+    if cfg.static_members:
+        raise ValueError("propose_conf on a static_members config: "
+                         "membership changes need static_members=False")
+    check_slice(cfg)
+    dev = check_device(state, device)
+    n, target, remove = cfg.n, int(target), bool(remove)
+    ok = _leader_ok(state, cfg, alive)
+    appended_conf = ok & ~state.pending_conf & (0 <= target < n)
+    bits = u32.to_bits(torch.tensor(conf_payload(target, remove)
+                                    if 0 <= target < n else 0))
+    payload = torch.where(appended_conf, bits.to(dev), 0)
+    rows = torch.arange(n, device=dev)
+    slot = _slot(cfg, state.last + 1)
+    lt, ld = state.log_term, state.log_data
+    lt[rows, slot] = torch.where(ok, state.term, lt[rows, slot])
+    ld[rows, slot] = torch.where(ok, payload, ld[rows, slot])
+    new_last = state.last + ok.to(I32)
+    eye = torch.eye(n, dtype=torch.bool, device=dev)
+    match = torch.where(ok[:, None] & eye, new_last[:, None], state.match)
+    return dataclasses.replace(
+        state, last=new_last, match=match,
+        pending_conf=state.pending_conf | appended_conf,
+        tail_conf=state.tail_conf | appended_conf)
 
 
 def transfer_leadership(state: SimState, cfg: SimConfig, leader: int,

@@ -14,7 +14,9 @@ SimConfig defaults (banded peer counts, role-sparse progress, tiled log)
 unless a configuration pins them.
 
 After the headline (n=4096, 1M entries, seed 42) come BASELINE.json's
-configs 3-5 (64-steady, 1024-crash-every-100, 4096-drop-5pct) and the two
+configs 3-5 (64-steady, 1024-crash-every-100, 4096-drop-5pct), the
+mailbox wire (1024-mailbox-lat2-jitter1-inflight4: latency 2, jitter 1,
+4 pipelined appends per edge, with its own safety line) and the two
 lowering A/B pairs (1024-densepeer: banded vs dense peer counts;
 4096-sparseprog: slab vs dense progress), seed 7, at the headline's entry
 count.  Prints the card's `nvidia-smi` name and power limit, then one JSON
@@ -41,7 +43,7 @@ from swarmkit_tpu_torch.device import resolve_device
 from swarmkit_tpu_torch.raft.sim import kernel
 from swarmkit_tpu_torch.raft.sim import (
     SimConfig, SimState, committed_entries, has_leader, init_state,
-    run_ticks, run_until_leader,
+    leader_mask, run_ticks, run_until_leader,
 )
 
 BASELINE_RATE = 1_000_000 / 60.0   # the north star: 1M entries in 60 s
@@ -76,16 +78,20 @@ def _clone(st: SimState) -> SimState:
 
 def measure(n: int, entries: int, seed: int, election_tick: int, dev,
             chunk: int = 64, peer_chunk: int | None = None,
-            active_rows: int | None = None, **run_kw) -> dict:
+            active_rows: int | None = None, latency: int = 0,
+            latency_jitter: int = 0, inflight: int = 1,
+            **run_kw) -> dict:
     """bench.py::measure on the port: elect, warm, re-elect, then time the
-    chunked replication of ~`entries` committed entries."""
+    chunked replication of ~`entries` committed entries.  latency,
+    latency_jitter and inflight pick the wire, as in bench.py."""
     levers = {k: v for k, v in (("peer_chunk", peer_chunk),
                                 ("active_rows", active_rows))
               if v is not None}
     cfg = SimConfig(n=n, log_len=8192, window=2048, apply_batch=2048,
                     max_props=2048, keep=500, seed=seed,
-                    election_tick=election_tick, static_members=True,
-                    collect_stats=True, **levers)
+                    election_tick=election_tick, latency=latency,
+                    latency_jitter=latency_jitter, inflight=inflight,
+                    static_members=True, collect_stats=True, **levers)
     ticks_needed = max(1, -(-entries // cfg.max_props))
     n_chunks = -(-ticks_needed // chunk)
 
@@ -156,9 +162,12 @@ def _secondary(args, dev, log) -> dict:
     """BASELINE configs 3-5 and the two lowering A/B pairs."""
     extra: dict = {}
 
-    def run(cn: int, **kw) -> float:
+    def measured(cn: int, **kw) -> dict:
         return measure(cn, args.entries, 7, election_tick_for(cn), dev,
-                       chunk=args.chunk_ticks, **kw)["rate"]
+                       chunk=args.chunk_ticks, **kw)
+
+    def run(cn: int, **kw) -> float:
+        return measured(cn, **kw)["rate"]
 
     for name, cn, kw in (("64-steady", 64, {}),
                          ("1024-crash-every-100", 1024,
@@ -166,6 +175,26 @@ def _secondary(args, dev, log) -> dict:
                          ("4096-drop-5pct", 4096, {"drop_rate": 0.05})):
         extra[name] = run(cn, **kw)
         log(f"config {name}: {extra[name]:,.1f} entries/s")
+    # the device-mailbox wire: per-edge latency 2 + jitter 1 with a 4-deep
+    # pipelined append window (vendor MaxInflightMsgs), under bench.py's
+    # own safety checks
+    name = "1024-mailbox-lat2-jitter1-inflight4"
+    m = measured(1024, latency=2, latency_jitter=1, inflight=4)
+    safety_ok, near_tip = _safety(m)
+    n_leaders = int(leader_mask(m["final"]).sum())
+    extra[name] = m["rate"]
+    extra[name + "_detail"] = {
+        "election_ticks": m["election_ticks"],
+        "election_s_post_compile": m["t_elect_post"],
+        "ms_per_tick": m["dt"] / m["timed_ticks"] * 1e3,
+        "host_syncs_per_tick": m["counts"]["host_syncs"] / m["timed_ticks"],
+        "leaders": n_leaders, "safety_ok": safety_ok,
+        "replicas_near_tip": near_tip}
+    if not safety_ok or n_leaders != 1 or near_tip < 1024 // 2 + 1:
+        extra[name + "_detail"]["error"] = "safety check failed"
+    log(f"config {name}: {m['rate']:,.1f} entries/s; "
+        f"{extra[name + '_detail']}")
+    del m
     pc = max(64, 1024 // 4)          # bench.py's band width at n=1024
     dense, banded = run(1024, peer_chunk=0), run(1024, peer_chunk=pc)
     extra["1024-densepeer"] = {"dense": dense, f"banded_pc{pc}": banded,
@@ -240,6 +269,11 @@ def main(argv=None) -> dict:
     del m
     result["configs_entries_per_s"] = "skipped (--no-configs)" \
         if args.no_configs else _secondary(args, dev, log)
+    if not args.no_configs and any(
+            isinstance(v, dict) and "error" in v
+            for v in result["configs_entries_per_s"].values()):
+        result.setdefault("error", "a secondary configuration failed its "
+                                   "safety check")
     print(json.dumps(result), flush=True)
     return result
 

@@ -1,13 +1,15 @@
 """Where a headline tick's time goes on the CUDA card.
 
-    python -m swarmkit_tpu_torch.tools.profile_tick [--n 4096] [--ticks 16]
-        [--dense]
+    python -m swarmkit_tpu_torch.tools.profile_tick [--n N] [--ticks 16]
+        [--dense] [--config headline|mailbox]
 
 Elects a leader at the bench headline configuration (n=4096 unless --n
 says otherwise; banded peer counts and role-sparse progress at their
 SimConfig defaults, as bench.py runs them, or both pinned dense with
---dense), warms up with proposing ticks, then runs --ticks ticks of
-run_ticks(prop_count=max_props) three ways:
+--dense), or with --config mailbox at bench.py's
+1024-mailbox-lat2-jitter1-inflight4 (n=1024, seed 7, election_tick 20,
+latency 2, jitter 1, inflight 4), warms up with proposing ticks, then
+runs --ticks ticks of run_ticks(prop_count=max_props) three ways:
 
 1. host clock around the window, ending in a synchronize: ms/tick;
 2. CUDA events around the same window: device ms/tick;
@@ -36,6 +38,11 @@ HEADLINE = dict(n=4096, log_len=8192, window=2048, apply_batch=2048,
                 max_props=2048, keep=500, election_tick=24, seed=0,
                 static_members=True, collect_stats=True)
 DENSE = dict(peer_chunk=0, active_rows=0)
+MAILBOX = dict(n=1024, log_len=8192, window=2048, apply_batch=2048,
+               max_props=2048, keep=500, election_tick=20, seed=7,
+               latency=2, latency_jitter=1, inflight=4, heartbeat_tick=1,
+               static_members=True, collect_stats=True)
+CONFIGS = {"headline": HEADLINE, "mailbox": MAILBOX}
 
 
 def _device_us(evt) -> float:
@@ -47,7 +54,10 @@ def _device_us(evt) -> float:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--n", type=int, default=HEADLINE["n"])
+    ap.add_argument("--config", choices=sorted(CONFIGS),
+                    default="headline")
+    ap.add_argument("--n", type=int, default=None,
+                    help="rows (default: the configuration's own)")
     ap.add_argument("--ticks", type=int, default=16)
     ap.add_argument("--warm", type=int, default=8)
     ap.add_argument("--top", type=int, default=15)
@@ -62,7 +72,8 @@ def main() -> None:
                           text=True, timeout=60, check=True).stdout.strip()
     print(card, flush=True)
 
-    cfg = sim.SimConfig(**{**HEADLINE, "n": args.n,
+    base = CONFIGS[args.config]
+    cfg = sim.SimConfig(**{**base, "n": args.n or base["n"],
                            **(DENSE if args.dense else {})})
     st, ticks = sim.run_until_leader(sim.init_state(cfg), cfg,
                                      max_ticks=2000)
@@ -108,7 +119,7 @@ def main() -> None:
     # kernel time per tick over the unprofiled device window: the share of
     # a normal tick the device is busy (the profiler stretches host gaps)
     busy = device_us / 1e3 / args.ticks / event_ms
-    print(f"n={args.n}: host {host_ms:.3f} ms/tick, device (events) "
+    print(f"{args.config} n={cfg.n}: host {host_ms:.3f} ms/tick, device (events) "
           f"{event_ms:.3f} ms/tick; profiled window {wall_us / 1e3:.3f} ms "
           f"wall, {device_us / 1e3:.3f} ms of kernels "
           f"({100 * device_us / wall_us:.1f}% busy under the profiler, "
@@ -127,7 +138,8 @@ def main() -> None:
         print(f"  {_device_us(e) / args.ticks:10.1f}  "
               f"{e.count / args.ticks:7.1f}  {e.key[:100]}")
     print(json.dumps({
-        "card": card, "n": args.n, "ticks": args.ticks,
+        "card": card, "config": args.config, "n": cfg.n,
+        "ticks": args.ticks,
         "levers": {"peer_chunk": cfg.peer_chunk,
                    "active_rows": cfg.active_rows},
         "election_ticks": ticks, "host_ms_per_tick": host_ms,

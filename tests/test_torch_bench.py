@@ -55,3 +55,20 @@ def test_needs_a_card_unless_asked_for_the_cpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         bench.main(["--n", "64", "--entries", "100", "--no-configs"])
+
+
+def test_measure_runs_the_mailbox_wire_on_the_cpu():
+    """measure() with bench.py's mailbox wire (latency 2, jitter 1, four
+    pipelined appends) at n=32: a leader, commits, and bench.py's safety
+    line (checksum agreement, a quorum of rows near the tip)."""
+    m = bench.measure(32, 10000, 7, bench.election_tick_for(32),
+                      torch.device("cpu"), chunk=8, latency=2,
+                      latency_jitter=1, inflight=4)
+    cfg = m["cfg"]
+    assert cfg.mailboxes and (cfg.latency, cfg.latency_jitter,
+                              cfg.inflight) == (2, 1, 4)
+    assert m["committed"] > 0 and m["rate"] > 0
+    safety_ok, near_tip = bench._safety(m)
+    assert safety_ok and near_tip >= 32 // 2 + 1
+    assert int(bench.leader_mask(m["final"]).sum()) == 1
+    assert m["counts"]["host_syncs"] == m["timed_ticks"]

@@ -76,10 +76,11 @@ def test_entry_points_raise_without_a_card(monkeypatch):
 
 
 @pytest.mark.parametrize("lever,kw", [
-    ("dynamic membership", dict(static_members=False)),
-    ("mailbox wire", dict(latency=1, election_tick=14)),
-    ("PreVote", dict(pre_vote=True)),
     ("read path", dict(read_batch=2)),
+    ("read path", dict(read_batch=2, latency=2, election_tick=14)),
+    ("storage model", dict(fsync_lag_ticks=1, pre_vote=True)),
+    ("transfer cooldown", dict(transfer_cooldown_ticks=4,
+                               static_members=False)),
     ("flight recorder", dict(record_events=True)),
     ("telemetry", dict(collect_telemetry=True)),
     ("storage model", dict(fsync_lag_ticks=1)),
@@ -96,16 +97,31 @@ def test_unported_levers_raise(lever, kw):
 
 
 def test_unported_lever_raises_with_both_ported_levers_on():
-    """Banded peers and role-sparse progress are ported; a lever still
-    unported raises by name with both of them on."""
+    """Banded peers, role-sparse progress, the mailbox wire, PreVote and
+    dynamic membership are ported; a lever still unported raises by name
+    with all of them on, and without it the tick runs."""
     cfg = state.SimConfig(n=32, log_len=1024, window=64, apply_batch=64,
                           max_props=64, keep=32, peer_chunk=8,
-                          active_rows=8)
-    assert cfg.peer_tiled and cfg.active_rows_on
+                          active_rows=8, latency=2, latency_jitter=1,
+                          inflight=4, pre_vote=True, election_tick=14,
+                          vote_guard=True)
+    assert cfg.peer_tiled and cfg.active_rows_on and cfg.mailboxes
+    assert not cfg.static_members
     st = state.init_state(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="dynamic membership"):
+    with pytest.raises(NotImplementedError, match="vote guard"):
         kernel.step(st, cfg, device="cpu")
-    st = kernel.step(state.init_state(
-        dataclasses.replace(cfg, static_members=True), device="cpu"),
-        dataclasses.replace(cfg, static_members=True), device="cpu")
+    with pytest.raises(NotImplementedError, match="vote guard"):
+        kernel.propose_conf(st, cfg, 1, True, device="cpu")
+    cfg = dataclasses.replace(cfg, vote_guard=False)
+    st = kernel.step(state.init_state(cfg, device="cpu"), cfg, device="cpu")
     assert int(st.tick) == 1
+
+
+def test_propose_conf_refuses_a_static_config():
+    """As in the JAX package, a conf change on a static_members config is
+    an error, not a silently dropped entry."""
+    cfg = state.SimConfig(n=5, log_len=1024, window=64, apply_batch=64,
+                          max_props=64, keep=32, static_members=True)
+    st = state.init_state(cfg, device="cpu")
+    with pytest.raises(ValueError, match="static_members"):
+        kernel.propose_conf(st, cfg, 1, True, device="cpu")

@@ -145,6 +145,50 @@ def test_levers_on_the_card_match_the_cpu():
     assert counts["cuda"]["dense_fallback_ticks"] > 0
 
 
+@pytest.mark.cuda
+def test_mailbox_prevote_membership_on_the_card_match_the_cpu():
+    """The mailbox wire (latency 2, jitter 1, 4 pipelined appends) with
+    PreVote and dynamic membership on the [8, N] slab over a tiled log:
+    drops, a storm that overflows the slab, and a follower removed and
+    re-added through propose_conf; card and CPU equal on every field of
+    every tick, and the card took both progress branches."""
+    _need_card()
+    from swarmkit_tpu_torch.raft.sim import kernel
+    cfg = sim.SimConfig(n=32, log_len=1024, window=64, apply_batch=64,
+                        max_props=64, keep=32, election_tick=14, seed=4,
+                        latency=2, latency_jitter=1, inflight=4,
+                        pre_vote=True, static_members=False,
+                        collect_stats=True, log_chunk=128, peer_chunk=8,
+                        active_rows=8)
+    rng = np.random.default_rng(12)
+    states = {d: sim.init_state(cfg, device=d) for d in ("cuda", "cpu")}
+    counts = {d: {k: 0 for k in kernel.COUNTS} for d in states}
+    for t in range(160):
+        drop = rng.random((32, 32)) < 0.03
+        if 110 <= t < 140:
+            drop |= ~np.eye(32, dtype=bool)
+        for d in states:
+            if t in (60, 85):
+                states[d] = sim.propose_conf(states[d], cfg, 31, t == 60,
+                                             device=d)
+            kernel.reset_counts()
+            states[d] = sim.step(
+                states[d], cfg, drop=torch.from_numpy(drop).to(d),
+                prop_count=32, payload_fn=sim.run._payload_at, device=d)
+            for k, v in kernel.COUNTS.items():
+                counts[d][k] += v
+        got = sim.state_to_numpy(states["cuda"])
+        want = sim.state_to_numpy(states["cpu"])
+        assert sorted(got) == sorted(want)
+        for name in want:
+            assert np.array_equal(got[name], want[name]), (t, name)
+    assert counts["cuda"] == counts["cpu"]
+    assert counts["cuda"]["slab_ticks"] > 0
+    assert counts["cuda"]["dense_fallback_ticks"] > 0
+    assert int(states["cpu"].commit.max()) > 100
+    assert bool(states["cpu"].member[:, 31].all())
+
+
 def _matmul_tol(ref: torch.Tensor, k: int) -> float:
     top = float(ref.float().abs().max())
     if ref.dtype == torch.bfloat16:
