@@ -29,7 +29,14 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    peer_chunk=64 and active_rows=16: 180 ticks, card and CPU in lockstep
    with every field compared after every call, a follower removed through
    propose_conf at tick 80 and re-added at 110, a storm at 140-169; both
-   progress branches on the card, the flips on every row.
+   progress branches on the card, the flips on every row.  Fourth, the
+   read path, the vote guard, transfer cooldown and the gated storage
+   model on that wire (PreVote, static members, election_tick 16,
+   read_batch 8, fsync every 2 ticks): card and CPU in lockstep from the
+   first leader E, with stalled disks, a lagging row whose snapshot images
+   come flagged corrupt, a transfer whose target goes down with its
+   TIMEOUT_NOW on the wire and a second request refused by the cooldown,
+   and a storm; every field after every call, both branches on the card.
 4. the main path at full width: the bench headline (n=4096, L=8192,
    window/apply/props 2048, keep 500, election_tick 24, static members,
    tiled log, and the SimConfig defaults that bench.py runs: banded peer
@@ -96,16 +103,38 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    drops it, re-add it until every row's view holds it again (within 200
    ticks each); prints the ticks each took and the step host syncs.
    Phase 3 also runs this wire at n=256, card against CPU in lockstep.
+10. the read path at full width: bench.py's 256-readmix-99to1 (n=256,
+   L=8192, window/apply/props 2048, keep 500, seed 7, election_tick 16,
+   read_batch 792, static members, the levers at their defaults): chunked
+   election, 2 x 64 timed ticks; prints entries/s, reads/s, their ratio,
+   reads blocked, ms/tick (host clock and CUDA events) and step host syncs;
+   then the same shape at read_batch=0 in turns with it (32-tick chunks,
+   then 16 profiled ticks each: kernel launches and ms per tick), and the
+   band copy against plain on one more tick's calls.  Checks reads/s >= 10
+   x entries/s, read_srv_idx >= read_srv_goal on every row, one leader,
+   checksum agreement, <= 1 step host sync per steady tick, kernel = plain.
+10b. the read path at the headline's width and levers (n=4096,
+   read_batch 49): election (its dense-fallback ticks run the banded ack
+   count), 64 ticks, kernel launches per tick in turns with the reads-off
+   headline; checks linearizable serves and one leader.
+11. bench.py's 256-fsyncgate: n=256, L=32768, window 10752, bare and with
+   the storage model (fsync every 4 ticks, ack gating), each elected, then
+   64-tick chunks in turns; prints both entries/s and their ratio (bench.py's
+   0.8 tripwire as a note); after every gated chunk checks dur_commit never
+   fell, max(ack_frontier) <= max(last), sync_mark >= snap_idx; one leader
+   and checksum agreement on both.
 
-Before the last line it prints the kernels' JSON record and the card's
-`nvidia-smi` name/power line; the last line is the result JSON.  Without a
-CUDA card, or run from a directory that holds nothing else of the repo,
-it exits non-zero and prints no result.
+Each path's band-copy launches are counted from 0 (the kernels' record
+carries them).  Before the last line it prints the kernels' JSON record
+and the card's `nvidia-smi` name/power line; the last line is the result
+JSON.  Without a CUDA card, or run from a directory that holds nothing
+else of the repo, it exits non-zero and prints no result.
 """
 
 from __future__ import annotations
 
 import asyncio
+import dataclasses
 import json
 import math
 import re
@@ -130,6 +159,20 @@ MAILBOX_PATH = dict(n=1024, log_len=8192, window=2048, apply_batch=2048,
                     max_props=2048, keep=500, election_tick=20, seed=7,
                     heartbeat_tick=1, static_members=True,
                     collect_stats=True, **MAILBOX)
+# bench.py's 256-readmix-99to1 as measure() builds it: 99 reads offered per
+# committed entry (99 * max_props / n per row per refill), seed 7,
+# election_tick_for(256), the levers at their SimConfig defaults
+READMIX = dict(n=256, log_len=8192, window=2048, apply_batch=2048,
+               max_props=2048, keep=500, election_tick=16, seed=7,
+               read_batch=99 * 2048 // 256, static_members=True,
+               collect_stats=True)
+# bench.py's 256-fsyncgate: the same shape on a ring and an append window
+# deep enough for FSYNC_K rounds of in-flight entries, bare and with the
+# storage model (fsync every FSYNC_K ticks, ack gating)
+FSYNC_K = 4
+FSYNCGATE = dict(READMIX, read_batch=0, log_len=32768,
+                 window=(FSYNC_K + 1) * 2048 + 512)
+STORAGE = dict(fsync_lag_ticks=FSYNC_K, ack_gating=True)
 
 
 def log(msg: str) -> None:
@@ -314,12 +357,22 @@ def phase_card_vs_cpu(torch, sim, cuda_ops, card: str = "cuda") -> None:
     log(f"  all {len(sg)} fields (active_ttl included) and {T} trace rows "
         f"equal; the card took both branches")
     phase_mailbox_card_vs_cpu(torch, sim, card)
+    phase_levers_card_vs_cpu(torch, sim, card)
 
 
 def _member_flipped(st, target: int, removed: bool, rows) -> bool:
     """Whether every row in `rows` sees `target` removed (or re-added)."""
     col = st.member[:, target].cpu()[list(rows)]
     return bool((~col).all() if removed else col.all())
+
+
+def _compare(sim, states, card: str, tag: str) -> int:
+    """Every field of the card's state equal to the CPU's; the count."""
+    got, want = (sim.state_to_numpy(states[d]) for d in (card, "cpu"))
+    check(sorted(got) == sorted(want), f"{tag}: field sets differ")
+    for name in want:
+        check((got[name] == want[name]).all(), f"{tag}: field {name} differs")
+    return len(want)
 
 
 def phase_mailbox_card_vs_cpu(torch, sim, card: str) -> None:
@@ -343,14 +396,6 @@ def phase_mailbox_card_vs_cpu(torch, sim, card: str) -> None:
     spent = {d: 0.0 for d in states}
     target = None
 
-    def compare(tag):
-        got, want = (sim.state_to_numpy(states[d]) for d in (card, "cpu"))
-        check(sorted(got) == sorted(want), f"{tag}: field sets differ")
-        for name in want:
-            check((got[name] == want[name]).all(),
-                  f"{tag}: field {name} differs")
-        return len(want)
-
     for t in range(T):
         if t in (80, 110):
             if target is None:
@@ -360,7 +405,7 @@ def phase_mailbox_card_vs_cpu(torch, sim, card: str) -> None:
             for d in states:
                 states[d] = sim.propose_conf(states[d], cfg, target, t == 80,
                                              device=d)
-            compare(f"propose_conf at tick {t}")
+            _compare(sim, states, card, f"propose_conf at tick {t}")
         for d in states:
             sim.kernel.reset_counts()
             t0 = time.perf_counter()
@@ -370,7 +415,7 @@ def phase_mailbox_card_vs_cpu(torch, sim, card: str) -> None:
             spent[d] += time.perf_counter() - t0
             for k, v in sim.kernel.COUNTS.items():
                 counts[d][k] += v
-        fields = compare(f"tick {t}")
+        fields = _compare(sim, states, card, f"tick {t}")
         if t == 109:
             flipped = _member_flipped(states["cpu"], target, True,
                                       set(range(n)) - {target})
@@ -391,6 +436,132 @@ def phase_mailbox_card_vs_cpu(torch, sim, card: str) -> None:
     check(int(states["cpu"].commit.max()) > 0, "nothing committed")
     log(f"  all {fields} fields equal after every call and tick; row "
         f"{target} left every other row's view and came back to all")
+
+
+def phase_levers_card_vs_cpu(torch, sim, card: str) -> None:
+    """This slice's levers at n=256 on the mailbox wire with PreVote, the
+    banded counts and the slab, card and CPU in lockstep, every field
+    compared after every call: reads (a closed loop of 8 per row, and a
+    submit_reads call), the vote guard, transfer cooldown and the storage
+    model with ack gating (fsync every 2 ticks).  The schedule, from the
+    tick E when a leader first stands: 2% drops; two followers' disks
+    stall at E+5..E+14; a third follower is down at E+15..E+24 and its
+    snapshot images come flagged corrupt at E+25..E+29 (refused: it
+    installs a clean one later); proposals stop at E+28 so followers catch
+    up, and a transfer at E+32 to the follower furthest along has its
+    target taken down once its TIMEOUT_NOW is on the wire, so the leader
+    stays and its cooldown refuses a second request two ticks later; a
+    storm at E+52..E+71 so the dense fallback runs; the run ends at E+76."""
+    cfg = sim.SimConfig(**{**HEADLINE, **MAILBOX, "n": 256,
+                           "election_tick": 16, "pre_vote": True,
+                           "peer_chunk": 64, "active_rows": 16,
+                           "read_batch": 8, "vote_guard": True,
+                           "transfer_cooldown_ticks": 15,
+                           "fsync_lag_ticks": 2, "ack_gating": True})
+    n = cfg.n
+    g = torch.Generator().manual_seed(7)
+    eye = torch.eye(n, dtype=torch.bool)
+    log("  mailbox, PreVote, election_tick 16, peer_chunk=64, active_rows=16"
+        " with read_batch=8, vote_guard, transfer_cooldown_ticks=15, "
+        "fsync_lag_ticks=2 and ack_gating, in lockstep from the first "
+        "leader E: stalled disks, a lagging row's images flagged corrupt, "
+        "a transfer and a second inside the cooldown, a storm:")
+    states = {d: sim.init_state(cfg, device=d) for d in (card, "cpu")}
+    counts = {d: {k: 0 for k in sim.kernel.COUNTS} for d in states}
+    spent = {d: 0.0 for d in states}
+    E = leader = target = lagging = second = second_at = None
+    flags, down = {}, {}
+    refused = False
+    t = 0
+    while E is None or t < E + 76:
+        check(E is not None or t < 200, "no leader within 200 ticks")
+        cpu = states["cpu"]
+        if E is None and bool(sim.has_leader(cpu)):
+            E = t
+            roles = cpu.role.tolist()
+            leader = roles.index(sim.LEADER)
+            f = [i for i in range(n) if roles[i] != sim.LEADER]
+            lagging, second = f[-1], f[-2]
+            flags = {u: ("fsync_stall", f[:2]) for u in range(E + 5, E + 15)}
+            flags.update({u: ("snap_bad", [lagging])
+                          for u in range(E + 25, E + 30)})
+            down = {u: [lagging] for u in range(E + 15, E + 25)}
+        if t in flags:
+            field, rows = flags[t]
+            mask = torch.zeros(n, dtype=torch.bool)
+            mask[rows] = True
+            for d in states:
+                states[d] = dataclasses.replace(states[d], **{
+                    field: getattr(states[d], field) | mask.to(d)})
+        if t == 30:
+            for d in states:
+                states[d] = sim.submit_reads(states[d], cfg, 5,
+                                             rows=range(8), device=d)
+            _compare(sim, states, card, "submit_reads at tick 30")
+        if E is not None and t == E + 32:
+            ahead = cpu.match[leader].clone()
+            ahead[[leader, lagging, second]] = -1
+            target = int(ahead.argmax())
+        if E is not None and t in (E + 32, second_at):
+            to = target if t == E + 32 else second
+            for d in states:
+                states[d] = sim.transfer_leadership(states[d], cfg, leader,
+                                                    to)
+            _compare(sim, states, card, f"transfer_leadership at tick {t}")
+            if t == second_at:
+                cpu = states["cpu"]
+                check(int(cpu.transferee[leader]) != second
+                      and int(cpu.tx_cool[leader]) > 0,
+                      f"tick {t}: the cooling leader took a second transfer")
+                refused = True
+        drop = torch.rand((n, n), generator=g) < 0.02
+        if E is not None and E + 52 <= t < E + 72:
+            drop |= ~eye
+        alive = torch.ones(n, dtype=torch.bool)
+        alive[down.get(t, [])] = False
+        props = dict(prop_count=cfg.max_props, payload_fn=sim.run._payload_at)
+        if E is not None and t >= E + 28:
+            props = {}
+        for d in states:
+            sim.kernel.reset_counts()
+            t0 = time.perf_counter()
+            states[d] = sim.step(states[d], cfg, alive=alive.to(d),
+                                 drop=drop.to(d), device=d, **props)
+            spent[d] += time.perf_counter() - t0
+            for k, v in sim.kernel.COUNTS.items():
+                counts[d][k] += v
+        fields = _compare(sim, states, card, f"tick {t}")
+        if E is not None and t >= E + 32 and second_at is None \
+                and int(states["cpu"].tn_at[target]) > 0:
+            # the TIMEOUT_NOW is on the wire: take its target down before
+            # it lands, then ask for a second transfer two ticks later
+            down.update({u: [target] for u in range(t + 1, t + 9)})
+            second_at = t + 2
+        t += 1
+    cpu = states["cpu"]
+    cc = counts[card]
+    log(f"  {t} ticks, E={E}; {card}: {spent[card]:.2f} s, cpu: "
+        f"{spent['cpu']:.2f} s; slab ticks {cc['slab_ticks']}, "
+        f"dense-fallback ticks {cc['dense_fallback_ticks']}, step host "
+        f"syncs {cc['host_syncs']}; commit {int(cpu.commit.max())}, reads "
+        f"served {int(sim.reads_served(cpu))}, blocked "
+        f"{int(sim.reads_blocked(cpu))}, sync_mark max "
+        f"{int(cpu.sync_mark.max())}, row {lagging}'s snap_idx "
+        f"{int(cpu.snap_idx[lagging])}")
+    check(counts[card] == counts["cpu"],
+          f"branch counts differ: {counts[card]} vs {counts['cpu']}")
+    check(cc["slab_ticks"] > 0 and cc["dense_fallback_ticks"] > 0,
+          f"the card did not take both progress branches: {cc}")
+    check(refused, "the second transfer was never asked for")
+    check(int(cpu.snap_idx[lagging]) > 0, f"row {lagging} never restored")
+    check(int(sim.reads_served(cpu)) > 0 and bool(
+        (cpu.read_srv_idx >= cpu.read_srv_goal).all()),
+        "no reads served, or a served read missed its goal")
+    check(int(cpu.ack_frontier.max()) <= int(cpu.last.max())
+          and bool((cpu.sync_mark >= cpu.snap_idx).all()),
+          "a durability reduction failed")
+    log(f"  all {fields} fields equal after every call and tick; the "
+        f"second transfer was refused inside the cooldown")
 
 
 def _checksums_agree(sim, st) -> bool:
@@ -762,6 +933,194 @@ def phase_main_path_inputs(torch, sim, cuda_ops, st) -> dict:
                 library_ms=mean(times["library"]), bound_ms=mean(bound))
 
 
+def _profiled_turns(torch, sim, cfgs: dict, st, ticks: int = 16):
+    """Kernel launches and kernel ms per tick of each config in `cfgs`, in
+    turns (first, second, second, first) from one state; every config
+    leaves the other's extra registers as they stand."""
+    names = list(cfgs)
+    out = {k: {"launches": [], "kernel_ms": []} for k in names}
+    for name in (names[0], names[1], names[1], names[0]):
+        st, per_tick, kms = _device_window(torch, sim, cfgs[name], st, ticks)
+        out[name]["launches"].append(per_tick)
+        out[name]["kernel_ms"].append(kms)
+    return st, {k: {m: sum(v) / len(v) for m, v in d.items()}
+                for k, d in out.items()}
+
+
+def _linearizable(st) -> bool:
+    return bool((st.read_srv_idx >= st.read_srv_goal).all())
+
+
+def phase_readmix(torch, sim, cuda_ops) -> dict:
+    """bench.py's 256-readmix-99to1 at its published width: the chunked
+    election, 2 x 64 timed ticks, then the read path's cost in turns with
+    the same shape at read_batch=0 (host and CUDA-event ms over 32-tick
+    chunks, kernel launches and ms over 16 profiled ticks), and the band
+    copy against its plain version on one more tick's calls."""
+    cfg = sim.SimConfig(**READMIX)
+    off = sim.SimConfig(**{**READMIX, "read_batch": 0})
+    check(cfg.tiled and cfg.active_rows_on and not cfg.peer_tiled,
+          "the read mix runs the tiled log and the slab, one-pass counts")
+    cuda_ops.reset_launches()
+    sim.kernel.reset_counts()
+    st, ticks, t_elect = _elect(torch, sim, cfg, "n=256 read mix")
+    sim.kernel.reset_counts()
+    reads0 = int(sim.reads_served(st))
+    host_ms, event_ms, committed, t_run = [], [], 0, 0.0
+    for _ in range(2):
+        st, h, e, c = _timed_ticks(torch, sim, cfg, st, 64)
+        host_ms.append(h)
+        event_ms.append(e)
+        committed += c
+        t_run += h * 64 / 1e3
+    reads = int(sim.reads_served(st)) - reads0
+    counts = dict(sim.kernel.COUNTS)
+    launches = cuda_ops.LAUNCHES["append_band_copy"]
+    entries_s, reads_s = committed / t_run, reads / t_run
+    syncs = counts["host_syncs"] / 128
+    n_leaders = int(sim.leader_mask(st).sum())
+    agree, lin = _checksums_agree(sim, st), _linearizable(st)
+    blocked = int(sim.reads_blocked(st))
+    log(f"  election: {ticks} ticks, {t_elect:.3f} s; run_ticks 2x64: "
+        f"ms/tick (host clock) {host_ms[0]:.3f} / {host_ms[1]:.3f}, (CUDA "
+        f"events) {event_ms[0]:.3f} / {event_ms[1]:.3f}")
+    log(f"  committed {committed} entries, {entries_s:.1f} entries/s; "
+        f"served {reads} reads, {reads_s:.1f} reads/s, "
+        f"{reads_s / entries_s:.2f}x entries/s; reads blocked {blocked}")
+    log(f"  steady 128 ticks: step host syncs {syncs:.3f}/tick, slab ticks "
+        f"{counts['slab_ticks']}, dense-fallback ticks "
+        f"{counts['dense_fallback_ticks']}; append_band_copy launches "
+        f"{launches} over {ticks + 128} ticks")
+    turns = {"reads_off": [], "reads_on": []}
+    for name in ("reads_off", "reads_on", "reads_on", "reads_off"):
+        st, h, e, _ = _timed_ticks(torch, sim, off if name == "reads_off"
+                                   else cfg, st, 32)
+        turns[name].append((h, e))
+    ab = {k: dict(host_ms=sum(x[0] for x in v) / 2,
+                  event_ms=sum(x[1] for x in v) / 2)
+          for k, v in turns.items()}
+    st, prof = _profiled_turns(torch, sim, {"reads_off": off,
+                                            "reads_on": cfg}, st)
+    for k in ab:
+        ab[k].update(prof[k])
+        log(f"  {k}: ms/tick (host) {ab[k]['host_ms']:.3f}, (events) "
+            f"{ab[k]['event_ms']:.3f}; {ab[k]['launches']:.1f} kernel "
+            f"launches/tick, {ab[k]['kernel_ms']:.3f} ms of kernels/tick")
+    calls = _record_band_copies(torch, sim, cuda_ops, cfg, st)
+    err = max(_kernel_vs_plain(torch, cuda_ops, c) for c in calls)
+    log(f"  {len(calls)} band-copy calls of one read-mix tick: "
+        f"max|kernel - plain| = {err}")
+    check(n_leaders == 1, f"expected exactly one leader, got {n_leaders}")
+    check(committed > 0, "commit did not advance")
+    check(agree, "rows with equal applied disagree on apply_chk")
+    check(lin, "a served read batch missed its linearizability goal")
+    check(reads_s >= 10 * entries_s,
+          f"{reads_s:.0f} reads/s < 10x {entries_s:.0f} entries/s")
+    check(syncs <= 1.0, f"{syncs} step host syncs per steady tick")
+    check(launches > 0, "the read mix never launched append_band_copy")
+    check(err == 0, f"kernel != plain on the read mix's inputs ({err})")
+    return dict(election_ticks=ticks, election_s=t_elect,
+                ms_per_tick=host_ms, event_ms_per_tick=event_ms,
+                entries_per_s=entries_s, reads_per_s=reads_s,
+                read_write_ratio=reads_s / entries_s, reads_blocked=blocked,
+                host_syncs_per_tick=syncs, band_copy_launches=launches,
+                slab_ticks=counts["slab_ticks"],
+                dense_fallback_ticks=counts["dense_fallback_ticks"],
+                reads_ab=ab, err=err)
+
+
+def phase_readmix_headline_width(torch, sim, cuda_ops) -> dict:
+    """The read path at the headline's width and levers (n=4096, banded
+    counts of 1024, the [16, N] slab) with 99 reads offered per entry
+    (read_batch 49): election, 64 timed ticks, then kernel launches per
+    tick in turns with the reads-off headline."""
+    cfg = sim.SimConfig(**{**HEADLINE, "read_batch": 99 * 2048 // 4096})
+    check(cfg.peer_tiled and cfg.active_rows_on,
+          "n=4096 runs banded counts and the slab")
+    cuda_ops.reset_launches()
+    sim.kernel.reset_counts()
+    st, ticks, t_elect = _elect(torch, sim, cfg, "n=4096 reads")
+    elect_counts = dict(sim.kernel.COUNTS)
+    reads0 = int(sim.reads_served(st))
+    st, h, e, c = _timed_ticks(torch, sim, cfg, st, 64)
+    reads = int(sim.reads_served(st)) - reads0
+    launches = cuda_ops.LAUNCHES["append_band_copy"]
+    t_run = h * 64 / 1e3
+    st, prof = _profiled_turns(torch, sim, {"reads_off": sim.SimConfig(
+        **HEADLINE), "reads_on": cfg}, st)
+    log(f"  election {ticks} ticks ({elect_counts['dense_fallback_ticks']} "
+        f"on the dense fallback, banded counts), {t_elect:.3f} s; 64 ticks: "
+        f"ms/tick (host) {h:.3f}, (events) {e:.3f}; {c / t_run:.1f} "
+        f"entries/s, {reads / t_run:.1f} reads/s; kernel launches/tick "
+        f"reads off {prof['reads_off']['launches']:.1f}, on "
+        f"{prof['reads_on']['launches']:.1f}; kernel ms/tick off "
+        f"{prof['reads_off']['kernel_ms']:.3f}, on "
+        f"{prof['reads_on']['kernel_ms']:.3f}; band-copy launches "
+        f"{launches}")
+    check(int(sim.leader_mask(st).sum()) == 1, "not exactly one leader")
+    check(_linearizable(st), "a served read missed its goal")
+    check(reads > 0 and launches > 0, "no reads served or no band copy")
+    check(elect_counts["dense_fallback_ticks"] > 0,
+          "the election never ran the banded count on the dense rows")
+    return dict(election_ticks=ticks, election_s=t_elect, ms_per_tick=h,
+                event_ms_per_tick=e, entries_per_s=c / t_run,
+                reads_per_s=reads / t_run, band_copy_launches=launches,
+                election_counts=elect_counts, profile=prof)
+
+
+def phase_fsyncgate(torch, sim, cuda_ops) -> dict:
+    """bench.py's 256-fsyncgate at its published width: one state bare and
+    one with the storage model (fsync every 4 ticks, ack gating), each
+    elected, then 64-tick chunks in turns (bare, gated, gated, bare).
+    Checks the durability reductions after every gated chunk."""
+    cfgs = {"bare": sim.SimConfig(**FSYNCGATE),
+            "gated": sim.SimConfig(**{**FSYNCGATE, **STORAGE})}
+    cuda_ops.reset_launches()
+    states, res = {}, {}
+    for name, cfg in cfgs.items():
+        states[name], ticks, t_elect = _elect(torch, sim, cfg,
+                                              f"n=256 fsyncgate {name}")
+        res[name] = dict(election_ticks=ticks, election_s=t_elect,
+                         host_ms=[], event_ms=[], committed=0, s=0.0)
+    dur = states["gated"].dur_commit.clone()
+    for name in ("bare", "gated", "gated", "bare"):
+        st, h, e, c = _timed_ticks(torch, sim, cfgs[name], states[name], 64)
+        states[name] = st
+        r = res[name]
+        r["host_ms"].append(h)
+        r["event_ms"].append(e)
+        r["committed"] += c
+        r["s"] += h * 64 / 1e3
+        if name == "gated":
+            check(bool((st.dur_commit >= dur).all()), "dur_commit fell")
+            dur = st.dur_commit.clone()
+            check(int(st.ack_frontier.max()) <= int(st.last.max()),
+                  "an acked commit lies above every log's last")
+            check(bool((st.sync_mark >= st.snap_idx).all()),
+                  "sync_mark below snap_idx")
+        log(f"  {name}: ms/tick (host) {h:.3f}, (events) {e:.3f}, "
+            f"committed {c}")
+    launches = cuda_ops.LAUNCHES["append_band_copy"]
+    for name, st in states.items():
+        res[name]["entries_per_s"] = res[name]["committed"] / res[name]["s"]
+        check(int(sim.leader_mask(st).sum()) == 1,
+              f"{name}: not exactly one leader")
+        check(_checksums_agree(sim, st), f"{name}: checksums disagree")
+    ratio = res["gated"]["entries_per_s"] / res["bare"]["entries_per_s"]
+    g = states["gated"]
+    log(f"  bare {res['bare']['entries_per_s']:.1f} vs gated "
+        f"{res['gated']['entries_per_s']:.1f} entries/s: gated_over_dense "
+        f"{ratio:.3f}; gated sync_mark min/max {int(g.sync_mark.min())}/"
+        f"{int(g.sync_mark.max())}, dur_commit max {int(g.dur_commit.max())}"
+        f", ack_frontier max {int(g.ack_frontier.max())}; band-copy "
+        f"launches {launches}")
+    if ratio < 0.8:
+        log(f"  note: bench.py's storage tripwire (gated < 0.8x bare) "
+            f"would trip: {ratio:.3f}")
+    check(launches > 0, "the fsync-gate path never launched the band copy")
+    return dict(res, gated_over_dense=ratio, band_copy_launches=launches)
+
+
 def matmul_tol(torch, ref, k: int) -> float:
     """bf16: 2 bf16 ulps of max|ref|; f32: 1e-5 of max|ref|, scaled by
     sqrt(K / 512) past K = 512."""
@@ -1078,16 +1437,28 @@ def main() -> int:
         "follower removed and re-added through propose_conf")
     dyn = phase_dynamic_members(torch, sim)
 
+    log("phase 10: bench.py's 256-readmix-99to1 at full width")
+    rmix = phase_readmix(torch, sim, cuda_ops)
+    log("phase 10b: the read path at the headline's width (n=4096, "
+        "read_batch 49)")
+    rwide = phase_readmix_headline_width(torch, sim, cuda_ops)
+    log("phase 11: bench.py's 256-fsyncgate, bare and gated (k=4), in turns")
+    fgate = phase_fsyncgate(torch, sim, cuda_ops)
+
     log("summary " + json.dumps({"card": card, **head, "lever_ab": ab,
                                  "band_copy_calls_per_tick": k["calls"],
                                  "task": task, "mailbox": mbox,
-                                 "dynamic_members": dyn}))
+                                 "dynamic_members": dyn, "readmix": rmix,
+                                 "readmix_4096": rwide, "fsyncgate": fgate}))
     records = [{
         "name": "append_band_copy", "route": "cuda",
         "source": "swarmkit_tpu_torch/csrc/band_copy.cu",
         "replaces": "swarmkit_tpu/parallel/pallas_ops.py:174",
         "launches": head["launches"], "mailbox_launches": mbox_launches,
-        "max_abs_err": max(err2, k["err"], err9),
+        "readmix_launches": rmix["band_copy_launches"],
+        "readmix_4096_launches": rwide["band_copy_launches"],
+        "fsyncgate_launches": fgate["band_copy_launches"],
+        "max_abs_err": max(err2, k["err"], err9, rmix["err"]),
         "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
         "bound_by": "bytes", "library_ms": k["library_ms"]}]
     for name, line, bound_by in (("matmul", 76, "operations"),

@@ -5,7 +5,8 @@ from swarmkit_tpu_torch.raft.sim.kernel import (
 )
 from swarmkit_tpu_torch.raft.sim.run import (
     committed_entries, has_leader, leader_mask, quorum_applied_checksum,
-    run_schedule, run_ticks, run_until_leader,
+    reads_blocked, reads_served, run_schedule, run_ticks, run_until_leader,
+    submit_reads,
 )
 from swarmkit_tpu_torch.raft.sim.state import (
     CANDIDATE, FOLLOWER, LEADER, NONE, SimConfig, SimState, conf_payload,
@@ -16,8 +17,8 @@ __all__ = [
     "propose", "propose_conf", "propose_dense", "step",
     "transfer_leadership",
     "committed_entries", "has_leader", "leader_mask",
-    "quorum_applied_checksum", "run_schedule", "run_ticks",
-    "run_until_leader",
+    "quorum_applied_checksum", "reads_blocked", "reads_served",
+    "run_schedule", "run_ticks", "run_until_leader", "submit_reads",
     "CANDIDATE", "FOLLOWER", "LEADER", "NONE", "SimConfig", "SimState",
     "conf_payload", "drop_matrix", "init_state", "rand_timeout",
     "state_from_numpy", "state_to_numpy",

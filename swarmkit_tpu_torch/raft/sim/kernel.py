@@ -22,11 +22,14 @@ edge's latency plus hash jitter.  PreVote (cfg.pre_vote) and log-driven
 membership (static_members=False: CONF entries flip each row's view of
 `member` at its own apply point; every quorum counts over the deciding
 row's view) are implemented too, with the host `propose` / `propose_conf`
-APIs.  Every one of these is Python-gated exactly as in JAX, so the bench
-headline (sync wire, static members) runs the same ops as before.  The
-levers `check_slice` names (the read path, the flight recorder, telemetry,
-trace tags, the storage model, the vote guard, transfer cooldown) raise
-NotImplementedError.
+APIs.  So are the read path (phases R0-R2: batched ReadIndex, tick-clock
+leases and follower reads, raft/read/), the vote guard, transfer cooldown
+and the storage model (the fsync round, durable-watermark ack gating, the
+leader's self-ack cap, the mailbox wire's durable-frontier ack).  Every one
+of these is Python-gated exactly as in JAX, so the bench headline (sync
+wire, static members, every lever off) runs the same ops as before.  The
+levers `check_slice` names (trace tags, the flight recorder, telemetry)
+raise NotImplementedError.
 
 As in the JAX package, the per-peer progress work runs in two segments,
 `_progress_a` (Phase A's matrix tail, Phase B, Phase C's send/deliver half)
@@ -57,6 +60,7 @@ import numpy as np
 import torch
 
 from swarmkit_tpu_torch.parallel import cuda_ops
+from swarmkit_tpu_torch.raft import read as rd
 from swarmkit_tpu_torch.raft.sim import u32
 from swarmkit_tpu_torch.raft.sim.state import (
     CANDIDATE, CONF_REMOVE, CONF_TARGET_MASK, FOLLOWER, LEADER, NONE,
@@ -67,6 +71,7 @@ from swarmkit_tpu_torch.raft.sim.state import (
 I32 = torch.int32
 BIG = 2 ** 31 - 1            # int32 max: the "no index" sentinel of min folds
 PAYLOAD_MASK = 0x7FFF_FFFF   # bit 31 of a payload is reserved for conf tags
+SNAP_POISON = 0xBAD5_EED5 - 2 ** 32   # int32 bits XORed into a corrupt image
 
 # Host-side counts of the tick's control flow (reset_counts() zeroes them):
 # device->host read-backs made by `step` and `propose_dense`, and, under
@@ -90,15 +95,11 @@ def _read_back(xs: list) -> list:
 def check_slice(cfg: SimConfig) -> None:
     """Raise NotImplementedError for a config lever this port does not yet
     implement, naming it (rather than silently ignoring it)."""
+    # trace tags need both other planes on, so they are named first
     levers = (
-        (cfg.read_batch > 0, "the read path (read_batch > 0)"),
+        (cfg.trace_tags, "trace tags (trace_tags=True)"),
         (cfg.record_events, "the flight recorder (record_events=True)"),
         (cfg.collect_telemetry, "telemetry (collect_telemetry=True)"),
-        (cfg.trace_tags, "trace tags (trace_tags=True)"),
-        (cfg.storage_on, "the storage model (fsync_lag_ticks > 0)"),
-        (cfg.vote_guard, "the vote guard (vote_guard=True)"),
-        (cfg.transfer_cooldown_ticks > 0,
-         "transfer cooldown (transfer_cooldown_ticks > 0)"),
     )
     for on, what in levers:
         if on:
@@ -402,11 +403,39 @@ def step(state: SimState, cfg: SimConfig,
         self_mem = torch.diagonal(member)
         quorum = member.sum(1, dtype=I32) // 2 + 1               # [N]
 
+    # ---- Phase R0: read-batch submit -------------------------------------
+    # idle rows take a fresh batch whose goal is the pre-tick max(commit)
+    reads_on = cfg.read_batch > 0
+    if reads_on:
+        read_regs = rd.submit(cfg, rd.regs_from_state(state), alive, commit)
+
     # ---- Phase A: timers ----------------------------------------------
     is_leader = (role == LEADER) & alive
     elapsed = torch.where(alive, elapsed + 1, elapsed)
     contact = torch.where(alive, state.contact + 1, state.contact)
     hb_elapsed = torch.where(is_leader, hb_elapsed + 1, hb_elapsed)
+    # transfer cooldown: count down here; it re-arms after the second
+    # progress segment on the row whose TIMEOUT_NOW fired
+    tx_cool = None
+    if cfg.transfer_cooldown_ticks > 0 and state.tx_cool is not None:
+        tx_cool = torch.clamp(state.tx_cool - 1, min=0)
+
+    # ---- storage model: the fsync round -----------------------------------
+    # The durable watermark chases the pre-tick last (state.last, before
+    # the fused propose's bump above), on cadence ticks only, at most
+    # fsync_batch entries a round (0 = unlimited), frozen on crashed rows
+    # and stalled disks.  Vote records are write-through instead (a
+    # stalled disk refuses grants in Phase B).
+    storage_on = cfg.storage_on and state.sync_mark is not None
+    gated = storage_on and cfg.ack_gating
+    if storage_on:
+        fs_due = torch.remainder(now, cfg.fsync_lag_ticks) \
+            == cfg.fsync_lag_ticks - 1
+        sync_inc = torch.clamp(state.last - state.sync_mark, min=0)
+        if cfg.fsync_batch > 0:
+            sync_inc = torch.clamp(sync_inc, max=cfg.fsync_batch)
+        fsync_did = alive & ~state.fsync_stall & fs_due
+        sync_mark = state.sync_mark + torch.where(fsync_did, sync_inc, 0)
 
     # last/last_term are read before anything appends this tick (above the
     # progress segments, which read no ring); a proposing row's new last
@@ -453,6 +482,12 @@ def step(state: SimState, cfg: SimConfig,
         if fused_prop:
             match = torch.where(g(prop_ok)[:, None] & eye_r,
                                 g(last)[:, None], match)
+        vguard = cfg.has_vote_guard
+        if vguard:
+            # the persisted-vote guard: a durable (term, candidate) record
+            # written beside every vote assignment, which a wipe of `vote`
+            # does not reach (redundant, so bit-identical, on stock runs)
+            vg_vote, vg_term = state.vg_vote, state.vg_term
 
         # CheckQuorum: every election_tick a leader confirms it heard from
         # a quorum since the last round, else steps down
@@ -497,6 +532,9 @@ def step(state: SimState, cfg: SimConfig,
         else:
             term = term + campaign.to(I32)
             vote = torch.where(campaign, node, vote)
+            if vguard:
+                vg_vote = torch.where(campaign, node, vg_vote)
+                vg_term = torch.where(campaign, term, vg_term)
             role = torch.where(campaign, CANDIDATE, role)
             lead = torch.where(campaign, NONE, lead)
             timeout = torch.where(campaign, rand_timeout(cfg, node, term),
@@ -507,6 +545,9 @@ def step(state: SimState, cfg: SimConfig,
         # forced (transfer) campaign
         term = term + tn_ok.to(I32)
         vote = torch.where(tn_ok, node, vote)
+        if vguard:
+            vg_vote = torch.where(tn_ok, node, vg_vote)
+            vg_term = torch.where(tn_ok, term, vg_term)
         role = torch.where(tn_ok, CANDIDATE, role)
         pre = pre & ~tn_ok
         lead = torch.where(tn_ok, NONE, lead)
@@ -603,6 +644,9 @@ def step(state: SimState, cfg: SimConfig,
                 & (campaign | pv_polled)
             term = term + pre_win.to(I32)
             vote = torch.where(pre_win, node, vote)
+            if vguard:
+                vg_vote = torch.where(pre_win, node, vg_vote)
+                vg_term = torch.where(pre_win, term, vg_term)
             pre = torch.where(pre_win, False, pre)
             lead = torch.where(pre_win, NONE, lead)
             elapsed = torch.where(pre_win, 0, elapsed)
@@ -624,12 +668,24 @@ def step(state: SimState, cfg: SimConfig,
         is_cand = (role == CANDIDATE) & alive
 
         can_vote = (vote[None, :] == NONE) | (vote[None, :] == sl.ids[:, None])
+        if vguard:
+            # a row that already voted this term re-grants only the same
+            # candidate, whatever `vote` says
+            can_vote = can_vote & ((vg_term[None, :] < term[None, :])
+                                   | (vg_vote[None, :] == sl.ids[:, None]))
+        if gated:
+            # a stalled disk cannot persist the vote record before replying,
+            # so it refuses the grant (PreVote polls above stay un-gated)
+            can_vote = can_vote & ~state.fsync_stall[None, :]
         cur = req & (req_term == term[None, :])   # requests at the rx term
         grantable = cur & can_vote & log_ok
         any_grant = grantable.any(0)
         chosen_cand = sl.row_of(_first_true(grantable, 0), any_grant)
         grant_mat = grantable & (sl.ids[:, None] == chosen_cand[None, :])
         vote = torch.where(any_grant, chosen_cand, vote)
+        if vguard:
+            vg_vote = torch.where(any_grant, chosen_cand, vg_vote)
+            vg_term = torch.where(any_grant, term, vg_term)
         elapsed = torch.where(any_grant, 0, elapsed)
         if mail:
             # responses ride the reverse edge; one already in flight there
@@ -846,6 +902,8 @@ def step(state: SimState, cfg: SimConfig,
         contact = torch.where(has_lmsg, 0, contact)
         is_leader = (role == LEADER) & alive
         sel_l = src_sel.to(torch.int64)
+        if vguard:
+            out.update(vg_vote=vg_vote, vg_term=vg_term)
         return dict(
             out,
             term=term, vote=vote, role=role, lead=lead, elapsed=elapsed,
@@ -893,6 +951,8 @@ def step(state: SimState, cfg: SimConfig,
                                     oa["src"])
         got_app, got_snap, p = oa["got_app"], oa["got_snap"], oa["p"]
         src_l = src.to(torch.int64)
+        vg_fields = dict(vg_vote=oa["vg_vote"], vg_term=oa["vg_term"]) \
+            if cfg.has_vote_guard else {}
 
         if not cfg.tiled:
             # untiled noop store, before the append reads (as in the
@@ -946,6 +1006,11 @@ def step(state: SimState, cfg: SimConfig,
         already = (snap_src <= last) & (have_term == snap_term[src_l])
         advance = got_snap & (snap_src > commit)
         do_restore = advance & ~already
+        if gated:
+            # a corrupt image (snap_bad) is refused before install: no
+            # restore and no ack progress, so the sender re-sends it.
+            # The refusal feeds the band probe below, like every restore.
+            do_restore = do_restore & ~state.snap_bad
 
         if not cfg.tiled:
             break
@@ -1104,6 +1169,17 @@ def step(state: SimState, cfg: SimConfig,
     snap_term = torch.where(do_restore, snap_term[src_l], snap_term)
     snap_chk = torch.where(do_restore, snap_chk[src_l], snap_chk)
     snap_idx = torch.where(do_restore, snap_src, snap_idx)
+    if storage_on:
+        if not gated:
+            # without gating a corrupt image installs unverified: a
+            # poisoned checksum chain
+            poison = do_restore & state.snap_bad
+            apply_chk = torch.where(poison, apply_chk ^ SNAP_POISON,
+                                    apply_chk)
+            snap_chk = torch.where(poison, snap_chk ^ SNAP_POISON, snap_chk)
+        # an installed snapshot is durable at install
+        sync_mark = torch.where(do_restore,
+                                torch.maximum(sync_mark, snap_idx), sync_mark)
     if not static_m:
         # the snapshot carries the sender's configuration; the second
         # segment counts in the views as they stand after it
@@ -1113,6 +1189,16 @@ def step(state: SimState, cfg: SimConfig,
     # responses back to senders (j -> i), may be dropped
     resp_match = torch.where(stale & got_app, commit0,
                              torch.where(got_snap, commit, lastnewi))
+    self_ack_cap = last
+    if gated:
+        # ack gating (fsync before the append response): a follower acks
+        # only what its durable watermark covers, re-acks its durable
+        # frontier after each fsync round (mailbox wire), and a leader
+        # counts itself in the commit quorum only up to its own watermark
+        resp_match = torch.minimum(resp_match, sync_mark)
+        dur_match = torch.minimum(last, sync_mark)
+        fsync_ack = fsync_did & (lead != NONE) & (role == FOLLOWER)
+        self_ack_cap = dur_match
     resp_ok = accept | got_snap | (stale & got_app)
     resp_reject = got_app & ~prev_ok & ~stale
     reject_hint = last
@@ -1155,6 +1241,25 @@ def step(state: SimState, cfg: SimConfig,
             aresp_match = torch.where(
                 put_r, torch.where(resp_reject, reject_hint,
                                    resp_match)[None, :, None], aresp_match)
+            if gated:
+                # the unsolicited durable-frontier ack: every fsync round a
+                # follower re-acks min(last, sync_mark) to its known leader,
+                # best effort (skipped while the edge's slots are all busy)
+                fa_tgt = torch.clamp(lead, 0, n - 1)
+                send_fa = (sl.ids[:, None] == fa_tgt[None, :]) \
+                    & fsync_ack[None, :] & ~sl.drop_t & ~eye_r
+                free_f = aresp_at == 0
+                fa_slot = _first_true(free_f, 2)
+                put_f = send_fa[:, :, None] \
+                    & (fa_slot[:, :, None] == kr_idx) \
+                    & free_f.any(2)[:, :, None]
+                aresp_at = torch.where(put_f, (now + 1 + lat_T)[:, :, None],
+                                       aresp_at)
+                aresp_term = torch.where(put_f, term[None, :, None],
+                                         aresp_term)
+                aresp_ok = torch.where(put_f, True, aresp_ok)
+                aresp_match = torch.where(put_f, dur_match[None, :, None],
+                                          aresp_match)
             # deliveries: every due ack integrates, aggregated (ok: max
             # match; reject: min hint, applied after the ok advance)
             due_r = (aresp_at > 0) & (now + 1 >= aresp_at)
@@ -1255,13 +1360,16 @@ def step(state: SimState, cfg: SimConfig,
             tn_at = torch.where(any_tn, now + 1, tn_at)
         tn_term = torch.where(any_tn, term[tn_src.to(torch.int64)], tn_term)
         tn_from = torch.where(any_tn, tn_src, tn_from)
+        if cfg.transfer_cooldown_ticks > 0:
+            # the rows that fired a TIMEOUT_NOW re-arm their cooldown
+            out["tn_fired"] = sl.sfull(want_tn, False)
 
         # ---- Phase D: leader commit (quorum on the match row) ------------
         # the largest X in (commit, last] acked by a quorum of the row's
         # view, by a fixed-depth bisection instead of a sort of the match
-        # plane
-        match = torch.where(g(is_leader)[:, None] & eye_r, g(last)[:, None],
-                            match)
+        # plane; a leader acks itself up to self_ack_cap
+        match = torch.where(g(is_leader)[:, None] & eye_r,
+                            g(self_ack_cap)[:, None], match)
         q_row = quorum if static_m else g(quorum)
         lo, hi_b = g(commit), g(last)
         for _ in range(max(1, L.bit_length() + 1)):
@@ -1271,6 +1379,15 @@ def step(state: SimState, cfg: SimConfig,
             lo = torch.where(ok, mid, lo)
             hi_b = torch.where(ok, hi_b, mid - 1)
         mci = lo if sl.dense else commit.index_copy(0, sl.idx, lo)
+        if reads_on:
+            # Phase R1's ack count: this tick's ack collective (and the
+            # heartbeat responses on the mailbox wire) confirms leadership
+            # for ReadIndex, so a read round costs no extra messages
+            rd_ack = ok_mat | rej_mat
+            if mail:
+                rd_ack = rd_ack | sl.mview(val_hbr)
+            out["rd_nack"] = sl.sfull(sl.count(
+                lambda j0, w: rd_ack[:, j0:j0 + w] | sl.eye_cols(j0, w)), 0)
         return dict(out, match=match, next_=next_,
                     recent_active=recent_active, tn_at=tn_at,
                     tn_term=tn_term, tn_from=tn_from, mci=mci,
@@ -1282,6 +1399,9 @@ def step(state: SimState, cfg: SimConfig,
     recent_active = sl.merge(recent_active, ob["recent_active"])
     tn_at, tn_term, tn_from = ob["tn_at"], ob["tn_term"], ob["tn_from"]
     mci = ob["mci"]
+    if tx_cool is not None:
+        tx_cool = torch.where(ob["tn_fired"], cfg.transfer_cooldown_ticks,
+                              tx_cool)
     if mail:
         for f in ("probing", "app_at", "app_prev", "app_term", "hbr_at"):
             boxes[f] = sl.merge(boxes[f], ob[f])
@@ -1291,6 +1411,20 @@ def step(state: SimState, cfg: SimConfig,
     mci_term = _term_own(cfg, log_term, snap_idx, snap_term, last, mci)
     can_commit = is_leader & (mci > commit) & (mci_term == term)
     commit = torch.where(can_commit, mci, commit)
+
+    # ---- Phase R1: lease renewal + ReadIndex stamping ----------------------
+    # A quorum of member acks renews the lease and, with the own-term
+    # commit guard (a fresh leader's commit may lag until its noop
+    # commits), lets the pending batch take the just-folded commit.  The
+    # guard reads the ring after this tick's write, as JAX's log does here.
+    if reads_on:
+        rd_q_ok = (role == LEADER) & alive & (ob["rd_nack"] >= quorum)
+        rd_cterm_ok = (commit > 0) & (_term_own(
+            cfg, log_term, snap_idx, snap_term, last, commit) == term)
+        read_regs, _ = rd.stamp(
+            cfg, read_regs, alive=alive, role=role, lead=lead, term=term,
+            commit=commit, commit_term_ok=rd_cterm_ok, q_ok=rd_q_ok,
+            transferee=transferee, now=now, drop=drop)
 
     # ---- Phase E: apply + checksum ---------------------------------------
     # Conf entries activate here, at each row's own apply point; the batch
@@ -1352,6 +1486,12 @@ def step(state: SimState, cfg: SimConfig,
                                  NONE, transferee)
         pending_conf = pending_conf & ~has_conf
 
+    # ---- Phase R2: serve or refuse read batches ----------------------------
+    if reads_on:
+        read_regs = rd.settle(cfg, read_regs, alive=alive, applied=applied,
+                              role=role, was_leader=state.role == LEADER,
+                              now=now, prev_lease_until=state.lease_until)[0]
+
     # ---- Phase F: compaction (ring-pressure driven) ----------------------
     pressure = (last - snap_idx) > (L - 2 * cfg.max_props - 1)
     new_snap = torch.maximum(snap_idx, applied - cfg.keep)
@@ -1373,6 +1513,10 @@ def step(state: SimState, cfg: SimConfig,
     snap_term = torch.where(do_compact, nst, snap_term)
     snap_chk = torch.where(do_compact, nsc, snap_chk)
     snap_idx = torch.where(do_compact, new_snap, snap_idx)
+    if storage_on:
+        # a compacted-to snapshot is durable by construction, which keeps
+        # sync_mark >= snap_idx
+        sync_mark = torch.maximum(sync_mark, snap_idx)
 
     # invariants: pre/tx_cand mark live candidacies only; transferee only
     # means anything on a standing leader
@@ -1429,6 +1573,23 @@ def step(state: SimState, cfg: SimConfig,
             (applied - state.applied).to(torch.int64).sum()])
         stats = u32.to_bits(stats.to(torch.int64) + inc)  # int32 wraparound
 
+    extra = dict(vg_fields)
+    if tx_cool is not None:
+        extra["tx_cool"] = tx_cool
+    if storage_on:
+        # the durable commit record folds min(commit, sync_mark), the
+        # oracle's ack frontier folds commit; the one-tick fault flags clear
+        extra.update(
+            sync_mark=sync_mark,
+            dur_commit=torch.maximum(state.dur_commit,
+                                     torch.minimum(commit, sync_mark)),
+            ack_frontier=torch.maximum(state.ack_frontier, commit),
+            fsync_stall=torch.zeros_like(state.fsync_stall),
+            snap_bad=torch.zeros_like(state.snap_bad))
+    if reads_on:
+        extra.update(rd.read_fields(read_regs))
+    if mail:
+        extra.update(boxes)
     return dataclasses.replace(
         state,
         term=term, vote=vote, role=role, lead=lead,
@@ -1441,7 +1602,7 @@ def step(state: SimState, cfg: SimConfig,
         tx_cand=tx_cand, tn_at=tn_at, tn_term=tn_term, tn_from=tn_from,
         member=member, pending_conf=pending_conf, hup_conf=hup_conf,
         tail_conf=tail_conf, tick=state.tick + 1, stats=stats,
-        active_ttl=active_ttl, **(boxes if mail else {}))
+        active_ttl=active_ttl, **extra)
 
 
 def propose_dense(state: SimState, cfg: SimConfig,

@@ -8,12 +8,14 @@ here they are host loops over `kernel.step`, one tick per iteration.
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from swarmkit_tpu_torch.raft.sim import u32
-from swarmkit_tpu_torch.raft.sim.kernel import _first_true, step
+from swarmkit_tpu_torch.raft.sim.kernel import _first_true, check_slice, step
 from swarmkit_tpu_torch.raft.sim.state import (
-    LEADER, SimConfig, SimState, check_device, drop_matrix,
+    LEADER, NONE, SimConfig, SimState, check_device, drop_matrix,
 )
 
 I32 = torch.int32
@@ -117,6 +119,45 @@ def run_until_leader(state: SimState, cfg: SimConfig, max_ticks: int = 1000,
         st = step(st, cfg, device=dev)
         t += 1
     return st, t
+
+
+def submit_reads(state: SimState, cfg: SimConfig, count: int, rows=None,
+                 tag=None, device=None) -> SimState:
+    """Enqueue a linearizable read batch of `count` ops on the selected rows
+    (all rows when `rows` is None); the next `step` stamps and serves it.
+    Like the kernel's own refill, only rows whose previous batch drained
+    take one, and each records max(commit) as its linearizability goal.
+    Needs cfg.read_batch > 0 (the read registers).  `tag` is a trace tag,
+    which only trace_tags configs (not ported: check_slice raises) use."""
+    check_slice(cfg)
+    dev = check_device(state, device)
+    if state.read_pend is None:
+        raise ValueError("read path is off (SimConfig.read_batch == 0); "
+                         "no read registers to submit into")
+    sel = torch.ones((cfg.n,), dtype=torch.bool, device=dev)
+    if rows is not None:
+        sel = torch.zeros_like(sel)
+        sel[torch.as_tensor(rows, dtype=torch.int64, device=dev)] = True
+    open_ = sel & (state.read_pend == 0)
+    return dataclasses.replace(
+        state,
+        read_pend=torch.where(open_, int(count), state.read_pend),
+        read_goal=torch.where(open_, state.commit.amax(), state.read_goal),
+        read_idx=torch.where(open_, NONE, state.read_idx))
+
+
+def reads_served(state: SimState) -> torch.Tensor:
+    """Total read ops served across rows (0 when the read path is off)."""
+    if state.read_srv is None:
+        return torch.zeros((), dtype=I32, device=state.term.device)
+    return state.read_srv.sum(dtype=I32)
+
+
+def reads_blocked(state: SimState) -> torch.Tensor:
+    """Total read ops refused (deposal or lease expiry) across rows."""
+    if state.read_block is None:
+        return torch.zeros((), dtype=I32, device=state.term.device)
+    return state.read_block.sum(dtype=I32)
 
 
 def committed_entries(state: SimState) -> torch.Tensor:

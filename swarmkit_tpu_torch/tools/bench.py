@@ -16,12 +16,17 @@ unless a configuration pins them.
 After the headline (n=4096, 1M entries, seed 42) come BASELINE.json's
 configs 3-5 (64-steady, 1024-crash-every-100, 4096-drop-5pct), the
 mailbox wire (1024-mailbox-lat2-jitter1-inflight4: latency 2, jitter 1,
-4 pipelined appends per edge, with its own safety line) and the two
-lowering A/B pairs (1024-densepeer: banded vs dense peer counts;
-4096-sparseprog: slab vs dense progress), seed 7, at the headline's entry
-count.  Prints the card's `nvidia-smi` name and power limit, then one JSON
-line with bench.py's keys.  KernelObs and the telemetry probe are not
-ported: the line lists them under "absent".
+4 pipelined appends per edge, with its own safety line), the log-capacity
+tripwire (4096-longlog-L65536), the read mix (256-readmix-99to1: 99 reads
+offered per committed entry, whose served reads/s is bench.py's second
+headline), the durability A/B (256-fsyncgate: bare, then the storage
+model with fsync every 4 ticks and ack gating, on a ring and window deep
+enough for the fsync pipeline) and the two lowering A/B pairs
+(1024-densepeer: banded vs dense peer counts; 4096-sparseprog: slab vs
+dense progress), seed 7, at the headline's entry count.  Prints the card's
+`nvidia-smi` name and power limit, then one JSON line with bench.py's keys.
+KernelObs and the telemetry probe are not ported: the line lists them
+under "absent".
 
 It needs a card and raises without one, unless --device cpu is given
 (the CPU runs exist for the tests: their numbers are CPU numbers).
@@ -43,7 +48,7 @@ from swarmkit_tpu_torch.device import resolve_device
 from swarmkit_tpu_torch.raft.sim import kernel
 from swarmkit_tpu_torch.raft.sim import (
     SimConfig, SimState, committed_entries, has_leader, init_state,
-    leader_mask, run_ticks, run_until_leader,
+    leader_mask, reads_blocked, reads_served, run_ticks, run_until_leader,
 )
 
 BASELINE_RATE = 1_000_000 / 60.0   # the north star: 1M entries in 60 s
@@ -80,18 +85,25 @@ def measure(n: int, entries: int, seed: int, election_tick: int, dev,
             chunk: int = 64, peer_chunk: int | None = None,
             active_rows: int | None = None, latency: int = 0,
             latency_jitter: int = 0, inflight: int = 1,
-            **run_kw) -> dict:
+            log_len: int = 8192, window: int = 2048, read_batch: int = 0,
+            read_leases: bool = True, fsync_lag_ticks: int = 0,
+            ack_gating: bool = False, **run_kw) -> dict:
     """bench.py::measure on the port: elect, warm, re-elect, then time the
     chunked replication of ~`entries` committed entries.  latency,
-    latency_jitter and inflight pick the wire, as in bench.py."""
+    latency_jitter and inflight pick the wire, read_batch/read_leases the
+    read path (reads served in the timed pass are counted), and
+    fsync_lag_ticks/ack_gating the storage model, as in bench.py."""
     levers = {k: v for k, v in (("peer_chunk", peer_chunk),
                                 ("active_rows", active_rows))
               if v is not None}
-    cfg = SimConfig(n=n, log_len=8192, window=2048, apply_batch=2048,
+    if fsync_lag_ticks:
+        levers.update(fsync_lag_ticks=fsync_lag_ticks, ack_gating=ack_gating)
+    cfg = SimConfig(n=n, log_len=log_len, window=window, apply_batch=2048,
                     max_props=2048, keep=500, seed=seed,
                     election_tick=election_tick, latency=latency,
                     latency_jitter=latency_jitter, inflight=inflight,
-                    static_members=True, collect_stats=True, **levers)
+                    static_members=True, collect_stats=True,
+                    read_batch=read_batch, read_leases=read_leases, **levers)
     ticks_needed = max(1, -(-entries // cfg.max_props))
     n_chunks = -(-ticks_needed // chunk)
 
@@ -125,17 +137,23 @@ def measure(n: int, entries: int, seed: int, election_tick: int, dev,
     _, _, t_elect_post = elect()
 
     base = int(committed_entries(state))
+    base_reads = int(reads_served(state))
     kernel.reset_counts()
     t0 = time.perf_counter()
     final = run_chunks(state)
     dt = time.perf_counter() - t0
     counts = dict(kernel.COUNTS)
     committed = int(committed_entries(final)) - base
-    return {"cfg": cfg, "final": final, "committed": committed, "dt": dt,
-            "rate": committed / dt, "election_ticks": ticks,
-            "t_elect": t_elect, "t_elect_post": t_elect_post,
-            "t_warm": t_warm, "timed_ticks": n_chunks * chunk,
-            "counts": counts}
+    out = {"cfg": cfg, "final": final, "committed": committed, "dt": dt,
+           "rate": committed / dt, "election_ticks": ticks,
+           "t_elect": t_elect, "t_elect_post": t_elect_post,
+           "t_warm": t_warm, "timed_ticks": n_chunks * chunk,
+           "counts": counts}
+    if read_batch:
+        out["reads"] = int(reads_served(final)) - base_reads
+        out["read_rate"] = out["reads"] / dt
+        out["reads_blocked"] = int(reads_blocked(final))
+    return out
 
 
 def _safety(m: dict) -> tuple[bool, int]:
@@ -158,8 +176,47 @@ def _card_line(dev) -> str | None:
     return out.splitlines()[0]
 
 
-def _secondary(args, dev, log) -> dict:
-    """BASELINE configs 3-5 and the two lowering A/B pairs."""
+def readmix(n: int, entries: int, dev, chunk: int = 64) -> dict:
+    """bench.py's 256-readmix-99to1 at n rows: 99 reads offered per
+    committed entry (99 * max_props / n per row per refill).  Returns the
+    entries/s and bench.py's top-level read keys."""
+    m = measure(n, entries, 7, election_tick_for(n), dev, chunk=chunk,
+                read_batch=99 * 2048 // n)
+    keys = {"read_metric": f"linearizable-reads/sec @ {n} simulated "
+                           f"managers (99:1 offered read:write mix)",
+            "reads_per_second": m["read_rate"],
+            "read_write_ratio": m["read_rate"] / m["rate"],
+            "reads_blocked": m["reads_blocked"]}
+    if m["read_rate"] < 10 * m["rate"]:
+        keys["note"] = (f"read-mix underperformed: {m['read_rate']:,.0f} "
+                        f"reads/s < 10x {m['rate']:,.0f} entries/s")
+    return {"rate": m["rate"], "keys": keys,
+            "leaders": int(leader_mask(m["final"]).sum()),
+            "linearizable": bool((m["final"].read_srv_idx
+                                  >= m["final"].read_srv_goal).all())}
+
+
+def fsyncgate(n: int, entries: int, dev, chunk: int = 64) -> dict:
+    """bench.py's 256-fsyncgate A/B at n rows: the same shape bare and with
+    the storage model (fsync every k=4 ticks, ack gating), both with a ring
+    and an append window deep enough for k rounds of in-flight entries."""
+    k = 4
+    depth = dict(log_len=32768, window=(k + 1) * 2048 + 512)
+    dm = measure(n, entries, 7, election_tick_for(n), dev, chunk=chunk,
+                 **depth)
+    gm = measure(n, entries, 7, election_tick_for(n), dev, chunk=chunk,
+                 fsync_lag_ticks=k, ack_gating=True, **depth)
+    g = gm["final"]
+    return {"dense": dm["rate"], f"gated_k{k}": gm["rate"],
+            "gated_over_dense": gm["rate"] / dm["rate"],
+            "durable": int(g.ack_frontier.max()) <= int(g.last.max())
+            and bool((g.sync_mark >= g.snap_idx).all())}
+
+
+def _secondary(args, dev, log, result: dict) -> dict:
+    """BASELINE configs 3-5, the mailbox wire, the log-capacity, read-mix
+    and durability configs, and the two lowering A/B pairs; the read mix's
+    keys go into `result`, as bench.py puts them."""
     extra: dict = {}
 
     def measured(cn: int, **kw) -> dict:
@@ -195,6 +252,30 @@ def _secondary(args, dev, log) -> dict:
     log(f"config {name}: {m['rate']:,.1f} entries/s; "
         f"{extra[name + '_detail']}")
     del m
+    # log capacity: with the tiled log an 8x ring should land near the
+    # L=8192 headline's rate
+    extra["4096-longlog-L65536"] = run(4096, log_len=65536)
+    log(f"config 4096-longlog-L65536: {extra['4096-longlog-L65536']:,.1f} "
+        f"entries/s")
+    rm = readmix(256, args.entries, dev, args.chunk_ticks)
+    extra["256-readmix-99to1"] = rm["rate"]
+    note = rm["keys"].pop("note", None)
+    result.update(rm["keys"])
+    if note:
+        result.setdefault("note", note)
+    if rm["leaders"] != 1 or not rm["linearizable"]:
+        result.setdefault("error", "256-readmix-99to1: not exactly one "
+                                   "leader or a non-linearizable read")
+    log(f"config 256-readmix-99to1: {rm['rate']:,.1f} entries/s, "
+        f"{rm['keys']}")
+    fg = fsyncgate(256, args.entries, dev, args.chunk_ticks)
+    if not fg.pop("durable"):
+        fg["error"] = "durability check failed"
+    extra["256-fsyncgate"] = fg
+    if fg["gated_over_dense"] < 0.8:
+        result.setdefault("note", f"storage tripwire: gated rate "
+                                  f"{fg['gated_k4']:,.0f} < 0.8x bare "
+                                  f"{fg['dense']:,.0f} at 256-fsyncgate")
     pc = max(64, 1024 // 4)          # bench.py's band width at n=1024
     dense, banded = run(1024, peer_chunk=0), run(1024, peer_chunk=pc)
     extra["1024-densepeer"] = {"dense": dense, f"banded_pc{pc}": banded,
@@ -203,7 +284,7 @@ def _secondary(args, dev, log) -> dict:
     dense, sparse = run(4096, active_rows=0), run(4096, active_rows=ar)
     extra["4096-sparseprog"] = {"dense": dense, f"sparse_a{ar}": sparse,
                                 "sparse_over_dense": sparse / dense}
-    for name in ("1024-densepeer", "4096-sparseprog"):
+    for name in ("256-fsyncgate", "1024-densepeer", "4096-sparseprog"):
         log(f"config {name}: {extra[name]}")
     return extra
 
@@ -268,7 +349,7 @@ def main(argv=None) -> dict:
         result["error"] = f"only {near_tip}/{args.n} replicas near commit tip"
     del m
     result["configs_entries_per_s"] = "skipped (--no-configs)" \
-        if args.no_configs else _secondary(args, dev, log)
+        if args.no_configs else _secondary(args, dev, log, result)
     if not args.no_configs and any(
             isinstance(v, dict) and "error" in v
             for v in result["configs_entries_per_s"].values()):

@@ -1,15 +1,17 @@
 """Where a headline tick's time goes on the CUDA card.
 
     python -m swarmkit_tpu_torch.tools.profile_tick [--n N] [--ticks 16]
-        [--dense] [--config headline|mailbox]
+        [--dense] [--config headline|mailbox|readmix] [--log-len L]
 
 Elects a leader at the bench headline configuration (n=4096 unless --n
 says otherwise; banded peer counts and role-sparse progress at their
 SimConfig defaults, as bench.py runs them, or both pinned dense with
---dense), or with --config mailbox at bench.py's
+--dense), with --config mailbox at bench.py's
 1024-mailbox-lat2-jitter1-inflight4 (n=1024, seed 7, election_tick 20,
-latency 2, jitter 1, inflight 4), warms up with proposing ticks, then
-runs --ticks ticks of run_ticks(prop_count=max_props) three ways:
+latency 2, jitter 1, inflight 4), or with --config readmix at bench.py's
+256-readmix-99to1 (n=256, seed 7, election_tick 16, read_batch 792);
+--log-len changes the ring.  It warms up with proposing ticks, then runs
+--ticks ticks of run_ticks(prop_count=max_props) three ways:
 
 1. host clock around the window, ending in a synchronize: ms/tick;
 2. CUDA events around the same window: device ms/tick;
@@ -17,8 +19,9 @@ runs --ticks ticks of run_ticks(prop_count=max_props) three ways:
    by operator.  Their sum over the event-timed window of step 2 is the
    device's busy share of an unprofiled tick.
 
-Prints the card's name and power limit first and one JSON line last.  It
-needs a card and never runs on the CPU.
+Prints the card's name and power limit first and one JSON line last, with
+the entries committed (and, with reads on, the reads served) per tick over
+the three windows.  It needs a card and never runs on the CPU.
 """
 
 from __future__ import annotations
@@ -42,7 +45,11 @@ MAILBOX = dict(n=1024, log_len=8192, window=2048, apply_batch=2048,
                max_props=2048, keep=500, election_tick=20, seed=7,
                latency=2, latency_jitter=1, inflight=4, heartbeat_tick=1,
                static_members=True, collect_stats=True)
-CONFIGS = {"headline": HEADLINE, "mailbox": MAILBOX}
+READMIX = dict(n=256, log_len=8192, window=2048, apply_batch=2048,
+               max_props=2048, keep=500, election_tick=16, seed=7,
+               read_batch=99 * 2048 // 256, static_members=True,
+               collect_stats=True)
+CONFIGS = {"headline": HEADLINE, "mailbox": MAILBOX, "readmix": READMIX}
 
 
 def _device_us(evt) -> float:
@@ -58,6 +65,8 @@ def main() -> None:
                     default="headline")
     ap.add_argument("--n", type=int, default=None,
                     help="rows (default: the configuration's own)")
+    ap.add_argument("--log-len", type=int, default=None,
+                    help="ring slots (default: the configuration's own)")
     ap.add_argument("--ticks", type=int, default=16)
     ap.add_argument("--warm", type=int, default=8)
     ap.add_argument("--top", type=int, default=15)
@@ -74,6 +83,7 @@ def main() -> None:
 
     base = CONFIGS[args.config]
     cfg = sim.SimConfig(**{**base, "n": args.n or base["n"],
+                           "log_len": args.log_len or base["log_len"],
                            **(DENSE if args.dense else {})})
     st, ticks = sim.run_until_leader(sim.init_state(cfg), cfg,
                                      max_ticks=2000)
@@ -86,6 +96,8 @@ def main() -> None:
         return sim.run_ticks(state, cfg, args.ticks,
                              prop_count=cfg.max_props)
 
+    commit0 = int(sim.committed_entries(st))
+    reads0 = int(sim.reads_served(st))
     t0 = time.perf_counter()
     st, _ = window(st)
     torch.cuda.synchronize()
@@ -110,6 +122,8 @@ def main() -> None:
         wall_us = (time.perf_counter() - t0) * 1e6
     launches = cuda_ops.LAUNCHES["append_band_copy"]
     counts = dict(kernel.COUNTS)
+    committed = (int(sim.committed_entries(st)) - commit0) / (3 * args.ticks)
+    reads = (int(sim.reads_served(st)) - reads0) / (3 * args.ticks)
 
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -127,7 +141,8 @@ def main() -> None:
           f"append_band_copy launches {launches}; step host syncs "
           f"{counts['host_syncs'] / args.ticks:.2f}/tick, slab ticks "
           f"{counts['slab_ticks']}, dense-fallback ticks "
-          f"{counts['dense_fallback_ticks']}", flush=True)
+          f"{counts['dense_fallback_ticks']}; committed {committed:.1f} "
+          f"entries/tick, served {reads:.1f} reads/tick", flush=True)
     print("top kernels by self device time (µs per tick, calls per tick):")
     for e in sorted(kernels, key=_device_us, reverse=True)[:args.top]:
         print(f"  {_device_us(e) / args.ticks:10.1f}  "
@@ -139,7 +154,8 @@ def main() -> None:
               f"{e.count / args.ticks:7.1f}  {e.key[:100]}")
     print(json.dumps({
         "card": card, "config": args.config, "n": cfg.n,
-        "ticks": args.ticks,
+        "log_len": cfg.log_len, "ticks": args.ticks,
+        "committed_per_tick": committed, "reads_per_tick": reads,
         "levers": {"peer_chunk": cfg.peer_chunk,
                    "active_rows": cfg.active_rows},
         "election_ticks": ticks, "host_ms_per_tick": host_ms,

@@ -15,6 +15,8 @@ import torch
 
 from swarmkit_tpu_torch.tools import bench
 
+from tests.test_torch_wire import one_torch_thread  # noqa: F401 (fixture)
+
 KEYS = {"metric", "value", "unit", "vs_baseline", "election_ticks",
         "election_s_incl_compile", "election_s_post_compile",
         "safety_ok", "replicas_near_tip", "peak_bytes",
@@ -72,3 +74,21 @@ def test_measure_runs_the_mailbox_wire_on_the_cpu():
     assert safety_ok and near_tip >= 32 // 2 + 1
     assert int(bench.leader_mask(m["final"]).sum()) == 1
     assert m["counts"]["host_syncs"] == m["timed_ticks"]
+
+
+def test_readmix_and_fsyncgate_on_the_cpu():
+    """The two configurations of this bench's read and durability cells at
+    n=64: bench.py's read keys (served reads at least 10x committed
+    entries, linearizable, one leader) and the fsync-gate A/B's keys
+    (both rates, their ratio, durability at the end)."""
+    cpu = torch.device("cpu")
+    rm = bench.readmix(64, 4000, cpu, chunk=8)
+    keys = rm["keys"]
+    assert {"read_metric", "reads_per_second", "read_write_ratio",
+            "reads_blocked"} <= set(keys)
+    assert "note" not in keys and keys["read_write_ratio"] >= 10
+    assert rm["leaders"] == 1 and rm["linearizable"] and rm["rate"] > 0
+    fg = bench.fsyncgate(64, 4000, cpu, chunk=8)
+    assert set(fg) == {"dense", "gated_k4", "gated_over_dense", "durable"}
+    assert fg["dense"] > 0 and fg["gated_k4"] > 0 and fg["durable"]
+    assert fg["gated_over_dense"] == fg["gated_k4"] / fg["dense"]

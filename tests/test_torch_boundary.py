@@ -31,6 +31,8 @@ def test_port_imports_without_jax():
     """A fresh interpreter with `jax` and the JAX package blocked imports
     every module of the port and chip_smoke."""
     mods = _port_modules() + ["chip_smoke"]
+    assert {"swarmkit_tpu_torch.raft.read.lease",
+            "swarmkit_tpu_torch.raft.read.serve"} <= set(mods)
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
             "sys.modules['swarmkit_tpu'] = None\n"
@@ -75,25 +77,47 @@ def test_entry_points_raise_without_a_card(monkeypatch):
     assert TpuExecutor(device="cpu").device.type == "cpu"
 
 
+BASE5 = dict(n=5, log_len=1024, window=64, apply_batch=64, max_props=64,
+             keep=32, static_members=True, active_rows=0)
+
+
+@pytest.mark.parametrize("lever,kw", [
+    ("flight recorder", dict(record_events=True)),
+    ("telemetry", dict(collect_telemetry=True)),
+    ("trace tags", dict(record_events=True, collect_telemetry=True,
+                        trace_tags=True)),
+])
+def test_unported_levers_raise(lever, kw):
+    cfg = state.SimConfig(**{**BASE5, **kw})
+    st = state.init_state(cfg, device="cpu")
+    with pytest.raises(NotImplementedError, match=lever):
+        kernel.step(st, cfg, device="cpu")
+
+
 @pytest.mark.parametrize("lever,kw", [
     ("read path", dict(read_batch=2)),
     ("read path", dict(read_batch=2, latency=2, election_tick=14)),
     ("storage model", dict(fsync_lag_ticks=1, pre_vote=True)),
     ("transfer cooldown", dict(transfer_cooldown_ticks=4,
                                static_members=False)),
-    ("flight recorder", dict(record_events=True)),
-    ("telemetry", dict(collect_telemetry=True)),
     ("storage model", dict(fsync_lag_ticks=1)),
     ("vote guard", dict(vote_guard=True)),
     ("transfer cooldown", dict(transfer_cooldown_ticks=4)),
 ])
-def test_unported_levers_raise(lever, kw):
-    base = dict(n=5, log_len=1024, window=64, apply_batch=64, max_props=64,
-                keep=32, static_members=True, active_rows=0)
-    cfg = state.SimConfig(**{**base, **kw})
-    st = state.init_state(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match=lever):
-        kernel.step(st, cfg, device="cpu")
+def test_ported_levers_step_like_jax(lever, kw):
+    """The levers the earlier slices left raising now run: one step from
+    the initial state equals the JAX package's on every field."""
+    from swarmkit_tpu.raft.sim import kernel as jkernel
+    from swarmkit_tpu.raft.sim import state as jstate
+
+    from tests.test_torch_step import assert_same
+
+    cfg_kw = {**BASE5, **kw}
+    jcfg, tcfg = jstate.SimConfig(**cfg_kw), state.SimConfig(**cfg_kw)
+    js = jkernel.step(jstate.init_state(jcfg), jcfg)
+    ts = kernel.step(state.init_state(tcfg, device="cpu"), tcfg,
+                     device="cpu")
+    assert_same(lever, js, ts)
 
 
 def test_unported_lever_raises_with_both_ported_levers_on():
@@ -104,15 +128,15 @@ def test_unported_lever_raises_with_both_ported_levers_on():
                           max_props=64, keep=32, peer_chunk=8,
                           active_rows=8, latency=2, latency_jitter=1,
                           inflight=4, pre_vote=True, election_tick=14,
-                          vote_guard=True)
+                          record_events=True)
     assert cfg.peer_tiled and cfg.active_rows_on and cfg.mailboxes
     assert not cfg.static_members
     st = state.init_state(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="vote guard"):
+    with pytest.raises(NotImplementedError, match="flight recorder"):
         kernel.step(st, cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="vote guard"):
+    with pytest.raises(NotImplementedError, match="flight recorder"):
         kernel.propose_conf(st, cfg, 1, True, device="cpu")
-    cfg = dataclasses.replace(cfg, vote_guard=False)
+    cfg = dataclasses.replace(cfg, record_events=False)
     st = kernel.step(state.init_state(cfg, device="cpu"), cfg, device="cpu")
     assert int(st.tick) == 1
 

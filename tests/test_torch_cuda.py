@@ -189,6 +189,65 @@ def test_mailbox_prevote_membership_on_the_card_match_the_cpu():
     assert bool(states["cpu"].member[:, 31].all())
 
 
+@pytest.mark.cuda
+def test_reads_guard_cooldown_storage_on_the_card_match_the_cpu():
+    """The read path, the vote guard, transfer cooldown and the gated
+    storage model on the mailbox wire's [8, N] slab over a tiled log with
+    banded counts: drops, stalled disks, flagged snapshot images, a
+    transfer and a storm; card and CPU equal on every field of every
+    tick, and the card took both progress branches."""
+    _need_card()
+    import dataclasses
+
+    from swarmkit_tpu_torch.raft.sim import kernel
+    cfg = sim.SimConfig(n=32, log_len=1024, window=64, apply_batch=64,
+                        max_props=64, keep=32, election_tick=14, seed=4,
+                        latency=2, latency_jitter=1, inflight=4,
+                        static_members=True, collect_stats=True,
+                        log_chunk=128, peer_chunk=8, active_rows=8,
+                        read_batch=4, vote_guard=True,
+                        transfer_cooldown_ticks=15, fsync_lag_ticks=2,
+                        ack_gating=True)
+    rng = np.random.default_rng(13)
+    states = {d: sim.init_state(cfg, device=d) for d in ("cuda", "cpu")}
+    counts = {d: {k: 0 for k in kernel.COUNTS} for d in states}
+    for t in range(160):
+        drop = rng.random((32, 32)) < 0.03
+        if 110 <= t < 140:
+            drop |= ~np.eye(32, dtype=bool)
+        alive = np.ones(32, bool)
+        alive[30] = not 40 <= t < 60
+        flag = torch.from_numpy(np.arange(32) >= 28)
+        for d in states:
+            if 45 <= t < 50:
+                states[d] = dataclasses.replace(
+                    states[d], fsync_stall=flag.to(d))
+            if 60 <= t < 64:
+                states[d] = dataclasses.replace(
+                    states[d], snap_bad=flag.to(d))
+            if t == 80:
+                ldr = int(sim.leader_mask(states[d]).int().argmax())
+                states[d] = sim.transfer_leadership(states[d], cfg, ldr, 5)
+            kernel.reset_counts()
+            states[d] = sim.step(
+                states[d], cfg, alive=torch.from_numpy(alive).to(d),
+                drop=torch.from_numpy(drop).to(d), prop_count=32,
+                payload_fn=sim.run._payload_at, device=d)
+            for k, v in kernel.COUNTS.items():
+                counts[d][k] += v
+        got = sim.state_to_numpy(states["cuda"])
+        want = sim.state_to_numpy(states["cpu"])
+        assert sorted(got) == sorted(want)
+        for name in want:
+            assert np.array_equal(got[name], want[name]), (t, name)
+    assert counts["cuda"] == counts["cpu"]
+    assert counts["cuda"]["slab_ticks"] > 0
+    assert counts["cuda"]["dense_fallback_ticks"] > 0
+    cpu = states["cpu"]
+    assert int(cpu.commit.max()) > 100 and int(sim.reads_served(cpu)) > 0
+    assert bool((cpu.read_srv_idx >= cpu.read_srv_goal).all())
+
+
 def _matmul_tol(ref: torch.Tensor, k: int) -> float:
     top = float(ref.float().abs().max())
     if ref.dtype == torch.bfloat16:

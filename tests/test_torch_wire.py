@@ -17,7 +17,10 @@ untiled and tiled, with a storm window so the dense fallback runs too.
 
 from __future__ import annotations
 
+import dataclasses
+
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -74,20 +77,31 @@ def lockstep(kw: dict, n_ticks: int, seed: int, drop_rate: float = 0.0,
              transfer_every: int = 0, conf_every: int = 0, voters=None,
              min_members: int = 3, remove_leader_every: int = 0,
              sleep_node: tuple = (), storm: tuple = (), fused: bool = False,
-             oracle: bool = False) -> dict:
+             oracle: bool = False, isolate_leader: tuple = (),
+             reads_at: dict = None, flags_at: dict = None,
+             transfer_at: dict = None) -> dict:
     """Drive the JAX tick and the port's on run_differential's schedule,
     asserting every SimState field equal after every host call and tick
     (and, with `oracle`, the port equal to OracleCluster on the
     differential's fields).  `storm` = (start, end) drops every non-self
-    edge in that window; `fused` proposes through step's fused dense
-    propose (a random count per tick) instead of host payloads.  Returns
-    the final commit/term maxima and the port's branch counts."""
+    edge in that window; `isolate_leader` = (start, end) cuts the row that
+    leads at `start` off from every peer until `end`; `fused` proposes
+    through step's fused dense propose (a random count per tick) instead of
+    host payloads.  Hooks, keyed by tick: `reads_at` {t: (count, rows)}
+    submits a read batch (submit_reads), `flags_at` {t: {field: rows}} sets
+    the storage model's one-tick flags (fsync_stall, snap_bad) on those
+    rows, `transfer_at` {t: target} asks the sitting leader to transfer.
+    Returns the final commit/term maxima, the port's branch counts and the
+    final states."""
     jcfg, tcfg = jstate.SimConfig(**kw), tstate.SimConfig(**kw)
     rng = np.random.default_rng(seed)
     n = jcfg.n
     js = jstate.init_state(jcfg, voters=voters)
     ts = tstate.init_state(tcfg, voters=voters, device=CPU)
     assert_same("init", js, ts)
+    reads_at, flags_at = reads_at or {}, flags_at or {}
+    transfer_at = transfer_at or {}
+    isolated = None
     orc = OracleCluster(jcfg, voters=voters) if oracle else None
     alive = np.ones(n, bool)
     down_until = np.zeros(n, np.int64)
@@ -127,15 +141,34 @@ def lockstep(kw: dict, n_ticks: int, seed: int, drop_rate: float = 0.0,
                 drop = drop | (side[:, None] != side[None, :])
         if storm and storm[0] <= t < storm[1]:
             drop = drop | ~np.eye(n, dtype=bool)
+        if isolate_leader and t == isolate_leader[0]:
+            isolated = int(leaders()[0])
+        if isolated is not None and t < isolate_leader[1]:
+            drop[isolated, :] = drop[:, isolated] = True
 
-        if transfer_every and t > 0 and t % transfer_every == 0:
-            ls = leaders()
-            if len(ls):
-                ldr, tgt = int(ls[0]), int(rng.integers(n))
-                js = jkernel.transfer_leadership(js, jcfg, ldr, tgt)
-                ts = tkernel.transfer_leadership(ts, tcfg, ldr, tgt)
-                if orc is not None:
-                    orc.transfer(ldr, tgt)
+        ls = leaders()
+        tgt = transfer_at.get(t)
+        if transfer_every and t > 0 and t % transfer_every == 0 and len(ls):
+            tgt = int(rng.integers(n))
+        if tgt is not None and len(ls):
+            ldr = int(ls[0])
+            js = jkernel.transfer_leadership(js, jcfg, ldr, tgt)
+            ts = tkernel.transfer_leadership(ts, tcfg, ldr, tgt)
+            assert_same(f"seed={seed} transfer t={t}", js, ts)
+            if orc is not None:
+                orc.transfer(ldr, tgt)
+        if t in reads_at:
+            count, rows = reads_at[t]
+            js = jrun.submit_reads(js, jcfg, count, rows=rows)
+            ts = trun.submit_reads(ts, tcfg, count, rows=rows, device=CPU)
+            assert_same(f"seed={seed} submit_reads t={t}", js, ts)
+        for field, rows in flags_at.get(t, {}).items():
+            mask = np.zeros(n, bool)
+            mask[list(rows)] = True
+            js = dataclasses.replace(
+                js, **{field: getattr(js, field) | jnp.asarray(mask)})
+            ts = dataclasses.replace(
+                ts, **{field: getattr(ts, field) | t_bool(mask)})
 
         prop_count = 0
         payloads = np.zeros(jcfg.max_props, np.uint32)
@@ -206,7 +239,7 @@ def lockstep(kw: dict, n_ticks: int, seed: int, drop_rate: float = 0.0,
                     f"{getattr(ov, f)}"
     return {"max_commit": int(np.asarray(js.commit).max()),
             "max_term": int(np.asarray(js.term).max()),
-            "counts": dict(tkernel.COUNTS)}
+            "counts": dict(tkernel.COUNTS), "js": js, "ts": ts}
 
 
 @pytest.mark.parametrize("seed", [500, 502])
