@@ -37,6 +37,14 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    come flagged corrupt, a transfer whose target goes down with its
    TIMEOUT_NOW on the wire and a second request refused by the cooldown,
    and a storm; every field after every call, both branches on the card.
+   Fifth, the three device observability planes (flight recorder,
+   telemetry, trace tags) on that wire with PreVote, dynamic members,
+   read_batch 8 and gated fsync every 2 ticks: from the first leader E,
+   tagged fused proposes, host proposes and reads, stalled disks, a row
+   down long enough to need a snapshot restore, a storm; every field
+   (event rings, tel_* buffers, read tags) after every call, both
+   branches on the card, and the rings hold restores, fallback ticks and
+   tagged commits and serves.
 4. the main path at full width: the bench headline (n=4096, L=8192,
    window/apply/props 2048, keep 500, election_tick 24, static members,
    tiled log, and the SimConfig defaults that bench.py runs: banded peer
@@ -123,6 +131,26 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    0.8 tripwire as a note); after every gated chunk checks dur_commit never
    fell, max(ack_frontier) <= max(last), sync_mark >= snap_idx; one leader
    and checksum agreement on both.
+12. the device observability planes at the headline's full width and
+   levers (n=4096, the default 128-deep event ring), in turns with the
+   same shape planes-off: each elected, then 16 profiled ticks of each in
+   turns (kernel launches and ms per tick; the planes-off count against
+   the headline's 1393.25; every window's band-copy launches, full-pass
+   and dense-fallback ticks; the kernel records in which a config's two
+   windows differ, and whether the host called the same aten ops in
+   both), then 8 off/on pairs of 32-tick chunks in turns, each planes-on chunk
+   tagged by a tracer span (span_trace_tag) and followed by a ClockSync
+   sample.  Prints entries/s, host ms/tick (the median on/off pair ratio
+   and its spread), launches, step host syncs (checked 1.00 per steady
+   tick on both), each config's band-copy launches over its 256 timed
+   ticks (checked a mix of banded and full-pass ticks), commit and
+   election p50/p99 (summarize_state checked equal to
+   percentile_edge_device), events recorded, overwritten and tagged on all
+   rows, the clock fit, KernelObs and TelemetryObs published into a
+   registry and the exposition's family count, a capture of rows 0-255
+   exported as a Chrome trace (validate_chrome_trace must return [], with
+   flow events), and the band copy against plain on one planes-on tick's
+   calls.
 
 Each path's band-copy launches are counted from 0 (the kernels' record
 carries them).  Before the last line it prints the kernels' JSON record
@@ -173,6 +201,9 @@ FSYNC_K = 4
 FSYNCGATE = dict(READMIX, read_batch=0, log_len=32768,
                  window=(FSYNC_K + 1) * 2048 + 512)
 STORAGE = dict(fsync_lag_ticks=FSYNC_K, ack_gating=True)
+# the three device observability planes: flight recorder, telemetry, trace
+# tags (which need the other two)
+PLANES = dict(record_events=True, collect_telemetry=True, trace_tags=True)
 
 
 def log(msg: str) -> None:
@@ -358,6 +389,7 @@ def phase_card_vs_cpu(torch, sim, cuda_ops, card: str = "cuda") -> None:
         f"equal; the card took both branches")
     phase_mailbox_card_vs_cpu(torch, sim, card)
     phase_levers_card_vs_cpu(torch, sim, card)
+    phase_planes_card_vs_cpu(torch, sim, card)
 
 
 def _member_flipped(st, target: int, removed: bool, rows) -> bool:
@@ -564,15 +596,117 @@ def phase_levers_card_vs_cpu(torch, sim, card: str) -> None:
         f"second transfer was refused inside the cooldown")
 
 
+def phase_planes_card_vs_cpu(torch, sim, card: str) -> None:
+    """The three device observability planes (flight recorder, telemetry,
+    trace tags) at n=256 on the mailbox wire with PreVote, dynamic
+    membership, election_tick 16, read_batch 8, the gated storage model
+    (fsync every 2 ticks), peer_chunk=64 and active_rows=16, card and CPU
+    in lockstep, every field compared after every call (the event ring,
+    its cursor and fault-edge registers, every tel_* buffer and the read
+    tag included).  Tags on every call: the fused propose's
+    step(prop_tag=), a host propose every 7th tick, submit_reads every
+    9th.  From the tick E when a leader first stands: 2% drops, two rows'
+    disks stalled at E+5..E+10, a row down at E+8..E+19 that comes back to
+    a compacted leader (a snapshot restore), a storm at E+35..E+47 so the
+    dense fallback runs; the run ends at E+60."""
+    import numpy as np
+
+    from swarmkit_tpu_torch.flightrec import decode_state
+    cfg = sim.SimConfig(**{**HEADLINE, **MAILBOX, **PLANES, "n": 256,
+                           "election_tick": 16, "pre_vote": True,
+                           "static_members": False, "peer_chunk": 64,
+                           "active_rows": 16, "read_batch": 8,
+                           "fsync_lag_ticks": 2, "ack_gating": True})
+    n = cfg.n
+    g = torch.Generator().manual_seed(9)
+    eye = torch.eye(n, dtype=torch.bool)
+    payloads = np.arange(1, cfg.max_props + 1, dtype=np.uint32) * 2654435761
+    log(f"  the device planes (flight recorder, telemetry, trace tags) on "
+        f"the mailbox wire, PreVote, dynamic members, read_batch=8, gated "
+        f"fsync every 2 ticks, peer_chunk=64, active_rows=16, in lockstep "
+        f"from the first leader E: tagged proposes and reads, stalled disks, "
+        f"a restore, a storm:")
+    states = {d: sim.init_state(cfg, device=d) for d in (card, "cpu")}
+    counts = {d: {k: 0 for k in sim.kernel.COUNTS} for d in states}
+    spent = {d: 0.0 for d in states}
+    E, t = None, 0
+    while E is None or t < E + 60:
+        check(E is not None or t < 200, "no leader within 200 ticks")
+        if E is None and bool(sim.has_leader(states["cpu"])):
+            E = t
+        at = -1 if E is None else t - E     # ticks since the first leader
+        tag = 0x4000 + t
+        if t % 9 == 4:
+            for d in states:
+                states[d] = sim.submit_reads(states[d], cfg, 3,
+                                             rows=range(0, n, 5), tag=tag,
+                                             device=d)
+            _compare(sim, states, card, f"submit_reads at tick {t}")
+        if 5 <= at < 11:
+            for d in states:
+                states[d] = dataclasses.replace(states[d], fsync_stall=(
+                    torch.arange(n) < 2).to(d))
+        drop = torch.rand((n, n), generator=g) < 0.02
+        if 35 <= at < 48:
+            drop |= ~eye
+        alive = torch.ones(n, dtype=torch.bool)
+        alive[n - 1] = not 8 <= at < 20
+        host_prop = t % 7 == 3
+        for d in states:
+            if host_prop:
+                states[d] = sim.propose(states[d], cfg, payloads,
+                                        cfg.max_props, alive=alive.to(d),
+                                        tag=tag, device=d)
+        if host_prop:
+            _compare(sim, states, card, f"propose at tick {t}")
+        props = {} if host_prop else dict(
+            prop_count=cfg.max_props, payload_fn=sim.run._payload_at,
+            prop_tag=tag)
+        for d in states:
+            sim.kernel.reset_counts()
+            t0 = time.perf_counter()
+            states[d] = sim.step(states[d], cfg, alive=alive.to(d),
+                                 drop=drop.to(d), device=d, **props)
+            spent[d] += time.perf_counter() - t0
+            for k, v in sim.kernel.COUNTS.items():
+                counts[d][k] += v
+        fields = _compare(sim, states, card, f"tick {t}")
+        t += 1
+    cpu, cc = states["cpu"], counts[card]
+    events, dropped = decode_state(cpu)
+    names = {e.name for e in events}
+    tagged = {e.name for e in events if e.tag}
+    log(f"  {t} ticks, E={E}; {card}: {spent[card]:.2f} s, cpu: "
+        f"{spent['cpu']:.2f} s; slab ticks {cc['slab_ticks']}, "
+        f"dense-fallback ticks {cc['dense_fallback_ticks']}, step host syncs "
+        f"{cc['host_syncs']}; commit {int(cpu.commit.max())}, row {n - 1}'s "
+        f"snap_idx {int(cpu.snap_idx[n - 1])}, {len(events)} events in the "
+        f"rings "
+        f"({int(dropped.sum())} overwritten), codes {sorted(names)}, tagged "
+        f"{sorted(tagged)}; commit histogram {cpu.tel_commit_hist.tolist()}")
+    check(counts[card] == counts["cpu"],
+          f"branch counts differ: {counts[card]} vs {counts['cpu']}")
+    check(cc["slab_ticks"] > 0 and cc["dense_fallback_ticks"] > 0,
+          f"the card did not take both progress branches: {cc}")
+    check({"SNAPSHOT_RESTORE", "FALLBACK_TICK", "FSYNC_ADVANCE",
+           "COMMIT_ADVANCE", "READ_SERVED"} <= names,
+          f"events missing from the rings: {sorted(names)}")
+    check(tagged == {"COMMIT_ADVANCE", "READ_SERVED"},
+          f"tagged events: {sorted(tagged)}")
+    check(int(cpu.tel_commit_hist.sum()) > 0
+          and int(cpu.tel_read_hist.sum()) > 0, "empty latency histograms")
+    log(f"  all {fields} fields equal after every call and tick")
+
+
 def _checksums_agree(sim, st) -> bool:
     applied, chk = (x.cpu().tolist() for x in sim.quorum_applied_checksum(st))
     seen = {}
     return all(seen.setdefault(a, c) == c for a, c in zip(applied, chk))
 
 
-def _timed_ticks(torch, sim, cfg, st, ticks: int):
-    """run_ticks(prop_count=max_props) for `ticks` ticks: (state, host ms
-    per tick ending in a synchronize, ms per tick between CUDA events,
+def _timed_ticks(torch, sim, cfg, st, ticks: int, **kw):
+    """run_ticks(prop_count=max_props, **kw) for `ticks` ticks: (state, host
+    ms per tick ending in a synchronize, ms per tick between CUDA events,
     entries committed)."""
     base = int(sim.committed_entries(st))
     start = torch.cuda.Event(enable_timing=True)
@@ -580,7 +714,7 @@ def _timed_ticks(torch, sim, cfg, st, ticks: int):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     start.record()
-    st, _ = sim.run_ticks(st, cfg, ticks, prop_count=cfg.max_props)
+    st, _ = sim.run_ticks(st, cfg, ticks, prop_count=cfg.max_props, **kw)
     end.record()
     torch.cuda.synchronize()
     host_ms = (time.perf_counter() - t0) * 1e3 / ticks
@@ -624,13 +758,8 @@ def phase_headline(torch, sim, cuda_ops) -> dict:
         t_run += h * 64 / 1e3
     counts = dict(sim.kernel.COUNTS)
     launches = cuda_ops.LAUNCHES["append_band_copy"]
-    # a banded tick launches the kernel once per band chunk, a full-pass
-    # tick once over the whole ring: that splits the ticks
-    n_ticks, bc = ticks + 128, cfg.band_chunks
-    full_pass, rem = divmod(bc * n_ticks - launches, bc - 1)
-    check(rem == 0 and 0 <= full_pass <= n_ticks,
-          f"{launches} launches in {n_ticks} ticks is not a mix of banded "
-          f"({bc} launches) and full-pass (1 launch) ticks")
+    n_ticks = ticks + 128
+    full_pass = _full_pass_ticks(cfg, launches, n_ticks, "n=4096")
     n_leaders = int(sim.leader_mask(st).sum())
     agree = _checksums_agree(sim, st)
     peak = torch.cuda.max_memory_allocated() / 2**30
@@ -665,19 +794,28 @@ def phase_headline(torch, sim, cuda_ops) -> dict:
     return out
 
 
-def _device_window(torch, sim, cfg, st, ticks: int):
+def _device_window(torch, sim, cfg, st, ticks: int, by_name: bool = False):
     """`ticks` proposing ticks under torch.profiler: (state, kernel
-    launches per tick, kernel ms per tick)."""
+    launches per tick, kernel ms per tick), and with `by_name` two dicts
+    more: the kernel records and the aten ops the host called, name ->
+    count."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         st, _ = sim.run_ticks(st, cfg, ticks, prop_count=cfg.max_props)
         torch.cuda.synchronize()
     from swarmkit_tpu_torch.tools.profile_tick import _device_us
-    kernels = [e for e in prof.key_averages()
+    events = prof.key_averages()
+    kernels = [e for e in events
                if e.device_type == torch.autograd.DeviceType.CUDA]
     us = sum(_device_us(e) for e in kernels)
-    return st, sum(e.count for e in kernels) / ticks, us / 1e3 / ticks
+    out = (st, sum(e.count for e in kernels) / ticks, us / 1e3 / ticks)
+    if not by_name:
+        return out
+    ops = {e.key: e.count for e in events
+           if e.device_type == torch.autograd.DeviceType.CPU
+           and e.key.startswith("aten::")}
+    return out + ({e.key: e.count for e in kernels}, ops)
 
 
 def phase_mailbox_path(torch, sim, cuda_ops) -> dict:
@@ -708,13 +846,8 @@ def phase_mailbox_path(torch, sim, cuda_ops) -> dict:
         t_run += h * 64 / 1e3
     counts = dict(sim.kernel.COUNTS)
     launches = cuda_ops.LAUNCHES["append_band_copy"]
-    # a banded tick launches the kernel once per band chunk, a full-pass
-    # tick once over the whole ring
-    n_ticks, bc = ticks + 128, cfg.band_chunks
-    full_pass, rem = divmod(bc * n_ticks - launches, bc - 1)
-    check(rem == 0 and 0 <= full_pass <= n_ticks,
-          f"{launches} launches in {n_ticks} ticks is not a mix of banded "
-          f"and full-pass ticks")
+    n_ticks = ticks + 128
+    full_pass = _full_pass_ticks(cfg, launches, n_ticks, "n=1024 mailbox")
     st, per_tick, kernel_ms = _device_window(torch, sim, cfg, st, 16)
     # how often the leader's ring has room for a batch (_leader_ok): the
     # protocol's own bound on this path's entries per tick
@@ -1121,6 +1254,239 @@ def phase_fsyncgate(torch, sim, cuda_ops) -> dict:
     return dict(res, gated_over_dense=ratio, band_copy_launches=launches)
 
 
+def _full_pass_ticks(cfg, launches: int, ticks: int, label: str) -> int:
+    """How many of `ticks` ticks wrote the ring in one full pass: a banded
+    tick launches the band copy once per band chunk, a full-pass tick once
+    over the whole ring.  Fails unless the launches are such a mix."""
+    bc = cfg.band_chunks
+    full_pass, rem = divmod(bc * ticks - launches, bc - 1)
+    check(rem == 0 and 0 <= full_pass <= ticks,
+          f"{label}: {launches} launches in {ticks} ticks is not a mix of "
+          f"banded ({bc} launches) and full-pass (1 launch) ticks")
+    return full_pass
+
+
+def _counted_window(torch, sim, cuda_ops, cfg, st, ticks: int, label: str):
+    """_device_window with this window's own counts: (state, dict of kernel
+    launches and ms per tick, band-copy launches, full-pass ring-write
+    ticks, slab and dense-fallback ticks, and the kernel records and aten
+    ops by name)."""
+    cuda_ops.reset_launches()
+    sim.kernel.reset_counts()
+    st, per_tick, kms, kernels, ops = _device_window(torch, sim, cfg, st,
+                                                     ticks, by_name=True)
+    bc = cuda_ops.LAUNCHES["append_band_copy"]
+    counts = dict(sim.kernel.COUNTS)
+    out = dict(launches=per_tick, kernel_ms=kms, band_copy=bc,
+               full_pass=_full_pass_ticks(cfg, bc, ticks, label),
+               slab=counts["slab_ticks"],
+               fallback=counts["dense_fallback_ticks"],
+               kernels=kernels, ops=ops)
+    log(f"  {label}: {per_tick:.2f} kernel launches/tick, {kms:.3f} ms of "
+        f"kernels/tick; band copy {bc} launches ({out['full_pass']} "
+        f"full-pass ticks), slab ticks {out['slab']}, dense-fallback ticks "
+        f"{out['fallback']}")
+    return st, out
+
+
+def phase_planes_headline(torch, sim, cuda_ops) -> dict:
+    """The three device observability planes at the headline's full width
+    and levers (n=4096, banded counts of 1024, the [16, N] slab, the
+    default 128-deep event ring), in turns with the same shape planes-off.
+    Each is elected, then profiled for 16 ticks of each in turns (off, on,
+    on, off): kernel launches and ms per tick, with each window's band-copy
+    launches, full-pass and fallback ticks; the two windows of a config
+    are compared by the aten ops the host called and by the kernel records
+    the profiler kept.  Then 8 off/on pairs of 32-tick run_ticks chunks in
+    turns (host ms/tick: the median pair ratio and its spread); every
+    planes-on chunk runs inside a tracer span whose span_trace_tag tags its
+    proposes, with a ClockSync sample after it.  The band-copy launches of
+    each config's 256 timed ticks are counted apart.  Then the p50/p99 from
+    summarize_state against percentile_edge_device, the event rings of all
+    rows decoded, KernelObs and TelemetryObs published into a registry and
+    rendered, a capture of rows 0-255 exported as a Chrome trace (checked
+    by validate_chrome_trace, with flow events; all 4096 rows would make a
+    JSON of half a million events), and the band copy against plain on one
+    planes-on tick's calls."""
+    import statistics
+    import tempfile
+
+    from swarmkit_tpu_torch import flightrec, telemetry
+    from swarmkit_tpu_torch.metrics import exposition
+    from swarmkit_tpu_torch.metrics import trace as mtrace
+    from swarmkit_tpu_torch.metrics.registry import MetricsRegistry
+    from swarmkit_tpu_torch.telemetry.series import percentile_edge_device
+
+    chunk, export_rows = 32, 256
+    cfgs = {"off": sim.SimConfig(**HEADLINE),
+            "on": sim.SimConfig(**HEADLINE, **PLANES)}
+    check(cfgs["on"].peer_tiled and cfgs["on"].active_rows_on,
+          "the headline runs banded counts and the slab")
+    states, res, windows = {}, {}, {"off": [], "on": []}
+    for name, cfg in cfgs.items():
+        states[name], ticks, t_elect = _elect(torch, sim, cfg,
+                                              f"n=4096 planes {name}")
+        res[name] = dict(election_ticks=ticks, election_s=t_elect,
+                         host_ms=[], event_ms=[], committed=0, s=0.0,
+                         host_syncs=0, band_copy=0, slab=0, fallback=0,
+                         launches=[], kernel_ms=[])
+    for name in ("off", "on", "on", "off"):
+        states[name], w = _counted_window(
+            torch, sim, cuda_ops, cfgs[name], states[name], 16,
+            f"planes {name}, 16 profiled ticks")
+        res[name]["launches"].append(w["launches"])
+        res[name]["kernel_ms"].append(w["kernel_ms"])
+        windows[name].append(w)
+    for name, (a, b) in windows.items():
+        # what the two windows of one config differ in: the aten ops the
+        # host called, or only the kernel records the profiler kept
+        differ = {k: (a["kernels"].get(k, 0), b["kernels"].get(k, 0))
+                  for k in a["kernels"].keys() | b["kernels"].keys()
+                  if a["kernels"].get(k, 0) != b["kernels"].get(k, 0)}
+        same_ops = a["ops"] == b["ops"]
+        res[name]["windows_same_aten_ops"] = same_ops
+        res[name]["windows_kernel_records_differ"] = [
+            [k[:80], x, y] for k, (x, y) in sorted(differ.items())]
+        log(f"  planes {name}, its two profiled windows: "
+            f"{'the same' if same_ops else 'different'} aten ops "
+            f"({sum(a['ops'].values())} / {sum(b['ops'].values())} calls); "
+            f"kernel records that differ: "
+            + ("; ".join(f"{k} {x} / {y}" for k, x, y
+                         in res[name]["windows_kernel_records_differ"])
+               or "none"))
+    tracer, clock = mtrace.Tracer(), flightrec.ClockSync()
+    sim.sync_point(clock, states["on"])
+    order = ("off", "on", "on", "off") * 4     # 8 pairs, one of each
+    for i, name in enumerate(order):
+        cuda_ops.reset_launches()
+        sim.kernel.reset_counts()
+        if name == "on":
+            with tracer.span("raft.propose", chunk=i) as span:
+                tag = mtrace.span_trace_tag(span)
+                span.set(trace_tag=tag)
+                st, h, e, c = _timed_ticks(torch, sim, cfgs[name],
+                                           states[name], chunk, prop_tag=tag)
+            sim.sync_point(clock, st)
+        else:
+            st, h, e, c = _timed_ticks(torch, sim, cfgs[name], states[name],
+                                       chunk)
+        states[name] = st
+        r, counts = res[name], dict(sim.kernel.COUNTS)
+        r["host_ms"].append(h)
+        r["event_ms"].append(e)
+        r["committed"] += c
+        r["s"] += h * chunk / 1e3
+        r["host_syncs"] += counts["host_syncs"]
+        r["slab"] += counts["slab_ticks"]
+        r["fallback"] += counts["dense_fallback_ticks"]
+        r["band_copy"] += cuda_ops.LAUNCHES["append_band_copy"]
+        log(f"  {name}: ms/tick (host) {h:.3f}, (events) {e:.3f}, "
+            f"committed {c}, step host syncs "
+            f"{counts['host_syncs'] / chunk:.3f}/tick")
+    pairs = [res["on"]["host_ms"][k] / res["off"]["host_ms"][k]
+             for k in range(len(order) // 2)]
+    timed = chunk * len(order) // 2
+    for name, r in res.items():
+        r["host_ms_chunks"] = r["host_ms"]
+        r["entries_per_s"] = r["committed"] / r["s"]
+        r["host_syncs_per_tick"] = r["host_syncs"] / timed
+        r["full_pass"] = _full_pass_ticks(cfgs[name], r["band_copy"], timed,
+                                          f"planes {name}, timed ticks")
+        for k in ("host_ms", "event_ms", "launches", "kernel_ms"):
+            r[k] = sum(r[k]) / len(r[k])
+        check(int(sim.leader_mask(states[name]).sum()) == 1,
+              f"planes {name}: not exactly one leader")
+        check(_checksums_agree(sim, states[name]),
+              f"planes {name}: checksums disagree")
+        log(f"  planes {name}: {r['entries_per_s']:.1f} entries/s, "
+            f"{r['host_ms']:.3f} host ms/tick, {r['launches']:.2f} kernel "
+            f"launches/tick, {r['kernel_ms']:.3f} ms of kernels/tick, "
+            f"{r['host_syncs_per_tick']:.3f} step host syncs/tick; "
+            f"{timed} timed ticks: band copy {r['band_copy']} launches "
+            f"({r['full_pass']} full-pass ticks), slab ticks {r['slab']}, "
+            f"dense-fallback ticks {r['fallback']}")
+    on, off = res["on"], res["off"]
+    ratios = dict(host_ms_pairs=pairs,
+                  host_ms_median=statistics.median(pairs),
+                  host_ms_min=min(pairs), host_ms_max=max(pairs),
+                  launches=on["launches"] / off["launches"],
+                  entries_per_s=on["entries_per_s"] / off["entries_per_s"])
+    log(f"  on / off: host ms/tick median {ratios['host_ms_median']:.3f}x "
+        f"over {len(pairs)} pairs (min {ratios['host_ms_min']:.3f}, max "
+        f"{ratios['host_ms_max']:.3f}: "
+        f"{', '.join(f'{p:.3f}' for p in pairs)}), launches/tick "
+        f"{ratios['launches']:.3f}x, entries/s {ratios['entries_per_s']:.3f}x;"
+        f" planes-off launches/tick {off['launches']:.2f} against 1393.25")
+
+    st, cfg = states["on"], cfgs["on"]
+    reg = MetricsRegistry()
+    kstats = sim.KernelObs(reg, clock_sync=clock).publish(st)
+    summary = telemetry.TelemetryObs(reg).publish(st, cfg)
+    device_q = {}
+    for short, field in (("commit", "tel_commit_hist"),
+                         ("election", "tel_elect_hist")):
+        for q in (50, 99):
+            dev_edge = int(percentile_edge_device(getattr(st, field), q))
+            device_q[f"{short}_p{q}"] = dev_edge
+            check(summary[short][f"p{q}"] == min(dev_edge, 256),
+                  f"{short} p{q}: summarize_state "
+                  f"{summary[short][f'p{q}']} != device {dev_edge}")
+    t0 = time.perf_counter()
+    events, dropped = flightrec.decode_state(st)
+    t_decode = time.perf_counter() - t0
+    tagged = [e for e in events if e.tag]
+    fit = clock.fit()
+    text = exposition.render_all(reg, tracer=tracer)
+    families = sum(line.startswith("# TYPE ") for line in text.splitlines())
+    part = dataclasses.replace(st, ev_buf=st.ev_buf[:export_rows],
+                               ev_pos=st.ev_pos[:export_rows])
+    t0 = time.perf_counter()
+    rec = flightrec.capture(part, trigger="manual", tracer=tracer, cfg=cfg,
+                            clock=clock, obs=reg,
+                            meta={"rows": f"0-{export_rows - 1} of {cfg.n}"})
+    with tempfile.TemporaryDirectory() as tmp:
+        trace = flightrec.export_record(rec, f"{tmp}/planes.json")
+    problems = flightrec.validate_chrome_trace(trace)
+    t_export = time.perf_counter() - t0
+    flows = sum(e["ph"] in ("s", "t", "f") for e in trace["traceEvents"])
+    log(f"  p50/p99 in ticks (summarize_state = percentile_edge_device): "
+        f"commit {summary['commit']['p50']}/{summary['commit']['p99']}, "
+        f"election {summary['election']['p50']}/"
+        f"{summary['election']['p99']}; commit histogram "
+        f"{summary['commit']['counts']}")
+    log(f"  events: {len(events)} in the {cfg.event_ring}-deep rings of "
+        f"{cfg.n} rows (decoded in {t_decode:.2f} s), {int(dropped.sum())} "
+        f"overwritten, {sum(e.name == 'COMMIT_ADVANCE' for e in tagged)} "
+        f"tagged COMMIT_ADVANCE; clock fit {fit.to_dict()}")
+    log(f"  KernelObs {kstats}; exposition: {families} families, "
+        f"{len(text)} bytes; Chrome trace of rows 0-{export_rows - 1}: "
+        f"{len(trace['traceEvents'])} events, {flows} flow events, "
+        f"problems {problems} (capture, export and check {t_export:.2f} s)")
+    calls = _record_band_copies(torch, sim, cuda_ops, cfg, st)
+    err = max(_kernel_vs_plain(torch, cuda_ops, c) for c in calls)
+    log(f"  {len(calls)} band-copy calls of one planes-on tick: max|kernel - "
+        f"plain| = {err}")
+    check(on["host_syncs_per_tick"] == 1.0 and off["host_syncs_per_tick"]
+          == 1.0, "not one step host sync per steady tick")
+    check(summary["commit"]["total"] > 0 and summary["election"]["total"]
+          > 0, "empty latency histograms")
+    check(any(e.name == "COMMIT_ADVANCE" for e in tagged),
+          "no tagged COMMIT_ADVANCE in the rings")
+    check(fit is not None and not fit.degenerate, "no clock fit")
+    check(problems == [] and flows > 0,
+          f"the Chrome trace: {problems}, {flows} flow events")
+    check(err == 0, f"kernel != plain on the planes path's inputs ({err})")
+    check(on["band_copy"] > 0, "the planes path never launched the band copy")
+    return dict(res, ratios=ratios, quantiles=device_q, kernel_stats=kstats,
+                events=len(events), dropped=int(dropped.sum()),
+                tagged_commits=sum(e.name == "COMMIT_ADVANCE"
+                                   for e in tagged),
+                clock_fit=fit.to_dict(), families=families,
+                decode_s=t_decode, export_s=t_export,
+                trace_events=len(trace["traceEvents"]), flow_events=flows,
+                band_copy_launches=on["band_copy"], err=err)
+
+
 def matmul_tol(torch, ref, k: int) -> float:
     """bf16: 2 bf16 ulps of max|ref|; f32: 1e-5 of max|ref|, scaled by
     sqrt(K / 512) past K = 512."""
@@ -1381,6 +1747,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
 
+    started = time.perf_counter()
     log("phase 1: card and build")
     card = card_line()
     log(f"  {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
@@ -1444,12 +1811,19 @@ def main() -> int:
     rwide = phase_readmix_headline_width(torch, sim, cuda_ops)
     log("phase 11: bench.py's 256-fsyncgate, bare and gated (k=4), in turns")
     fgate = phase_fsyncgate(torch, sim, cuda_ops)
+    log("phase 12: the device observability planes at the headline's full "
+        "width (n=4096), in turns with planes off")
+    planes = phase_planes_headline(torch, sim, cuda_ops)
 
-    log("summary " + json.dumps({"card": card, **head, "lever_ab": ab,
+    elapsed = time.perf_counter() - started
+    log(f"all phases passed in {elapsed:.1f} s")
+    log("summary " + json.dumps({"card": card, "elapsed_s": elapsed,
+                                 **head, "lever_ab": ab,
                                  "band_copy_calls_per_tick": k["calls"],
                                  "task": task, "mailbox": mbox,
                                  "dynamic_members": dyn, "readmix": rmix,
-                                 "readmix_4096": rwide, "fsyncgate": fgate}))
+                                 "readmix_4096": rwide, "fsyncgate": fgate,
+                                 "planes": planes}))
     records = [{
         "name": "append_band_copy", "route": "cuda",
         "source": "swarmkit_tpu_torch/csrc/band_copy.cu",
@@ -1458,7 +1832,8 @@ def main() -> int:
         "readmix_launches": rmix["band_copy_launches"],
         "readmix_4096_launches": rwide["band_copy_launches"],
         "fsyncgate_launches": fgate["band_copy_launches"],
-        "max_abs_err": max(err2, k["err"], err9, rmix["err"]),
+        "planes_launches": planes["band_copy_launches"],
+        "max_abs_err": max(err2, k["err"], err9, rmix["err"], planes["err"]),
         "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
         "bound_by": "bytes", "library_ms": k["library_ms"]}]
     for name, line, bound_by in (("matmul", 76, "operations"),

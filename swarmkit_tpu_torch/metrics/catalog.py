@@ -1,0 +1,156 @@
+"""The metrics the port publishes: one spec per name (kind, help text,
+label schema and, for histograms, bucket edges).
+
+Components never declare a family by hand: they call :func:`get`, which
+instantiates it in the target registry from its spec.  Each spec is the
+JAX package's for the same name, field for field, so the port's scrape
+page reads like the JAX package's.  The port holds the families its
+modules publish: the kernel counters and tick timer (raft/sim/run.py
+KernelObs), the telemetry plane (telemetry/obs.py), the flight recorder
+(flightrec/record.py) and the trace export (flightrec/clock.py, export.py).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional
+
+from .registry import DEFAULT_BUCKETS, MetricsRegistry
+
+
+@dataclass(frozen=True)
+class MetricSpec:
+    kind: str                       # "counter" | "gauge" | "histogram"
+    help: str
+    labels: tuple = ()
+    buckets: Optional[tuple] = None
+
+
+# Bucket ladders: RPC-ish latencies use the prometheus defaults; device
+# ticks span 0.1 ms (tiny CPU shapes) to tens of seconds (first calls).
+_TICK_BUCKETS = (0.0001, 0.00025, 0.0005, 0.001, 0.0025, 0.005, 0.01,
+                 0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 30.0)
+
+# Simulated-tick ladder for the on-device telemetry histograms.  Literal
+# floats rather than an import of telemetry/series.py (that module's
+# publisher imports this catalog); a test pins them to
+# series.LATENCY_BUCKET_EDGES.
+_TEL_TICK_BUCKETS = (1.0, 2.0, 4.0, 8.0, 16.0, 32.0, 64.0, 128.0, 256.0)
+
+CATALOG: dict[str, MetricSpec] = {
+    # ---- device tick kernel (raft/sim/kernel.py, run.py KernelObs) -------
+    "swarm_kernel_tick_seconds": MetricSpec(
+        "histogram", "Host-side wall time around jitted kernel calls, by "
+        "driver (step / run_ticks chunk / run_until_leader).", ("call",),
+        _TICK_BUCKETS),
+    "swarm_kernel_phase_ms": MetricSpec(
+        "gauge", "Isolated per-phase A-F cost in ms from the micro-kernel "
+        "model (tools/perf_model.py), keyed by PERF.md's phase table.",
+        ("phase",)),
+    "swarm_kernel_bytes_touched": MetricSpec(
+        "gauge", "Analytic per-tick kernel bytes read+written by phase and "
+        "kernel variant: the C/E/F log-buffer hot phases (tools/"
+        "perf_model.py --tiled; variant tiled / full), the read path "
+        "(--reads; variant lease / readindex), the peer-axis quorum "
+        "reductions phase=votes|commit (--peer-tiled; variant banded / "
+        "dense), and the elementwise per-peer progress writes "
+        "phase=progress (--active-rows; variant sparse / dense).",
+        ("phase", "variant")),
+    "swarm_kernel_elections_started_total": MetricSpec(
+        "counter", "On-device cumulative campaigns across all rows "
+        "(SimState.stats[0]).", ()),
+    "swarm_kernel_elections_won_total": MetricSpec(
+        "counter", "On-device cumulative election wins across all rows "
+        "(SimState.stats[1]).", ()),
+    "swarm_kernel_commit_advance_total": MetricSpec(
+        "counter", "On-device cumulative commit-index advance summed over "
+        "rows (SimState.stats[2]).", ()),
+    "swarm_kernel_apply_advance_total": MetricSpec(
+        "counter", "On-device cumulative applied-index advance summed over "
+        "rows (SimState.stats[3]).", ()),
+    "swarm_kernel_reads_served_total": MetricSpec(
+        "counter", "On-device cumulative linearizable read ops served "
+        "summed over rows (SimState.read_srv, cfg.read_batch > 0).", ()),
+    "swarm_kernel_reads_blocked_total": MetricSpec(
+        "counter", "On-device cumulative read ops refused (leadership lost "
+        "or lease expired with the batch unstamped) summed over rows "
+        "(SimState.read_block).", ()),
+    "swarm_kernel_fsync_lag": MetricSpec(
+        "gauge", "Widest unsynced log suffix max(last - sync_mark) across "
+        "rows at last publish (cfg.fsync_lag_ticks >= 1; the quantity "
+        "SLO_FSYNC_LAG budgets under disk_stall).", ()),
+    "swarm_kernel_durable_commit_advance_total": MetricSpec(
+        "counter", "On-device cumulative durable-commit advance summed "
+        "over rows (SimState.dur_commit, the register RECOVERY_MONOTONIC "
+        "pins; trails swarm_kernel_commit_advance_total by the fsync "
+        "policy's lag).", ()),
+
+    # ---- flight recorder (flightrec/) ------------------------------------
+    "swarm_flightrec_events_total": MetricSpec(
+        "counter", "Device flight-ring events decoded by capture(), by "
+        "event code name (flightrec/codes.py).", ("code",)),
+    "swarm_flightrec_dropped_total": MetricSpec(
+        "counter", "Events overwritten in a row's ring before decoding "
+        "(cursor ran past SimConfig.event_ring).", ()),
+    "swarm_flightrec_captures_total": MetricSpec(
+        "counter", "Flight-record captures, by trigger (manual / "
+        "dst_violation / scenario_failure).", ("trigger",)),
+
+    # ---- causal trace fusion (flightrec/clock.py, export.py) -------------
+    "swarm_trace_clock_sync_points_total": MetricSpec(
+        "counter", "Tick<->wall-clock sync points folded into captures "
+        "(ClockSync.publish); each is one host observation of the device "
+        "tick counter.", ()),
+    "swarm_trace_clock_tick_us": MetricSpec(
+        "gauge", "Fitted wall-clock microseconds per simulated tick "
+        "(ClockFit slope, Theil-Sen over the sync points).", ()),
+    "swarm_trace_clock_residual_us": MetricSpec(
+        "gauge", "Worst |fit - sample| residual of the tick<->wall-clock "
+        "fit in microseconds; large values mean the tick rate drifted "
+        "within the capture window.", ()),
+    "swarm_trace_flow_events_total": MetricSpec(
+        "counter", "Chrome-trace flow events (ph s/t/f) emitted by the "
+        "Perfetto export, linking host spans to tagged device instants "
+        "(cfg.trace_tags).", ()),
+    "swarm_trace_flow_orphans_total": MetricSpec(
+        "counter", "Trace tags seen on only one side of the export: "
+        "host_only (ring wrap ate the device instant) or device_only "
+        "(span deque evicted the host span).", ("side",)),
+
+    # ---- on-device telemetry plane (telemetry/) --------------------------
+    "swarm_telemetry_commit_latency_ticks": MetricSpec(
+        "histogram", "Propose-to-commit latency in simulated ticks, "
+        "measured at the proposing leader for self-appended entries "
+        "(SimState.tel_commit_hist, cfg.collect_telemetry).", (),
+        _TEL_TICK_BUCKETS),
+    "swarm_telemetry_election_ticks": MetricSpec(
+        "histogram", "Election duration in simulated ticks, campaign "
+        "start to leadership (SimState.tel_elect_hist).", (),
+        _TEL_TICK_BUCKETS),
+    "swarm_telemetry_read_latency_ticks": MetricSpec(
+        "histogram", "Linearizable read-batch submit-to-settle latency "
+        "in simulated ticks, served and blocked outcomes both counted "
+        "(SimState.tel_read_hist, cfg.read_batch > 0).", (),
+        _TEL_TICK_BUCKETS),
+    "swarm_telemetry_series_value": MetricSpec(
+        "gauge", "Latest sample of an on-device time-series ring row "
+        "(SimState.tel_series), by series name "
+        "(telemetry/series.py SERIES_NAMES).", ("series",)),
+}
+
+
+def get(registry: MetricsRegistry, name: str):
+    """Instantiate (or fetch) `name` in `registry` from its catalog spec."""
+    spec = CATALOG.get(name)
+    if spec is None:
+        raise KeyError(f"metric {name!r} is not in the port's catalog; add "
+                       f"a MetricSpec to swarmkit_tpu_torch/metrics/"
+                       f"catalog.py")
+    if spec.kind == "counter":
+        return registry.counter(name, spec.help, spec.labels)
+    if spec.kind == "gauge":
+        return registry.gauge(name, spec.help, spec.labels)
+    if spec.kind == "histogram":
+        return registry.histogram(name, spec.help, spec.labels,
+                                  buckets=spec.buckets or DEFAULT_BUCKETS)
+    raise ValueError(f"unknown metric kind {spec.kind!r} for {name!r}")

@@ -27,9 +27,13 @@ leases and follower reads, raft/read/), the vote guard, transfer cooldown
 and the storage model (the fsync round, durable-watermark ack gating, the
 leader's self-ack cap, the mailbox wire's durable-frontier ack).  Every one
 of these is Python-gated exactly as in JAX, so the bench headline (sync
-wire, static members, every lever off) runs the same ops as before.  The
-levers `check_slice` names (trace tags, the flight recorder, telemetry)
-raise NotImplementedError.
+wire, static members, every lever off) runs the same ops as before.  So
+are the three device observability planes at the end of the tick, in
+JAX's order: trace tags (cfg.trace_tags: a host tag per propose batch and
+read batch, carried to the commit and serve events), the flight recorder
+(cfg.record_events: coded events appended to a per-row ring) and
+telemetry (cfg.collect_telemetry: latency histograms and a strided series
+ring); flightrec/codes.py and telemetry/series.py own their layouts.
 
 As in the JAX package, the per-peer progress work runs in two segments,
 `_progress_a` (Phase A's matrix tail, Phase B, Phase C's send/deliver half)
@@ -46,9 +50,11 @@ The ring buffers are written IN PLACE: `step` and `propose_dense` consume
 the `log_term`/`log_data` tensors of the state they are given (the
 returned state holds the same storage), and a tick on the slab merges its
 rows back into the given state's progress matrices (match, next_, granted,
-rejected, recent_active) in place too.  Callers that keep an old state
-clone it first.  Every ring read of a tick happens before that tick's ring
-write, which is what the JAX package's functional update gives for free.
+rejected, recent_active) in place too; so are the planes' rings (the
+event ring and the propose-batch stamps, which `propose` writes too).
+Callers that keep an old state clone it first.  Every ring read of a tick
+happens before that tick's ring write, which is what the JAX package's
+functional update gives for free.
 """
 
 from __future__ import annotations
@@ -59,6 +65,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from swarmkit_tpu_torch.flightrec import codes as fc
 from swarmkit_tpu_torch.parallel import cuda_ops
 from swarmkit_tpu_torch.raft import read as rd
 from swarmkit_tpu_torch.raft.sim import u32
@@ -67,6 +74,7 @@ from swarmkit_tpu_torch.raft.sim.state import (
     SimConfig, SimState, check_device, conf_payload, latency_at,
     rand_timeout,
 )
+from swarmkit_tpu_torch.telemetry import series as ts
 
 I32 = torch.int32
 BIG = 2 ** 31 - 1            # int32 max: the "no index" sentinel of min folds
@@ -86,25 +94,61 @@ def reset_counts() -> None:
         COUNTS[k] = 0
 
 
+# Profiler ranges over the tick's phases, named as the JAX package's
+# named_scope seams (tools/profile_tick.py turns them on to split device
+# time by phase).  Off, they cost no launch and no range.
+PHASE_RANGES = False
+
+
+class _Phases:
+    """Closes the open phase range and opens the next (`name` None closes
+    the last); a no-op unless PHASE_RANGES."""
+
+    def __init__(self):
+        self.cur = None
+
+    def __call__(self, name: Optional[str] = None) -> None:
+        if not PHASE_RANGES:
+            return
+        if self.cur is not None:
+            self.cur.__exit__(None, None, None)
+            self.cur = None
+        if name is not None:
+            self.cur = torch.profiler.record_function(name)
+            self.cur.__enter__()
+
+
+# [K] int32 event codes of the recorder's emit lists, per device: built once
+# (a host->device copy), so a recording tick makes none
+_CODES: dict = {}
+
+
+def _codes_on(dev, codes: tuple) -> torch.Tensor:
+    key = (str(dev), codes)
+    if key not in _CODES:
+        _CODES[key] = torch.tensor(codes, dtype=I32).to(dev)
+    return _CODES[key]
+
+
+def _stamp_batch(state: SimState, cfg: SimConfig, ok: torch.Tensor,
+                 first: torch.Tensor, count, tag) -> None:
+    """The telemetry record of one propose batch at the state's tick, in
+    place: its first index, its count and the tick (NONE/0 on rows that
+    took no batch), and the batch's trace tag under cfg.trace_tags (0 when
+    `tag` is None)."""
+    col = torch.remainder(state.tick, state.tel_prop_idx.shape[1])
+    ts.col_set(state.tel_prop_idx, col, torch.where(ok, first, NONE))
+    ts.col_set(state.tel_prop_cnt, col, torch.where(ok, count, 0))
+    ts.col_set(state.tel_prop_tick, col, torch.where(ok, state.tick, NONE))
+    if cfg.trace_tags and state.tel_prop_tag is not None:
+        ts.col_set(state.tel_prop_tag, col,
+                   torch.where(ok, 0 if tag is None else int(tag), 0))
+
+
 def _read_back(xs: list) -> list:
     """Scalar tensors to host ints in one device->host read (one sync)."""
     COUNTS["host_syncs"] += 1
     return torch.stack([x.to(torch.int64) for x in xs]).tolist()
-
-
-def check_slice(cfg: SimConfig) -> None:
-    """Raise NotImplementedError for a config lever this port does not yet
-    implement, naming it (rather than silently ignoring it)."""
-    # trace tags need both other planes on, so they are named first
-    levers = (
-        (cfg.trace_tags, "trace tags (trace_tags=True)"),
-        (cfg.record_events, "the flight recorder (record_events=True)"),
-        (cfg.collect_telemetry, "telemetry (collect_telemetry=True)"),
-    )
-    for on, what in levers:
-        if on:
-            raise NotImplementedError(
-                f"the PyTorch port does not implement {what} yet")
 
 
 # ---- index helpers ---------------------------------------------------------
@@ -327,6 +371,7 @@ def step(state: SimState, cfg: SimConfig,
          drop: Optional[torch.Tensor] = None,
          prop_count=None,
          payload_fn: Optional[Callable] = None,
+         prop_tag=None,
          device=None) -> SimState:
     """Advance every simulated manager by one tick.
 
@@ -337,6 +382,9 @@ def step(state: SimState, cfg: SimConfig,
     with the proposal ring stores folded into Phase C's ring write.
     payload_fn(tick, k) maps the tick and the int64 batch positions k to
     uint32 payload bits (run._payload_at).
+    prop_tag: an int host trace tag of the fused propose batch
+    (cfg.trace_tags; metrics/trace.py span_trace_tag), carried to the
+    COMMIT_ADVANCE event that commits it.  Ignored with trace tags off.
 
     Runs on `device` (the CUDA card unless the caller names another) and
     consumes the state's ring buffers and, on a slab tick, its progress
@@ -356,14 +404,15 @@ def step(state: SimState, cfg: SimConfig,
     mailbox wire, PreVote and membership add no sync.  COUNTS records the
     syncs and the branch taken.
     """
-    check_slice(cfg)
     dev = check_device(state, device)
+    phase = _Phases()
     n, L, W = cfg.n, cfg.log_len, cfg.window
     node_l = torch.arange(n, device=dev)
     node = node_l.to(I32)
     eye = torch.eye(n, dtype=torch.bool, device=dev)
     if alive is None:
         alive = torch.ones((n,), dtype=torch.bool, device=dev)
+    drop_given = drop is not None
     if drop is None:
         drop = torch.zeros((n, n), dtype=torch.bool, device=dev)
     drop_t = drop.T
@@ -407,9 +456,11 @@ def step(state: SimState, cfg: SimConfig,
     # idle rows take a fresh batch whose goal is the pre-tick max(commit)
     reads_on = cfg.read_batch > 0
     if reads_on:
+        phase("phase_R0_submit")
         read_regs = rd.submit(cfg, rd.regs_from_state(state), alive, commit)
 
     # ---- Phase A: timers ----------------------------------------------
+    phase("phase_A_timers")
     is_leader = (role == LEADER) & alive
     elapsed = torch.where(alive, elapsed + 1, elapsed)
     contact = torch.where(alive, state.contact + 1, state.contact)
@@ -429,6 +480,7 @@ def step(state: SimState, cfg: SimConfig,
     storage_on = cfg.storage_on and state.sync_mark is not None
     gated = storage_on and cfg.ack_gating
     if storage_on:
+        phase("phase_A_fsync")
         fs_due = torch.remainder(now, cfg.fsync_lag_ticks) \
             == cfg.fsync_lag_ticks - 1
         sync_inc = torch.clamp(state.last - state.sync_mark, min=0)
@@ -437,6 +489,7 @@ def step(state: SimState, cfg: SimConfig,
         fsync_did = alive & ~state.fsync_stall & fs_due
         sync_mark = state.sync_mark + torch.where(fsync_did, sync_inc, 0)
 
+    phase("phases_ABC_progress")
     # last/last_term are read before anything appends this tick (above the
     # progress segments, which read no ring); a proposing row's new last
     # entry carries its own pre-tick term
@@ -1006,10 +1059,12 @@ def step(state: SimState, cfg: SimConfig,
         already = (snap_src <= last) & (have_term == snap_term[src_l])
         advance = got_snap & (snap_src > commit)
         do_restore = advance & ~already
+        snap_refuse = None
         if gated:
             # a corrupt image (snap_bad) is refused before install: no
             # restore and no ack progress, so the sender re-sends it.
             # The refusal feeds the band probe below, like every restore.
+            snap_refuse = do_restore & state.snap_bad
             do_restore = do_restore & ~state.snap_bad
 
         if not cfg.tiled:
@@ -1073,6 +1128,7 @@ def step(state: SimState, cfg: SimConfig,
         host = _read_back(probe)
         if sl.dense or host[-1]:
             break
+    phase("phase_C_ring_write")
     if sparse_on:
         COUNTS["dense_fallback_ticks" if sl.dense else "slab_ticks"] += 1
     match = sl.merge(state.match, oa["match"])
@@ -1393,6 +1449,7 @@ def step(state: SimState, cfg: SimConfig,
                     tn_term=tn_term, tn_from=tn_from, mci=mci,
                     got_resp=got_resp)
 
+    phase("phase_D_progress")
     ob = _progress_b(sl)
     match = sl.merge(match, ob["match"])
     next_ = sl.merge(next_, ob["next_"])
@@ -1408,6 +1465,7 @@ def step(state: SimState, cfg: SimConfig,
         for f in ("aresp_at", "aresp_term", "aresp_match", "aresp_ok"):
             boxes[f] = sl.merge(getattr(state, f), ob[f])
     # commit fold, outside the segments (mci_term is a ring read)
+    phase("phase_D_commit_fold")
     mci_term = _term_own(cfg, log_term, snap_idx, snap_term, last, mci)
     can_commit = is_leader & (mci > commit) & (mci_term == term)
     commit = torch.where(can_commit, mci, commit)
@@ -1418,6 +1476,7 @@ def step(state: SimState, cfg: SimConfig,
     # commits), lets the pending batch take the just-folded commit.  The
     # guard reads the ring after this tick's write, as JAX's log does here.
     if reads_on:
+        phase("phase_R1_stamp")
         rd_q_ok = (role == LEADER) & alive & (ob["rd_nack"] >= quorum)
         rd_cterm_ok = (commit > 0) & (_term_own(
             cfg, log_term, snap_idx, snap_term, last, commit) == term)
@@ -1431,6 +1490,7 @@ def step(state: SimState, cfg: SimConfig,
     # stops AT the first conf entry, so at most one membership flip lands
     # per row per tick.  (Static membership has no conf entries: propose
     # masks the tag bit and propose_conf refuses.)
+    phase("phase_E_apply")
     base_applied = torch.minimum(commit, applied + cfg.apply_batch)
     new_applied = torch.where(alive, base_applied, applied)  # crashed: frozen
     if cfg.tiled:
@@ -1488,11 +1548,15 @@ def step(state: SimState, cfg: SimConfig,
 
     # ---- Phase R2: serve or refuse read batches ----------------------------
     if reads_on:
-        read_regs = rd.settle(cfg, read_regs, alive=alive, applied=applied,
-                              role=role, was_leader=state.role == LEADER,
-                              now=now, prev_lease_until=state.lease_until)[0]
+        phase("phase_R2_settle")
+        read_regs, rd_served, rd_srv_cnt, rd_blocked, rd_blk_cnt, \
+            rd_expired = rd.settle(
+                cfg, read_regs, alive=alive, applied=applied, role=role,
+                was_leader=state.role == LEADER, now=now,
+                prev_lease_until=state.lease_until)
 
     # ---- Phase F: compaction (ring-pressure driven) ----------------------
+    phase("phase_F_compact")
     pressure = (last - snap_idx) > (L - 2 * cfg.max_props - 1)
     new_snap = torch.maximum(snap_idx, applied - cfg.keep)
     do_compact = pressure & (new_snap > snap_idx) & alive
@@ -1520,6 +1584,7 @@ def step(state: SimState, cfg: SimConfig,
 
     # invariants: pre/tx_cand mark live candidacies only; transferee only
     # means anything on a standing leader
+    phase("tick_end")
     pre = pre & (role == CANDIDATE)
     tx_cand = tx_cand & (role == CANDIDATE) & ~pre
     transferee = torch.where(role == LEADER, transferee, NONE)
@@ -1573,7 +1638,136 @@ def step(state: SimState, cfg: SimConfig,
             (applied - state.applied).to(torch.int64).sum()])
         stats = u32.to_bits(stats.to(torch.int64) + inc)  # int32 wraparound
 
-    extra = dict(vg_fields)
+    # ---- the device observability planes, in the JAX package's order ------
+    # Each is Python-gated like the levers above, so a planes-off tick runs
+    # the same ops as before.  They read this tick's [N] masks and values
+    # and write their own side buffers (in place where they are rings);
+    # none reads a device value back.
+    planes = {}
+    tel_on = cfg.collect_telemetry and state.tel_commit_hist is not None
+    if tel_on or cfg.record_events:
+        phase("obs_planes")
+    if tel_on and fused_prop:
+        # the fused propose's batch record (and tag): one column per tick
+        _stamp_batch(state, cfg, prop_ok, prop_last0 + 1, prop_cnt, prop_tag)
+
+    # Trace tags: the commit tag is the tag of the freshest live tagged
+    # batch whose index range meets this tick's commit advance (the
+    # telemetry commit fold's window); the read tag is the [N] register,
+    # cleared on the kernel's own closed-loop refill.
+    commit_tag = read_tag_now = None
+    if cfg.trace_tags and state.tel_prop_tag is not None:
+        ttag, tidx = state.tel_prop_tag, state.tel_prop_idx
+        tcnt, ttick = state.tel_prop_cnt, state.tel_prop_tick
+        t_ring = ttag.shape[1]
+        tlo = torch.maximum(tidx, state.commit[:, None] + 1)
+        thi = torch.minimum(tidx + tcnt - 1, commit[:, None])
+        tsel = can_commit[:, None] & (tidx != NONE) & (ttick >= 0) \
+            & (now - ttick < t_ring) & (thi >= tlo) & (ttag != 0)
+        tbest = torch.where(tsel, ttick, -1).argmax(1)
+        commit_tag = torch.where(tsel.any(1),
+                                 ttag.gather(1, tbest[:, None])[:, 0], 0)
+        # the step-down wipe, as the batch ring's below: a regained
+        # leadership must not link another leader's entries to a tag
+        planes["tel_prop_tag"] = torch.where(is_leader[:, None], ttag, 0)
+        if reads_on and state.read_tag is not None:
+            read_tag_now = torch.where(alive & (state.read_pend == 0), 0,
+                                       state.read_tag)
+            planes["read_tag"] = read_tag_now
+
+    # Flight recorder: coded events from this tick's masks, appended to each
+    # row's ring in code order (one scatter, the sequential appends' bits).
+    if cfg.record_events and state.ev_buf is not None:
+        # fault edges against the previous tick's inputs carried in ev_*;
+        # the drop degree is out- plus in-degree, band by band under peer
+        # tiling (no temporary wider than a band), zero without a matrix
+        if not drop_given:
+            drop_deg = torch.zeros((n,), dtype=I32, device=dev)
+        elif cfg.peer_tiled:
+            drop_deg = _pcount(cfg, lambda j0, w: drop[:, j0:j0 + w], True)
+            for i0 in range(0, n, cfg.peer_chunk):
+                drop_deg = drop_deg + _count(drop[i0:i0 + cfg.peer_chunk], 0)
+        else:
+            drop_deg = _count(drop, 1) + _count(drop, 0)
+        ev = [(state.ev_alive & ~alive, fc.FAULT_EDGE, fc.EDGE_DOWN, 0),
+              (~state.ev_alive & alive, fc.FAULT_EDGE, fc.EDGE_UP, 0),
+              (drop_deg != state.ev_drop, fc.FAULT_EDGE, fc.EDGE_DROP,
+               drop_deg),
+              # protocol events, end-of-tick values against the pre-tick
+              (term != state.term, fc.TERM_BUMP, term, state.term),
+              (win, fc.ELECTION_WON, term, last),
+              (resp_reject, fc.APPEND_REJECT, src, reject_hint),
+              (do_restore, fc.SNAPSHOT_RESTORE, src, snap_idx),
+              (commit > state.commit, fc.COMMIT_ADVANCE, commit,
+               commit - state.commit, commit_tag)]
+        if storage_on:
+            ev.append((sync_mark > state.sync_mark, fc.FSYNC_ADVANCE,
+                       sync_mark, sync_mark - state.sync_mark))
+            if snap_refuse is not None:
+                ev.append((snap_refuse, fc.RECOVER_REJECT_SNAP, src,
+                           snap_idx))
+        if cfg.tiled:
+            # the full-pass ring write (decided on the host) is one
+            # cluster-wide event, recorded on row 0
+            ev.append(((node == 0) & (not fits), fc.FALLBACK_TICK, nch,
+                       cfg.band_chunks))
+        if reads_on:
+            ev += [(rd_served, fc.READ_SERVED, applied, rd_srv_cnt,
+                    read_tag_now),
+                   (rd_blocked, fc.READ_BLOCKED, rd_blk_cnt,
+                    torch.where(rd_expired, fc.BLOCK_LEASE,
+                                fc.BLOCK_DEPOSED)),
+                   (rd_expired, fc.LEASE_EXPIRED, read_regs.lease_until,
+                    rd_blk_cnt)]
+        ev_buf, ev_pos = fc.ring_append_many(
+            state.ev_buf, state.ev_pos, now,
+            [(e[0], e[2], e[3], e[4] if len(e) > 4 else None) for e in ev],
+            _codes_on(dev, tuple(e[1] for e in ev)))
+        planes.update(ev_buf=ev_buf, ev_pos=ev_pos, ev_alive=alive,
+                      ev_drop=drop_deg)
+
+    # Telemetry: election and propose->commit latency histograms (the
+    # commit one at the proposing leader, each batch record folding the
+    # slice of its range that this tick's commit advance covers, weighted
+    # by its width), read submit->settle, and the series ring.
+    if tel_on:
+        edges = ts.bucket_edges(dev)
+        bidx, bcnt = state.tel_prop_idx, state.tel_prop_cnt
+        btick, ring = state.tel_prop_tick, state.tel_prop_idx.shape[1]
+        estart = torch.where(campaign | tn_ok, now, state.tel_elect_start)
+        elect_hist = ts.hist_fold(state.tel_elect_hist, win & (estart >= 0),
+                                  now - estart, edges=edges)
+        estart = torch.where(win, NONE, estart)
+        c_lo = torch.maximum(bidx, state.commit[:, None] + 1)
+        c_hi = torch.minimum(bidx + bcnt - 1, commit[:, None])
+        cw = torch.clamp(c_hi - c_lo + 1, min=0)
+        cfold = can_commit[:, None] & (bidx != NONE) & (btick >= 0) \
+            & (now - btick < ring) & (cw > 0)
+        commit_hist = ts.hist_fold(state.tel_commit_hist, cfold, now - btick,
+                                   weight=cw, edges=edges)
+        # the step-down wipe (is_leader: the settled post-A/B role)
+        bidx = torch.where(is_leader[:, None], bidx, NONE)
+        rsub, read_hist = state.tel_read_submit, state.tel_read_hist
+        if reads_on:
+            # the submit stamp mirrors R0's refill on the pre-tick registers
+            rsub = torch.where(alive & (state.read_pend == 0), now, rsub)
+            read_hist = ts.hist_fold(read_hist, (rd_served | rd_blocked)
+                                     & (rsub >= 0), now - rsub, edges=edges)
+            blocked_now = torch.where(rd_blocked, rd_blk_cnt, 0).sum(dtype=I32)
+        else:
+            blocked_now = torch.zeros((), dtype=I32, device=dev)
+        vals = torch.stack([(commit - state.commit).sum(dtype=I32),
+                            win.sum(dtype=I32),
+                            (last - snap_idx).sum(dtype=I32), blocked_now])
+        planes.update(
+            tel_prop_idx=bidx, tel_elect_start=estart, tel_read_submit=rsub,
+            tel_commit_hist=commit_hist, tel_elect_hist=elect_hist,
+            tel_read_hist=read_hist,
+            tel_series=ts.ring_write(state.tel_series, cfg.telemetry_stride,
+                                     now, vals))
+    phase()
+
+    extra = dict(vg_fields, **planes)
     if tx_cool is not None:
         extra["tx_cool"] = tx_cool
     if storage_on:
@@ -1606,13 +1800,13 @@ def step(state: SimState, cfg: SimConfig,
 
 
 def propose_dense(state: SimState, cfg: SimConfig,
-                  payload_fn: Callable, count, alive=None,
+                  payload_fn: Callable, count, alive=None, tag=None,
                   device=None) -> SimState:
     """Append `count` device-generated entries payload_fn(tick, k) (k =
     0..count-1) to every row accepting proposals, as masked stores via the
-    slot->index map (banded over the live chunks when cfg.tiled).  Writes
-    the state's rings in place."""
-    check_slice(cfg)
+    slot->index map (banded over the live chunks when cfg.tiled).  `tag`
+    is the batch's int trace tag (cfg.trace_tags).  Writes the state's
+    rings (and, with telemetry on, the batch stamp) in place."""
     check_device(state, device)
     count = int(count)
     ok = _leader_ok(state, cfg, alive)
@@ -1639,6 +1833,8 @@ def propose_dense(state: SimState, cfg: SimConfig,
             write(lt, ld, _idx_at_slots(cfg, anchor))
     else:
         write(lt, ld, _idx_at_slots(cfg, anchor))
+    if cfg.collect_telemetry and state.tel_prop_idx is not None:
+        _stamp_batch(state, cfg, ok, state.last + 1, count, tag)
     new_last = state.last + torch.where(ok, count, 0).to(I32)
     eye = torch.eye(cfg.n, dtype=torch.bool, device=lt.device)
     match = torch.where(ok[:, None] & eye, new_last[:, None], state.match)
@@ -1646,11 +1842,12 @@ def propose_dense(state: SimState, cfg: SimConfig,
 
 
 def propose(state: SimState, cfg: SimConfig, payloads, count, alive=None,
-            device=None) -> SimState:
+            tag=None, device=None) -> SimState:
     """Append up to `count` host payload entries (payloads: [max_props]
     uint32 values, array-like; bit 31 is reserved for conf entries and
-    masked off) to every row accepting proposals.  Writes the state's rings in place."""
-    check_slice(cfg)
+    masked off) to every row accepting proposals.  `tag` is the batch's
+    int trace tag (cfg.trace_tags).  Writes the state's rings (and, with
+    telemetry on, the batch stamp) in place."""
     dev = check_device(state, device)
     n, count = cfg.n, int(count)
     ok = _leader_ok(state, cfg, alive)
@@ -1663,6 +1860,8 @@ def propose(state: SimState, cfg: SimConfig, payloads, count, alive=None,
     lt, ld = state.log_term, state.log_data
     lt[rows, slot] = torch.where(valid, state.term[:, None], lt[rows, slot])
     ld[rows, slot] = torch.where(valid, pl, ld[rows, slot])
+    if cfg.collect_telemetry and state.tel_prop_idx is not None:
+        _stamp_batch(state, cfg, ok, state.last + 1, count, tag)
     new_last = state.last + torch.where(ok, count, 0).to(I32)
     eye = torch.eye(n, dtype=torch.bool, device=dev)
     match = torch.where(ok[:, None] & eye, new_last[:, None], state.match)
@@ -1680,7 +1879,6 @@ def propose_conf(state: SimState, cfg: SimConfig, target, remove,
     if cfg.static_members:
         raise ValueError("propose_conf on a static_members config: "
                          "membership changes need static_members=False")
-    check_slice(cfg)
     dev = check_device(state, device)
     n, target, remove = cfg.n, int(target), bool(remove)
     ok = _leader_ok(state, cfg, alive)

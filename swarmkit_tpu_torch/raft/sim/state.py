@@ -21,7 +21,16 @@ import numpy as np
 import torch
 
 from swarmkit_tpu_torch.device import resolve_device
+# The plane sizes have single owners (the flight ring's row widths, the
+# telemetry bucket count, series rows and default propose-batch ring);
+# the names stay importable from here.
+from swarmkit_tpu_torch.flightrec.codes import (  # noqa: F401
+    EVENT_WIDTH, EVENT_WIDTH_TAGGED,
+)
 from swarmkit_tpu_torch.raft.sim import u32
+from swarmkit_tpu_torch.telemetry.series import (  # noqa: F401
+    NUM_BUCKETS, NUM_SERIES, PROP_RING,
+)
 
 # Roles
 FOLLOWER = 0
@@ -35,15 +44,6 @@ NONE = -1
 CONF_TAG = 0x8000_0000
 CONF_REMOVE = 0x4000_0000
 CONF_TARGET_MASK = 0xFFFF
-
-# Flight-ring row widths: (tick, code, arg0, arg1), plus the trace-tag lane.
-EVENT_WIDTH = 4
-EVENT_WIDTH_TAGGED = 5
-# Telemetry plane sizes: latency histogram buckets (nine power-of-two edges
-# plus overflow), series rows, default propose-batch ring depth.
-NUM_BUCKETS = 10
-NUM_SERIES = 4
-PROP_RING = 512
 
 I32 = torch.int32
 
@@ -69,8 +69,7 @@ def check_device(state: "SimState", device=None) -> torch.device:
 class SimConfig:
     """Static simulation parameters: the JAX package's SimConfig field for
     field, with the same defaults, properties and validation, so a config
-    is written the same way in both packages.  The tick kernel of this port
-    implements a subset of the levers (kernel.check_slice names the rest).
+    is written the same way in both packages.
     """
 
     n: int = 64                 # simulated managers

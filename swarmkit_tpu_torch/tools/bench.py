@@ -25,8 +25,17 @@ enough for the fsync pipeline) and the two lowering A/B pairs
 (1024-densepeer: banded vs dense peer counts; 4096-sparseprog: slab vs
 dense progress), seed 7, at the headline's entry count.  Prints the card's
 `nvidia-smi` name and power limit, then one JSON line with bench.py's keys.
-KernelObs and the telemetry probe are not ported: the line lists them
-under "absent".
+
+As in bench.py, every run-loop call is timed into
+swarm_kernel_tick_seconds{call=...} (KernelObs.timed, one registry per
+measured config), the timed run's
+on-device counters are published (KernelObs.publish: the line's
+`kernel_stats`), and after each measurement a telemetry probe runs apart
+from the timed loop: the same shape with collect_telemetry on, from a
+fresh state, for max(4 x election_tick, 64) ticks proposing
+min(64, max_props) entries a tick, published into a private registry.
+Its commit latency percentiles (ticks) give the line's
+`commit_latency_ticks_p50/p99` and `configs_telemetry`.
 
 It needs a card and raises without one, unless --device cpu is given
 (the CPU runs exist for the tests: their numbers are CPU numbers).
@@ -45,17 +54,17 @@ import time
 import torch
 
 from swarmkit_tpu_torch.device import resolve_device
+from swarmkit_tpu_torch.metrics.registry import MetricsRegistry
 from swarmkit_tpu_torch.raft.sim import kernel
 from swarmkit_tpu_torch.raft.sim import (
     SimConfig, SimState, committed_entries, has_leader, init_state,
     leader_mask, reads_blocked, reads_served, run_ticks, run_until_leader,
 )
+from swarmkit_tpu_torch.raft.sim.run import KernelObs
+from swarmkit_tpu_torch.telemetry import TelemetryObs
 
 BASELINE_RATE = 1_000_000 / 60.0   # the north star: 1M entries in 60 s
 ELECT_CHUNK, MAX_ELECT_TICKS = 256, 2000
-ABSENT = ["kernel_stats (no KernelObs in the port yet)",
-          "commit_latency_ticks_p50/p99 (no telemetry probe in the port "
-          "yet)"]
 
 
 class MeasureError(Exception):
@@ -81,6 +90,31 @@ def _clone(st: SimState) -> SimState:
                        for f in dataclasses.fields(SimState)})
 
 
+def _telemetry_probe(cfg: SimConfig, dev) -> dict:
+    """bench.py's telemetry probe: the measured shape with the telemetry
+    plane on, from a fresh state, for max(4 x election_tick, 64) ticks
+    proposing min(64, max_props) entries a tick, scraped into a private
+    registry; returns TelemetryObs.publish's summary.  It runs apart from
+    the timed loop, so the histograms never cost the measured number."""
+    tcfg = dataclasses.replace(cfg, collect_telemetry=True)
+    st, _ = run_ticks(init_state(tcfg, device=dev), tcfg,
+                      max(4 * cfg.election_tick, 64),
+                      prop_count=min(64, tcfg.max_props), device=dev)
+    _sync(dev)
+    return TelemetryObs(registry=MetricsRegistry()).publish(st, tcfg)
+
+
+def telemetry_json(m: dict):
+    """bench.py's per-config telemetry excerpt (None without a probe)."""
+    tel = m.get("telemetry") or {}
+    if not tel.get("enabled"):
+        return None
+    commit = tel.get("commit") or {}
+    return {"election_ticks": m["election_ticks"],
+            "commit_latency_ticks_p50": commit.get("p50"),
+            "commit_latency_ticks_p99": commit.get("p99")}
+
+
 def measure(n: int, entries: int, seed: int, election_tick: int, dev,
             chunk: int = 64, peer_chunk: int | None = None,
             active_rows: int | None = None, latency: int = 0,
@@ -92,7 +126,12 @@ def measure(n: int, entries: int, seed: int, election_tick: int, dev,
     chunked replication of ~`entries` committed entries.  latency,
     latency_jitter and inflight pick the wire, read_batch/read_leases the
     read path (reads served in the timed pass are counted), and
-    fsync_lag_ticks/ack_gating the storage model, as in bench.py."""
+    fsync_lag_ticks/ack_gating the storage model, as in bench.py.  Driver
+    calls are timed by a KernelObs, which publishes the timed run's
+    counters (`kernel_stats`); the telemetry probe follows.  Each call is
+    a run of its own, so its KernelObs publishes into a registry of its
+    own (see KernelObs on wrapping counters)."""
+    obs = KernelObs(MetricsRegistry())
     levers = {k: v for k, v in (("peer_chunk", peer_chunk),
                                 ("active_rows", active_rows))
               if v is not None}
@@ -109,9 +148,10 @@ def measure(n: int, entries: int, seed: int, election_tick: int, dev,
 
     def run_chunks(st):
         for _ in range(n_chunks):
-            st, _ = run_ticks(st, cfg, chunk, prop_count=cfg.max_props,
-                              device=dev, **run_kw)
-            _sync(dev)
+            with obs.timed("run_ticks"):
+                st, _ = run_ticks(st, cfg, chunk, prop_count=cfg.max_props,
+                                  device=dev, **run_kw)
+                _sync(dev)
         return st
 
     def elect():
@@ -119,9 +159,10 @@ def measure(n: int, entries: int, seed: int, election_tick: int, dev,
         t0 = time.perf_counter()
         ticks = 0
         while ticks < MAX_ELECT_TICKS:
-            st, t = run_until_leader(st, cfg, max_ticks=ELECT_CHUNK,
-                                     device=dev)
-            _sync(dev)
+            with obs.timed("run_until_leader"):
+                st, t = run_until_leader(st, cfg, max_ticks=ELECT_CHUNK,
+                                         device=dev)
+                _sync(dev)
             ticks += t
             if bool(has_leader(st)):
                 break
@@ -148,11 +189,13 @@ def measure(n: int, entries: int, seed: int, election_tick: int, dev,
            "rate": committed / dt, "election_ticks": ticks,
            "t_elect": t_elect, "t_elect_post": t_elect_post,
            "t_warm": t_warm, "timed_ticks": n_chunks * chunk,
-           "counts": counts}
+           "counts": counts, "kernel_stats": obs.publish(final)}
     if read_batch:
         out["reads"] = int(reads_served(final)) - base_reads
         out["read_rate"] = out["reads"] / dt
         out["reads_blocked"] = int(reads_blocked(final))
+    with obs.timed("telemetry_probe"):
+        out["telemetry"] = _telemetry_probe(cfg, dev)
     return out
 
 
@@ -190,7 +233,7 @@ def readmix(n: int, entries: int, dev, chunk: int = 64) -> dict:
     if m["read_rate"] < 10 * m["rate"]:
         keys["note"] = (f"read-mix underperformed: {m['read_rate']:,.0f} "
                         f"reads/s < 10x {m['rate']:,.0f} entries/s")
-    return {"rate": m["rate"], "keys": keys,
+    return {"rate": m["rate"], "keys": keys, "telemetry": telemetry_json(m),
             "leaders": int(leader_mask(m["final"]).sum()),
             "linearizable": bool((m["final"].read_srv_idx
                                   >= m["final"].read_srv_goal).all())}
@@ -210,33 +253,40 @@ def fsyncgate(n: int, entries: int, dev, chunk: int = 64) -> dict:
     return {"dense": dm["rate"], f"gated_k{k}": gm["rate"],
             "gated_over_dense": gm["rate"] / dm["rate"],
             "durable": int(g.ack_frontier.max()) <= int(g.last.max())
-            and bool((g.sync_mark >= g.snap_idx).all())}
+            and bool((g.sync_mark >= g.snap_idx).all()),
+            "telemetry": telemetry_json(gm)}
 
 
 def _secondary(args, dev, log, result: dict) -> dict:
     """BASELINE configs 3-5, the mailbox wire, the log-capacity, read-mix
     and durability configs, and the two lowering A/B pairs; the read mix's
-    keys go into `result`, as bench.py puts them."""
+    keys go into `result`, as bench.py puts them, and each config's
+    telemetry excerpt into result["configs_telemetry"] (for an A/B pair,
+    its lever side's)."""
     extra: dict = {}
+    tel_extra = result["configs_telemetry"] = {}
 
-    def measured(cn: int, **kw) -> dict:
-        return measure(cn, args.entries, 7, election_tick_for(cn), dev,
-                       chunk=args.chunk_ticks, **kw)
+    def measured(cn: int, name: str = None, **kw) -> dict:
+        m = measure(cn, args.entries, 7, election_tick_for(cn), dev,
+                    chunk=args.chunk_ticks, **kw)
+        if name is not None and telemetry_json(m) is not None:
+            tel_extra[name] = telemetry_json(m)
+        return m
 
-    def run(cn: int, **kw) -> float:
-        return measured(cn, **kw)["rate"]
+    def run(cn: int, name: str = None, **kw) -> float:
+        return measured(cn, name, **kw)["rate"]
 
     for name, cn, kw in (("64-steady", 64, {}),
                          ("1024-crash-every-100", 1024,
                           {"crash_every": 100, "down_for": 5}),
                          ("4096-drop-5pct", 4096, {"drop_rate": 0.05})):
-        extra[name] = run(cn, **kw)
+        extra[name] = run(cn, name, **kw)
         log(f"config {name}: {extra[name]:,.1f} entries/s")
     # the device-mailbox wire: per-edge latency 2 + jitter 1 with a 4-deep
     # pipelined append window (vendor MaxInflightMsgs), under bench.py's
     # own safety checks
     name = "1024-mailbox-lat2-jitter1-inflight4"
-    m = measured(1024, latency=2, latency_jitter=1, inflight=4)
+    m = measured(1024, name, latency=2, latency_jitter=1, inflight=4)
     safety_ok, near_tip = _safety(m)
     n_leaders = int(leader_mask(m["final"]).sum())
     extra[name] = m["rate"]
@@ -254,11 +304,14 @@ def _secondary(args, dev, log, result: dict) -> dict:
     del m
     # log capacity: with the tiled log an 8x ring should land near the
     # L=8192 headline's rate
-    extra["4096-longlog-L65536"] = run(4096, log_len=65536)
+    extra["4096-longlog-L65536"] = run(4096, "4096-longlog-L65536",
+                                       log_len=65536)
     log(f"config 4096-longlog-L65536: {extra['4096-longlog-L65536']:,.1f} "
         f"entries/s")
     rm = readmix(256, args.entries, dev, args.chunk_ticks)
     extra["256-readmix-99to1"] = rm["rate"]
+    if rm["telemetry"] is not None:
+        tel_extra["256-readmix-99to1"] = rm["telemetry"]
     note = rm["keys"].pop("note", None)
     result.update(rm["keys"])
     if note:
@@ -269,6 +322,9 @@ def _secondary(args, dev, log, result: dict) -> dict:
     log(f"config 256-readmix-99to1: {rm['rate']:,.1f} entries/s, "
         f"{rm['keys']}")
     fg = fsyncgate(256, args.entries, dev, args.chunk_ticks)
+    if fg["telemetry"] is not None:
+        tel_extra["256-fsyncgate"] = fg["telemetry"]
+    del fg["telemetry"]
     if not fg.pop("durable"):
         fg["error"] = "durability check failed"
     extra["256-fsyncgate"] = fg
@@ -277,11 +333,13 @@ def _secondary(args, dev, log, result: dict) -> dict:
                                   f"{fg['gated_k4']:,.0f} < 0.8x bare "
                                   f"{fg['dense']:,.0f} at 256-fsyncgate")
     pc = max(64, 1024 // 4)          # bench.py's band width at n=1024
-    dense, banded = run(1024, peer_chunk=0), run(1024, peer_chunk=pc)
+    dense, banded = (run(1024, peer_chunk=0),
+                     run(1024, "1024-densepeer", peer_chunk=pc))
     extra["1024-densepeer"] = {"dense": dense, f"banded_pc{pc}": banded,
                                "banded_over_dense": banded / dense}
     ar = 16
-    dense, sparse = run(4096, active_rows=0), run(4096, active_rows=ar)
+    dense, sparse = (run(4096, active_rows=0),
+                     run(4096, "4096-sparseprog", active_rows=ar))
     extra["4096-sparseprog"] = {"dense": dense, f"sparse_a{ar}": sparse,
                                 "sparse_over_dense": sparse / dense}
     for name in ("256-fsyncgate", "1024-densepeer", "4096-sparseprog"):
@@ -341,8 +399,12 @@ def main(argv=None) -> dict:
                    "kind": torch.cuda.get_device_name(dev)
                    if dev.type == "cuda" else "cpu"},
         "card": card,
-        "absent": ABSENT,
+        "kernel_stats": m["kernel_stats"],
     }
+    tel = telemetry_json(m)
+    if tel is not None:
+        result["commit_latency_ticks_p50"] = tel["commit_latency_ticks_p50"]
+        result["commit_latency_ticks_p99"] = tel["commit_latency_ticks_p99"]
     if not safety_ok:
         result["error"] = "state-machine checksum divergence"
     elif near_tip < args.n // 2 + 1:

@@ -1,9 +1,10 @@
 """The port's bench entry (swarmkit_tpu_torch.tools.bench) on the CPU.
 
 A small run (n=64, a few thousand entries, 8-tick chunks, no secondary
-configurations) prints bench.py's JSON line with every key, passes its own
-safety check, and says what the port does not measure yet; without a card
-and without --device cpu it raises instead of running on the CPU.
+configurations) prints bench.py's JSON line with every key, the kernel
+counters KernelObs published and the telemetry probe's commit latency
+included, and passes its own safety check; without a card and without
+--device cpu it raises instead of running on the CPU.
 """
 
 from __future__ import annotations
@@ -20,7 +21,8 @@ from tests.test_torch_wire import one_torch_thread  # noqa: F401 (fixture)
 KEYS = {"metric", "value", "unit", "vs_baseline", "election_ticks",
         "election_s_incl_compile", "election_s_post_compile",
         "safety_ok", "replicas_near_tip", "peak_bytes",
-        "configs_entries_per_s", "card", "device", "absent",
+        "configs_entries_per_s", "card", "device", "kernel_stats",
+        "commit_latency_ticks_p50", "commit_latency_ticks_p99",
         "ms_per_tick", "host_syncs_per_tick", "slab_ticks",
         "dense_fallback_ticks", "warm_pass_s"}
 
@@ -42,7 +44,11 @@ def test_cpu_run_prints_the_bench_line(capsys):
     assert line["host_syncs_per_tick"] == 1.0
     assert line["device"] == {"platform": "cpu", "kind": "cpu"}
     assert line["card"] is None and line["peak_bytes"] is None
-    assert any("KernelObs" in a for a in line["absent"])
+    assert "absent" not in line
+    stats = line["kernel_stats"]
+    assert stats["commit_advance"] > 0 and stats["elections_won"] >= 1
+    assert 1 <= line["commit_latency_ticks_p50"] \
+        <= line["commit_latency_ticks_p99"] <= 256
     assert line["configs_entries_per_s"] == "skipped (--no-configs)"
 
 
@@ -89,6 +95,9 @@ def test_readmix_and_fsyncgate_on_the_cpu():
     assert "note" not in keys and keys["read_write_ratio"] >= 10
     assert rm["leaders"] == 1 and rm["linearizable"] and rm["rate"] > 0
     fg = bench.fsyncgate(64, 4000, cpu, chunk=8)
-    assert set(fg) == {"dense", "gated_k4", "gated_over_dense", "durable"}
+    assert set(fg) == {"dense", "gated_k4", "gated_over_dense", "durable",
+                       "telemetry"}
+    assert rm["telemetry"]["commit_latency_ticks_p50"] is not None
+    assert fg["telemetry"]["commit_latency_ticks_p99"] is not None
     assert fg["dense"] > 0 and fg["gated_k4"] > 0 and fg["durable"]
     assert fg["gated_over_dense"] == fg["gated_k4"] / fg["dense"]

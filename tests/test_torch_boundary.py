@@ -2,7 +2,6 @@
 
 from __future__ import annotations
 
-import dataclasses
 import pathlib
 import re
 import subprocess
@@ -32,7 +31,14 @@ def test_port_imports_without_jax():
     every module of the port and chip_smoke."""
     mods = _port_modules() + ["chip_smoke"]
     assert {"swarmkit_tpu_torch.raft.read.lease",
-            "swarmkit_tpu_torch.raft.read.serve"} <= set(mods)
+            "swarmkit_tpu_torch.raft.read.serve",
+            "swarmkit_tpu_torch.flightrec.codes",
+            "swarmkit_tpu_torch.flightrec.record",
+            "swarmkit_tpu_torch.flightrec.export",
+            "swarmkit_tpu_torch.telemetry.series",
+            "swarmkit_tpu_torch.telemetry.obs",
+            "swarmkit_tpu_torch.metrics.catalog",
+            "swarmkit_tpu_torch.metrics.trace"} <= set(mods)
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
             "sys.modules['swarmkit_tpu'] = None\n"
@@ -82,19 +88,6 @@ BASE5 = dict(n=5, log_len=1024, window=64, apply_batch=64, max_props=64,
 
 
 @pytest.mark.parametrize("lever,kw", [
-    ("flight recorder", dict(record_events=True)),
-    ("telemetry", dict(collect_telemetry=True)),
-    ("trace tags", dict(record_events=True, collect_telemetry=True,
-                        trace_tags=True)),
-])
-def test_unported_levers_raise(lever, kw):
-    cfg = state.SimConfig(**{**BASE5, **kw})
-    st = state.init_state(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match=lever):
-        kernel.step(st, cfg, device="cpu")
-
-
-@pytest.mark.parametrize("lever,kw", [
     ("read path", dict(read_batch=2)),
     ("read path", dict(read_batch=2, latency=2, election_tick=14)),
     ("storage model", dict(fsync_lag_ticks=1, pre_vote=True)),
@@ -103,6 +96,10 @@ def test_unported_levers_raise(lever, kw):
     ("storage model", dict(fsync_lag_ticks=1)),
     ("vote guard", dict(vote_guard=True)),
     ("transfer cooldown", dict(transfer_cooldown_ticks=4)),
+    ("flight recorder", dict(record_events=True)),
+    ("telemetry", dict(collect_telemetry=True)),
+    ("trace tags", dict(record_events=True, collect_telemetry=True,
+                        trace_tags=True, read_batch=2)),
 ])
 def test_ported_levers_step_like_jax(lever, kw):
     """The levers the earlier slices left raising now run: one step from
@@ -120,25 +117,35 @@ def test_ported_levers_step_like_jax(lever, kw):
     assert_same(lever, js, ts)
 
 
-def test_unported_lever_raises_with_both_ported_levers_on():
+def test_recorder_steps_like_jax_with_both_levers_on():
     """Banded peers, role-sparse progress, the mailbox wire, PreVote and
-    dynamic membership are ported; a lever still unported raises by name
-    with all of them on, and without it the tick runs."""
-    cfg = state.SimConfig(n=32, log_len=1024, window=64, apply_batch=64,
-                          max_props=64, keep=32, peer_chunk=8,
-                          active_rows=8, latency=2, latency_jitter=1,
-                          inflight=4, pre_vote=True, election_tick=14,
-                          record_events=True)
-    assert cfg.peer_tiled and cfg.active_rows_on and cfg.mailboxes
-    assert not cfg.static_members
-    st = state.init_state(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="flight recorder"):
-        kernel.step(st, cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="flight recorder"):
-        kernel.propose_conf(st, cfg, 1, True, device="cpu")
-    cfg = dataclasses.replace(cfg, record_events=False)
-    st = kernel.step(state.init_state(cfg, device="cpu"), cfg, device="cpu")
-    assert int(st.tick) == 1
+    dynamic membership with the flight recorder on: a conf proposal and
+    ticks through the election equal the JAX package's on every field
+    (the event ring included)."""
+    import jax
+
+    from swarmkit_tpu.raft.sim import kernel as jkernel
+    from swarmkit_tpu.raft.sim import state as jstate
+
+    from tests.test_torch_step import assert_same
+
+    kw = dict(n=32, log_len=1024, window=64, apply_batch=64, max_props=64,
+              keep=32, peer_chunk=8, active_rows=8, latency=2,
+              latency_jitter=1, inflight=4, pre_vote=True, election_tick=14,
+              record_events=True)
+    jcfg, tcfg = jstate.SimConfig(**kw), state.SimConfig(**kw)
+    assert tcfg.peer_tiled and tcfg.active_rows_on and tcfg.mailboxes
+    assert not tcfg.static_members
+    js, ts = jstate.init_state(jcfg), state.init_state(tcfg, device="cpu")
+    js = jkernel.propose_conf(js, jcfg, 1, True)
+    ts = kernel.propose_conf(ts, tcfg, 1, True, device="cpu")
+    assert_same("propose_conf", js, ts)
+    step = jax.jit(jkernel.step, static_argnames=("cfg",))
+    for t in range(36):
+        js = step(js, jcfg)
+        ts = kernel.step(ts, tcfg, device="cpu")
+        assert_same(f"tick {t}", js, ts)
+    assert int(ts.ev_pos.sum()) > 0
 
 
 def test_propose_conf_refuses_a_static_config():

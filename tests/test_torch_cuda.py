@@ -248,6 +248,58 @@ def test_reads_guard_cooldown_storage_on_the_card_match_the_cpu():
     assert bool((cpu.read_srv_idx >= cpu.read_srv_goal).all())
 
 
+@pytest.mark.cuda
+def test_observability_planes_on_the_card_match_the_cpu():
+    """The flight recorder, telemetry and trace tags on the mailbox wire's
+    [8, N] slab with PreVote, reads and banded counts over a tiled log:
+    tagged proposes and reads, drops, a crashed row and a storm; card and
+    CPU equal on every field (event ring and tel_* buffers included) of
+    every tick, and both progress branches taken on the card."""
+    _need_card()
+    from swarmkit_tpu_torch.flightrec import decode_state
+    from swarmkit_tpu_torch.raft.sim import kernel
+    cfg = sim.SimConfig(n=32, log_len=1024, window=64, apply_batch=64,
+                        max_props=64, keep=32, election_tick=14, seed=6,
+                        latency=2, latency_jitter=1, inflight=4,
+                        pre_vote=True, static_members=True,
+                        collect_stats=True, log_chunk=128, peer_chunk=8,
+                        active_rows=8, read_batch=4, record_events=True,
+                        event_ring=64, collect_telemetry=True,
+                        trace_tags=True, telemetry_prop_ring=64)
+    rng = np.random.default_rng(17)
+    states = {d: sim.init_state(cfg, device=d) for d in ("cuda", "cpu")}
+    counts = {d: {k: 0 for k in kernel.COUNTS} for d in states}
+    for t in range(140):
+        drop = rng.random((32, 32)) < 0.03
+        if 100 <= t < 120:
+            drop |= ~np.eye(32, dtype=bool)
+        alive = np.ones(32, bool)
+        alive[29] = not 40 <= t < 60
+        for d in states:
+            if t % 10 == 5:
+                states[d] = sim.submit_reads(states[d], cfg, 2,
+                                             tag=0x51 + t, device=d)
+            kernel.reset_counts()
+            states[d] = sim.step(
+                states[d], cfg, alive=torch.from_numpy(alive).to(d),
+                drop=torch.from_numpy(drop).to(d), prop_count=32,
+                payload_fn=sim.run._payload_at, prop_tag=0x77 + t, device=d)
+            for k, v in kernel.COUNTS.items():
+                counts[d][k] += v
+        got = sim.state_to_numpy(states["cuda"])
+        want = sim.state_to_numpy(states["cpu"])
+        assert sorted(got) == sorted(want)
+        for name in want:
+            assert np.array_equal(got[name], want[name]), (t, name)
+    assert counts["cuda"] == counts["cpu"]
+    assert counts["cuda"]["slab_ticks"] > 0
+    assert counts["cuda"]["dense_fallback_ticks"] > 0
+    events, _ = decode_state(states["cuda"])
+    assert {e.name for e in events if e.tag} == {"COMMIT_ADVANCE",
+                                                 "READ_SERVED"}
+    assert int(states["cuda"].tel_commit_hist.sum()) > 0
+
+
 def _matmul_tol(ref: torch.Tensor, k: int) -> float:
     top = float(ref.float().abs().max())
     if ref.dtype == torch.bfloat16:

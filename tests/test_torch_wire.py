@@ -41,6 +41,11 @@ _jstep_fused = jax.jit(
         st, cfg, alive=alive, drop=drop, prop_count=cnt,
         payload_fn=jrun._payload_at),
     static_argnames=("cfg",))
+_jstep_fused_tag = jax.jit(
+    lambda st, cfg, alive, drop, cnt, tag: jkernel.step(
+        st, cfg, alive=alive, drop=drop, prop_count=cnt,
+        payload_fn=jrun._payload_at, prop_tag=tag),
+    static_argnames=("cfg",))
 _jpropose = jax.jit(jkernel.propose, static_argnames=("cfg",))
 _jpropose_conf = jax.jit(jkernel.propose_conf, static_argnames=("cfg",))
 
@@ -79,7 +84,7 @@ def lockstep(kw: dict, n_ticks: int, seed: int, drop_rate: float = 0.0,
              sleep_node: tuple = (), storm: tuple = (), fused: bool = False,
              oracle: bool = False, isolate_leader: tuple = (),
              reads_at: dict = None, flags_at: dict = None,
-             transfer_at: dict = None) -> dict:
+             transfer_at: dict = None, tag_fn=None) -> dict:
     """Drive the JAX tick and the port's on run_differential's schedule,
     asserting every SimState field equal after every host call and tick
     (and, with `oracle`, the port equal to OracleCluster on the
@@ -90,7 +95,9 @@ def lockstep(kw: dict, n_ticks: int, seed: int, drop_rate: float = 0.0,
     host payloads.  Hooks, keyed by tick: `reads_at` {t: (count, rows)}
     submits a read batch (submit_reads), `flags_at` {t: {field: rows}} sets
     the storage model's one-tick flags (fsync_stall, snap_bad) on those
-    rows, `transfer_at` {t: target} asks the sitting leader to transfer.
+    rows, `transfer_at` {t: target} asks the sitting leader to transfer,
+    and `tag_fn(t)` (trace-tag configs) gives the int trace tag of tick t's
+    propose batch and read submission.
     Returns the final commit/term maxima, the port's branch counts and the
     final states."""
     jcfg, tcfg = jstate.SimConfig(**kw), tstate.SimConfig(**kw)
@@ -157,10 +164,12 @@ def lockstep(kw: dict, n_ticks: int, seed: int, drop_rate: float = 0.0,
             assert_same(f"seed={seed} transfer t={t}", js, ts)
             if orc is not None:
                 orc.transfer(ldr, tgt)
+        tag = None if tag_fn is None else tag_fn(t)
         if t in reads_at:
             count, rows = reads_at[t]
-            js = jrun.submit_reads(js, jcfg, count, rows=rows)
-            ts = trun.submit_reads(ts, tcfg, count, rows=rows, device=CPU)
+            js = jrun.submit_reads(js, jcfg, count, rows=rows, tag=tag)
+            ts = trun.submit_reads(ts, tcfg, count, rows=rows, tag=tag,
+                                   device=CPU)
             assert_same(f"seed={seed} submit_reads t={t}", js, ts)
         for field, rows in flags_at.get(t, {}).items():
             mask = np.zeros(n, bool)
@@ -205,10 +214,11 @@ def lockstep(kw: dict, n_ticks: int, seed: int, drop_rate: float = 0.0,
         # host proposals, then the conf proposal, then the tick (a fused
         # tick proposes inside step, judged on the post-conf state)
         if prop_count and not fused:
+            jtag = {} if tag is None else {"tag": np.int32(tag)}
             js = _jpropose(js, jcfg, payloads, np.int32(prop_count),
-                           alive=alive)
+                           alive=alive, **jtag)
             ts = tkernel.propose(ts, tcfg, payloads, prop_count,
-                                 alive=t_bool(alive), device=CPU)
+                                 alive=t_bool(alive), tag=tag, device=CPU)
             assert_same(f"seed={seed} propose t={t}", js, ts)
         if conf is not None:
             js = _jpropose_conf(js, jcfg, np.int32(conf[0]),
@@ -218,10 +228,15 @@ def lockstep(kw: dict, n_ticks: int, seed: int, drop_rate: float = 0.0,
             assert_same(f"seed={seed} propose_conf t={t}", js, ts)
         if fused:
             cnt = prop_count * (jcfg.max_props // 8)
-            js = _jstep_fused(js, jcfg, alive, drop, np.int32(cnt))
+            if tag is None:
+                js = _jstep_fused(js, jcfg, alive, drop, np.int32(cnt))
+            else:
+                js = _jstep_fused_tag(js, jcfg, alive, drop, np.int32(cnt),
+                                      np.int32(tag))
             ts = tkernel.step(ts, tcfg, alive=t_bool(alive),
                               drop=t_bool(drop), prop_count=cnt,
-                              payload_fn=trun._payload_at, device=CPU)
+                              payload_fn=trun._payload_at, prop_tag=tag,
+                              device=CPU)
         else:
             js = _jstep(js, jcfg, alive=alive, drop=drop)
             ts = tkernel.step(ts, tcfg, alive=t_bool(alive),
