@@ -18,9 +18,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    densities, plus an unaligned chunk (the scalar path); exact equality.
 3. card vs CPU: the port's run at n=256 (L=8192, log_chunk=1024, the
    headline chunk width) on the card and on the CPU, twice.  Dense peers
-   and progress through an election and 128 ticks with 5% drops and
-   leader crashes; then peer_chunk=64 and active_rows=16 through
-   run_schedule, 160 ticks with 2% drops and a 30-tick storm in which
+   and progress through an election and 64 ticks with 5% drops and a
+   leader crash; then peer_chunk=64 and active_rows=16 through
+   run_schedule, 120 ticks with 2% drops and a 30-tick storm in which
    every non-self edge drops, so the progress slab overflows and the
    dense fallback runs.  Every SimState field (active_ttl included) and
    every trace row equal, the kernel launched, and the card took both
@@ -97,7 +97,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    L=8192, window/apply/props 2048, keep 500, seed 7, election_tick 20,
    latency 2, jitter 1, inflight 4, heartbeat_tick 1, static members, the
    levers at their defaults: tiled log, one-pass counts, the [16, N]
-   progress slab): chunked election, 2 x 64 ticks of run_ticks, then 16
+   progress slab): chunked election, 2 x 64 ticks of run_ticks, then 8
    profiled ticks and 16 more counting the ticks whose leader had ring
    room for a batch.  Prints election ticks/seconds, ms/tick (host clock
    and CUDA events), entries/s, kernel launches and kernel ms per tick,
@@ -117,7 +117,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    election, 2 x 64 timed ticks; prints entries/s, reads/s, their ratio,
    reads blocked, ms/tick (host clock and CUDA events) and step host syncs;
    then the same shape at read_batch=0 in turns with it (32-tick chunks,
-   then 16 profiled ticks each: kernel launches and ms per tick), and the
+   then 8 profiled ticks each: kernel launches and ms per tick), and the
    band copy against plain on one more tick's calls.  Checks reads/s >= 10
    x entries/s, read_srv_idx >= read_srv_goal on every row, one leader,
    checksum agreement, <= 1 step host sync per steady tick, kernel = plain.
@@ -133,7 +133,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    and checksum agreement on both.
 12. the device observability planes at the headline's full width and
    levers (n=4096, the default 128-deep event ring), in turns with the
-   same shape planes-off: each elected, then 16 profiled ticks of each in
+   same shape planes-off: each elected, then 8 profiled ticks of each in
    turns (kernel launches and ms per tick; the planes-off count against
    the headline's 1393.25; every window's band-copy launches, full-pass
    and dense-fallback ticks; the kernel records in which a config's two
@@ -151,6 +151,22 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    exported as a Chrome trace (validate_chrome_trace must return [], with
    flow events), and the band copy against plain on one planes-on tick's
    calls.
+13. the DST sweep on the batched tick (swarmkit_tpu_torch/dst/, the
+   sweep configuration of tools/dst_sweep.py: n=5, L=64, reads 2): the
+   port's explore on the card and on the CPU, each drawing its own batch,
+   at 64 x 100 on PROFILES and at 32 x 100 on EXTRA_PROFILES with fsync
+   every 4 ticks under ack gating, telemetry and the SLO bounds (the
+   schedules, viol, first_tick, bits_by_tick and every final field
+   equal); the documented 256 x 100 sweep (0 violations; schedules/s,
+   step host syncs a tick (0), kernel launches and ms over 8 profiled
+   ticks and the busy share against 8 unprofiled ones); 16384 x 100
+   (schedules/s, peak memory); both mutation self-tests at 24 x 100
+   (caught, shrunk: seconds, evals and batched replays; the artifact
+   replayed exactly on the card and on the CPU); the term-inflation,
+   disruptive-rejoin, transfer-abuse and lost-tail demos (neutralized).
+   The sweep's ring write is one band-copy launch a tick over all
+   clusters' rows ([S*5, 64]): both sweeps' launches are counted from 0,
+   and the kernel is held to plain on one sweep tick's call.
 
 Each path's band-copy launches are counted from 0 (the kernels' record
 carries them).  Before the last line it prints the kernels' JSON record
@@ -174,6 +190,9 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM device-memory rate (data sheet)
 BF16_FLOP_PER_S = 989e12    # H100 SXM dense bf16 tensor-core rate
 F32_FLOP_PER_S = 67e12      # H100 SXM f32 rate outside the tensor cores
 TASK_N, TASK_STEPS = 8192, 16   # the executor task at full width
+# ticks in each torch.profiler window: the profiler's own processing costs
+# seconds per window at ~1400 launches a tick, so the windows stay short
+PROFILED_TICKS = 8
 # bench.py::measure's headline configuration; peer_chunk and active_rows
 # stay at their SimConfig defaults (1024 and 16), as bench.py runs them
 HEADLINE = dict(n=4096, log_len=8192, window=2048, apply_batch=2048,
@@ -328,11 +347,11 @@ def phase_card_vs_cpu(torch, sim, cuda_ops, card: str = "cuda") -> None:
         st, ticks = sim.run_until_leader(sim.init_state(cfg, device=dev),
                                          cfg, max_ticks=500, device=dev)
         check(bool(sim.has_leader(st)), f"n=256 on {dev}: no leader")
-        st, trace = sim.run_ticks(st, cfg, 128, device=dev, **kw)
+        st, trace = sim.run_ticks(st, cfg, 64, device=dev, **kw)
         if dev == card:
             torch.cuda.synchronize()
             launches = cuda_ops.LAUNCHES["append_band_copy"]
-        log(f"  {dev}: election {ticks} ticks, then 128 ticks, "
+        log(f"  {dev}: election {ticks} ticks, then 64 ticks, "
             f"{time.perf_counter() - t0:.2f} s")
         results[dev] = (ticks, trace.cpu(), sim.state_to_numpy(st))
     (tg, trg, sg), (tc, trc, sc) = results[card], results["cpu"]
@@ -352,13 +371,13 @@ def phase_card_vs_cpu(torch, sim, cuda_ops, card: str = "cuda") -> None:
     # fallback runs on the card
     cfg = sim.SimConfig(**{**HEADLINE, "n": 256, "peer_chunk": 64,
                            "active_rows": 16})
-    T, n = 160, cfg.n
+    T, n = 120, cfg.n
     g = torch.Generator().manual_seed(3)
     drop = torch.rand((T, n, n), generator=g) < 0.02
-    drop[70:100] |= ~torch.eye(n, dtype=torch.bool)
+    drop[50:80] |= ~torch.eye(n, dtype=torch.bool)
     alive = torch.ones((T, n), dtype=torch.bool)
     log(f"  peer_chunk=64, active_rows=16, run_schedule of {T} ticks with "
-        f"a storm at ticks 70-99:")
+        f"a storm at ticks 50-79:")
     results = {}
     for dev in (card, "cpu"):
         cuda_ops.reset_launches()
@@ -821,7 +840,7 @@ def _device_window(torch, sim, cfg, st, ticks: int, by_name: bool = False):
 def phase_mailbox_path(torch, sim, cuda_ops) -> dict:
     """bench.py's 1024-mailbox-lat2-jitter1-inflight4 at full width: the
     chunked election, then 2 x 64 ticks of run_ticks(prop_count=2048),
-    then 16 more under the profiler (launches and kernel time per tick)."""
+    then 8 more under the profiler (launches and kernel time per tick)."""
     cfg = sim.SimConfig(**MAILBOX_PATH)
     check(cfg.mailboxes and cfg.tiled and cfg.active_rows_on
           and not cfg.peer_tiled,
@@ -848,7 +867,8 @@ def phase_mailbox_path(torch, sim, cuda_ops) -> dict:
     launches = cuda_ops.LAUNCHES["append_band_copy"]
     n_ticks = ticks + 128
     full_pass = _full_pass_ticks(cfg, launches, n_ticks, "n=1024 mailbox")
-    st, per_tick, kernel_ms = _device_window(torch, sim, cfg, st, 16)
+    st, per_tick, kernel_ms = _device_window(torch, sim, cfg, st,
+                                             PROFILED_TICKS)
     # how often the leader's ring has room for a batch (_leader_ok): the
     # protocol's own bound on this path's entries per tick
     accepted = 0
@@ -876,7 +896,7 @@ def phase_mailbox_path(torch, sim, cuda_ops) -> dict:
         f"{committed / t_run:.1f} entries/s")
     log(f"  steady 128 ticks: step host syncs {syncs:.3f}/tick, slab ticks "
         f"{counts['slab_ticks']}, dense-fallback ticks "
-        f"{counts['dense_fallback_ticks']}; 16 profiled ticks: "
+        f"{counts['dense_fallback_ticks']}; {PROFILED_TICKS} profiled ticks: "
         f"{per_tick:.1f} kernel launches/tick, {kernel_ms:.3f} ms of "
         f"kernels/tick, busy share {out['busy_share']:.3f} of the "
         f"CUDA-event tick; the leader took a proposal batch on "
@@ -974,9 +994,9 @@ def phase_lever_ab(torch, sim, st) -> dict:
     return out
 
 
-def _record_band_copies(torch, sim, cuda_ops, cfg, st) -> list:
-    """The band-copy calls of one more proposing tick, with their inputs
-    as the tick gave them."""
+def _record_band_copies(torch, sim, cuda_ops, cfg, st, tick=None) -> list:
+    """The band-copy calls of one more proposing tick (or of `tick()`),
+    with their inputs as the tick gave them."""
     calls = []
     launch = cuda_ops.append_band_copy
 
@@ -987,7 +1007,10 @@ def _record_band_copies(torch, sim, cuda_ops, cfg, st) -> list:
 
     cuda_ops.append_band_copy = record
     try:
-        sim.run_ticks(st, cfg, 1, prop_count=cfg.max_props)
+        if tick is None:
+            sim.run_ticks(st, cfg, 1, prop_count=cfg.max_props)
+        else:
+            tick()
     finally:
         cuda_ops.append_band_copy = launch
     torch.cuda.synchronize()
@@ -1066,7 +1089,8 @@ def phase_main_path_inputs(torch, sim, cuda_ops, st) -> dict:
                 library_ms=mean(times["library"]), bound_ms=mean(bound))
 
 
-def _profiled_turns(torch, sim, cfgs: dict, st, ticks: int = 16):
+def _profiled_turns(torch, sim, cfgs: dict, st,
+                    ticks: int = PROFILED_TICKS):
     """Kernel launches and kernel ms per tick of each config in `cfgs`, in
     turns (first, second, second, first) from one state; every config
     leaves the other's extra registers as they stand."""
@@ -1088,7 +1112,7 @@ def phase_readmix(torch, sim, cuda_ops) -> dict:
     """bench.py's 256-readmix-99to1 at its published width: the chunked
     election, 2 x 64 timed ticks, then the read path's cost in turns with
     the same shape at read_batch=0 (host and CUDA-event ms over 32-tick
-    chunks, kernel launches and ms over 16 profiled ticks), and the band
+    chunks, kernel launches and ms over 8 profiled ticks), and the band
     copy against its plain version on one more tick's calls."""
     cfg = sim.SimConfig(**READMIX)
     off = sim.SimConfig(**{**READMIX, "read_batch": 0})
@@ -1293,7 +1317,7 @@ def phase_planes_headline(torch, sim, cuda_ops) -> dict:
     """The three device observability planes at the headline's full width
     and levers (n=4096, banded counts of 1024, the [16, N] slab, the
     default 128-deep event ring), in turns with the same shape planes-off.
-    Each is elected, then profiled for 16 ticks of each in turns (off, on,
+    Each is elected, then profiled for 8 ticks of each in turns (off, on,
     on, off): kernel launches and ms per tick, with each window's band-copy
     launches, full-pass and fallback ticks; the two windows of a config
     are compared by the aten ops the host called and by the kernel records
@@ -1332,8 +1356,8 @@ def phase_planes_headline(torch, sim, cuda_ops) -> dict:
                          launches=[], kernel_ms=[])
     for name in ("off", "on", "on", "off"):
         states[name], w = _counted_window(
-            torch, sim, cuda_ops, cfgs[name], states[name], 16,
-            f"planes {name}, 16 profiled ticks")
+            torch, sim, cuda_ops, cfgs[name], states[name], PROFILED_TICKS,
+            f"planes {name}, {PROFILED_TICKS} profiled ticks")
         res[name]["launches"].append(w["launches"])
         res[name]["kernel_ms"].append(w["kernel_ms"])
         windows[name].append(w)
@@ -1485,6 +1509,220 @@ def phase_planes_headline(torch, sim, cuda_ops) -> dict:
                 decode_s=t_decode, export_s=t_export,
                 trace_events=len(trace["traceEvents"]), flow_events=flows,
                 band_copy_launches=on["band_copy"], err=err)
+
+
+# the DST sweep's configuration for phase 13's storage batch: fsync every 4
+# ticks with ack gating, telemetry and the SLO bounds
+DST_STORAGE = dict(fsync_lag_ticks=4, ack_gating=True, collect_telemetry=True,
+                   slo_p99_commit_ticks=32, slo_leader_changes=6,
+                   slo_log_occupancy=40, slo_fsync_lag=40)
+DST_TICKS = 100
+DST_WIDE = 16384      # the sweep's width at scale
+
+
+def _dst_card_vs_cpu(torch, sim, dst, cfg, schedules: int, profiles,
+                     label: str, card: str) -> dict:
+    """explore on the card and on the CPU, each drawing its own batch:
+    the schedules, viol, first_tick, bits_by_tick and every final field
+    must be equal."""
+    import numpy as np
+
+    runs = []
+    for d in (card, "cpu"):
+        sched, names = dst.make_batch(cfg, DST_TICKS, schedules, seed=0,
+                                      profiles=profiles, device=d)
+        t0 = time.perf_counter()
+        res = dst.explore(sim.init_state(cfg, device=d), cfg, sched,
+                          profiles=names, device=d)
+        runs.append((sched.to_numpy(), res, time.perf_counter() - t0))
+    (sc, rc, tc), (sp, rp, tp) = runs
+    check(sorted(sc) == sorted(sp) and all(np.array_equal(sc[k], sp[k])
+                                           for k in sp),
+          f"{label}: the card drew other schedules than the CPU")
+    check(np.array_equal(rc.viol, rp.viol)
+          and np.array_equal(rc.first_tick, rp.first_tick)
+          and np.array_equal(rc.bits_by_tick, rp.bits_by_tick),
+          f"{label}: violation masks differ between card and CPU")
+    got = sim.state_to_numpy(rc.final_state)
+    want = sim.state_to_numpy(rp.final_state)
+    check(sorted(got) == sorted(want), f"{label}: final field sets differ")
+    for name in want:
+        check(np.array_equal(got[name], want[name]),
+              f"{label}: final field {name} differs between card and CPU")
+    log(f"  {label}, {schedules} x {DST_TICKS}: card = CPU on the schedules,"
+        f" viol, first_tick, bits_by_tick and all {len(want)} final fields;"
+        f" {len(rc.violating)} violating; explore {tc:.3f} s on the card, "
+        f"{tp:.3f} s on the CPU")
+    return dict(schedules=schedules, fields=len(want),
+                violating=int(len(rc.violating)), card_s=tc, cpu_s=tp)
+
+
+def phase_dst(torch, sim, cuda_ops, card: str = "cuda") -> dict:
+    """The DST sweep on the batched tick (swarmkit_tpu_torch/dst/): card =
+    CPU at 64 x 100 (PROFILES, reads 2) and 32 x 100 (EXTRA_PROFILES, the
+    storage configuration); the documented 256 x 100 sweep (0 violations;
+    schedules/s, step host syncs a tick, launches a tick over 8 profiled
+    ticks and the device busy share against 8 unprofiled ticks); 16384 x
+    100 (schedules/s); both mutation self-tests at 24 x 100 (caught,
+    shrunk, artifact replayed on the card and on the CPU); the four demos
+    (neutralized)."""
+    import importlib
+    import shutil
+    import tempfile
+
+    from swarmkit_tpu_torch import dst
+    from swarmkit_tpu_torch.tools import dst_sweep
+    from swarmkit_tpu_torch.tools.profile_tick import _device_us
+
+    dexp = importlib.import_module("swarmkit_tpu_torch.dst.explore")
+    dev = torch.device(card)
+    cfg = dst_sweep._cfg(5, 0, reads=2)
+    out = {"card_vs_cpu": [
+        _dst_card_vs_cpu(torch, sim, dst, cfg, 64, dst.PROFILES,
+                         "PROFILES", card),
+        _dst_card_vs_cpu(torch, sim, dst,
+                         dataclasses.replace(cfg, **DST_STORAGE), 32,
+                         dst.EXTRA_PROFILES, "EXTRA_PROFILES, storage",
+                         card)]}
+
+    # the documented sweep: 256 x 100 on PROFILES; its ring write is one
+    # band-copy launch a tick over the [256*5, 64] rows
+    sim.kernel.reset_counts()
+    cuda_ops.reset_launches()
+    sweep = dst_sweep.run_sweep(256, DST_TICKS, 0, 5, 2, dst.PROFILES,
+                                reads=2, verbose=False, device=dev)
+    launched = cuda_ops.LAUNCHES["append_band_copy"]
+    res = sweep["_result"]
+    syncs = sim.kernel.COUNTS["host_syncs"] / DST_TICKS
+    check(sweep["violations"] == 0,
+          f"the stock sweep found {sweep['violations']} violations")
+    check(syncs == 0, f"{syncs} step host syncs a sweep tick")
+    check(launched == DST_TICKS,
+          f"the sweep launched append_band_copy {launched} times in "
+          f"{DST_TICKS} ticks")
+    # 8 unprofiled ticks (CUDA events), then 8 profiled ones, from tick 20
+    sched = sweep["_batch"]
+    st = sim.broadcast_state(sim.init_state(cfg, device=dev), 256)
+    for t in range(20):
+        st, _ = dexp._tick_one(st, cfg, sched.at_tick(t), 2, None, dev)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for t in range(20, 28):
+        st, _ = dexp._tick_one(st, cfg, sched.at_tick(t), 2, None, dev)
+    end.record()
+    torch.cuda.synchronize()
+    tick_ms = start.elapsed_time(end) / 8
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for t in range(28, 36):
+            st, _ = dexp._tick_one(st, cfg, sched.at_tick(t), 2, None, dev)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    launches = sum(e.count for e in kernels) / 8
+    kernel_ms = sum(_device_us(e) for e in kernels) / 1e3 / 8
+    # the kernel against its plain version on one more sweep tick's call
+    box = {}
+
+    def sweep_tick():
+        box["st"], _ = dexp._tick_one(st, cfg, sched.at_tick(36), 2, None,
+                                      dev)
+    calls = _record_band_copies(torch, sim, cuda_ops, cfg, st, sweep_tick)
+    err = max(_kernel_vs_plain(torch, cuda_ops, c) for c in calls)
+    rows = tuple(calls[0][0].shape)
+    check(err == 0, f"kernel != plain on a sweep tick's inputs ({err})")
+    out["sweep_256"] = dict(
+        schedules_per_s=res.schedules_per_sec, explore_s=res.elapsed,
+        violations=sweep["violations"], host_syncs_per_tick=syncs,
+        band_copy_launches=launched, launches_per_tick=launches,
+        kernel_ms_per_tick=kernel_ms, tick_ms=tick_ms,
+        busy_share=kernel_ms / tick_ms, band_copy_rows=list(rows),
+        err=err)
+    log(f"  256 x {DST_TICKS} (PROFILES, reads 2): 0 violations, "
+        f"{res.schedules_per_sec:.1f} schedules/s ({res.elapsed:.3f} s of "
+        f"explore), step host syncs {syncs:.2f}/tick, append_band_copy "
+        f"launches {launched}; 8 profiled ticks: "
+        f"{launches:.2f} kernel launches/tick, {kernel_ms:.3f} ms of "
+        f"kernels/tick against {tick_ms:.3f} ms/tick unprofiled (CUDA "
+        f"events): busy share {kernel_ms / tick_ms:.3f}; {len(calls)} "
+        f"band-copy call of one sweep tick on {list(rows)} rings: "
+        f"max|kernel - plain| = {err}")
+
+    # the sweep's width at scale
+    torch.cuda.reset_peak_memory_stats()
+    sim.kernel.reset_counts()
+    cuda_ops.reset_launches()
+    t0 = time.perf_counter()
+    wide = dst_sweep.run_sweep(DST_WIDE, DST_TICKS, 0, 5, 2, dst.PROFILES,
+                               reads=2, verbose=False, device=dev)
+    wide_s = time.perf_counter() - t0
+    wide_launched = cuda_ops.LAUNCHES["append_band_copy"]
+    check(wide_launched == DST_TICKS,
+          f"the wide sweep launched append_band_copy {wide_launched} times")
+    wres = wide["_result"]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    wsyncs = sim.kernel.COUNTS["host_syncs"] / DST_TICKS
+    check(wsyncs == 0, f"{wsyncs} step host syncs a tick at S={DST_WIDE}")
+    out["sweep_wide"] = dict(schedules=DST_WIDE,
+        schedules_per_s=wres.schedules_per_sec, explore_s=wres.elapsed,
+        with_generation_s=wide_s, violations=wide["violations"],
+        peak_gib=peak, host_syncs_per_tick=wsyncs,
+        band_copy_launches=wide_launched)
+    log(f"  {DST_WIDE} x {DST_TICKS}: {wres.schedules_per_sec:.1f} "
+        f"schedules/s "
+        f"({wres.elapsed:.3f} s of explore; {wide_s:.3f} s with the "
+        f"schedules' generation), {wide['violations']} violations, step "
+        f"host syncs {wsyncs:.2f}/tick, peak device memory {peak:.3f} GiB, "
+        f"append_band_copy launches {wide_launched}")
+
+    outdir = tempfile.mkdtemp(prefix="chip_smoke_dst_")
+    try:
+        out["mutations"] = {}
+        for mutation in ("commit_no_quorum", "stale_lease_read"):
+            demo = dst_sweep.run_mutation_demo(
+                24, DST_TICKS, 0, 5, 2, mutation, verbose=False,
+                out_path=f"{outdir}/{mutation}.json", device=dev)
+            check(demo["caught"], f"mutation {mutation} was not caught")
+            check(demo["replay_matches"],
+                  f"{mutation}: the card's artifact did not replay exactly "
+                  f"on the card")
+            on_cpu = dst.replay_artifact(demo["artifact"], device="cpu")
+            check(on_cpu["matches_recorded"],
+                  f"{mutation}: the card's artifact replayed on the CPU to "
+                  f"{on_cpu['violations']} at tick {on_cpu['first_tick']}")
+            out["mutations"][mutation] = {
+                k: demo[k] for k in ("violations", "profile", "index", "bits",
+                                     "fault_count_before",
+                                     "fault_count_after", "shrink_evals",
+                                     "shrink_batches", "shrink_ticks",
+                                     "shrink_s", "first_tick")}
+            log(f"  mutation {mutation}: caught in {demo['violations']} of "
+                f"24 ({demo['bits']}, {demo['profile']} #{demo['index']}); "
+                f"shrunk {demo['fault_count_before']} -> "
+                f"{demo['fault_count_after']} fault-events in "
+                f"{demo['shrink_s']:.3f} s: {demo['shrink_evals']} evals in "
+                f"{demo['shrink_batches']} batched replays of "
+                f"{demo['shrink_ticks']} ticks in all; the artifact "
+                f"replays exactly on the card and on the CPU (first tick "
+                f"{demo['first_tick']})")
+        demos = {
+            "term_inflation": dst_sweep.run_term_inflation_demo(device=dev),
+            "disruptive_rejoin":
+                dst_sweep.run_disruptive_rejoin_demo(device=dev),
+            "transfer_abuse": dst_sweep.run_transfer_abuse_demo(device=dev),
+            "lost_tail": dst_sweep.run_lost_tail_demo(
+                out_path=f"{outdir}/lost_tail.json", device=dev)}
+    finally:
+        shutil.rmtree(outdir, ignore_errors=True)
+    for name, demo in demos.items():
+        check(demo["neutralized"], f"the {name} demo was not neutralized")
+    out["demos"] = {k: {kk: v for kk, v in d.items() if kk != "artifact"}
+                    for k, d in demos.items()}
+    log("  the four demos neutralized")
+    return out
 
 
 def matmul_tol(torch, ref, k: int) -> float:
@@ -1748,7 +1986,11 @@ def main() -> int:
         return 2
 
     started = time.perf_counter()
-    log("phase 1: card and build")
+
+    def stage(msg: str) -> None:
+        log(f"{msg} [at {time.perf_counter() - started:.1f} s]")
+
+    stage("phase 1: card and build")
     card = card_line()
     log(f"  {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     t0 = time.perf_counter()
@@ -1768,52 +2010,54 @@ def main() -> int:
     log(f"  [matmul:mm_bf16_wgmma] dynamic shared memory {smem} bytes per "
         f"block")
 
-    log("phase 2: append_band_copy kernel vs plain")
+    stage("phase 2: append_band_copy kernel vs plain")
     err2 = phase_kernel_vs_plain(torch, cuda_ops)
 
-    log("phase 3: the port on the card vs on the CPU (n=256)")
+    stage("phase 3: the port on the card vs on the CPU (n=256)")
     phase_card_vs_cpu(torch, sim, cuda_ops)
 
-    log("phase 4: the main path at full width (n=4096, the bench's levers)")
+    stage("phase 4: the main path at full width (n=4096, the bench's levers)")
     head = phase_headline(torch, sim, cuda_ops)
 
-    log("phase 4b: the same shape dense and with the levers, in turns")
+    stage("phase 4b: the same shape dense and with the levers, in turns")
     ab = phase_lever_ab(torch, sim, head.pop("state"))
 
-    log("phase 5: append_band_copy on the main path's inputs")
+    stage("phase 5: append_band_copy on the main path's inputs")
     k = phase_main_path_inputs(torch, sim, cuda_ops, ab.pop("state"))
 
-    log("phase 6: matmul and sumsq kernels vs plain")
+    stage("phase 6: matmul and sumsq kernels vs plain")
     torch.backends.cuda.matmul.allow_tf32 = False   # plain f32 is full f32
     err6 = phase_float_kernels_vs_plain(torch, cuda_ops)
 
-    log(f"phase 7: the executor path at full width (n={TASK_N}, "
+    stage(f"phase 7: the executor path at full width (n={TASK_N}, "
         f"steps={TASK_STEPS})")
     task = phase_executor(torch, cuda_ops)
 
-    log("phase 8: matmul and sumsq on the executor path's inputs")
+    stage("phase 8: matmul and sumsq on the executor path's inputs")
     f8 = phase_float_kernels_on_path(torch, cuda_ops, task.pop("a"))
 
-    log("phase 9: the mailbox path at full width (bench.py's "
+    stage("phase 9: the mailbox path at full width (bench.py's "
         "1024-mailbox-lat2-jitter1-inflight4)")
     cuda_ops.reset_launches()
     mbox = phase_mailbox_path(torch, sim, cuda_ops)
     mbox_launches = mbox["band_copy_launches"]
     err9 = phase_mailbox_inputs(torch, sim, cuda_ops, mbox.pop("state"))
-    log("phase 9b: the same shape with PreVote and dynamic membership, a "
+    stage("phase 9b: the same shape with PreVote and dynamic membership, a "
         "follower removed and re-added through propose_conf")
     dyn = phase_dynamic_members(torch, sim)
 
-    log("phase 10: bench.py's 256-readmix-99to1 at full width")
+    stage("phase 10: bench.py's 256-readmix-99to1 at full width")
     rmix = phase_readmix(torch, sim, cuda_ops)
-    log("phase 10b: the read path at the headline's width (n=4096, "
+    stage("phase 10b: the read path at the headline's width (n=4096, "
         "read_batch 49)")
     rwide = phase_readmix_headline_width(torch, sim, cuda_ops)
-    log("phase 11: bench.py's 256-fsyncgate, bare and gated (k=4), in turns")
+    stage("phase 11: bench.py's 256-fsyncgate, bare and gated (k=4), in turns")
     fgate = phase_fsyncgate(torch, sim, cuda_ops)
-    log("phase 12: the device observability planes at the headline's full "
+    stage("phase 12: the device observability planes at the headline's full "
         "width (n=4096), in turns with planes off")
     planes = phase_planes_headline(torch, sim, cuda_ops)
+    stage("phase 13: the DST sweep on the batched tick (n=5, reads 2)")
+    dst13 = phase_dst(torch, sim, cuda_ops)
 
     elapsed = time.perf_counter() - started
     log(f"all phases passed in {elapsed:.1f} s")
@@ -1823,7 +2067,7 @@ def main() -> int:
                                  "task": task, "mailbox": mbox,
                                  "dynamic_members": dyn, "readmix": rmix,
                                  "readmix_4096": rwide, "fsyncgate": fgate,
-                                 "planes": planes}))
+                                 "planes": planes, "dst": dst13}))
     records = [{
         "name": "append_band_copy", "route": "cuda",
         "source": "swarmkit_tpu_torch/csrc/band_copy.cu",
@@ -1833,7 +2077,10 @@ def main() -> int:
         "readmix_4096_launches": rwide["band_copy_launches"],
         "fsyncgate_launches": fgate["band_copy_launches"],
         "planes_launches": planes["band_copy_launches"],
-        "max_abs_err": max(err2, k["err"], err9, rmix["err"], planes["err"]),
+        "dst_launches": dst13["sweep_256"]["band_copy_launches"],
+        "dst_wide_launches": dst13["sweep_wide"]["band_copy_launches"],
+        "max_abs_err": max(err2, k["err"], err9, rmix["err"], planes["err"],
+                           dst13["sweep_256"]["err"]),
         "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
         "bound_by": "bytes", "library_ms": k["library_ms"]}]
     for name, line, bound_by in (("matmul", 76, "operations"),

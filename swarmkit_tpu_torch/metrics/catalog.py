@@ -7,7 +7,8 @@ JAX package's for the same name, field for field, so the port's scrape
 page reads like the JAX package's.  The port holds the families its
 modules publish: the kernel counters and tick timer (raft/sim/run.py
 KernelObs), the telemetry plane (telemetry/obs.py), the flight recorder
-(flightrec/record.py) and the trace export (flightrec/clock.py, export.py).
+(flightrec/record.py), the trace export (flightrec/clock.py, export.py)
+and the DST sweep (dst/explore.py, dst/repro.py).
 """
 
 from __future__ import annotations
@@ -136,6 +137,24 @@ CATALOG: dict[str, MetricSpec] = {
         "gauge", "Latest sample of an on-device time-series ring row "
         "(SimState.tel_series), by series name "
         "(telemetry/series.py SERIES_NAMES).", ("series",)),
+
+    # ---- deterministic simulation testing (dst/) -------------------------
+    "swarm_dst_schedules_total": MetricSpec(
+        "counter", "Fault schedules fully explored, by result "
+        "(clean / violation).", ("result",)),
+    "swarm_dst_violations_total": MetricSpec(
+        "counter", "Schedules that tripped a raft safety invariant, by "
+        "invariant (dst/invariants.py bit names).", ("invariant",)),
+    "swarm_dst_schedules_per_second": MetricSpec(
+        "gauge", "Throughput of the last vmapped explore() call, by "
+        "config (n<rows>x<ticks>t).", ("config",)),
+    "swarm_dst_shrink_rounds_total": MetricSpec(
+        "counter", "Counterexample-shrinker replay evaluations, by verdict "
+        "on the candidate fault clearing (removed / required).", ("result",)),
+    "swarm_dst_attack_ticks_total": MetricSpec(
+        "counter", "Adversary verb gate firings lowered into explored "
+        "schedules, by attack profile (dst/schedule.py ATTACK_PROFILES).",
+        ("attack",)),
 }
 
 

@@ -13,6 +13,9 @@ leader-contact timer, so it refuses votes until d + election_tick -
 rival is elected before then; the lease expires lease_margin ticks
 earlier.  A leadership transfer voids the lease (TIMEOUT_NOW campaigns
 bypass the voters' contact lease), and a row that is not leader holds none.
+
+Both functions are elementwise, so they run as they are under the tick's
+batch axis: [B, N] registers with the tick shaped [B, 1].
 """
 
 from __future__ import annotations

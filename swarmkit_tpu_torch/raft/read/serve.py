@@ -18,6 +18,11 @@ The per-row read registers are [N] int32 tensors; they never touch the
 
 Every served batch has ``srv_idx >= srv_goal`` (the LINEARIZABLE_READ
 reduction).
+
+Under the tick's batch axis (``bx`` on, raft/sim/batch.py: B clusters,
+every register [B, N], the tick [B, 1]) each phase stays inside its
+cluster: the submit goal is each cluster's own ``max(commit)`` and the
+follower forward reads its own cluster's leader row.
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ from typing import NamedTuple
 import torch
 
 from swarmkit_tpu_torch.raft.read import lease
+from swarmkit_tpu_torch.raft.sim.batch import NOBATCH, Bx
 from swarmkit_tpu_torch.raft.sim.state import LEADER, NONE, SimConfig
 
 I32 = torch.int32
@@ -61,13 +67,15 @@ def read_fields(regs: ReadRegs) -> dict:
 
 
 def submit(cfg: SimConfig, regs: ReadRegs, alive: torch.Tensor,
-           commit: torch.Tensor) -> ReadRegs:
+           commit: torch.Tensor, bx: Bx = NOBATCH) -> ReadRegs:
     """R0: refill idle live rows with a fresh batch, capturing the
     acked-write frontier as its goal."""
     refill = alive & (regs.pend == 0)
+    # the goal is a value reduction: the cluster's own acked-write frontier
+    frontier = commit.amax(-1, keepdim=True) if bx.on else commit.amax()
     return regs._replace(
         pend=torch.where(refill, cfg.read_batch, regs.pend),
-        goal=torch.where(refill, commit.amax(), regs.goal),
+        goal=torch.where(refill, frontier, regs.goal),
         idx=torch.where(refill, NONE, regs.idx))
 
 
@@ -75,7 +83,8 @@ def stamp(cfg: SimConfig, regs: ReadRegs, *, alive: torch.Tensor,
           role: torch.Tensor, lead: torch.Tensor, term: torch.Tensor,
           commit: torch.Tensor, commit_term_ok: torch.Tensor,
           q_ok: torch.Tensor, transferee: torch.Tensor, now: torch.Tensor,
-          drop: torch.Tensor) -> tuple[ReadRegs, torch.Tensor]:
+          drop: torch.Tensor,
+          bx: Bx = NOBATCH) -> tuple[ReadRegs, torch.Tensor]:
     """R1: renew leases, then stamp pending batches.  Returns (regs,
     confirm), confirm[i] = row i vouched for its leadership this tick."""
     n = regs.pend.shape[-1]
@@ -93,10 +102,11 @@ def stamp(cfg: SimConfig, regs: ReadRegs, *, alive: torch.Tensor,
     node = torch.arange(n, device=lead.device)
     li = torch.clamp(lead, 0, n - 1).to(torch.int64)
     has_lead = (lead != NONE) & (lead != node)
-    rt_clean = ~drop[node, li] & ~drop[li, node]
+    # the leader row's registers, read inside each cluster
+    rt_clean = ~bx.at(drop, node, li) & ~bx.at(drop, li, node)
     stamp_f = unstamped & alive & ~is_leader & has_lead \
-        & (term == term[li]) & confirm[li] & rt_clean
-    idx = torch.where(stamp_f, commit[li], idx)
+        & (term == bx.take(term, li)) & bx.take(confirm, li) & rt_clean
+    idx = torch.where(stamp_f, bx.take(commit, li), idx)
     return regs._replace(idx=idx, lease_until=lease_until), confirm
 
 

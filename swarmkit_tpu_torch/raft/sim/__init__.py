@@ -9,8 +9,9 @@ from swarmkit_tpu_torch.raft.sim.run import (
     run_ticks, run_until_leader, submit_reads, sync_point,
 )
 from swarmkit_tpu_torch.raft.sim.state import (
-    CANDIDATE, FOLLOWER, LEADER, NONE, SimConfig, SimState, conf_payload,
-    drop_matrix, init_state, rand_timeout, state_from_numpy, state_to_numpy,
+    CANDIDATE, FOLLOWER, LEADER, NONE, SimConfig, SimState, batch_size,
+    broadcast_state, conf_payload, drop_matrix, init_state, rand_timeout,
+    state_from_numpy, state_to_numpy,
 )
 
 __all__ = [
@@ -21,6 +22,6 @@ __all__ = [
     "run_schedule", "run_ticks", "run_until_leader", "submit_reads",
     "sync_point",
     "CANDIDATE", "FOLLOWER", "LEADER", "NONE", "SimConfig", "SimState",
-    "conf_payload", "drop_matrix", "init_state", "rand_timeout",
-    "state_from_numpy", "state_to_numpy",
+    "batch_size", "broadcast_state", "conf_payload", "drop_matrix",
+    "init_state", "rand_timeout", "state_from_numpy", "state_to_numpy",
 ]

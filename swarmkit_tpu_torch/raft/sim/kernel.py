@@ -69,10 +69,11 @@ from swarmkit_tpu_torch.flightrec import codes as fc
 from swarmkit_tpu_torch.parallel import cuda_ops
 from swarmkit_tpu_torch.raft import read as rd
 from swarmkit_tpu_torch.raft.sim import u32
+from swarmkit_tpu_torch.raft.sim.batch import NOBATCH, Bx
 from swarmkit_tpu_torch.raft.sim.state import (
     CANDIDATE, CONF_REMOVE, CONF_TARGET_MASK, FOLLOWER, LEADER, NONE,
-    SimConfig, SimState, check_device, conf_payload, latency_at,
-    rand_timeout,
+    SimConfig, SimState, batch_size, check_device, conf_payload,
+    latency_at, rand_timeout,
 )
 from swarmkit_tpu_torch.telemetry import series as ts
 
@@ -130,21 +131,6 @@ def _codes_on(dev, codes: tuple) -> torch.Tensor:
     return _CODES[key]
 
 
-def _stamp_batch(state: SimState, cfg: SimConfig, ok: torch.Tensor,
-                 first: torch.Tensor, count, tag) -> None:
-    """The telemetry record of one propose batch at the state's tick, in
-    place: its first index, its count and the tick (NONE/0 on rows that
-    took no batch), and the batch's trace tag under cfg.trace_tags (0 when
-    `tag` is None)."""
-    col = torch.remainder(state.tick, state.tel_prop_idx.shape[1])
-    ts.col_set(state.tel_prop_idx, col, torch.where(ok, first, NONE))
-    ts.col_set(state.tel_prop_cnt, col, torch.where(ok, count, 0))
-    ts.col_set(state.tel_prop_tick, col, torch.where(ok, state.tick, NONE))
-    if cfg.trace_tags and state.tel_prop_tag is not None:
-        ts.col_set(state.tel_prop_tag, col,
-                   torch.where(ok, 0 if tag is None else int(tag), 0))
-
-
 def _read_back(xs: list) -> list:
     """Scalar tensors to host ints in one device->host read (one sync)."""
     COUNTS["host_syncs"] += 1
@@ -153,18 +139,59 @@ def _read_back(xs: list) -> list:
 
 # ---- index helpers ---------------------------------------------------------
 
+
+def _refuse_batched(cfg: SimConfig, what: str) -> None:
+    """Raise for a lever or plane the batched tick does not run yet, naming
+    its ROADMAP item: never a silent fallback."""
+    item = "ROADMAP Queue 1 #2"
+    refused = [
+        (cfg.tiled, f"cfg.tiled (the banded log: append_band_copy over "
+                    f"[B*N, L] rows with a batch-wide band, {item})"),
+        (cfg.peer_tiled, f"cfg.peer_tiled (banded peer counts under a "
+                         f"batch axis, {item})"),
+        (cfg.active_rows_on, f"cfg.active_rows_on (the role-sparse slab "
+                             f"with [B, A] row ids, {item})"),
+        (cfg.record_events, f"cfg.record_events (the flight recorder under "
+                            f"a batch axis, {item}; capture_flight re-runs "
+                            f"one schedule unbatched)"),
+        (cfg.trace_tags, f"cfg.trace_tags (trace tags under a batch axis, "
+                         f"{item})")]
+    for on, name in refused:
+        if on:
+            raise ValueError(f"{what} on a batched state does not run "
+                             f"{name}; use an unbatched state")
+
+
+def _stamp_batch(state: SimState, cfg: SimConfig, ok: torch.Tensor,
+                 first: torch.Tensor, count, tag, bx: Bx = NOBATCH) -> None:
+    """The telemetry record of one propose batch at the state's tick, in
+    place: its first index, its count and the tick (NONE/0 on rows that
+    took no batch), and the batch's trace tag under cfg.trace_tags (0 when
+    `tag` is None).  `count` is an int, or a per-cluster tensor shaped
+    against [N]."""
+    col = torch.remainder(state.tick, state.tel_prop_idx.shape[-1])
+    ts.col_set(state.tel_prop_idx, col, torch.where(ok, first, NONE))
+    ts.col_set(state.tel_prop_cnt, col, torch.where(ok, count, 0))
+    ts.col_set(state.tel_prop_tick, col,
+               torch.where(ok, bx.t(state.tick, 1), NONE))
+    if cfg.trace_tags and state.tel_prop_tag is not None:
+        ts.col_set(state.tel_prop_tag, col,
+                   torch.where(ok, 0 if tag is None else int(tag), 0))
+
+
 def _slot(cfg: SimConfig, idx: torch.Tensor) -> torch.Tensor:
     """Ring slot (int64, for indexing) of 1-based log index (idx<=0 -> 0)."""
     return torch.remainder(torch.clamp(idx, min=1) - 1,
                            cfg.log_len).to(torch.int64)
 
 
-def _idx_at_slots(cfg: SimConfig, last: torch.Tensor) -> torch.Tensor:
+def _idx_at_slots(cfg: SimConfig, last: torch.Tensor,
+                  bx: Bx = NOBATCH) -> torch.Tensor:
     """[N, L] log index stored at each ring slot, anchored at `last` [N]:
     the unique idx in (last - L, last] with (idx-1) % L == slot (floor
     modulo, as in the JAX package)."""
     s = torch.arange(cfg.log_len, dtype=I32, device=last.device)[None, :]
-    a = last[:, None]
+    a = bx.col(last)
     return a - torch.remainder(a - (s + 1), cfg.log_len)
 
 
@@ -177,9 +204,10 @@ def _idx_at_band(cfg: SimConfig, anchor: torch.Tensor,
     return a - torch.remainder(a - (s + 1), cfg.log_len)
 
 
-def _term_own(cfg, log_term, snap_idx, snap_term, last, idx):
+def _term_own(cfg, log_term, snap_idx, snap_term, last, idx,
+              bx: Bx = NOBATCH):
     """Per-row own-log term lookup for [N] idx (one element per row)."""
-    ring = log_term.gather(1, _slot(cfg, idx)[:, None])[:, 0]
+    ring = bx.pick(log_term, _slot(cfg, idx))
     in_ring = (idx > snap_idx) & (idx <= last)
     return torch.where(idx == snap_idx, snap_term,
                        torch.where(in_ring, ring, 0))
@@ -233,7 +261,7 @@ def _count(mask: torch.Tensor, dim: int) -> torch.Tensor:
 
 
 def _pcount(cfg: SimConfig, band: Callable, banded: bool,
-            mem: Optional[torch.Tensor] = None) -> torch.Tensor:
+            mem: Optional[torch.Tensor] = None, dim: int = 1) -> torch.Tensor:
     """Per-row int32 count of the peers j where `band(j0, w)`, the [R, w]
     predicate over columns [j0, j0 + w), is true; with `mem` (the [R, N]
     membership views of the deciding rows) only peers in the row's view
@@ -243,14 +271,16 @@ def _pcount(cfg: SimConfig, band: Callable, banded: bool,
     column band at a time with the band counts summed, so no temporary is
     wider than peer_chunk (the JAX package's _pcount, whose fori_loop over
     bands is a Python loop over column views here).  Integer sums commute:
-    both forms give the same bits."""
+    both forms give the same bits.  `dim` is the peer axis: 2 under a
+    batch axis, where only the one-pass form runs (its band (0, n) slices
+    nothing off the row axis that `[:, j0:j0 + w]` then names)."""
     if mem is not None:
         pred = band
 
         def band(j0, w):
             return pred(j0, w) & mem[:, j0:j0 + w]
     if not banded:
-        return _count(band(0, cfg.n), 1)
+        return _count(band(0, cfg.n), dim)
     pc = cfg.peer_chunk
     total = _count(band(0, pc), 1)
     for j0 in range(pc, cfg.n, pc):
@@ -271,8 +301,9 @@ class _Rows:
     def __init__(self, cfg: SimConfig, node: torch.Tensor, eye: torch.Tensor,
                  drop: torch.Tensor, drop_t: torch.Tensor,
                  member: torch.Tensor, now: torch.Tensor,
-                 idx: Optional[torch.Tensor] = None):
+                 idx: Optional[torch.Tensor] = None, bx: Bx = NOBATCH):
         self.cfg, self.n, self.node, self.now = cfg, cfg.n, node, now
+        self.bx = bx
         self.dense = idx is None
         self.banded = cfg.peer_tiled and self.dense
         self.idx = idx
@@ -297,7 +328,8 @@ class _Rows:
 
     def count(self, band: Callable) -> torch.Tensor:
         """_pcount over the segment's rows, in their views."""
-        return _pcount(self.cfg, band, self.banded, self.member_r)
+        return _pcount(self.cfg, band, self.banded, self.member_r,
+                       self.bx.d(1))
 
     def lat(self) -> tuple:
         """(lat, lat_T): the latency of this tick's sends from and to the
@@ -306,8 +338,12 @@ class _Rows:
         if self._lat is None:
             cfg, now, node = self.cfg, self.now, self.node
             if self.dense:
-                lat = latency_at(cfg, now, node[:, None], node[None, :])
-                self._lat = (lat, lat.T)
+                bx = self.bx
+                lat = latency_at(cfg, bx.t(now, 2), node[:, None],
+                                 node[None, :])
+                if bx.on:
+                    lat = lat.expand(bx.B, self.n, self.n)
+                self._lat = (lat, bx.T(lat))
             else:
                 self._lat = (latency_at(cfg, now, self.ids[:, None],
                                         node[None, :]),
@@ -351,10 +387,11 @@ class _Rows:
 
 
 def _leader_ok(state: SimState, cfg: SimConfig,
-               alive: Optional[torch.Tensor] = None) -> torch.Tensor:
+               alive: Optional[torch.Tensor] = None,
+               bx: Bx = NOBATCH) -> torch.Tensor:
     """Rows that accept proposals: leaders in their own applied config, with
     ring room and no transfer in flight (and alive, when given)."""
-    is_leader = (state.role == LEADER) & torch.diagonal(state.member)
+    is_leader = (state.role == LEADER) & bx.diag(state.member)
     room = (state.last + cfg.max_props - state.snap_idx) <= cfg.log_len
     ok = is_leader & room & (state.transferee == NONE)
     if cfg.prop_inflight_cap > 0:
@@ -377,6 +414,14 @@ def step(state: SimState, cfg: SimConfig,
 
     alive: [N] bool — False rows are crashed (frozen, no send/receive).
     drop:  [N, N] bool — drop[i, j] drops all i->j traffic this tick.
+    A state whose fields carry a leading batch axis ([B, N], [B, N, N],
+    ..., tick [B]) advances B independent clusters, as the JAX package's
+    jax.vmap(step) does, with alive [B, N] and drop [B, N, N]; every value
+    reduction stays inside its cluster.  The batched tick runs the untiled
+    dense configurations (either wire, PreVote, both membership modes,
+    the fused propose, reads, vote guard, cooldown, storage, telemetry)
+    and refuses the tiled log, banded peers, the progress slab, the flight
+    recorder and trace tags with a ValueError; it reads nothing back.
     prop_count/payload_fn: the fused dense propose — bit-identical to
     ``step(propose_dense(state, cfg, payload_fn, prop_count, alive), ...)``
     with the proposal ring stores folded into Phase C's ring write.
@@ -407,15 +452,19 @@ def step(state: SimState, cfg: SimConfig,
     dev = check_device(state, device)
     phase = _Phases()
     n, L, W = cfg.n, cfg.log_len, cfg.window
+    bx = Bx(batch_size(state))
+    if bx.on:
+        _refuse_batched(cfg, "step")
+    lead_shape = (bx.B,) if bx.on else ()
     node_l = torch.arange(n, device=dev)
     node = node_l.to(I32)
     eye = torch.eye(n, dtype=torch.bool, device=dev)
     if alive is None:
-        alive = torch.ones((n,), dtype=torch.bool, device=dev)
+        alive = torch.ones(lead_shape + (n,), dtype=torch.bool, device=dev)
     drop_given = drop is not None
     if drop is None:
-        drop = torch.zeros((n, n), dtype=torch.bool, device=dev)
-    drop_t = drop.T
+        drop = torch.zeros(lead_shape + (n, n), dtype=torch.bool, device=dev)
+    drop_t = bx.T(drop)
 
     term, vote, role, lead = state.term, state.vote, state.role, state.lead
     elapsed, hb_elapsed = state.elapsed, state.hb_elapsed
@@ -427,13 +476,16 @@ def step(state: SimState, cfg: SimConfig,
     pre = state.pre
     pending_conf = state.pending_conf
     now = state.tick
+    # the tick against [N], [N, N] and [N, N, K] operands (all `now` when
+    # unbatched)
+    now1, now2, now3 = bx.t(now, 1), bx.t(now, 2), bx.t(now, 3)
 
     # Fused dense propose: cursor effects now, ring stores in Phase C's
     # ring write, the match-diagonal bump in the first progress segment.
     # Rows are judged on the pre-tick state.
     fused_prop = payload_fn is not None
     if fused_prop:
-        prop_ok = _leader_ok(state, cfg, alive)
+        prop_ok = _leader_ok(state, cfg, alive, bx)
         prop_cnt = int(prop_count)
         prop_last0 = last
         prop_anchor = prop_last0 + prop_cnt
@@ -449,15 +501,16 @@ def step(state: SimState, cfg: SimConfig,
         self_mem = torch.ones((n,), dtype=torch.bool, device=dev)
         quorum = n // 2 + 1
     else:
-        self_mem = torch.diagonal(member)
-        quorum = member.sum(1, dtype=I32) // 2 + 1               # [N]
+        self_mem = bx.diag(member)
+        quorum = member.sum(bx.d(1), dtype=I32) // 2 + 1         # [N]
 
     # ---- Phase R0: read-batch submit -------------------------------------
     # idle rows take a fresh batch whose goal is the pre-tick max(commit)
     reads_on = cfg.read_batch > 0
     if reads_on:
         phase("phase_R0_submit")
-        read_regs = rd.submit(cfg, rd.regs_from_state(state), alive, commit)
+        read_regs = rd.submit(cfg, rd.regs_from_state(state), alive, commit,
+                              bx=bx)
 
     # ---- Phase A: timers ----------------------------------------------
     phase("phase_A_timers")
@@ -481,7 +534,7 @@ def step(state: SimState, cfg: SimConfig,
     gated = storage_on and cfg.ack_gating
     if storage_on:
         phase("phase_A_fsync")
-        fs_due = torch.remainder(now, cfg.fsync_lag_ticks) \
+        fs_due = torch.remainder(now1, cfg.fsync_lag_ticks) \
             == cfg.fsync_lag_ticks - 1
         sync_inc = torch.clamp(state.last - state.sync_mark, min=0)
         if cfg.fsync_batch > 0:
@@ -493,7 +546,7 @@ def step(state: SimState, cfg: SimConfig,
     # last/last_term are read before anything appends this tick (above the
     # progress segments, which read no ring); a proposing row's new last
     # entry carries its own pre-tick term
-    last_term = _term_own(cfg, log_term, snap_idx, snap_term, last, last)
+    last_term = _term_own(cfg, log_term, snap_idx, snap_term, last, last, bx)
     if fused_prop and prop_cnt > 0:
         last_term = torch.where(prop_ok, state.term, last_term)
 
@@ -505,10 +558,11 @@ def step(state: SimState, cfg: SimConfig,
     # puts the active rows first in ascending order, so slab tie-breaks
     # (lowest row wins) match the dense ones.
     sparse_on = cfg.active_rows_on
-    dense_rows = _Rows(cfg, node, eye, drop, drop_t, member, now)
+    dense_rows = _Rows(cfg, node, eye, drop, drop_t, member, now, bx=bx)
     if sparse_on:
         sp_act = (role != FOLLOWER) | (state.active_ttl > 0) \
             | (alive & self_mem & (elapsed >= timeout)) | (state.tn_at > 0)
+        # a host decision (refused under a batch axis, as is the slab)
         sp_fits = sp_act.sum(dtype=I32) <= cfg.active_rows
         sp_rows = torch.argsort((~sp_act).to(I32),
                                 stable=True)[:cfg.active_rows]
@@ -533,8 +587,8 @@ def step(state: SimState, cfg: SimConfig,
         granted, rejected = g(state.granted), g(state.rejected)
         recent_active = g(state.recent_active)
         if fused_prop:
-            match = torch.where(g(prop_ok)[:, None] & eye_r,
-                                g(last)[:, None], match)
+            match = torch.where(bx.col(g(prop_ok)) & eye_r,
+                                bx.col(g(last)), match)
         vguard = cfg.has_vote_guard
         if vguard:
             # the persisted-vote guard: a durable (term, candidate) record
@@ -553,7 +607,7 @@ def step(state: SimState, cfg: SimConfig,
             role = torch.where(cq_fail, FOLLOWER, role)
             lead = torch.where(cq_fail, NONE, lead)
             contact = torch.where(check_due & ~cq_fail, 0, contact)
-            recent_active = torch.where(g(check_due)[:, None], False,
+            recent_active = torch.where(bx.col(g(check_due)), False,
                                         recent_active)
         elapsed = torch.where(check_due, 0, elapsed)
         is_leader = (role == LEADER) & alive
@@ -564,7 +618,7 @@ def step(state: SimState, cfg: SimConfig,
         # TIMEOUT_NOW delivery: the transfer target campaigns immediately
         tx_cand = state.tx_cand
         tn_at, tn_term, tn_from = state.tn_at, state.tn_term, state.tn_from
-        tn_due = (tn_at > 0) & (now + 1 >= tn_at)
+        tn_due = (tn_at > 0) & (now1 + 1 >= tn_at)
         tn_ok = tn_due & alive & self_mem & (role != LEADER) \
             & (tn_term >= term) & ((role == FOLLOWER) | (tn_term > term))
         term = torch.where(tn_ok & (tn_term > term), tn_term, term)
@@ -592,8 +646,8 @@ def step(state: SimState, cfg: SimConfig,
             lead = torch.where(campaign, NONE, lead)
             timeout = torch.where(campaign, rand_timeout(cfg, node, term),
                                   timeout)
-        granted = torch.where(g(campaign)[:, None], eye_r, granted)
-        rejected = torch.where(g(campaign)[:, None], False, rejected)
+        granted = torch.where(bx.col(g(campaign)), eye_r, granted)
+        rejected = torch.where(bx.col(g(campaign)), False, rejected)
         tx_cand = tx_cand & ~campaign
         # forced (transfer) campaign
         term = term + tn_ok.to(I32)
@@ -606,8 +660,8 @@ def step(state: SimState, cfg: SimConfig,
         lead = torch.where(tn_ok, NONE, lead)
         elapsed = torch.where(tn_ok, 0, elapsed)
         timeout = torch.where(tn_ok, rand_timeout(cfg, node, term), timeout)
-        granted = torch.where(g(tn_ok)[:, None], eye_r, granted)
-        rejected = torch.where(g(tn_ok)[:, None], False, rejected)
+        granted = torch.where(bx.col(g(tn_ok)), eye_r, granted)
+        rejected = torch.where(bx.col(g(tn_ok)), False, rejected)
         tx_cand = torch.where(tn_ok, True, tx_cand)
 
         # ---- Phase B: vote exchange -------------------------------------
@@ -618,7 +672,8 @@ def step(state: SimState, cfg: SimConfig,
             # transfer)
             leased = (lead != NONE) & (contact < cfg.election_tick)
         else:
-            leased = torch.zeros((n,), dtype=torch.bool, device=dev)
+            leased = torch.zeros(lead_shape + (n,), dtype=torch.bool,
+                                 device=dev)
         if mail:
             # Device-mailbox wire: one in-flight message per class per
             # directed edge; *_at stores the deliver tick + 1 (0 = empty).
@@ -628,68 +683,68 @@ def step(state: SimState, cfg: SimConfig,
             vreq_pre = g(state.vreq_pre)
             vresp_at, vresp_term = g(state.vresp_at), g(state.vresp_term)
             vresp_grant, vresp_pre = g(state.vresp_grant), g(state.vresp_pre)
-            term_r, pre_r = g(term)[:, None], g(pre)[:, None]
+            term_r, pre_r = bx.col(g(term)), bx.col(g(pre))
             # candidates (re-)request on every edge with no message of the
             # same candidacy (term, pre) in flight, to peers in their view
             free = (vreq_at == 0) | (vreq_term != term_r) \
                 | (vreq_pre != pre_r)
-            send_vr = sl.mview(g(is_cand)[:, None] & ~eye_r & ~sl.drop
+            send_vr = sl.mview(bx.col(g(is_cand)) & ~eye_r & ~sl.drop
                                & free)
-            vreq_at = torch.where(send_vr, now + 1 + lat, vreq_at)
+            vreq_at = torch.where(send_vr, now2 + 1 + lat, vreq_at)
             vreq_term = torch.where(send_vr, term_r, vreq_term)
             vreq_pre = torch.where(send_vr, pre_r, vreq_pre)
             # deliveries: a request whose sender left the captured
             # candidacy vanishes
-            due_vr = (vreq_at > 0) & (now + 1 >= vreq_at)
-            deliv = due_vr & (g(role)[:, None] == CANDIDATE) \
+            due_vr = (vreq_at > 0) & (now2 + 1 >= vreq_at)
+            deliv = due_vr & (bx.col(g(role)) == CANDIDATE) \
                 & (term_r == vreq_term) & (pre_r == vreq_pre) \
-                & alive[None, :] & (~leased[None, :] | g(tx_cand)[:, None])
+                & bx.row(alive) & (~bx.row(leased) | bx.col(g(tx_cand)))
             req = deliv & ~pre_r
             preq = deliv & pre_r
             vreq_at = torch.where(due_vr, 0, vreq_at)
         else:
             base_req = sl.mview(
-                g(is_cand)[:, None] & alive[None, :] & ~eye_r & ~sl.drop
-                & (~leased[None, :] | g(tx_cand)[:, None]))
-            req = base_req & ~g(pre)[:, None]
+                bx.col(g(is_cand)) & bx.row(alive) & ~eye_r & ~sl.drop
+                & (~bx.row(leased) | bx.col(g(tx_cand))))
+            req = base_req & ~bx.col(g(pre))
             if cfg.pre_vote:
-                preq = base_req & g(pre)[:, None]
-        lt_i, lt_j = g(last_term)[:, None], last_term[None, :]
+                preq = base_req & bx.col(g(pre))
+        lt_i, lt_j = bx.col(g(last_term)), bx.row(last_term)
         log_ok = (lt_i > lt_j) \
-            | ((lt_i == lt_j) & (g(last)[:, None] >= last[None, :]))
+            | ((lt_i == lt_j) & (bx.col(g(last)) >= bx.row(last)))
 
         if cfg.pre_vote:
             # PreVote exchange, before the real votes, against the
             # receiver's pre-catch-up state; a grant changes nothing on the
             # receiver
-            term_r = g(term)[:, None]
+            term_r = bx.col(g(term))
             pv_term = torch.where(preq, term_r + 1, -1)          # msg term
-            pv_cur = preq & (pv_term >= term[None, :])
-            pv_can = (vote[None, :] == NONE) | (pv_term > term[None, :]) \
-                | (vote[None, :] == sl.ids[:, None])
+            pv_cur = preq & (pv_term >= bx.row(term))
+            pv_can = (bx.row(vote) == NONE) | (pv_term > bx.row(term)) \
+                | (bx.row(vote) == sl.ids[:, None])
             pv_grant = pv_cur & pv_can & log_ok
             # a rejection counts only at the candidacy's own term
-            pv_reject = pv_cur & ~pv_grant & (term[None, :] == term_r)
+            pv_reject = pv_cur & ~pv_grant & (bx.row(term) == term_r)
             pre_cand = is_cand & pre
             if mail:
                 send_pv = (pv_grant | pv_reject) & ~sl.drop_t
-                vresp_at = torch.where(send_pv, now + 1 + lat_T, vresp_at)
+                vresp_at = torch.where(send_pv, now2 + 1 + lat_T, vresp_at)
                 vresp_term = torch.where(send_pv, term_r, vresp_term)
                 vresp_pre = torch.where(send_pv, True, vresp_pre)
                 vresp_grant = torch.where(send_pv, pv_grant, vresp_grant)
-                due_pv = (vresp_at > 0) & (now + 1 >= vresp_at) & vresp_pre
-                rv_pv = due_pv & g(pre_cand)[:, None] \
+                due_pv = (vresp_at > 0) & (now2 + 1 >= vresp_at) & vresp_pre
+                rv_pv = due_pv & bx.col(g(pre_cand)) \
                     & (term_r == vresp_term)
                 granted = granted | (rv_pv & vresp_grant)
                 rejected = rejected | (rv_pv & ~vresp_grant)
                 vresp_at = torch.where(due_pv, 0, vresp_at)
-                pv_polled = sl.sfull(rv_pv.any(1), False)
+                pv_polled = sl.sfull(rv_pv.any(bx.d(1)), False)
             else:
-                pv_arrive = ~sl.drop_t & g(pre_cand)[:, None]
+                pv_arrive = ~sl.drop_t & bx.col(g(pre_cand))
                 granted = granted | (pv_grant & pv_arrive)
                 rejected = rejected | (pv_reject & pv_arrive)
                 pv_polled = sl.sfull(((pv_grant | pv_reject) & pv_arrive)
-                                     .any(1), False)
+                                     .any(bx.d(1)), False)
             # pre-quorum -> the real campaign, on poll events only
             votes_pv = sl.sfull(sl.count(
                 lambda j0, w: granted[:, j0:j0 + w]), 0)
@@ -705,12 +760,12 @@ def step(state: SimState, cfg: SimConfig,
             elapsed = torch.where(pre_win, 0, elapsed)
             timeout = torch.where(pre_win, rand_timeout(cfg, node, term),
                                   timeout)
-            granted = torch.where(g(pre_win)[:, None], eye_r, granted)
-            rejected = torch.where(g(pre_win)[:, None], False, rejected)
+            granted = torch.where(bx.col(g(pre_win)), eye_r, granted)
+            rejected = torch.where(bx.col(g(pre_win)), False, rejected)
 
         # receiver-side term catch-up
-        req_term = torch.where(req, g(term)[:, None], -1)
-        mt = req_term.amax(0)
+        req_term = torch.where(req, bx.col(g(term)), -1)
+        mt = req_term.amax(bx.d(0))
         newer = mt > term
         term = torch.where(newer, mt, term)
         role = torch.where(newer, FOLLOWER, role)
@@ -720,21 +775,21 @@ def step(state: SimState, cfg: SimConfig,
         timeout = torch.where(newer, rand_timeout(cfg, node, term), timeout)
         is_cand = (role == CANDIDATE) & alive
 
-        can_vote = (vote[None, :] == NONE) | (vote[None, :] == sl.ids[:, None])
+        can_vote = (bx.row(vote) == NONE) | (bx.row(vote) == sl.ids[:, None])
         if vguard:
             # a row that already voted this term re-grants only the same
             # candidate, whatever `vote` says
-            can_vote = can_vote & ((vg_term[None, :] < term[None, :])
-                                   | (vg_vote[None, :] == sl.ids[:, None]))
+            can_vote = can_vote & ((bx.row(vg_term) < bx.row(term))
+                                   | (bx.row(vg_vote) == sl.ids[:, None]))
         if gated:
             # a stalled disk cannot persist the vote record before replying,
             # so it refuses the grant (PreVote polls above stay un-gated)
-            can_vote = can_vote & ~state.fsync_stall[None, :]
-        cur = req & (req_term == term[None, :])   # requests at the rx term
+            can_vote = can_vote & ~bx.row(state.fsync_stall)
+        cur = req & (req_term == bx.row(term))   # requests at the rx term
         grantable = cur & can_vote & log_ok
-        any_grant = grantable.any(0)
-        chosen_cand = sl.row_of(_first_true(grantable, 0), any_grant)
-        grant_mat = grantable & (sl.ids[:, None] == chosen_cand[None, :])
+        any_grant = grantable.any(bx.d(0))
+        chosen_cand = sl.row_of(_first_true(grantable, bx.d(0)), any_grant)
+        grant_mat = grantable & (sl.ids[:, None] == bx.row(chosen_cand))
         vote = torch.where(any_grant, chosen_cand, vote)
         if vguard:
             vg_vote = torch.where(any_grant, chosen_cand, vg_vote)
@@ -744,18 +799,18 @@ def step(state: SimState, cfg: SimConfig,
             # responses ride the reverse edge; one already in flight there
             # is superseded
             send_vresp = cur & ~sl.drop_t
-            vresp_at = torch.where(send_vresp, now + 1 + lat_T, vresp_at)
-            vresp_term = torch.where(send_vresp, term[None, :], vresp_term)
+            vresp_at = torch.where(send_vresp, now2 + 1 + lat_T, vresp_at)
+            vresp_term = torch.where(send_vresp, bx.row(term), vresp_term)
             vresp_pre = torch.where(send_vresp, False, vresp_pre)
             vresp_grant = torch.where(send_vresp, grant_mat, vresp_grant)
-            due_vs = (vresp_at > 0) & (now + 1 >= vresp_at)
-            rvalid = due_vs & g(is_cand)[:, None] \
-                & (g(term)[:, None] == vresp_term) \
-                & (g(pre)[:, None] == vresp_pre)
+            due_vs = (vresp_at > 0) & (now2 + 1 >= vresp_at)
+            rvalid = due_vs & bx.col(g(is_cand)) \
+                & (bx.col(g(term)) == vresp_term) \
+                & (bx.col(g(pre)) == vresp_pre)
             granted = granted | (rvalid & vresp_grant)
             rejected = rejected | (rvalid & ~vresp_grant)
             vresp_at = torch.where(due_vs, 0, vresp_at)
-            polled = sl.sfull((rvalid & ~vresp_pre).any(1), False)
+            polled = sl.sfull((rvalid & ~vresp_pre).any(bx.d(1)), False)
             out.update(vreq_at=vreq_at, vreq_term=vreq_term,
                        vreq_pre=vreq_pre, vresp_at=vresp_at,
                        vresp_term=vresp_term, vresp_grant=vresp_grant,
@@ -763,11 +818,11 @@ def step(state: SimState, cfg: SimConfig,
         else:
             real_cand = is_cand & ~pre
             resp_arrive = grant_mat & ~sl.drop_t
-            granted = granted | (resp_arrive & g(real_cand)[:, None])
+            granted = granted | (resp_arrive & bx.col(g(real_cand)))
             reject_arrive = cur & ~grant_mat & ~sl.drop_t
-            rejected = rejected | (reject_arrive & g(real_cand)[:, None])
+            rejected = rejected | (reject_arrive & bx.col(g(real_cand)))
             polled = sl.sfull(((resp_arrive | reject_arrive)
-                               & g(real_cand)[:, None]).any(1), False)
+                               & bx.col(g(real_cand))).any(bx.d(1)), False)
 
         # win/lose count only peers in the candidate's own view, and only
         # on poll events (candidacy start or a response arrival)
@@ -793,16 +848,16 @@ def step(state: SimState, cfg: SimConfig,
         elapsed = torch.where(win, 0, elapsed)
         contact = torch.where(win, 0, contact)
         pending_conf = torch.where(win, state.tail_conf, pending_conf)
-        next_ = torch.where(g(win)[:, None], (g(last) + 1)[:, None], next_)
-        match = torch.where(g(win)[:, None], 0, match)
-        recent_active = torch.where(g(win)[:, None], eye_r, recent_active)
+        next_ = torch.where(bx.col(g(win)), bx.col(g(last) + 1), next_)
+        match = torch.where(bx.col(g(win)), 0, match)
+        recent_active = torch.where(bx.col(g(win)), eye_r, recent_active)
         if mail:
             # becomeLeader resets every Progress to StateProbe
-            probing = torch.where(g(win)[:, None], True, g(state.probing))
+            probing = torch.where(bx.col(g(win)), True, g(state.probing))
         noop_term = term   # the winner's candidacy term, captured here
         last = last + win.to(I32)
         is_leader = (role == LEADER) & alive
-        match = torch.where(g(win)[:, None] & eye_r, g(last)[:, None], match)
+        match = torch.where(bx.col(g(win)) & eye_r, bx.col(g(last)), match)
 
         # ---- Phase C: append / snapshot fan-out ----------------------------
         if mail:
@@ -812,34 +867,35 @@ def step(state: SimState, cfg: SimConfig,
             app_at, app_prev = g(state.app_at), g(state.app_prev)
             app_term_box = g(state.app_term)
             snp_at, snp_term_box = g(state.snp_at), g(state.snp_term)
-            term_e = g(term)[:, None]          # sender term per edge
-            term_k = term_e[:, :, None]        # per slot
+            term_e = bx.col(g(term))           # sender term per edge
+            term_k = bx.slot(term_e)           # per slot
             # sends: up to K appends pipeline per edge, one new message a
             # tick; replicate edges send only when there is content, probe
             # edges one (possibly empty) append at a time, and next_
             # advances optimistically in replicate state
             free_k = (app_at == 0) | (app_term_box != term_k)    # [R, N, K]
-            any_free = free_k.any(2)
-            slot_sel = _first_true(free_k, 2)
-            onehot = slot_sel[:, :, None] == k_idx
-            inflight_same = ((app_at != 0) & (app_term_box == term_k)).any(2)
+            any_free = free_k.any(bx.d(2))
+            slot_sel = _first_true(free_k, bx.d(2))
+            onehot = bx.slot(slot_sel) == k_idx
+            inflight_same = ((app_at != 0)
+                             & (app_term_box == term_k)).any(bx.d(2))
             snp_free = (snp_at == 0) | (snp_term_box != term_e)
             prev_send = next_ - 1
-            can_ring_send = prev_send >= g(snap_idx)[:, None]
-            has_new = next_ <= g(last)[:, None]
-            send_base = sl.mview(g(is_leader)[:, None] & ~eye_r & ~sl.drop) \
+            can_ring_send = prev_send >= bx.col(g(snap_idx))
+            has_new = next_ <= bx.col(g(last))
+            send_base = sl.mview(bx.col(g(is_leader)) & ~eye_r & ~sl.drop) \
                 & snp_free
             may = torch.where(probing, ~inflight_same, has_new)
             s_app = send_base & can_ring_send & any_free & may
             s_snp = send_base & ~can_ring_send
-            put = s_app[:, :, None] & onehot
-            app_at = torch.where(put, (now + 1 + lat)[:, :, None], app_at)
-            app_prev = torch.where(put, prev_send[:, :, None], app_prev)
+            put = bx.slot(s_app) & onehot
+            app_at = torch.where(put, bx.slot(now2 + 1 + lat), app_at)
+            app_prev = torch.where(put, bx.slot(prev_send), app_prev)
             app_term_box = torch.where(put, term_k, app_term_box)
-            n_send = torch.clamp(g(last)[:, None] - prev_send, 0, W)
+            n_send = torch.clamp(bx.col(g(last)) - prev_send, 0, W)
             next_ = torch.where(s_app & has_new & ~probing, next_ + n_send,
                                 next_)
-            snp_at = torch.where(s_snp, now + 1 + lat, snp_at)
+            snp_at = torch.where(s_snp, now2 + 1 + lat, snp_at)
             snp_term_box = torch.where(s_snp, term_e, snp_term_box)
 
             # heartbeats every heartbeat_tick, carrying the commit captured
@@ -849,24 +905,25 @@ def step(state: SimState, cfg: SimConfig,
             hbr_at_box, hbr_term_box = g(state.hbr_at), g(state.hbr_term)
             hb_due_send = is_leader & (hb_elapsed >= cfg.heartbeat_tick)
             hb_elapsed = torch.where(hb_due_send, 0, hb_elapsed)
-            send_hb = sl.mview(g(hb_due_send)[:, None] & ~eye_r & ~sl.drop)
-            hb_slot = _first_true(hb_at_box == 0, 2)
-            put_hb = send_hb[:, :, None] & (hb_slot[:, :, None] == kh_idx)
-            hb_at_box = torch.where(put_hb, (now + 1 + lat)[:, :, None],
+            send_hb = sl.mview(bx.col(g(hb_due_send)) & ~eye_r & ~sl.drop)
+            hb_slot = _first_true(hb_at_box == 0, bx.d(2))
+            put_hb = bx.slot(send_hb) & (bx.slot(hb_slot) == kh_idx)
+            hb_at_box = torch.where(put_hb, bx.slot(now2 + 1 + lat),
                                     hb_at_box)
             hb_term_box = torch.where(put_hb, term_k, hb_term_box)
             hb_commit_box = torch.where(
-                put_hb, torch.minimum(match, g(commit)[:, None])[:, :, None],
+                put_hb, bx.slot(torch.minimum(match, bx.col(g(commit)))),
                 hb_commit_box)
 
             # heartbeat deliveries, before the appends' (a higher-term one
             # demotes first); every due heartbeat integrates, stale ones
             # (sender no longer the leader of the captured term) vanish
-            due_hb = (hb_at_box > 0) & (now + 1 >= hb_at_box)
-            valid_hb = due_hb & (g(role)[:, None, None] == LEADER) \
-                & (hb_term_box == term_k) & alive[None, :, None]
+            due_hb = (hb_at_box > 0) & (now3 + 1 >= hb_at_box)
+            valid_hb = due_hb & (bx.col_k(g(role)) == LEADER) \
+                & (hb_term_box == term_k) & bx.row_k(alive)
             hb_at_box = torch.where(due_hb, 0, hb_at_box)
-            mt_hb = torch.where(valid_hb, hb_term_box, -1).amax(dim=(0, 2))
+            mt_hb = torch.where(valid_hb, hb_term_box,
+                                -1).amax(dim=bx.d((0, 2)))
             newer_hb = mt_hb > term
             term = torch.where(newer_hb, mt_hb, term)
             role = torch.where(newer_hb, FOLLOWER, role)
@@ -875,48 +932,49 @@ def step(state: SimState, cfg: SimConfig,
             elapsed = torch.where(newer_hb, 0, elapsed)
             timeout = torch.where(newer_hb, rand_timeout(cfg, node, term),
                                   timeout)
-            cur_hb = valid_hb & (hb_term_box == term[None, :, None])
-            cur_hb_e = cur_hb.any(2)
-            got_hb = cur_hb_e.any(0)
-            src_hb = sl.row_of(_first_true(cur_hb_e, 0), got_hb)
+            cur_hb = valid_hb & (hb_term_box == bx.row_k(term))
+            cur_hb_e = cur_hb.any(bx.d(2))
+            got_hb = cur_hb_e.any(bx.d(0))
+            src_hb = sl.row_of(_first_true(cur_hb_e, bx.d(0)), got_hb)
             role = torch.where(got_hb & (role == CANDIDATE), FOLLOWER, role)
             lead = torch.where(got_hb, src_hb, lead)
             elapsed = torch.where(got_hb, 0, elapsed)
             contact = torch.where(got_hb, 0, contact)
             # commit_to(min(m.commit, last)) per message, as a max
-            hbc = torch.where(cur_hb, hb_commit_box, -1).amax(dim=(0, 2))
+            hbc = torch.where(cur_hb, hb_commit_box,
+                              -1).amax(dim=bx.d((0, 2)))
             commit = torch.where(
                 got_hb, torch.maximum(commit, torch.minimum(hbc, last)),
                 commit)
             # one response per edge per tick
             send_hbr = cur_hb_e & ~sl.drop_t
-            hbr_slot = _first_true(hbr_at_box == 0, 2)
-            put_hbr = send_hbr[:, :, None] & (hbr_slot[:, :, None] == kh_idx)
-            hbr_at_box = torch.where(put_hbr, (now + 1 + lat_T)[:, :, None],
+            hbr_slot = _first_true(hbr_at_box == 0, bx.d(2))
+            put_hbr = bx.slot(send_hbr) & (bx.slot(hbr_slot) == kh_idx)
+            hbr_at_box = torch.where(put_hbr, bx.slot(now2 + 1 + lat_T),
                                      hbr_at_box)
-            hbr_term_box = torch.where(put_hbr, term[None, :, None],
+            hbr_term_box = torch.where(put_hbr, bx.row_k(term),
                                        hbr_term_box)
-            term_k = g(term)[:, None, None]   # heartbeats may have caught
-            term_e = g(term)[:, None]         # senders up
+            term_k = bx.col_k(g(term))   # heartbeats may have caught
+            term_e = bx.col(g(term))     # senders up
 
             # append deliveries: at most one per edge per tick, the
             # deliverable one with the smallest prev; the sender must still
             # be the same-term leader, and a prev compacted since send is
             # undeliverable
-            due_k = (app_at > 0) & (now + 1 >= app_at)
-            valid_k = due_k & (g(role)[:, None, None] == LEADER) \
-                & (app_term_box == term_k) & alive[None, :, None] \
-                & (app_prev >= g(snap_idx)[:, None, None])
+            due_k = (app_at > 0) & (now3 + 1 >= app_at)
+            valid_k = due_k & (bx.col_k(g(role)) == LEADER) \
+                & (app_term_box == term_k) & bx.row_k(alive) \
+                & (app_prev >= bx.col_k(g(snap_idx)))
             key = torch.where(valid_k, app_prev, BIG)
-            sel_prev = key.amin(2)
-            sel_slot = _first_true(key == sel_prev[:, :, None], 2)
-            send_app = valid_k.any(2)
-            taken = send_app[:, :, None] & (sel_slot[:, :, None] == k_idx)
+            sel_prev = key.amin(bx.d(2))
+            sel_slot = _first_true(key == bx.slot(sel_prev), bx.d(2))
+            send_app = valid_k.any(bx.d(2))
+            taken = bx.slot(send_app) & (bx.slot(sel_slot) == k_idx)
             # clear the delivered slot and every due-but-invalid one
             app_at = torch.where(taken | (due_k & ~valid_k), 0, app_at)
-            due_s = (snp_at > 0) & (now + 1 >= snp_at)
-            send_snap = due_s & (g(role)[:, None] == LEADER) \
-                & (term_e == snp_term_box) & alive[None, :]
+            due_s = (snp_at > 0) & (now2 + 1 >= snp_at)
+            send_snap = due_s & (bx.col(g(role)) == LEADER) \
+                & (term_e == snp_term_box) & bx.row(alive)
             prev_mat = sel_prev
             snp_at = torch.where(due_s, 0, snp_at)
             out.update(probing=probing, app_at=app_at, app_prev=app_prev,
@@ -926,13 +984,13 @@ def step(state: SimState, cfg: SimConfig,
                        hbr_at=hbr_at_box, hbr_term=hbr_term_box)
         else:
             prev_mat = next_ - 1
-            can_ring = prev_mat >= g(snap_idx)[:, None]
-            send_base = sl.mview(g(is_leader)[:, None] & alive[None, :]
+            can_ring = prev_mat >= bx.col(g(snap_idx))
+            send_base = sl.mview(bx.col(g(is_leader)) & bx.row(alive)
                                  & ~eye_r & ~sl.drop)
             send_app = send_base & can_ring
             send_snap = send_base & ~can_ring
-        msg_term = torch.where(send_app | send_snap, g(term)[:, None], -1)
-        mt2 = msg_term.amax(0)
+        msg_term = torch.where(send_app | send_snap, bx.col(g(term)), -1)
+        mt2 = msg_term.amax(bx.d(0))
         newer2 = mt2 > term
         term = torch.where(newer2, mt2, term)
         role = torch.where(newer2, FOLLOWER, role)
@@ -945,9 +1003,9 @@ def step(state: SimState, cfg: SimConfig,
         # send-time sender term (lowest row on ties).  src_sel is the
         # segment position (it indexes the [R, N] send matrices), src the
         # row id.
-        eligible = (send_app | send_snap) & (msg_term == term[None, :])
-        has_lmsg = eligible.any(0)
-        src_sel = _first_true(eligible, 0)
+        eligible = (send_app | send_snap) & (msg_term == bx.row(term))
+        has_lmsg = eligible.any(bx.d(0))
+        src_sel = _first_true(eligible, bx.d(0))
         src = sl.row_of(src_sel, has_lmsg)       # 0 where has_lmsg is False
         role = torch.where(has_lmsg & (role == CANDIDATE), FOLLOWER, role)
         lead = torch.where(has_lmsg, src, lead)
@@ -966,14 +1024,14 @@ def step(state: SimState, cfg: SimConfig,
             tn_at=tn_at, tn_term=tn_term, tn_from=tn_from, tx_cand=tx_cand,
             win=win, noop_term=noop_term, is_leader=is_leader,
             has_lmsg=has_lmsg, src=src,
-            got_app=has_lmsg & send_app[sel_l, node_l],
-            got_snap=has_lmsg & send_snap[sel_l, node_l],
-            p=prev_mat[sel_l, node_l],
+            got_app=has_lmsg & bx.at(send_app, sel_l, node_l),
+            got_snap=has_lmsg & bx.at(send_snap, sel_l, node_l),
+            p=bx.at(prev_mat, sel_l, node_l),
             match=match, next_=next_, granted=granted, rejected=rejected,
             recent_active=recent_active)
 
     def payloads(k):
-        return payload_fn(now, torch.clamp(k, min=0).to(torch.int64)) \
+        return payload_fn(now2, torch.clamp(k, min=0).to(torch.int64)) \
             & PAYLOAD_MASK
 
     # Segment 1 and the append receive up to the ring write's band probe.
@@ -1012,16 +1070,16 @@ def step(state: SimState, cfg: SimConfig,
             # reference: a just-elected leader replicates its no-op the same
             # tick); non-winners rewrite their own slot unchanged
             noop_slot = _slot(cfg, torch.where(win, last, last + 1))
-            log_term[node_l, noop_slot] = torch.where(
-                win, noop_term, log_term[node_l, noop_slot])
-            log_data[node_l, noop_slot] = torch.where(
-                win, 0, log_data[node_l, noop_slot])
+            bx.put_at(log_term, node_l, noop_slot, torch.where(
+                win, noop_term, bx.at(log_term, node_l, noop_slot)))
+            bx.put_at(log_data, node_l, noop_slot, torch.where(
+                win, 0, bx.at(log_data, node_l, noop_slot)))
 
         # -- append receive.  Every ring read below precedes the ring write.
-        last_src, snap_src = last[src_l], snap_idx[src_l]
-        p_ring_term = log_term[src_l, _slot(cfg, p)]
+        last_src, snap_src = bx.take(last, src_l), bx.take(snap_idx, src_l)
+        p_ring_term = bx.at(log_term, src_l, _slot(cfg, p))
         p_term_sent = torch.where(
-            p == snap_src, snap_term[src_l],
+            p == snap_src, bx.take(snap_term, src_l),
             torch.where((p > snap_src) & (p <= last_src), p_ring_term, 0))
         # window clamp for ring safety (never wrap over unapplied entries)
         ring_cap = snap_idx + L - p
@@ -1031,7 +1089,7 @@ def step(state: SimState, cfg: SimConfig,
         commit0 = commit
         q_p = torch.minimum(p, last)
         local_p_term = _term_own(cfg, log_term, snap_idx, snap_term, last,
-                                 q_p)
+                                 q_p, bx)
         if fused_prop:
             # a stale co-leader's prev can reach this row's pending
             # proposals
@@ -1049,14 +1107,15 @@ def step(state: SimState, cfg: SimConfig,
         # snapshot-receive decision (the wipe rides the ring write)
         snap_pt = torch.minimum(snap_src, last)
         have_term = _term_own(cfg, log_term, snap_idx, snap_term, last,
-                              snap_pt)
+                              snap_pt, bx)
         if fused_prop:
             have_term = torch.where(prop_ok & (snap_pt > prop_last0),
                                     state.term, have_term)
         if cfg.tiled:
             have_term = torch.where(win & (snap_pt == last), noop_term,
                                     have_term)
-        already = (snap_src <= last) & (have_term == snap_term[src_l])
+        already = (snap_src <= last) \
+            & (have_term == bx.take(snap_term, src_l))
         advance = got_snap & (snap_src > commit)
         do_restore = advance & ~already
         snap_refuse = None
@@ -1096,13 +1155,14 @@ def step(state: SimState, cfg: SimConfig,
         w_in = got_app[:, None] & (widx <= hi[:, None])
         w_exists = (widx <= last[:, None]) & (widx > snap_idx[:, None])
         w_mism = w_in & (~w_exists | (wown_t != wsrc_t))
-        any_mism = w_mism.any(1)
-        ci_idx = torch.where(w_mism, widx, BIG).amin(1)
+        any_mism = w_mism.any(bx.d(1))
+        ci_idx = torch.where(w_mism, widx, BIG).amin(bx.d(1))
 
         # The band of this tick's writes, read back to pick the ring write
         # (with the slab's fit, on a speculative slab pass).  Election
         # ticks (pending noop) and restore ticks (full-width wipe) take
-        # the full pass.
+        # the full pass.  Whole-tensor reductions that are host decisions,
+        # so the tiled log is refused under a batch axis.
         probe = [torch.where(got_app, p, BIG).amin(),
                  torch.where(got_app, hi, 0).amax(),
                  do_restore.any(), win.any()]
@@ -1146,9 +1206,9 @@ def step(state: SimState, cfg: SimConfig,
     def prop_write(lt, ld, new_idx):
         """The fused propose's stores into a chunk or full view (in place):
         new_idx is the slot->index map anchored one batch ahead."""
-        k_of = new_idx - prop_last0[:, None] - 1
-        valid = prop_ok[:, None] & (k_of >= 0) & (k_of < prop_cnt)
-        _put(lt, valid, state.term[:, None])
+        k_of = new_idx - bx.col(prop_last0) - 1
+        valid = bx.col(prop_ok) & (k_of >= 0) & (k_of < prop_cnt)
+        _put(lt, valid, bx.col(state.term))
         _put(ld, valid, payloads(k_of))
 
     if cfg.tiled:
@@ -1192,38 +1252,41 @@ def step(state: SimState, cfg: SimConfig,
             log_data.masked_fill_(do_restore[:, None], 0)
     else:
         if fused_prop:
-            prop_write(log_term, log_data, _idx_at_slots(cfg, prop_anchor))
+            prop_write(log_term, log_data,
+                       _idx_at_slots(cfg, prop_anchor, bx))
         # find_conflict over the whole row, against the sender's row
-        lead_term_row = log_term[src_l]
-        lead_data_row = log_data[src_l]
-        lead_idx = _idx_at_slots(cfg, last_src)
-        in_win = got_app[:, None] & (lead_idx > p[:, None]) \
-            & (lead_idx <= hi[:, None])
-        exists = (lead_idx <= last[:, None]) & (lead_idx > snap_idx[:, None])
+        lead_term_row = bx.take(log_term, src_l)
+        lead_data_row = bx.take(log_data, src_l)
+        lead_idx = _idx_at_slots(cfg, last_src, bx)
+        in_win = bx.col(got_app) & (lead_idx > bx.col(p)) \
+            & (lead_idx <= bx.col(hi))
+        exists = (lead_idx <= bx.col(last)) & (lead_idx > bx.col(snap_idx))
         mism = in_win & (~exists | (log_term != lead_term_row))
-        any_mism = mism.any(1)
-        ci_idx = torch.where(mism, lead_idx, BIG).amin(1)
-        write = in_win & accept[:, None] & (lead_idx >= ci_idx[:, None])
-        cuda_ops.append_band_copy(log_term, log_data, 0, lead_term_row,
-                                  lead_data_row, write)
-        log_term.masked_fill_(do_restore[:, None], 0)
-        log_data.masked_fill_(do_restore[:, None], 0)
+        any_mism = mism.any(bx.d(1))
+        ci_idx = torch.where(mism, lead_idx, BIG).amin(bx.d(1))
+        write = in_win & bx.col(accept) & (lead_idx >= bx.col(ci_idx))
+        # one launch over every ring row: [N, L], or [B*N, L] batched
+        cuda_ops.append_band_copy(bx.rows(log_term), bx.rows(log_data), 0,
+                                  bx.rows(lead_term_row),
+                                  bx.rows(lead_data_row), bx.rows(write))
+        log_term.masked_fill_(bx.col(do_restore), 0)
+        log_data.masked_fill_(bx.col(do_restore), 0)
 
     lastnewi = hi
     last = torch.where(accept, torch.where(any_mism, lastnewi,
                                            torch.maximum(last, lastnewi)),
                        last)
     commit = torch.where(accept, torch.maximum(
-        commit, torch.minimum(commit0[src_l], lastnewi)), commit)
+        commit, torch.minimum(bx.take(commit0, src_l), lastnewi)), commit)
 
     # snapshot receive: cursor/meta effects (the ring wipe happened above)
     commit = torch.where(advance & already, snap_src, commit)
     last = torch.where(do_restore, snap_src, last)
     commit = torch.where(do_restore, snap_src, commit)
     applied = torch.where(do_restore, snap_src, applied)
-    apply_chk = torch.where(do_restore, snap_chk[src_l], apply_chk)
-    snap_term = torch.where(do_restore, snap_term[src_l], snap_term)
-    snap_chk = torch.where(do_restore, snap_chk[src_l], snap_chk)
+    apply_chk = torch.where(do_restore, bx.take(snap_chk, src_l), apply_chk)
+    snap_term = torch.where(do_restore, bx.take(snap_term, src_l), snap_term)
+    snap_chk = torch.where(do_restore, bx.take(snap_chk, src_l), snap_chk)
     snap_idx = torch.where(do_restore, snap_src, snap_idx)
     if storage_on:
         if not gated:
@@ -1239,7 +1302,8 @@ def step(state: SimState, cfg: SimConfig,
     if not static_m:
         # the snapshot carries the sender's configuration; the second
         # segment counts in the views as they stand after it
-        member = torch.where(do_restore[:, None], member[src_l], member)
+        member = torch.where(bx.col(do_restore), bx.take(member, src_l),
+                             member)
         sl.set_member(member)
 
     # responses back to senders (j -> i), may be dropped
@@ -1282,57 +1346,59 @@ def step(state: SimState, cfg: SimConfig,
             aresp_match, aresp_ok = g(state.aresp_match), g(state.aresp_ok)
             kr_idx = torch.arange(cfg.ack_depth, dtype=I32,
                                   device=dev)[None, None]
-            term_r, term_k = g(term)[:, None], g(term)[:, None, None]
+            term_r, term_k = bx.col(g(term)), bx.col_k(g(term))
             # ack enqueue into the first free of ack_depth slots (one
             # always is: acks arrive once per tick per edge and live at
             # most latency + jitter ticks)
-            send_ar = (sl.ids[:, None] == src[None, :]) & has_lmsg[None, :] \
+            send_ar = (sl.ids[:, None] == bx.row(src)) & bx.row(has_lmsg) \
                 & ~sl.drop_t
-            wslot = _first_true(aresp_at == 0, 2)
-            put_r = send_ar[:, :, None] & (wslot[:, :, None] == kr_idx)
-            aresp_at = torch.where(put_r, (now + 1 + lat_T)[:, :, None],
+            wslot = _first_true(aresp_at == 0, bx.d(2))
+            put_r = bx.slot(send_ar) & (bx.slot(wslot) == kr_idx)
+            aresp_at = torch.where(put_r, bx.slot(now2 + 1 + lat_T),
                                    aresp_at)
-            aresp_term = torch.where(put_r, term[None, :, None], aresp_term)
-            aresp_ok = torch.where(put_r, resp_ok[None, :, None], aresp_ok)
+            aresp_term = torch.where(put_r, bx.row_k(term), aresp_term)
+            aresp_ok = torch.where(put_r, bx.row_k(resp_ok), aresp_ok)
             aresp_match = torch.where(
-                put_r, torch.where(resp_reject, reject_hint,
-                                   resp_match)[None, :, None], aresp_match)
+                put_r, bx.row_k(torch.where(resp_reject, reject_hint,
+                                            resp_match)), aresp_match)
             if gated:
                 # the unsolicited durable-frontier ack: every fsync round a
                 # follower re-acks min(last, sync_mark) to its known leader,
                 # best effort (skipped while the edge's slots are all busy)
                 fa_tgt = torch.clamp(lead, 0, n - 1)
-                send_fa = (sl.ids[:, None] == fa_tgt[None, :]) \
-                    & fsync_ack[None, :] & ~sl.drop_t & ~eye_r
+                send_fa = (sl.ids[:, None] == bx.row(fa_tgt)) \
+                    & bx.row(fsync_ack) & ~sl.drop_t & ~eye_r
                 free_f = aresp_at == 0
-                fa_slot = _first_true(free_f, 2)
-                put_f = send_fa[:, :, None] \
-                    & (fa_slot[:, :, None] == kr_idx) \
-                    & free_f.any(2)[:, :, None]
-                aresp_at = torch.where(put_f, (now + 1 + lat_T)[:, :, None],
+                fa_slot = _first_true(free_f, bx.d(2))
+                put_f = bx.slot(send_fa) \
+                    & (bx.slot(fa_slot) == kr_idx) \
+                    & bx.slot(free_f.any(bx.d(2)))
+                aresp_at = torch.where(put_f, bx.slot(now2 + 1 + lat_T),
                                        aresp_at)
-                aresp_term = torch.where(put_f, term[None, :, None],
+                aresp_term = torch.where(put_f, bx.row_k(term),
                                          aresp_term)
                 aresp_ok = torch.where(put_f, True, aresp_ok)
-                aresp_match = torch.where(put_f, dur_match[None, :, None],
+                aresp_match = torch.where(put_f, bx.row_k(dur_match),
                                           aresp_match)
             # deliveries: every due ack integrates, aggregated (ok: max
             # match; reject: min hint, applied after the ok advance)
-            due_r = (aresp_at > 0) & (now + 1 >= aresp_at)
-            val_r = due_r & g(is_leader)[:, None, None] \
+            due_r = (aresp_at > 0) & (now3 + 1 >= aresp_at)
+            val_r = due_r & bx.col_k(g(is_leader)) \
                 & (term_k == aresp_term)
             ok_k = val_r & aresp_ok
             rej_k = val_r & ~aresp_ok
-            ok_mat, rej_mat = ok_k.any(2), rej_k.any(2)
-            resp_match_del = torch.where(ok_k, aresp_match, -1).amax(2)
-            reject_hint_del = torch.where(rej_k, aresp_match, BIG).amin(2)
+            ok_mat, rej_mat = ok_k.any(bx.d(2)), rej_k.any(bx.d(2))
+            resp_match_del = torch.where(ok_k, aresp_match,
+                                         -1).amax(bx.d(2))
+            reject_hint_del = torch.where(rej_k, aresp_match,
+                                          BIG).amin(bx.d(2))
             aresp_at = torch.where(due_r, 0, aresp_at)
         else:
-            arrive_back = ~sl.drop_t & (sl.ids[:, None] == src[None, :]) \
-                & g(is_leader)[:, None] & has_lmsg[None, :]
-            ok_mat = arrive_back & resp_ok[None, :]
-            rej_mat = arrive_back & resp_reject[None, :]
-        got_resp = (ok_mat | rej_mat).any(1) if sparse_on else None
+            arrive_back = ~sl.drop_t & (sl.ids[:, None] == bx.row(src)) \
+                & bx.col(g(is_leader)) & bx.row(has_lmsg)
+            ok_mat = arrive_back & bx.row(resp_ok)
+            rej_mat = arrive_back & bx.row(resp_reject)
+        got_resp = (ok_mat | rej_mat).any(bx.d(1)) if sparse_on else None
         # any response marks the peer recently active; progress follows
         # only peers in the leader's view
         recent_active = recent_active | ok_mat | rej_mat
@@ -1354,41 +1420,41 @@ def step(state: SimState, cfg: SimConfig,
             # appends are flushed and the backtracked probe goes out now
             probing = probing | rej_mat
             app_at = torch.where(
-                rej_mat[:, :, None] & (app_term_box == term_k), 0, app_at)
+                bx.slot(rej_mat) & (app_term_box == term_k), 0, app_at)
             snp_busy = (snp_at != 0) & (snp_term_box == term_r)
             prev_rs = next_ - 1
-            rs = sl.mview(rej_mat & g(is_leader)[:, None] & ~eye_r
+            rs = sl.mview(rej_mat & bx.col(g(is_leader)) & ~eye_r
                           & ~sl.drop & ~snp_busy
-                          & (prev_rs >= g(snap_idx)[:, None]))
+                          & (prev_rs >= bx.col(g(snap_idx))))
             free_rs = (app_at == 0) | (app_term_box != term_k)
-            rslot = _first_true(free_rs, 2)
-            put_rs = rs[:, :, None] & (rslot[:, :, None] == torch.arange(
+            rslot = _first_true(free_rs, bx.d(2))
+            put_rs = bx.slot(rs) & (bx.slot(rslot) == torch.arange(
                 cfg.inflight, dtype=I32, device=dev)[None, None])
-            app_at = torch.where(put_rs, (now + 1 + lat)[:, :, None], app_at)
-            app_prev = torch.where(put_rs, prev_rs[:, :, None], app_prev)
+            app_at = torch.where(put_rs, bx.slot(now2 + 1 + lat), app_at)
+            app_prev = torch.where(put_rs, bx.slot(prev_rs), app_prev)
             app_term_box = torch.where(put_rs, term_k, app_term_box)
             # heartbeat responses: liveness only
-            due_hbr = (hbr_at_box > 0) & (now + 1 >= hbr_at_box)
-            val_hbr = (due_hbr & g(is_leader)[:, None, None]
-                       & (term_k == hbr_term_box)).any(2)
+            due_hbr = (hbr_at_box > 0) & (now3 + 1 >= hbr_at_box)
+            val_hbr = (due_hbr & bx.col_k(g(is_leader))
+                       & (term_k == hbr_term_box)).any(bx.d(2))
             recent_active = recent_active | val_hbr
             hbr_at_box = torch.where(due_hbr, 0, hbr_at_box)
             if sparse_on:
-                got_resp = got_resp | val_hbr.any(1)
+                got_resp = got_resp | val_hbr.any(bx.d(1))
             out.update(probing=probing, app_at=app_at, app_prev=app_prev,
                        app_term=app_term_box, aresp_at=aresp_at,
                        aresp_term=aresp_term, aresp_match=aresp_match,
                        aresp_ok=aresp_ok, hbr_at=hbr_at_box)
         else:
             match = torch.where(ok_mat,
-                                torch.maximum(match, resp_match[None, :]),
+                                torch.maximum(match, bx.row(resp_match)),
                                 match)
             next_ = torch.where(ok_mat,
-                                torch.maximum(next_, (resp_match + 1)[None]),
+                                torch.maximum(next_, bx.row(resp_match + 1)),
                                 next_)
             # probe decrement (coarse): jump next back to the hint
             next_ = torch.where(rej_mat, torch.clamp(
-                torch.minimum(next_ - 1, (reject_hint + 1)[None, :]), min=1),
+                torch.minimum(next_ - 1, bx.row(reject_hint + 1)), min=1),
                 next_)
         if sparse_on:
             got_resp = sl.sfull(got_resp, False)
@@ -1398,23 +1464,24 @@ def step(state: SimState, cfg: SimConfig,
         tgt = torch.clamp(transferee, 0, n - 1).to(torch.int64)
         has_tx = is_leader & (transferee != NONE) & (tgt != node_l)
         if not static_m:
-            has_tx = has_tx & member.gather(1, tgt[:, None])[:, 0]
+            has_tx = has_tx & bx.pick(member, tgt)
         tgt_r = g(tgt)
         caught = g(has_tx) \
-            & (match.gather(1, tgt_r[:, None])[:, 0] == g(last))
-        want_tn = caught & (tn_at[tgt_r] == 0) \
-            & ~sl.drop.gather(1, tgt_r[:, None])[:, 0]
-        send_tn = want_tn[:, None] & (tgt_r[:, None] == node_l[None, :])
-        any_tn = send_tn.any(0)
-        tn_sel = _first_true(send_tn, 0)
+            & (bx.pick(match, tgt_r) == g(last))
+        want_tn = caught & (bx.take(tn_at, tgt_r) == 0) \
+            & ~bx.pick(sl.drop, tgt_r)
+        send_tn = bx.col(want_tn) & (bx.col(tgt_r) == node_l[None, :])
+        any_tn = send_tn.any(bx.d(0))
+        tn_sel = _first_true(send_tn, bx.d(0))
         tn_src = sl.row_of(tn_sel, any_tn)       # lowest leader
         if mail:
-            tn_lat = lat.gather(1, tgt_r[:, None])[:, 0]
-            tn_at = torch.where(any_tn, now + 1 + tn_lat[tn_sel.to(
-                torch.int64)], tn_at)
+            tn_lat = bx.pick(lat, tgt_r)
+            tn_at = torch.where(any_tn, now1 + 1 + bx.take(tn_lat, tn_sel.to(
+                torch.int64)), tn_at)
         else:
-            tn_at = torch.where(any_tn, now + 1, tn_at)
-        tn_term = torch.where(any_tn, term[tn_src.to(torch.int64)], tn_term)
+            tn_at = torch.where(any_tn, now1 + 1, tn_at)
+        tn_term = torch.where(any_tn, bx.take(term, tn_src.to(torch.int64)),
+                              tn_term)
         tn_from = torch.where(any_tn, tn_src, tn_from)
         if cfg.transfer_cooldown_ticks > 0:
             # the rows that fired a TIMEOUT_NOW re-arm their cooldown
@@ -1424,13 +1491,13 @@ def step(state: SimState, cfg: SimConfig,
         # the largest X in (commit, last] acked by a quorum of the row's
         # view, by a fixed-depth bisection instead of a sort of the match
         # plane; a leader acks itself up to self_ack_cap
-        match = torch.where(g(is_leader)[:, None] & eye_r,
-                            g(self_ack_cap)[:, None], match)
+        match = torch.where(bx.col(g(is_leader)) & eye_r,
+                            bx.col(g(self_ack_cap)), match)
         q_row = quorum if static_m else g(quorum)
         lo, hi_b = g(commit), g(last)
         for _ in range(max(1, L.bit_length() + 1)):
             mid = (lo + hi_b + 1) >> 1
-            cnt = sl.count(lambda j0, w: match[:, j0:j0 + w] >= mid[:, None])
+            cnt = sl.count(lambda j0, w: match[:, j0:j0 + w] >= bx.col(mid))
             ok = (cnt >= q_row) & (hi_b >= mid) & (mid > lo)
             lo = torch.where(ok, mid, lo)
             hi_b = torch.where(ok, hi_b, mid - 1)
@@ -1466,7 +1533,7 @@ def step(state: SimState, cfg: SimConfig,
             boxes[f] = sl.merge(getattr(state, f), ob[f])
     # commit fold, outside the segments (mci_term is a ring read)
     phase("phase_D_commit_fold")
-    mci_term = _term_own(cfg, log_term, snap_idx, snap_term, last, mci)
+    mci_term = _term_own(cfg, log_term, snap_idx, snap_term, last, mci, bx)
     can_commit = is_leader & (mci > commit) & (mci_term == term)
     commit = torch.where(can_commit, mci, commit)
 
@@ -1479,11 +1546,11 @@ def step(state: SimState, cfg: SimConfig,
         phase("phase_R1_stamp")
         rd_q_ok = (role == LEADER) & alive & (ob["rd_nack"] >= quorum)
         rd_cterm_ok = (commit > 0) & (_term_own(
-            cfg, log_term, snap_idx, snap_term, last, commit) == term)
+            cfg, log_term, snap_idx, snap_term, last, commit, bx) == term)
         read_regs, _ = rd.stamp(
             cfg, read_regs, alive=alive, role=role, lead=lead, term=term,
             commit=commit, commit_term_ok=rd_cterm_ok, q_ok=rd_q_ok,
-            transferee=transferee, now=now, drop=drop)
+            transferee=transferee, now=now1, drop=drop, bx=bx)
 
     # ---- Phase E: apply + checksum ---------------------------------------
     # Conf entries activate here, at each row's own apply point; the batch
@@ -1502,19 +1569,20 @@ def step(state: SimState, cfg: SimConfig,
         in_win = aidx <= new_applied[:, None]
         if not static_m:
             first_conf = torch.where(in_win & _is_conf(avals), aidx,
-                                     BIG).amin(1)
+                                     BIG).amin(bx.d(1))
             in_win = in_win & (aidx <= first_conf[:, None])
         chk = torch.where(in_win, _entry_chk(aidx, avals), 0)
     else:
-        own_idx = _idx_at_slots(cfg, last)
-        app_mask = (own_idx > applied[:, None]) \
-            & (own_idx <= new_applied[:, None])
+        own_idx = _idx_at_slots(cfg, last, bx)
+        app_mask = (own_idx > bx.col(applied)) \
+            & (own_idx <= bx.col(new_applied))
         if not static_m:
             first_conf = torch.where(app_mask & _is_conf(log_data), own_idx,
-                                     BIG).amin(1)
-            app_mask = app_mask & (own_idx <= first_conf[:, None])
+                                     BIG).amin(bx.d(1))
+            app_mask = app_mask & (own_idx <= bx.col(first_conf))
         chk = torch.where(app_mask, _entry_chk(own_idx, log_data), 0)
-    apply_chk = u32.to_bits(u32.unsigned(apply_chk) + u32.wrap_sum(chk, 1))
+    apply_chk = u32.to_bits(u32.unsigned(apply_chk)
+                            + u32.wrap_sum(chk, bx.d(1)))
     if not static_m:
         has_conf = first_conf < BIG
         new_applied = torch.minimum(new_applied, first_conf)
@@ -1523,20 +1591,20 @@ def step(state: SimState, cfg: SimConfig,
     if not static_m:
         # decode and apply the (single) conf entry at new_applied
         cslot = _slot(cfg, torch.where(has_conf, first_conf, 1))
-        cdata = log_data.gather(1, cslot[:, None])[:, 0]
+        cdata = bx.pick(log_data, cslot)
         ctgt = torch.clamp(cdata & CONF_TARGET_MASK, 0, n - 1)
         c_rm = (cdata & CONF_REMOVE) != 0
-        tgt_onehot = node[None, :] == ctgt[:, None]
-        was_member = member.gather(1, ctgt.to(torch.int64)[:, None])[:, 0]
+        tgt_onehot = node[None, :] == bx.col(ctgt)
+        was_member = bx.pick(member, ctgt.to(torch.int64))
         newly_added = has_conf & ~c_rm & ~was_member
-        member = torch.where(has_conf[:, None] & tgt_onehot, ~c_rm[:, None],
+        member = torch.where(bx.col(has_conf) & tgt_onehot, ~bx.col(c_rm),
                              member)
         # add_node starts a fresh Progress (next = last + 1, match 0,
         # recently active, probing) on every row; a re-add of a member
         # keeps its progress
-        reset_pr = newly_added[:, None] & tgt_onehot
+        reset_pr = bx.col(newly_added) & tgt_onehot
         match = torch.where(reset_pr, 0, match)
-        next_ = torch.where(reset_pr, (last + 1)[:, None], next_)
+        next_ = torch.where(reset_pr, bx.col(last + 1), next_)
         recent_active = torch.where(reset_pr, True, recent_active)
         if mail:
             boxes["probing"] = torch.where(reset_pr, True, boxes["probing"])
@@ -1552,7 +1620,7 @@ def step(state: SimState, cfg: SimConfig,
         read_regs, rd_served, rd_srv_cnt, rd_blocked, rd_blk_cnt, \
             rd_expired = rd.settle(
                 cfg, read_regs, alive=alive, applied=applied, role=role,
-                was_leader=state.role == LEADER, now=now,
+                was_leader=state.role == LEADER, now=now1,
                 prev_lease_until=state.lease_until)
 
     # ---- Phase F: compaction (ring-pressure driven) ----------------------
@@ -1560,7 +1628,7 @@ def step(state: SimState, cfg: SimConfig,
     pressure = (last - snap_idx) > (L - 2 * cfg.max_props - 1)
     new_snap = torch.maximum(snap_idx, applied - cfg.keep)
     do_compact = pressure & (new_snap > snap_idx) & alive
-    nst = _term_own(cfg, log_term, snap_idx, snap_term, last, new_snap)
+    nst = _term_own(cfg, log_term, snap_idx, snap_term, last, new_snap, bx)
     if cfg.tiled:
         # (new_snap, applied] is at most `keep` wide by construction
         fidx = new_snap[:, None] + 1 \
@@ -1569,11 +1637,12 @@ def step(state: SimState, cfg: SimConfig,
         ahead = torch.where(fidx <= applied[:, None],
                             _entry_chk(fidx, fvals), 0)
     else:
-        own_idx = _idx_at_slots(cfg, last)
-        ahead = torch.where((own_idx > new_snap[:, None])
-                            & (own_idx <= applied[:, None]),
+        own_idx = _idx_at_slots(cfg, last, bx)
+        ahead = torch.where((own_idx > bx.col(new_snap))
+                            & (own_idx <= bx.col(applied)),
                             _entry_chk(own_idx, log_data), 0)
-    nsc = u32.to_bits(u32.unsigned(apply_chk) - u32.wrap_sum(ahead, 1))
+    nsc = u32.to_bits(u32.unsigned(apply_chk)
+                      - u32.wrap_sum(ahead, bx.d(1)))
     snap_term = torch.where(do_compact, nst, snap_term)
     snap_chk = torch.where(do_compact, nsc, snap_chk)
     snap_idx = torch.where(do_compact, new_snap, snap_idx)
@@ -1607,10 +1676,10 @@ def step(state: SimState, cfg: SimConfig,
     else:
         def gates(ld, own_idx):
             icr = _is_conf(ld)
-            hup = ((own_idx > applied[:, None]) & (own_idx <= commit[:, None])
-                   & icr).any(1)
-            tail = ((own_idx > commit[:, None]) & (own_idx <= last[:, None])
-                    & icr).any(1)
+            hup = ((own_idx > bx.col(applied)) & (own_idx <= bx.col(commit))
+                   & icr).any(bx.d(1))
+            tail = ((own_idx > bx.col(commit)) & (own_idx <= bx.col(last))
+                    & icr).any(bx.d(1))
             return hup, tail
 
         gate_band = None
@@ -1620,7 +1689,8 @@ def step(state: SimState, cfg: SimConfig,
             if nch_g <= cfg.band_chunks:
                 gate_band = _band_offsets(cfg, c0g)
         if gate_band is None:
-            hup_conf, tail_conf = gates(log_data, _idx_at_slots(cfg, last))
+            hup_conf, tail_conf = gates(log_data,
+                                        _idx_at_slots(cfg, last, bx))
         else:
             C = cfg.log_chunk
             hup_conf = tail_conf = None
@@ -1632,10 +1702,11 @@ def step(state: SimState, cfg: SimConfig,
 
     stats = state.stats
     if cfg.collect_stats and stats is not None:
-        inc = torch.stack([
-            (campaign | tn_ok).sum(), win.sum(),
-            (commit - state.commit).to(torch.int64).sum(),
-            (applied - state.applied).to(torch.int64).sum()])
+        # value reductions: each cluster's own event counts
+        inc = bx.stack([
+            bx.csum(campaign | tn_ok), bx.csum(win),
+            bx.csum((commit - state.commit).to(torch.int64)),
+            bx.csum((applied - state.applied).to(torch.int64))])
         stats = u32.to_bits(stats.to(torch.int64) + inc)  # int32 wraparound
 
     # ---- the device observability planes, in the JAX package's order ------
@@ -1649,7 +1720,8 @@ def step(state: SimState, cfg: SimConfig,
         phase("obs_planes")
     if tel_on and fused_prop:
         # the fused propose's batch record (and tag): one column per tick
-        _stamp_batch(state, cfg, prop_ok, prop_last0 + 1, prop_cnt, prop_tag)
+        _stamp_batch(state, cfg, prop_ok, prop_last0 + 1, prop_cnt, prop_tag,
+                     bx)
 
     # Trace tags: the commit tag is the tag of the freshest live tagged
     # batch whose index range meets this tick's commit advance (the
@@ -1665,7 +1737,7 @@ def step(state: SimState, cfg: SimConfig,
         tsel = can_commit[:, None] & (tidx != NONE) & (ttick >= 0) \
             & (now - ttick < t_ring) & (thi >= tlo) & (ttag != 0)
         tbest = torch.where(tsel, ttick, -1).argmax(1)
-        commit_tag = torch.where(tsel.any(1),
+        commit_tag = torch.where(tsel.any(bx.d(1)),
                                  ttag.gather(1, tbest[:, None])[:, 0], 0)
         # the step-down wipe, as the batch ring's below: a regained
         # leadership must not link another leader's entries to a tag
@@ -1731,34 +1803,37 @@ def step(state: SimState, cfg: SimConfig,
     # slice of its range that this tick's commit advance covers, weighted
     # by its width), read submit->settle, and the series ring.
     if tel_on:
+        # (the histogram folds and the series sums are value reductions:
+        # per cluster under a batch axis)
         edges = ts.bucket_edges(dev)
         bidx, bcnt = state.tel_prop_idx, state.tel_prop_cnt
-        btick, ring = state.tel_prop_tick, state.tel_prop_idx.shape[1]
-        estart = torch.where(campaign | tn_ok, now, state.tel_elect_start)
+        btick, ring = state.tel_prop_tick, state.tel_prop_idx.shape[-1]
+        estart = torch.where(campaign | tn_ok, now1, state.tel_elect_start)
         elect_hist = ts.hist_fold(state.tel_elect_hist, win & (estart >= 0),
-                                  now - estart, edges=edges)
+                                  now1 - estart, edges=edges)
         estart = torch.where(win, NONE, estart)
-        c_lo = torch.maximum(bidx, state.commit[:, None] + 1)
-        c_hi = torch.minimum(bidx + bcnt - 1, commit[:, None])
+        c_lo = torch.maximum(bidx, bx.col(state.commit) + 1)
+        c_hi = torch.minimum(bidx + bcnt - 1, bx.col(commit))
         cw = torch.clamp(c_hi - c_lo + 1, min=0)
-        cfold = can_commit[:, None] & (bidx != NONE) & (btick >= 0) \
-            & (now - btick < ring) & (cw > 0)
-        commit_hist = ts.hist_fold(state.tel_commit_hist, cfold, now - btick,
-                                   weight=cw, edges=edges)
+        cfold = bx.col(can_commit) & (bidx != NONE) & (btick >= 0) \
+            & (now2 - btick < ring) & (cw > 0)
+        commit_hist = ts.hist_fold(state.tel_commit_hist, cfold,
+                                   now2 - btick, weight=cw, edges=edges)
         # the step-down wipe (is_leader: the settled post-A/B role)
-        bidx = torch.where(is_leader[:, None], bidx, NONE)
+        bidx = torch.where(bx.col(is_leader), bidx, NONE)
         rsub, read_hist = state.tel_read_submit, state.tel_read_hist
         if reads_on:
             # the submit stamp mirrors R0's refill on the pre-tick registers
-            rsub = torch.where(alive & (state.read_pend == 0), now, rsub)
+            rsub = torch.where(alive & (state.read_pend == 0), now1, rsub)
             read_hist = ts.hist_fold(read_hist, (rd_served | rd_blocked)
-                                     & (rsub >= 0), now - rsub, edges=edges)
-            blocked_now = torch.where(rd_blocked, rd_blk_cnt, 0).sum(dtype=I32)
+                                     & (rsub >= 0), now1 - rsub, edges=edges)
+            blocked_now = bx.csum(torch.where(rd_blocked, rd_blk_cnt, 0),
+                                  dtype=I32)
         else:
-            blocked_now = torch.zeros((), dtype=I32, device=dev)
-        vals = torch.stack([(commit - state.commit).sum(dtype=I32),
-                            win.sum(dtype=I32),
-                            (last - snap_idx).sum(dtype=I32), blocked_now])
+            blocked_now = torch.zeros(lead_shape, dtype=I32, device=dev)
+        vals = bx.stack([bx.csum(commit - state.commit, dtype=I32),
+                         bx.csum(win, dtype=I32),
+                         bx.csum(last - snap_idx, dtype=I32), blocked_now])
         planes.update(
             tel_prop_idx=bidx, tel_elect_start=estart, tel_read_submit=rsub,
             tel_commit_hist=commit_hist, tel_elect_hist=elect_hist,
@@ -1806,17 +1881,33 @@ def propose_dense(state: SimState, cfg: SimConfig,
     0..count-1) to every row accepting proposals, as masked stores via the
     slot->index map (banded over the live chunks when cfg.tiled).  `tag`
     is the batch's int trace tag (cfg.trace_tags).  Writes the state's
-    rings (and, with telemetry on, the batch stamp) in place."""
+    rings (and, with telemetry on, the batch stamp) in place.
+
+    `count` is an int, or a device tensor (the dst append_flood verb's
+    gate): 0-d, or per cluster [B] on a batched state (see `step`), whose
+    `alive` is [B, N] and whose payload_fn gets the tick shaped [B, 1, 1].
+    A device count is not read back."""
     check_device(state, device)
-    count = int(count)
-    ok = _leader_ok(state, cfg, alive)
-    anchor = state.last + count
+    bx = Bx(batch_size(state))
+    if bx.on:
+        _refuse_batched(cfg, "propose_dense")
+    if isinstance(count, torch.Tensor):
+        count = count.to(I32)
+        if bx.on:
+            count = count.reshape(-1).expand(bx.B)
+        cnt1, cnt2 = bx.t(count, 1), bx.t(count, 2)
+    else:
+        count = int(count)
+        cnt1 = cnt2 = count
+    ok = _leader_ok(state, cfg, alive, bx)
+    anchor = state.last + cnt1
 
     def write(lt, ld, new_idx):
-        k_of = new_idx - state.last[:, None] - 1
-        valid = ok[:, None] & (k_of >= 0) & (k_of < count)
-        pl = payload_fn(state.tick, torch.clamp(k_of, min=0).to(torch.int64))
-        _put(lt, valid, state.term[:, None])
+        k_of = new_idx - bx.col(state.last) - 1
+        valid = bx.col(ok) & (k_of >= 0) & (k_of < cnt2)
+        pl = payload_fn(bx.t(state.tick, 2),
+                        torch.clamp(k_of, min=0).to(torch.int64))
+        _put(lt, valid, bx.col(state.term))
         _put(ld, valid, pl & PAYLOAD_MASK)
 
     lt, ld = state.log_term, state.log_data
@@ -1832,13 +1923,22 @@ def propose_dense(state: SimState, cfg: SimConfig,
         else:
             write(lt, ld, _idx_at_slots(cfg, anchor))
     else:
-        write(lt, ld, _idx_at_slots(cfg, anchor))
+        write(lt, ld, _idx_at_slots(cfg, anchor, bx))
     if cfg.collect_telemetry and state.tel_prop_idx is not None:
-        _stamp_batch(state, cfg, ok, state.last + 1, count, tag)
-    new_last = state.last + torch.where(ok, count, 0).to(I32)
+        _stamp_batch(state, cfg, ok, state.last + 1, cnt1, tag, bx)
+    new_last = state.last + torch.where(ok, cnt1, 0).to(I32)
     eye = torch.eye(cfg.n, dtype=torch.bool, device=lt.device)
-    match = torch.where(ok[:, None] & eye, new_last[:, None], state.match)
+    match = torch.where(bx.col(ok) & eye, bx.col(new_last), state.match)
     return dataclasses.replace(state, last=new_last, match=match)
+
+
+def _one_cluster(state: SimState, what: str) -> None:
+    """Host APIs take one cluster's state: refuse a batched one."""
+    if batch_size(state) is not None:
+        raise ValueError(
+            f"{what} takes one cluster's state; this one has a leading "
+            f"batch axis of {batch_size(state)} (drive a batch through "
+            f"step, propose_dense or the dst verbs)")
 
 
 def propose(state: SimState, cfg: SimConfig, payloads, count, alive=None,
@@ -1848,6 +1948,7 @@ def propose(state: SimState, cfg: SimConfig, payloads, count, alive=None,
     masked off) to every row accepting proposals.  `tag` is the batch's
     int trace tag (cfg.trace_tags).  Writes the state's rings (and, with
     telemetry on, the batch stamp) in place."""
+    _one_cluster(state, "propose")
     dev = check_device(state, device)
     n, count = cfg.n, int(count)
     ok = _leader_ok(state, cfg, alive)
@@ -1876,6 +1977,7 @@ def propose_conf(state: SimState, cfg: SimConfig, target, remove,
     (pending_conf), or for a target outside [0, n), the entry degrades to
     an empty normal entry.  Writes the state's rings in place; raises on a
     static_members config."""
+    _one_cluster(state, "propose_conf")
     if cfg.static_members:
         raise ValueError("propose_conf on a static_members config: "
                          "membership changes need static_members=False")
@@ -1906,6 +2008,7 @@ def transfer_leadership(state: SimState, cfg: SimConfig, leader: int,
     resets its election timer; the tick fires TIMEOUT_NOW once the target's
     log caught up.  A repeat request for the same in-flight target is a
     no-op; a different target replaces the previous transfer."""
+    _one_cluster(state, "transfer_leadership")
     leader, target = int(leader), int(target)
     is_l = (state.role[leader] == LEADER) & (target != leader) \
         & state.member[leader, target]

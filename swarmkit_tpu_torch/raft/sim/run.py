@@ -5,6 +5,11 @@ here they are host loops over `kernel.step`, one tick per iteration.
 `run_until_leader` reads `has_leader` back every tick; `run_ticks` and
 `run_schedule` only sync where `step` does (its branch choices).
 
+A state with a leading batch axis (B clusters, kernel.step) runs through
+`run_schedule` with [B, T, ...] schedules; `leader_mask`, `has_leader`,
+`committed_entries` and the trace rows are then per cluster (value
+reductions inside each cluster, as JAX's vmap gives them).
+
 `KernelObs` is the host side of the kernel's counters (stats, reads,
 durability): `timed` around a run-loop call and `publish` after one, which
 reads the device counters back (that is its job, and no run loop calls it
@@ -22,20 +27,30 @@ from swarmkit_tpu_torch.raft.sim import u32
 from swarmkit_tpu_torch.metrics import catalog as obs_catalog
 from swarmkit_tpu_torch.metrics import registry as obs_registry
 from swarmkit_tpu_torch.metrics import scrape as obs_scrape
-from swarmkit_tpu_torch.raft.sim.kernel import _first_true, step
+from swarmkit_tpu_torch.raft.sim.kernel import _first_true, _one_cluster, step
 from swarmkit_tpu_torch.raft.sim.state import (
-    LEADER, NONE, SimConfig, SimState, check_device, drop_matrix,
+    LEADER, NONE, SimConfig, SimState, batch_size, check_device, drop_matrix,
 )
 
 I32 = torch.int32
 U32_MASK = 0xFFFF_FFFF
 
 
+def _batched(state: SimState) -> bool:
+    return batch_size(state) is not None
+
+
 def leader_mask(state: SimState) -> torch.Tensor:
+    if _batched(state):
+        return (state.role == LEADER) \
+            & torch.diagonal(state.member, dim1=-2, dim2=-1)
     return (state.role == LEADER) & torch.diagonal(state.member)
 
 
 def has_leader(state: SimState) -> torch.Tensor:
+    """Some row leads ([B] per cluster on a batched state)."""
+    if _batched(state):
+        return leader_mask(state).any(-1)
     return leader_mask(state).any()
 
 
@@ -48,6 +63,11 @@ def _payload_at(tick, k: torch.Tensor) -> torch.Tensor:
 
 
 def _trace_row(st: SimState) -> torch.Tensor:
+    """[n_leaders, max_commit, max_term]: value reductions, per cluster
+    ([B, 3]) on a batched state."""
+    if _batched(st):
+        return torch.stack([leader_mask(st).sum(-1, dtype=I32),
+                            st.commit.amax(-1), st.term.amax(-1)], dim=-1)
     return torch.stack([leader_mask(st).sum(dtype=I32), st.commit.amax(),
                         st.term.amax()])
 
@@ -110,13 +130,22 @@ def run_schedule(state: SimState, cfg: SimConfig, drop: torch.Tensor,
     is [T, N, N] per-tick edge drops, alive is [T, N] row liveness (the
     schedule shape the JAX package's DST layer generates; run_ticks instead
     derives its faults from scalar knobs).  Optionally proposes
-    `prop_count` entries per tick through the fused propose.
+    `prop_count` entries per tick through the fused propose.  A batched
+    state takes [B, T, N, N] and [B, T, N] schedules, one per cluster.
 
-    Returns (final_state, trace) with run_ticks' trace rows.  Consumes the
-    state (see step).
+    Returns (final_state, trace) with run_ticks' trace rows ([B, T, 3] on
+    a batched state).  Consumes the state (see step).
     """
     dev = check_device(state, device)
     st, trace = state, []
+    if _batched(state):
+        for t in range(drop.shape[1]):
+            st = _tick(st, cfg, alive[:, t], drop[:, t], prop_count, dev)
+            trace.append(_trace_row(st))
+        if not trace:
+            return st, torch.zeros((drop.shape[0], 0, 3), dtype=I32,
+                                   device=dev)
+        return st, torch.stack(trace, dim=1)
     for drop_t, alive_t in zip(drop, alive):
         st = _tick(st, cfg, alive_t, drop_t, prop_count, dev)
         trace.append(_trace_row(st))
@@ -143,7 +172,9 @@ def submit_reads(state: SimState, cfg: SimConfig, count: int, rows=None,
     take one, and each records max(commit) as its linearizability goal.
     Needs cfg.read_batch > 0 (the read registers).  `tag` is the batch's
     int trace tag (cfg.trace_tags; metrics/trace.py span_trace_tag): the
-    READ_SERVED event that settles it carries the tag."""
+    READ_SERVED event that settles it carries the tag.  One cluster's
+    state only: it raises on a batched one."""
+    _one_cluster(state, "submit_reads")
     dev = check_device(state, device)
     if state.read_pend is None:
         raise ValueError("read path is off (SimConfig.read_batch == 0); "
@@ -160,6 +191,7 @@ def submit_reads(state: SimState, cfg: SimConfig, count: int, rows=None,
     return dataclasses.replace(
         state,
         read_pend=torch.where(open_, int(count), state.read_pend),
+        # the goal: the cluster's acked-write frontier (a value reduction)
         read_goal=torch.where(open_, state.commit.amax(), state.read_goal),
         read_idx=torch.where(open_, NONE, state.read_idx), **tag_fields)
 
@@ -277,11 +309,15 @@ def reads_blocked(state: SimState) -> torch.Tensor:
 
 
 def committed_entries(state: SimState) -> torch.Tensor:
-    """Total entries committed through consensus (max commit across rows)."""
+    """Total entries committed through consensus (max commit across rows;
+    a value reduction, [B] per cluster on a batched state)."""
+    if _batched(state):
+        return state.commit.amax(-1)
     return state.commit.amax()
 
 
 def quorum_applied_checksum(state: SimState):
     """(applied, checksum) pairs — equal applied must imply equal checksum
-    (state-machine safety)."""
+    (state-machine safety).  Row-wise, so [B, N] each on a batched state:
+    compare within a cluster."""
     return state.applied, state.apply_chk

@@ -9,6 +9,13 @@ package's raft/sim/state.py one for one, so a state carries across with
 
 uint32 fields (log_data, snap_chk, apply_chk) are int32 tensors holding the
 same bits (see u32.py).  Node indices are 0-based; `NONE` is -1.
+
+A SimState may carry one leading batch axis on every field ([B, N],
+[B, N, N], [B, N, L], [B, N, N, K], tick [B]): B independent clusters that
+kernel.step advances together, the port's form of the JAX package's
+jax.vmap over a stacked state.  `batch_size` tells the two apart,
+`broadcast_state` makes B copies of one cluster, and `state_from_numpy` /
+`state_to_numpy` carry either form.
 """
 
 from __future__ import annotations
@@ -525,9 +532,30 @@ def drop_matrix(cfg: SimConfig, tick, rate: float,
         < torch.tensor(rate, dtype=f32, device=dev)
 
 
+def batch_size(state: SimState) -> Optional[int]:
+    """B of a batched state (a leading [B] axis on every field), None for
+    one cluster's state."""
+    return state.term.shape[0] if state.term.dim() == 2 else None
+
+
+def broadcast_state(state: SimState, batch: int) -> SimState:
+    """`batch` copies of one cluster's state along a new leading axis.
+    Each field is copied, not expanded: the tick writes the rings in
+    place, so no two clusters may share storage."""
+    if batch_size(state) is not None:
+        raise ValueError("broadcast_state takes one cluster's state")
+    out = {}
+    for name in FIELD_NAMES:
+        t = getattr(state, name)
+        if t is not None:
+            out[name] = t.unsqueeze(0).repeat((batch,) + (1,) * t.dim())
+    return SimState(**out)
+
+
 def state_from_numpy(d: dict, device=None) -> SimState:
     """SimState from numpy arrays keyed by field name (absent or None =
-    field off).  uint32 arrays enter as their int32 bit patterns."""
+    field off).  uint32 arrays enter as their int32 bit patterns.  Arrays
+    with a leading [B] axis (tick [B]) give a batched state."""
     dev = resolve_device(device)
     out = {}
     for name in FIELD_NAMES:

@@ -13,6 +13,11 @@ reads a device value back: ring columns are device scalars, written with
 ``index_copy_``, and the histogram fold is a ``scatter_add``.  The ring
 writes are IN PLACE, like the kernel's log rings: a call consumes the
 tensor it is given.
+
+Under the tick's batch axis (B clusters, kernel.step) every buffer carries
+a leading [B] axis and every op here stays inside its cluster: ring
+columns are per-cluster [B] ticks written with ``scatter_``, and the
+histogram folds and the percentile read are value reductions per cluster.
 """
 
 from __future__ import annotations
@@ -64,7 +69,13 @@ def bucket_edges(device) -> torch.Tensor:
 
 def col_set(ring: torch.Tensor, col: torch.Tensor,
             vals: torch.Tensor) -> torch.Tensor:
-    """ring[:, col] = vals [N], in place, for a device scalar `col`."""
+    """ring[:, col] = vals [N], in place, for a device scalar `col`; on a
+    batched [B, N, R] ring, column col[b] of cluster b takes vals[b]."""
+    if ring.dim() == 3:
+        b, n = ring.shape[0], ring.shape[1]
+        idx = col.reshape(b, 1, 1).to(torch.int64).expand(b, n, 1)
+        return ring.scatter_(2, idx, vals.expand(b, n)[:, :, None]
+                             .to(ring.dtype))
     return ring.index_copy_(1, col.reshape(1).to(torch.int64),
                             vals.reshape(-1, 1).to(ring.dtype))
 
@@ -91,6 +102,13 @@ def hist_fold(hist: torch.Tensor, mask: torch.Tensor, lat: torch.Tensor,
     w = mask.to(I32) if weight is None \
         else torch.where(mask, weight.to(I32), 0)
     b = bucket_of(lat, edges)
+    if hist.dim() == 2:
+        # batched [B, NUM_BUCKETS]: each cluster folds its own elements
+        part = torch.zeros_like(hist)
+        nb = hist.shape[0]
+        part.scatter_add_(1, b.reshape(nb, -1).to(torch.int64),
+                          w.reshape(nb, -1))
+        return hist + part
     rows = b.shape[0] if b.dim() > 1 else 1
     part = torch.zeros((rows, NUM_BUCKETS), dtype=I32, device=hist.device)
     part.scatter_add_(1, b.reshape(rows, -1).to(torch.int64),
@@ -105,10 +123,19 @@ def ring_write(series: torch.Tensor, stride: int, now: torch.Tensor,
     Column of tick t is (t // stride) % window; the first tick of a stride
     bucket resets the column, later ticks accumulate (counter rows) or
     overwrite (gauge rows)."""
+    batched = series.dim() == 3
     col = torch.remainder(torch.div(now, stride, rounding_mode="floor"),
-                          series.shape[-1]).to(torch.int64).reshape(1)
+                          series.shape[-1]).to(torch.int64)
     fresh = torch.remainder(now, stride) == 0
-    base = torch.where(fresh, 0, series.index_select(1, col)[:, 0])
+    if batched:
+        # [B, NUM_SERIES, W] rings, a [B] tick, [B, NUM_SERIES] samples
+        nb = series.shape[0]
+        cur = series.gather(2, col.reshape(nb, 1, 1)
+                            .expand(nb, NUM_SERIES, 1))[:, :, 0]
+        base = torch.where(fresh[:, None], 0, cur)
+    else:
+        col = col.reshape(1)
+        base = torch.where(fresh, 0, series.index_select(1, col)[:, 0])
     rows = torch.arange(NUM_SERIES, device=series.device)
     gauge = torch.zeros_like(rows, dtype=torch.bool)
     for r in GAUGE_ROWS:
@@ -121,11 +148,18 @@ def percentile_edge_device(hist: torch.Tensor, q: int) -> torch.Tensor:
     """Upper edge (ticks, int32 0-d tensor) of the q-th percentile bucket, on
     the device.  q is an integer percent.  The overflow bucket reads as
     int32 max; an empty histogram reads as the first edge (callers gate on
-    sum(hist) > 0)."""
-    total = hist.sum(dtype=I32)
-    k = torch.clamp(torch.div(q * total + 99, 100, rounding_mode="floor"),
-                    min=1)
-    b = (hist.cumsum(0, dtype=I32) >= k).to(I32).argmax()
+    sum(hist) > 0).  A batched [B, NUM_BUCKETS] histogram gives [B]
+    edges, each cluster's own."""
+    if hist.dim() == 2:
+        total = hist.sum(1, dtype=I32)
+        k = torch.clamp(torch.div(q * total + 99, 100,
+                                  rounding_mode="floor"), min=1)
+        b = (hist.cumsum(1, dtype=I32) >= k[:, None]).to(I32).argmax(1)
+    else:
+        total = hist.sum(dtype=I32)
+        k = torch.clamp(torch.div(q * total + 99, 100,
+                                  rounding_mode="floor"), min=1)
+        b = (hist.cumsum(0, dtype=I32) >= k).to(I32).argmax()
     edges = torch.cat([bucket_edges(hist.device),
                        torch.full((1,), 2 ** 31 - 1, dtype=I32,
                                   device=hist.device)])

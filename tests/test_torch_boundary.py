@@ -38,7 +38,15 @@ def test_port_imports_without_jax():
             "swarmkit_tpu_torch.telemetry.series",
             "swarmkit_tpu_torch.telemetry.obs",
             "swarmkit_tpu_torch.metrics.catalog",
-            "swarmkit_tpu_torch.metrics.trace"} <= set(mods)
+            "swarmkit_tpu_torch.metrics.trace",
+            "swarmkit_tpu_torch.raft.faults",
+            "swarmkit_tpu_torch.raft.sim.batch",
+            "swarmkit_tpu_torch.dst",
+            "swarmkit_tpu_torch.dst.schedule",
+            "swarmkit_tpu_torch.dst.invariants",
+            "swarmkit_tpu_torch.dst.explore",
+            "swarmkit_tpu_torch.dst.repro",
+            "swarmkit_tpu_torch.tools.dst_sweep"} <= set(mods)
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
             "sys.modules['swarmkit_tpu'] = None\n"

@@ -489,3 +489,86 @@ def test_pallas_matmul_task_on_the_card_matches_the_cpu():
     torch.testing.assert_close(got, want, rtol=1e-1, atol=1e-1)
     bound = float((got - want).abs().sum() + 1e-5 * want.abs().sum())
     assert math.isfinite(on_card) and abs(on_card - on_cpu) <= bound
+
+
+DST5 = dict(n=5, log_len=64, window=8, apply_batch=16, max_props=8, keep=4,
+            election_tick=10, read_batch=2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("extra", [
+    {}, dict(latency=2, latency_jitter=1, inflight=4, election_tick=14,
+             pre_vote=True, fsync_lag_ticks=2, ack_gating=True,
+             collect_telemetry=True, transfer_cooldown_ticks=15)],
+    ids=["sync", "mailbox_storage_telemetry"])
+def test_batched_tick_on_the_card_matches_the_cpu(extra):
+    """The [B] tick on the card and on the CPU, 8 clusters under their own
+    faults, every field of every tick equal, no host read-back, and the
+    ring write one band-copy launch a tick over the [8*N, L] rows."""
+    _need_card()
+    from swarmkit_tpu_torch.raft.sim import kernel
+
+    cfg = sim.SimConfig(**dict(DST5, **extra))
+    rng = np.random.default_rng(3)
+    states = {d: sim.broadcast_state(sim.init_state(cfg, device=d), 8)
+              for d in ("cuda", "cpu")}
+    kernel.reset_counts()
+    before = cuda_ops.LAUNCHES["append_band_copy"]
+    for t in range(80):
+        alive = rng.random((8, cfg.n)) > 0.05
+        drop = rng.random((8, cfg.n, cfg.n)) < 0.1
+        for d in states:
+            states[d] = sim.step(
+                states[d], cfg, alive=torch.from_numpy(alive).to(d),
+                drop=torch.from_numpy(drop).to(d), prop_count=2,
+                payload_fn=sim.run._payload_at, device=d)
+        got = sim.state_to_numpy(states["cuda"])
+        want = sim.state_to_numpy(states["cpu"])
+        assert sorted(got) == sorted(want)
+        for name in want:
+            assert np.array_equal(got[name], want[name]), (t, name)
+    assert kernel.COUNTS["host_syncs"] == 0
+    assert cuda_ops.LAUNCHES["append_band_copy"] == before + 80
+    assert int(states["cpu"].commit.max()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mutation", [None, "commit_no_quorum"])
+def test_dst_explore_and_shrink_on_the_card_match_the_cpu(mutation):
+    """explore on the card equals the CPU (masks, first ticks, per-tick
+    bits, every final field), the schedules drawn the same on both; a
+    mutated sweep's shrink gives the same schedule and evals."""
+    _need_card()
+    from swarmkit_tpu_torch import dst
+
+    cfg = sim.SimConfig(**DST5)
+    out = {}
+    for d in ("cuda", "cpu"):
+        sched, names = dst.make_batch(cfg, ticks=100, schedules=32, seed=0,
+                                      device=d)
+        res = dst.explore(sim.init_state(cfg, device=d), cfg, sched,
+                          profiles=names, mutation=mutation, device=d)
+        out[d] = (sched, res)
+    (sc, rc), (sp, rp) = out["cuda"], out["cpu"]
+    for k, v in sp.to_numpy().items():
+        assert np.array_equal(sc.to_numpy()[k], v), k
+    assert np.array_equal(rc.viol, rp.viol)
+    assert np.array_equal(rc.first_tick, rp.first_tick)
+    assert np.array_equal(rc.bits_by_tick, rp.bits_by_tick)
+    got = sim.state_to_numpy(rc.final_state)
+    for name, want in sim.state_to_numpy(rp.final_state).items():
+        assert np.array_equal(got[name], want), name
+    if mutation is None:
+        assert rc.violating.size == 0
+        return
+    s = int(rc.violating[0])
+    viol = int(rc.viol[s])
+    small = {}
+    for d in ("cuda", "cpu"):
+        small[d] = dst.shrink(cfg, out[d][0].slice(s), viol, 2, mutation,
+                              device=d)
+    assert small["cuda"][1] == small["cpu"][1]
+    for k, v in small["cpu"][0].to_numpy().items():
+        assert np.array_equal(small["cuda"][0].to_numpy()[k], v), k
+    assert dst.replay(cfg, small["cuda"][0], 2, mutation, device="cuda") \
+        == dst.replay(cfg, small["cpu"][0], 2, mutation, device="cpu")
