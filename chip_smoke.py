@@ -167,6 +167,35 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    The sweep's ring write is one band-copy launch a tick over all
    clusters' rows ([S*5, 64]): both sweeps' launches are counted from 0,
    and the kernel is held to plain on one sweep tick's call.
+13b. oracle_trace on the card: phase 13's commit_no_quorum artifact
+   replayed through the tick on the card and the host golden core in
+   lockstep must diverge where the CPU replay does, on the same fields
+   with the same values on both sides; its lost-tail artifact must hold
+   lockstep over the clean prefix (diverged_at -1).  Prints the ticks
+   replayed, the host reads and the seconds on the card and on the CPU.
+14. the multi-raft serving plane at full width: bench.py's
+   multiraft-1024x3 (G=1024 groups of N=3, L=512, window 128, apply_batch
+   64, max_props 32, keep 64, election_tick 10, read_batch 32, leases,
+   static members, seed 7, collect_stats): the fleet's election in 32-tick
+   chunks until 99% of the groups lead, 2 x 64 steady fused-propose ticks
+   (aggregate entries/s and reads/s, ms/tick on the host clock and between
+   CUDA events, step host syncs: checked 0 a tick), 8 unprofiled and 8
+   profiled ticks (kernel launches, kernel ms, the device's busy share),
+   the band copy of one grouped tick on its [3072, 512] rings against
+   plain (exact) and timed as in phase 5, and the safety checks: at most
+   one leader per group and term, checksum agreement inside each group.
+   The path's band-copy launches are counted from 0: one a tick.
+14b. bench.py's multiraft-telemetry: G=256 bare and with telemetry
+   (telemetry_prop_ring=64), each elected and warmed, then 8 pairs of
+   timed passes in turns: the telemetry/bare ratio's median and spread
+   (bench.py's 0.8 tripwire as a note) and per-group commit p50/p99 from
+   summarize_groups for a few groups.
+14c. the serving plane on the card and on the CPU at G=8 on both wires,
+   every field compared after every call: the election, Router.flush with
+   per-group payloads, spills past max_props and reads,
+   run_groups_under_schedule on an [8, 60] schedule batch (the same viol
+   and first), and FleetSource.scrape -> SloEngine.observe (the same
+   readings and transitions).
 
 Each path's band-copy launches are counted from 0 (the kernels' record
 carries them).  Before the last line it prints the kernels' JSON record
@@ -1044,9 +1073,20 @@ def phase_mailbox_inputs(torch, sim, cuda_ops, st) -> int:
 
 def phase_main_path_inputs(torch, sim, cuda_ops, st) -> dict:
     """Time the kernel on the inputs one more headline tick gives it."""
-    launch = cuda_ops.append_band_copy
     calls = _record_band_copies(torch, sim, cuda_ops,
                                 sim.SimConfig(**HEADLINE), st)
+    out = _time_band_copies(torch, cuda_ops, calls)
+    check(out["err"] == 0,
+          f"kernel != plain on the main path's inputs ({out['err']})")
+    return out
+
+
+def _time_band_copies(torch, cuda_ops, calls) -> dict:
+    """Kernel, plain version and torch.where x2 (a yardstick the port never
+    calls) timed on recorded band-copy calls (device time from CUDA-graph
+    replay), against the bytes bound; the means over the calls, and the
+    largest |kernel - plain|."""
+    launch = cuda_ops.append_band_copy
     err = 0
     times = {"kernel": [], "plain": [], "library": []}
     bound = []
@@ -1082,7 +1122,6 @@ def phase_main_path_inputs(torch, sim, cuda_ops, st) -> dict:
             f"{times['library'][-1]:.4f} ms, bound {bound[-1]:.4f} ms; "
             f"eager call: kernel {eager_ms(torch, run_kernel):.4f} ms, "
             f"plain {eager_ms(torch, run_plain):.4f} ms")
-    check(err == 0, f"kernel != plain on the main path's inputs ({err})")
     mean = lambda xs: sum(xs) / len(xs)  # noqa: E731
     return dict(calls=len(calls), err=err, ms=mean(times["kernel"]),
                 plain_ms=mean(times["plain"]),
@@ -1557,7 +1596,8 @@ def _dst_card_vs_cpu(torch, sim, dst, cfg, schedules: int, profiles,
                 violating=int(len(rc.violating)), card_s=tc, cpu_s=tp)
 
 
-def phase_dst(torch, sim, cuda_ops, card: str = "cuda") -> dict:
+def phase_dst(torch, sim, cuda_ops, outdir: str,
+              card: str = "cuda") -> dict:
     """The DST sweep on the batched tick (swarmkit_tpu_torch/dst/): card =
     CPU at 64 x 100 (PROFILES, reads 2) and 32 x 100 (EXTRA_PROFILES, the
     storage configuration); the documented 256 x 100 sweep (0 violations;
@@ -1565,10 +1605,10 @@ def phase_dst(torch, sim, cuda_ops, card: str = "cuda") -> dict:
     ticks and the device busy share against 8 unprofiled ticks); 16384 x
     100 (schedules/s); both mutation self-tests at 24 x 100 (caught,
     shrunk, artifact replayed on the card and on the CPU); the four demos
-    (neutralized)."""
+    (neutralized).  The commit_no_quorum and lost-tail artifacts are
+    written to `outdir`, which the caller makes and removes, and their
+    paths returned under "artifacts"."""
     import importlib
-    import shutil
-    import tempfile
 
     from swarmkit_tpu_torch import dst
     from swarmkit_tpu_torch.tools import dst_sweep
@@ -1678,50 +1718,390 @@ def phase_dst(torch, sim, cuda_ops, card: str = "cuda") -> dict:
         f"host syncs {wsyncs:.2f}/tick, peak device memory {peak:.3f} GiB, "
         f"append_band_copy launches {wide_launched}")
 
-    outdir = tempfile.mkdtemp(prefix="chip_smoke_dst_")
-    try:
-        out["mutations"] = {}
-        for mutation in ("commit_no_quorum", "stale_lease_read"):
-            demo = dst_sweep.run_mutation_demo(
-                24, DST_TICKS, 0, 5, 2, mutation, verbose=False,
-                out_path=f"{outdir}/{mutation}.json", device=dev)
-            check(demo["caught"], f"mutation {mutation} was not caught")
-            check(demo["replay_matches"],
-                  f"{mutation}: the card's artifact did not replay exactly "
-                  f"on the card")
-            on_cpu = dst.replay_artifact(demo["artifact"], device="cpu")
-            check(on_cpu["matches_recorded"],
-                  f"{mutation}: the card's artifact replayed on the CPU to "
-                  f"{on_cpu['violations']} at tick {on_cpu['first_tick']}")
-            out["mutations"][mutation] = {
-                k: demo[k] for k in ("violations", "profile", "index", "bits",
-                                     "fault_count_before",
-                                     "fault_count_after", "shrink_evals",
-                                     "shrink_batches", "shrink_ticks",
-                                     "shrink_s", "first_tick")}
-            log(f"  mutation {mutation}: caught in {demo['violations']} of "
-                f"24 ({demo['bits']}, {demo['profile']} #{demo['index']}); "
-                f"shrunk {demo['fault_count_before']} -> "
-                f"{demo['fault_count_after']} fault-events in "
-                f"{demo['shrink_s']:.3f} s: {demo['shrink_evals']} evals in "
-                f"{demo['shrink_batches']} batched replays of "
-                f"{demo['shrink_ticks']} ticks in all; the artifact "
-                f"replays exactly on the card and on the CPU (first tick "
-                f"{demo['first_tick']})")
-        demos = {
-            "term_inflation": dst_sweep.run_term_inflation_demo(device=dev),
-            "disruptive_rejoin":
-                dst_sweep.run_disruptive_rejoin_demo(device=dev),
-            "transfer_abuse": dst_sweep.run_transfer_abuse_demo(device=dev),
-            "lost_tail": dst_sweep.run_lost_tail_demo(
-                out_path=f"{outdir}/lost_tail.json", device=dev)}
-    finally:
-        shutil.rmtree(outdir, ignore_errors=True)
+    out["mutations"] = {}
+    for mutation in ("commit_no_quorum", "stale_lease_read"):
+        demo = dst_sweep.run_mutation_demo(
+            24, DST_TICKS, 0, 5, 2, mutation, verbose=False,
+            out_path=f"{outdir}/{mutation}.json", device=dev)
+        check(demo["caught"], f"mutation {mutation} was not caught")
+        check(demo["replay_matches"],
+              f"{mutation}: the card's artifact did not replay exactly "
+              f"on the card")
+        on_cpu = dst.replay_artifact(demo["artifact"], device="cpu")
+        check(on_cpu["matches_recorded"],
+              f"{mutation}: the card's artifact replayed on the CPU to "
+              f"{on_cpu['violations']} at tick {on_cpu['first_tick']}")
+        out["mutations"][mutation] = {
+            k: demo[k] for k in ("violations", "profile", "index", "bits",
+                                 "fault_count_before",
+                                 "fault_count_after", "shrink_evals",
+                                 "shrink_batches", "shrink_ticks",
+                                 "shrink_s", "first_tick")}
+        log(f"  mutation {mutation}: caught in {demo['violations']} of "
+            f"24 ({demo['bits']}, {demo['profile']} #{demo['index']}); "
+            f"shrunk {demo['fault_count_before']} -> "
+            f"{demo['fault_count_after']} fault-events in "
+            f"{demo['shrink_s']:.3f} s: {demo['shrink_evals']} evals in "
+            f"{demo['shrink_batches']} batched replays of "
+            f"{demo['shrink_ticks']} ticks in all; the artifact "
+            f"replays exactly on the card and on the CPU (first tick "
+            f"{demo['first_tick']})")
+    demos = {
+        "term_inflation": dst_sweep.run_term_inflation_demo(device=dev),
+        "disruptive_rejoin":
+            dst_sweep.run_disruptive_rejoin_demo(device=dev),
+        "transfer_abuse": dst_sweep.run_transfer_abuse_demo(device=dev),
+        "lost_tail": dst_sweep.run_lost_tail_demo(
+            out_path=f"{outdir}/lost_tail.json", device=dev)}
+    out["artifacts"] = {"commit_no_quorum": f"{outdir}/commit_no_quorum.json",
+                        "lost_tail": f"{outdir}/lost_tail.json"}
     for name, demo in demos.items():
         check(demo["neutralized"], f"the {name} demo was not neutralized")
     out["demos"] = {k: {kk: v for kk, v in d.items() if kk != "artifact"}
                     for k, d in demos.items()}
     log("  the four demos neutralized")
+    return out
+
+
+def _oracle_replay(torch, dst, path: str, device: str):
+    """The oracle trace of an artifact as replay_artifact takes it (the
+    clean prefix of an adversary-induced safety violation), on `device`:
+    (trace, {"ticks", "reads"}, seconds)."""
+    art = dst.load_artifact(path)
+    cfg, sched, prop_count, mutation = dst.from_artifact(art, device=device)
+    first = art["first_tick"]
+    until = first if (mutation is None and art["violation_bits"]
+                      & dst.SAFETY_BITS and first >= 0) else None
+    info = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trace = dst.oracle_trace(cfg, sched, prop_count, mutation, until=until,
+                             device=device, info=info)
+    torch.cuda.synchronize()
+    return trace, info, time.perf_counter() - t0
+
+
+def phase_oracle(torch, dst, dst13: dict, card: str = "cuda") -> dict:
+    """oracle_trace on the card: phase 13's commit_no_quorum artifact (the
+    same diverged_at, first fields and both sides' values as the CPU
+    replay) and its lost-tail artifact (lockstep over the clean prefix,
+    diverged_at -1), with the ticks replayed, host reads and seconds."""
+    out = {}
+    for name, path in dst13["artifacts"].items():
+        got, info, secs = _oracle_replay(torch, dst, path, card)
+        want, cinfo, csecs = _oracle_replay(torch, dst, path, "cpu")
+        check(json.dumps(got, sort_keys=True)
+              == json.dumps(want, sort_keys=True),
+              f"{name}: the card's oracle trace differs from the CPU's "
+              f"(diverged at {got['diverged_at']} vs {want['diverged_at']})")
+        if name == "commit_no_quorum":
+            check(got["diverged_at"] >= 0 and got["trace"],
+                  "commit_no_quorum: the oracle trace did not localize the "
+                  "mutated commit path")
+            first = got["trace"][0]
+            detail = (f"diverged at tick {got['diverged_at']} on "
+                      f"{first['fields']} (card = CPU, values included: "
+                      f"{ {f: first['kernel'][f] for f in first['fields']} }"
+                      f" against the oracle's "
+                      f"{ {f: first['oracle'][f] for f in first['fields']} })")
+        else:
+            check(got["diverged_at"] == -1,
+                  f"lost_tail: the oracle diverged at tick "
+                  f"{got['diverged_at']} inside the clean prefix")
+            detail = "lockstep over the clean prefix (diverged_at -1)"
+        out[name] = dict(diverged_at=got["diverged_at"],
+                         fields=got["trace"][0]["fields"] if got["trace"]
+                         else [], ticks=info["ticks"], reads=info["reads"],
+                         card_s=secs, cpu_s=csecs)
+        log(f"  {name}: {detail}; {info['ticks']} ticks replayed with "
+            f"{info['reads']} host reads in {secs:.3f} s on the card "
+            f"({csecs:.3f} s on the CPU)")
+    demo = dst13["demos"]["lost_tail"]
+    check(demo["oracle_diverged_at"] == -1,
+          "the lost-tail demo's replay did not hold the oracle in lockstep")
+    return out
+
+
+MULTIRAFT_GROUPS = 1024      # bench.py's multiraft-1024x3
+MULTIRAFT_TEL_GROUPS = 256   # bench.py's multiraft-telemetry
+
+
+def _group_safety(st) -> tuple[bool, bool]:
+    """(at most one leader per group and term, equal applied -> equal
+    apply_chk inside every group), on a [G, N] state."""
+    import torch
+    from swarmkit_tpu_torch import multiraft
+
+    n = st.term.shape[1]
+    off = ~torch.eye(n, dtype=torch.bool, device=st.term.device)
+    lm = multiraft.group_leader_mask(st)
+    two = lm[:, :, None] & lm[:, None, :] & off \
+        & (st.term[:, :, None] == st.term[:, None, :])
+    split = off & (st.applied[:, :, None] == st.applied[:, None, :]) \
+        & (st.apply_chk[:, :, None] != st.apply_chk[:, None, :])
+    return not bool(two.any()), not bool(split.any())
+
+
+def _group_window(torch, cfg, st, ticks: int, profiled: bool, dev):
+    """`ticks` fused-propose grouped ticks: unprofiled, (state, ms per tick
+    between CUDA events); profiled, (state, kernel launches per tick,
+    kernel ms per tick)."""
+    from swarmkit_tpu_torch import multiraft
+    from swarmkit_tpu_torch.tools.profile_tick import _device_us
+
+    def run(st):
+        st, _ = multiraft.run_group_ticks(st, cfg, ticks,
+                                          prop_count=cfg.max_props,
+                                          device=dev)
+        return st
+    if not profiled:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        st = run(st)
+        end.record()
+        torch.cuda.synchronize()
+        return st, start.elapsed_time(end) / ticks
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        st = run(st)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    return st, sum(e.count for e in kernels) / ticks, \
+        sum(_device_us(e) for e in kernels) / 1e3 / ticks
+
+
+def phase_multiraft(torch, sim, cuda_ops, card: str = "cuda",
+                    groups: int = MULTIRAFT_GROUPS) -> dict:
+    """bench.py's multiraft-1024x3 at full width (G=1024 groups of N=3,
+    L=512, window 128, apply_batch 64, max_props 32, keep 64,
+    election_tick 10, read_batch 32, leases, static members, seed 7,
+    collect_stats): the fleet's chunked election, 2 x 64 steady
+    fused-propose ticks (host clock and CUDA events), 8 unprofiled and 8
+    profiled ticks (launches, kernel ms, busy share), the band copy
+    against plain on one grouped tick's [3072, 512] inputs, and the safety
+    checks per group."""
+    from swarmkit_tpu_torch import multiraft
+    from swarmkit_tpu_torch.tools import bench
+
+    G, dev = groups, torch.device(card)
+    cfg = bench.multiraft_cfg(3, 7)
+    torch.cuda.reset_peak_memory_stats()
+    # the path's own launches, counted from 0 over its election and its
+    # timed ticks
+    cuda_ops.reset_launches()
+    sim.kernel.reset_counts()
+    torch.cuda.synchronize()
+    st, elect_ticks, elect_s = bench.elect_groups(
+        multiraft.init_groups(cfg, G, device=dev), cfg, dev, G)
+    led = int(multiraft.groups_with_leader(st))
+    check(led >= G * 99 // 100,
+          f"only {led}/{G} groups led after {elect_ticks} ticks")
+    elect_syncs = sim.kernel.COUNTS["host_syncs"]
+    sim.kernel.reset_counts()
+    steady = {"entries": 0, "reads": 0, "host_s": 0.0, "event_ms": 0.0}
+    for _ in range(2):
+        base = int(multiraft.aggregate_committed(st))
+        base_r = int(multiraft.aggregate_reads_served(st))
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        st, _ = multiraft.run_group_ticks(st, cfg, 64,
+                                          prop_count=cfg.max_props,
+                                          device=dev)
+        end.record()
+        torch.cuda.synchronize()
+        steady["host_s"] += time.perf_counter() - t0
+        steady["event_ms"] += start.elapsed_time(end)
+        steady["entries"] += int(multiraft.aggregate_committed(st)) - base
+        steady["reads"] += int(multiraft.aggregate_reads_served(st)) - base_r
+    syncs = sim.kernel.COUNTS["host_syncs"] / 128
+    launched = cuda_ops.LAUNCHES["append_band_copy"]
+    check(syncs == 0, f"{syncs} step host syncs a steady grouped tick")
+    check(launched == elect_ticks + 128,
+          f"append_band_copy launched {launched} times in "
+          f"{elect_ticks + 128} grouped ticks")
+    rate = steady["entries"] / steady["host_s"]
+    read_rate = steady["reads"] / steady["host_s"]
+    tick_ms = steady["host_s"] * 1e3 / 128
+    check(steady["entries"] > 0 and steady["reads"] > 0,
+          "the fleet committed or served nothing in 128 steady ticks")
+    # the device busy share: 8 unprofiled ticks against 8 profiled ones
+    st, event_ms = _group_window(torch, cfg, st, PROFILED_TICKS, False, dev)
+    st, launches, kernel_ms = _group_window(torch, cfg, st, PROFILED_TICKS,
+                                            True, dev)
+    one_leader, agree = _group_safety(st)
+    check(one_leader, "two leaders in one group and term")
+    check(agree, "equal applied with different checksums inside a group")
+    box = {}
+
+    def grouped_tick():
+        box["st"], _ = multiraft.run_group_ticks(st, cfg, 1,
+                                                 prop_count=cfg.max_props,
+                                                 device=dev)
+    calls = _record_band_copies(torch, sim, cuda_ops, cfg, st, grouped_tick)
+    rows = tuple(calls[0][0].shape)
+    check(len(calls) == 1 and rows == (G * 3, cfg.log_len),
+          f"a grouped tick made {len(calls)} band-copy calls on {rows}")
+    times = _time_band_copies(torch, cuda_ops, calls)
+    check(times["err"] == 0,
+          f"kernel != plain on a grouped tick's inputs ({times['err']})")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    out = dict(groups=G, groups_with_leader=led, election_ticks=elect_ticks,
+               election_s=elect_s, election_host_syncs=elect_syncs,
+               entries_per_s=rate, reads_per_s=read_rate,
+               steady_ticks=128, host_ms_per_tick=tick_ms,
+               event_ms_per_tick=steady["event_ms"] / 128,
+               host_syncs_per_tick=syncs, band_copy_launches=launched,
+               launches_per_tick=launches, kernel_ms_per_tick=kernel_ms,
+               unprofiled_ms_per_tick=event_ms,
+               busy_share=kernel_ms / event_ms, band_copy_rows=list(rows),
+               band_copy=times, peak_gib=peak)
+    log(f"  G={G} x N=3: {led}/{G} groups led after {elect_ticks} ticks "
+        f"({elect_s:.3f} s; the led count read once a 32-tick chunk, "
+        f"{elect_syncs} step host syncs); 128 steady ticks: {rate:,.1f} "
+        f"aggregate entries/s, "
+        f"{read_rate:,.1f} reads/s, {tick_ms:.3f} ms/tick on the host "
+        f"clock ({steady['event_ms'] / 128:.3f} between CUDA events), step "
+        f"host syncs {syncs:.2f}/tick, append_band_copy launches "
+        f"{launched} in {elect_ticks + 128} ticks; 8 profiled ticks: "
+        f"{launches:.2f} kernel launches/tick, {kernel_ms:.3f} ms of "
+        f"kernels/tick against {event_ms:.3f} ms/tick unprofiled: busy "
+        f"share {kernel_ms / event_ms:.3f}; one leader per group and term, "
+        f"checksums agree in every group; peak device memory "
+        f"{peak:.3f} GiB")
+    log(f"  the band copy of one grouped tick on {list(rows)} rings: "
+        f"max|kernel - plain| = {times['err']}, kernel {times['ms']:.4f} "
+        f"ms, plain {times['plain_ms']:.4f} ms, torch.where x2 "
+        f"{times['library_ms']:.4f} ms, bound {times['bound_ms']:.4f} ms")
+    return out
+
+
+def phase_multiraft_telemetry(torch, sim, card: str = "cuda",
+                              groups: int = MULTIRAFT_TEL_GROUPS) -> dict:
+    """bench.py's multiraft-telemetry: G=256 groups of 3 bare and with
+    telemetry (telemetry_prop_ring=64), elected and warmed, then 8 pairs of
+    timed passes in turns; the telemetry/bare ratio (median) and its
+    spread, and per-group p50/p99 from summarize_groups."""
+    from swarmkit_tpu_torch.telemetry import summarize_groups
+    from swarmkit_tpu_torch.tools import bench
+
+    G = groups
+    t0 = time.perf_counter()
+    ab = bench.multiraft_telemetry_ab(G, 3, 1_000_000, torch.device(card))
+    secs = time.perf_counter() - t0
+    summ = summarize_groups(ab["final_telemetry"], ab["cfg"])
+    check(all(s["enabled"] and s["commit"]["total"] > 0 for s in summ),
+          "a telemetry group observed no commit")
+    few = {g: (summ[g]["commit"]["p50"], summ[g]["commit"]["p99"])
+           for g in (0, 1, G // 2, G - 1)}
+    totals = sorted(s["commit"]["total"] for s in summ)
+    out = {k: ab[k] for k in ("dense", "telemetry", "telemetry_over_dense",
+                              "telemetry_over_dense_min",
+                              "telemetry_over_dense_max", "pairs")}
+    out.update(groups=G, commit_p50_p99=few, seconds=secs,
+               commit_observations=[totals[0], totals[-1]])
+    log(f"  G={G}: bare {ab['dense']:,.1f} vs telemetry "
+        f"{ab['telemetry']:,.1f} aggregate entries/s: telemetry/bare median "
+        f"{ab['telemetry_over_dense']:.3f} over {ab['pairs']} pairs in turns "
+        f"({ab['telemetry_over_dense_min']:.3f}-"
+        f"{ab['telemetry_over_dense_max']:.3f}); commit latency p50/p99 "
+        f"(ticks) of groups {few}; {totals[0]}-{totals[-1]} commit "
+        f"observations a group ({secs:.1f} s)")
+    if ab["telemetry_over_dense"] < 0.8:
+        log("  note: grouped-telemetry tripwire (bench.py's 0.8)")
+    return out
+
+
+def phase_multiraft_card_vs_cpu(torch, sim, card: str = "cuda") -> dict:
+    """The serving plane on the card and on the CPU at G=8, on the sync
+    and the mailbox wire, every field compared after every call: the
+    election, Router.flush with per-group payloads, spills past max_props
+    and reads, run_groups_under_schedule on an [8, T] schedule batch (the
+    same viol and first), and FleetSource.scrape -> SloEngine.observe (the
+    same readings and transitions)."""
+    import numpy as np
+
+    from swarmkit_tpu_torch import dst, multiraft, slo
+    from swarmkit_tpu_torch.metrics.registry import MetricsRegistry
+    from swarmkit_tpu_torch.tools import bench
+
+    G = 8
+    base = bench.multiraft_cfg(3, 7, collect_telemetry=True)
+    wires = {"sync": base,
+             "mailbox": dataclasses.replace(base, latency=1,
+                                            latency_jitter=1, inflight=2)}
+    out = {}
+    for wire, cfg in wires.items():
+        sched, _ = dst.make_batch(cfg, 60, G, seed=3, device="cpu")
+        arrs = sched.to_numpy()
+        sides = {}
+        for d in (card, "cpu"):
+            steps = []
+            st = multiraft.init_groups(cfg, G, device=d)
+            steps.append(("init", sim.state_to_numpy(st)))
+            st, trace = multiraft.run_group_ticks(st, cfg, 40, prop_count=1,
+                                                  device=d)
+            steps.append(("elect", sim.state_to_numpy(st),
+                          trace.cpu().numpy()))
+            src = slo.FleetSource(cfg)
+            eng = slo.SloEngine(registry=MetricsRegistry())
+            reads = [src.scrape(st)]
+            fired = [eng.observe(reads[-1])]
+            r = multiraft.Router(cfg, G, seed=5, device=d)
+            for i in range(G * cfg.max_props * 3):
+                r.offer(f"key/{i}", payload=(i * 2654435761) & 0xFFFFFFFF)
+            r.offer_read("hot/key", count=9)
+            for f in range(4):
+                st = r.flush(st)
+                steps.append((f"flush {f}", sim.state_to_numpy(st),
+                              np.array(r.pending())))
+            check(r.spilled > 0, f"{wire}: the router never spilled")
+            reads.append(src.scrape(st, router=r))
+            fired.append(eng.observe(reads[-1]))
+            st, viol, first = multiraft.run_groups_under_schedule(
+                st, cfg, dst.FaultSchedule.from_numpy(arrs, device=d),
+                prop_count=2, device=d)
+            steps.append(("schedule", sim.state_to_numpy(st),
+                          viol.cpu().numpy(), first.cpu().numpy()))
+            reads.append(src.scrape(st, router=r))
+            fired.append(eng.observe(reads[-1]))
+            sides[d] = (steps, reads, fired, list(eng.alerts))
+        (sc, rc, fc, ac), (sp, rp, fp, ap) = sides[card], sides["cpu"]
+        fields = 0
+        for a, b in zip(sc, sp):
+            check(a[0] == b[0], f"{wire}: call order differs")
+            for x, y in zip(a[1:], b[1:]):
+                if isinstance(x, dict):
+                    check(sorted(x) == sorted(y),
+                          f"{wire} {a[0]}: field sets differ")
+                    for k in x:
+                        check(np.array_equal(x[k], y[k]),
+                              f"{wire} {a[0]}: field {k} differs between "
+                              f"card and CPU")
+                    fields = len(x)
+                else:
+                    check(np.array_equal(x, y),
+                          f"{wire} {a[0]}: outputs differ")
+        for x, y in zip(rc, rp):
+            check(sorted(x) == sorted(y)
+                  and all(np.array_equal(x[k], y[k]) for k in x),
+                  f"{wire}: FleetSource readings differ")
+        check(fc == fp and ac == ap, f"{wire}: SLO transitions differ")
+        viol = sc[-1][2]
+        out[wire] = dict(calls=len(sc), fields=fields,
+                         violating=int((viol != 0).sum()),
+                         slos=sorted(rc[-1]), transitions=len(ac))
+        log(f"  {wire}: card = CPU on all {fields} fields after each of "
+            f"{len(sc)} calls (init, election, 4 flushes with spills and "
+            f"reads, an [{G}, 60] schedule batch: the same viol and first, "
+            f"{out[wire]['violating']} violating), FleetSource readings "
+            f"{sorted(rc[-1])} and {len(ac)} SLO transitions equal")
     return out
 
 
@@ -2057,7 +2437,28 @@ def main() -> int:
         "width (n=4096), in turns with planes off")
     planes = phase_planes_headline(torch, sim, cuda_ops)
     stage("phase 13: the DST sweep on the batched tick (n=5, reads 2)")
-    dst13 = phase_dst(torch, sim, cuda_ops)
+    import shutil
+    import tempfile
+
+    from swarmkit_tpu_torch import dst
+    outdir = tempfile.mkdtemp(prefix="chip_smoke_dst_")
+    try:
+        dst13 = phase_dst(torch, sim, cuda_ops, outdir=outdir)
+        stage("phase 13b: oracle_trace on the card (the commit_no_quorum "
+              "and lost-tail artifacts)")
+        oracle = phase_oracle(torch, dst, dst13)
+    finally:
+        shutil.rmtree(outdir, ignore_errors=True)
+    del dst13["artifacts"]
+    stage("phase 14: bench.py's multiraft-1024x3 at full width (G=1024 "
+          "groups of 3)")
+    mraft = phase_multiraft(torch, sim, cuda_ops)
+    stage("phase 14b: bench.py's multiraft-telemetry (G=256), bare and "
+          "telemetry on, in turns")
+    mtel = phase_multiraft_telemetry(torch, sim)
+    stage("phase 14c: the serving plane on the card vs on the CPU (G=8, "
+          "both wires)")
+    mcpu = phase_multiraft_card_vs_cpu(torch, sim)
 
     elapsed = time.perf_counter() - started
     log(f"all phases passed in {elapsed:.1f} s")
@@ -2067,7 +2468,11 @@ def main() -> int:
                                  "task": task, "mailbox": mbox,
                                  "dynamic_members": dyn, "readmix": rmix,
                                  "readmix_4096": rwide, "fsyncgate": fgate,
-                                 "planes": planes, "dst": dst13}))
+                                 "planes": planes, "dst": dst13,
+                                 "oracle": oracle, "multiraft": mraft,
+                                 "multiraft_telemetry": mtel,
+                                 "multiraft_card_vs_cpu": mcpu},
+                                default=str))
     records = [{
         "name": "append_band_copy", "route": "cuda",
         "source": "swarmkit_tpu_torch/csrc/band_copy.cu",
@@ -2079,8 +2484,14 @@ def main() -> int:
         "planes_launches": planes["band_copy_launches"],
         "dst_launches": dst13["sweep_256"]["band_copy_launches"],
         "dst_wide_launches": dst13["sweep_wide"]["band_copy_launches"],
+        "multiraft_launches": mraft["band_copy_launches"],
+        "multiraft_ms": mraft["band_copy"]["ms"],
+        "multiraft_plain_ms": mraft["band_copy"]["plain_ms"],
+        "multiraft_bound_ms": mraft["band_copy"]["bound_ms"],
+        "multiraft_library_ms": mraft["band_copy"]["library_ms"],
         "max_abs_err": max(err2, k["err"], err9, rmix["err"], planes["err"],
-                           dst13["sweep_256"]["err"]),
+                           dst13["sweep_256"]["err"],
+                           mraft["band_copy"]["err"]),
         "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
         "bound_by": "bytes", "library_ms": k["library_ms"]}]
     for name, line, bound_by in (("matmul", 76, "operations"),

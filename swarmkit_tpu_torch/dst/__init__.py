@@ -17,10 +17,9 @@ Layout:
 - :mod:`invariants` — the on-device checkers, reduced into a per-cluster
   violation bitmask.
 - :mod:`explore`   — `explore()`: the host loop over T of the [S] tick.
-- :mod:`repro`     — replay, speculatively batched greedy shrinking and
-  JSON repro artifacts in the JAX package's format.  `oracle_trace` (the
-  differential trace against the host golden core) is not ported yet and
-  raises.
+- :mod:`repro`     — replay, speculatively batched greedy shrinking, the
+  field-level differential trace against the host golden core
+  (`oracle_trace`) and JSON repro artifacts in the JAX package's format.
 """
 
 from swarmkit_tpu_torch.dst.schedule import (
@@ -44,8 +43,6 @@ from swarmkit_tpu_torch.dst.repro import (
     replay, replay_artifact, save_artifact, shrink, to_artifact,
 )
 
-# The JAX package's __all__ less oracle_trace, which is importable but
-# raises until the host golden core is ported.
 __all__ = [
     "ATTACK_LEAVES", "ATTACK_PROFILES", "ATTACK_SIGNATURE_CODES",
     "EXTRA_PROFILES", "PROFILES", "STORAGE_LEAVES", "STORAGE_PROFILES",
@@ -61,5 +58,6 @@ __all__ = [
     "bits_to_names", "check_state", "check_transition",
     "ExploreResult", "explore", "postmortem",
     "capture_flight", "fault_count", "from_artifact", "load_artifact",
-    "replay", "replay_artifact", "save_artifact", "shrink", "to_artifact",
+    "oracle_trace", "replay", "replay_artifact", "save_artifact", "shrink",
+    "to_artifact",
 ]

@@ -16,8 +16,8 @@ A violating schedule index found by `explore()` flows through:
    SimConfig and the pinned provenance as JSON, in the JAX package's
    format: either package loads and replays the other's artifacts.
 
-`oracle_trace()` — the field-level differential trace against the host
-golden core — is not ported yet (ROADMAP Queue 1 #1): it raises.
+`oracle_trace()` drives one schedule through the tick AND the host golden
+core (raft/sim/oracle.py) and names the first fields that diverge.
 """
 
 from __future__ import annotations
@@ -31,8 +31,9 @@ import torch
 
 from swarmkit_tpu_torch.device import resolve_device
 from swarmkit_tpu_torch.dst.explore import _tick_one
-from swarmkit_tpu_torch.dst.invariants import bits_to_names
+from swarmkit_tpu_torch.dst.invariants import SAFETY_BITS, bits_to_names
 from swarmkit_tpu_torch.dst.schedule import _OPTIONAL_LEAVES, FaultSchedule
+from swarmkit_tpu_torch.raft.sim.kernel import read_many
 from swarmkit_tpu_torch.raft.sim.state import (
     FIELD_NAMES, SimConfig, SimState, broadcast_state, init_state,
 )
@@ -405,20 +406,181 @@ def shrink(cfg: SimConfig, schedule: FaultSchedule, required_bits: int,
 
 
 # ---------------------------------------------------------------------------
-# differential-oracle replay (not ported yet)
+# differential-oracle replay (field-level trace)
+
+_VIEW_FIELDS = ("term", "vote", "role", "lead", "last", "commit", "applied",
+                "apply_chk", "member")
+
+
+def _kernel_view(state: SimState) -> dict:
+    """The compared fields on the host, in the JAX package's dtypes, in
+    one device->host read."""
+    out = dict(zip(_VIEW_FIELDS, read_many(
+        [getattr(state, f) for f in _VIEW_FIELDS])))
+    for f, a in out.items():
+        if f == "member":
+            out[f] = a.astype(bool)
+        elif f == "apply_chk":
+            out[f] = (a & 0xFFFFFFFF).astype(np.uint32)
+        else:
+            out[f] = a.astype(np.int32)
+    return out
 
 
 def oracle_trace(cfg: SimConfig, schedule: FaultSchedule,
                  prop_count: int = 2, mutation: Optional[str] = None,
                  stop_after_first: bool = True,
-                 until: Optional[int] = None) -> dict:
-    """The field-level differential trace against the host golden core.
-    Not ported yet: it needs the host oracle (raft/sim/oracle.py with
-    raft/core.py, log.py and messages.py), ROADMAP Queue 1 #1."""
-    raise NotImplementedError(
-        "oracle_trace needs the host golden core (raft/sim/oracle.py with "
-        "raft/core.py, log.py and messages.py), which the port does not "
-        "have yet: ROADMAP Queue 1 #1")
+                 until: Optional[int] = None, device=None,
+                 info: Optional[dict] = None) -> dict:
+    """Replay one schedule through the tick AND the host golden core
+    (raft/sim/oracle.py), comparing every comparable field per tick (the
+    `run_differential` protocol of the JAX package).
+
+    The state-conditioned gates are resolved against the TICK's pre-step
+    roles on the host, and the realized (alive, drop) arrays feed both
+    sides, so a mutated (or genuinely buggy) tick diverges from the
+    correct oracle at a deterministic tick; the returned trace names the
+    first differing fields with both sides' values.
+
+    `until` bounds the comparison to ticks t < until.  Callers replaying
+    an adversary-induced SAFETY violation pass the first violating tick:
+    past it the tick is in a state correct raft cannot represent (e.g.
+    two leaders in one term after vote_equivocation), so the two sides'
+    resolutions of the impossible state are incomparable by construction.
+
+    The tick runs unbatched on `device` (the CUDA card unless the caller
+    names another).  It is a host replay: the compared fields come back
+    in one read a tick, plus one of the initial state; the pre-step roles
+    and votes of a tick are the previous read's (no verb changes them
+    before the gates read them).  `info`, when given, receives the ticks
+    replayed and the reads made.
+    """
+    from swarmkit_tpu_torch.dst.explore import apply_mutation
+    from swarmkit_tpu_torch.dst.schedule import (
+        _flood_payload, apply_append_flood, apply_disk_stall,
+        apply_lost_tail, apply_snap_corrupt, apply_torn_write,
+        apply_transfer_abuse,
+    )
+    from swarmkit_tpu_torch.raft.sim.kernel import propose, step
+    from swarmkit_tpu_torch.raft.sim.oracle import OracleCluster
+    from swarmkit_tpu_torch.raft.sim.state import CANDIDATE, LEADER, NONE
+
+    dev = resolve_device(device)
+    state = init_state(cfg, device=dev)
+    oracle = OracleCluster(cfg)
+    n = cfg.n
+    arrs = schedule.to_numpy()
+    drop_s, alive_s = arrs["drop"], arrs["alive"]
+    tl_s, cc_s = arrs["target_leader"], arrs["crash_campaign"]
+    ti_s = arrs.get("term_inflate")
+    rj_s = arrs.get("rejoin_campaign")
+    eq_s = arrs.get("vote_equivocate")
+    fl_s = arrs.get("append_flood")
+    tx_s = arrs.get("transfer_abuse")
+    storage_verbs = {"disk_stall": apply_disk_stall,
+                     "snap_corrupt": apply_snap_corrupt,
+                     "lost_tail": apply_lost_tail,
+                     "torn_write": apply_torn_write}
+
+    def on_dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    trace: list[dict] = []
+    diverged_at = -1
+    kv = _kernel_view(state)
+    reads = 1
+    stop = schedule.ticks if until is None else min(until, schedule.ticks)
+    t = -1
+    for t in range(stop):
+        role = kv["role"]
+        leaders = role == LEADER
+        drop = drop_s[t] | (tl_s[t] & (leaders[:, None] | leaders[None, :]))
+        alive = alive_s[t] & ~(cc_s[t] & (role == CANDIDATE))
+        alive_d = on_dev(alive)
+        # the forced campaign, resolved against the tick's pre-step roles
+        # and mirrored on both sides (elapsed := timeout on the oracle's
+        # scheduler); term_inflate and rejoin_campaign share the transform
+        force = np.zeros(n, bool)
+        if ti_s is not None:
+            force |= ti_s[t]
+        if rj_s is not None:
+            force |= rj_s[t]
+        force &= alive & (role != LEADER)
+        if force.any():
+            state = dataclasses.replace(state, elapsed=torch.where(
+                on_dev(force), torch.maximum(state.elapsed, state.timeout),
+                state.elapsed))
+            for i in range(n):
+                if force[i]:
+                    oracle.elapsed[i] = max(oracle.elapsed[i],
+                                            oracle.timeout[i])
+        if eq_s is not None and eq_s[t].any():
+            # adversarial vote wipe against the pre-step votes; core's
+            # vote is 1-based (0 = none)
+            wipe = eq_s[t] & alive & (kv["vote"] != NONE)
+            if wipe.any():
+                state = dataclasses.replace(state, vote=torch.where(
+                    on_dev(wipe), NONE, state.vote))
+                for i in range(n):
+                    if wipe[i]:
+                        oracle.nodes[i].vote = 0
+        if tx_s is not None and tx_s[t].any():
+            # the oracle mirror holds with the cooldown off (how the
+            # differential sweeps run); repeats are no-ops on both sides
+            tgt = int(np.argmax(tx_s[t]))
+            state = apply_transfer_abuse(state, cfg, on_dev(tx_s[t]),
+                                         alive_d)
+            for i in range(n):
+                if leaders[i] and alive[i] and i != tgt:
+                    oracle.transfer(i, tgt)
+        if fl_s is not None and fl_s[t]:
+            # cfg.max_props dense proposals on every accepting leader; the
+            # oracle replays the same payloads (computed on the host)
+            cnt = cfg.max_props
+            fl_pl = _flood_payload(t, torch.arange(cnt, dtype=torch.int64)
+                                   ).numpy().view(np.uint32)
+            state = apply_append_flood(state, cfg, on_dev(fl_s[t]), alive_d)
+            oracle._phase_propose(alive, fl_pl, cnt)
+        # storage verbs on the tick's side only: the oracle's disk is
+        # perfect, so a compared range stops before the first one fires
+        # (replay_artifact's SAFETY_BITS `until`)
+        if state.sync_mark is not None:
+            for leaf, verb in storage_verbs.items():
+                if leaf in arrs and arrs[leaf][t].any():
+                    state = verb(state, on_dev(arrs[leaf][t]), alive_d)
+
+        payloads = np.zeros(cfg.max_props, np.uint32)
+        if prop_count:
+            k = np.arange(prop_count, dtype=np.uint32)
+            payloads[:prop_count] = \
+                (np.uint32(t) * np.uint32(1 << 16) + k + np.uint32(1)) \
+                & np.uint32(0x7FFFFFFF)
+            state = propose(state, cfg, payloads, prop_count, alive=alive_d,
+                            device=dev)
+        state = step(state, cfg, alive=alive_d, drop=on_dev(drop),
+                     device=dev)
+        state = apply_mutation(state, cfg, mutation)
+        oracle.tick(alive, drop, payloads, prop_count)
+        kv = _kernel_view(state)
+        reads += 1
+        ov = oracle.view()
+        diffs = [f for f in _VIEW_FIELDS
+                 if not np.array_equal(kv[f], getattr(ov, f))]
+        if diffs:
+            if diverged_at < 0:
+                diverged_at = t
+            trace.append({
+                "tick": t,
+                "fields": diffs,
+                "kernel": {f: kv[f].tolist() for f in diffs},
+                "oracle": {f: np.asarray(getattr(ov, f)).tolist()
+                           for f in diffs},
+            })
+            if stop_after_first:
+                break
+    if info is not None:
+        info.update(ticks=t + 1, reads=reads)
+    return {"diverged_at": diverged_at, "trace": trace}
 
 
 # ---------------------------------------------------------------------------
@@ -518,10 +680,10 @@ def load_artifact(path: str) -> dict:
         return json.load(f)
 
 
-def replay_artifact(art, with_trace: bool = False, device=None) -> dict:
+def replay_artifact(art, with_trace: bool = True, device=None) -> dict:
     """Re-run an artifact (a dict or a path): the recorded violation must
-    reproduce exactly (bits AND first tick).  `with_trace=True` asks for
-    the oracle trace, which is not ported yet (oracle_trace raises)."""
+    reproduce exactly (bits AND first tick).  Returns the verdict and,
+    with `with_trace`, the oracle trace (`out["oracle"]`)."""
     if isinstance(art, str):
         art = load_artifact(art)
     cfg, schedule, prop_count, mutation = from_artifact(art, device=device)
@@ -535,5 +697,14 @@ def replay_artifact(art, with_trace: bool = False, device=None) -> dict:
                              and first == art["first_tick"]),
     }
     if with_trace:
-        out["oracle"] = oracle_trace(cfg, schedule, prop_count, mutation)
+        # adversary-induced safety violations (no mutation) put the tick
+        # into spec-unrepresentable territory at the violation tick:
+        # compare the oracle only over the clean prefix there.  Mutation
+        # artifacts keep the full trace: the divergence IS the diagnostic
+        # localizing the injected bug.
+        until = (first if mutation is None and (viol & SAFETY_BITS)
+                 and first >= 0 else None)
+        out["oracle"] = oracle_trace(cfg, schedule, prop_count, mutation,
+                                     until=until,
+                                     device=schedule.drop.device)
     return out

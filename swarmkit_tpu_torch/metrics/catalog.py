@@ -7,8 +7,9 @@ JAX package's for the same name, field for field, so the port's scrape
 page reads like the JAX package's.  The port holds the families its
 modules publish: the kernel counters and tick timer (raft/sim/run.py
 KernelObs), the telemetry plane (telemetry/obs.py), the flight recorder
-(flightrec/record.py), the trace export (flightrec/clock.py, export.py)
-and the DST sweep (dst/explore.py, dst/repro.py).
+(flightrec/record.py), the trace export (flightrec/clock.py, export.py),
+the DST sweep (dst/explore.py, dst/repro.py), the multi-raft serving
+plane (multiraft/obs.py) and the SLO engine (slo/engine.py).
 """
 
 from __future__ import annotations
@@ -155,6 +156,59 @@ CATALOG: dict[str, MetricSpec] = {
         "counter", "Adversary verb gate firings lowered into explored "
         "schedules, by attack profile (dst/schedule.py ATTACK_PROFILES).",
         ("attack",)),
+
+    # ---- multi-raft serving plane (multiraft/) ---------------------------
+    # Names and label sets are multiraft/obs.py's METRIC_NAMES.
+    "swarm_multiraft_groups": MetricSpec(
+        "gauge", "Raft groups in the serving plane (leading G axis of "
+        "the grouped state).", ()),
+    "swarm_multiraft_groups_with_leader": MetricSpec(
+        "gauge", "Groups with an acting leader at last publish.", ()),
+    "swarm_multiraft_router_keys_total": MetricSpec(
+        "counter", "Keys handled by the key->group router, by outcome "
+        "(routed = accepted into a per-group batch queue, spilled = "
+        "deferred past one flush by the group's max_props capacity).",
+        ("outcome",)),
+    "swarm_multiraft_leader_changes_total": MetricSpec(
+        "counter", "Per-group leader changes summed over groups: "
+        "publishes where a group's acting leader row differs from the "
+        "previous publish.", ()),
+    "swarm_multiraft_committed_entries_total": MetricSpec(
+        "counter", "Entries committed through consensus summed over "
+        "groups (per group: max commit across rows).", ()),
+    "swarm_multiraft_reads_served_total": MetricSpec(
+        "counter", "Linearizable read ops served summed over groups and "
+        "rows (cfg.read_batch > 0).", ()),
+    "swarm_multiraft_group_commit_latency_ticks": MetricSpec(
+        "gauge", "Per-group propose-to-commit latency in simulated ticks "
+        "(bucket upper edge of the group's on-device telemetry "
+        "histogram), by group index and quantile (p50 / p99).  Published "
+        "only while the plane holds at most GROUP_LABEL_CAP groups.",
+        ("group", "quantile")),
+    "swarm_multiraft_group_leader_changes_total": MetricSpec(
+        "counter", "Leader changes per group: publishes where this "
+        "group's acting leader row differs from the previous publish "
+        "(the churn-rate input for the SLO engine).", ("group",)),
+    "swarm_multiraft_group_heat": MetricSpec(
+        "gauge", "EWMA hot-group heat score, by group index: router "
+        "spills (weighted SPILL_WEIGHT x) fused with per-group commit "
+        "rate (multiraft/heat.py).  All groups up to GROUP_LABEL_CAP, "
+        "top HEAT_TOP_K hottest beyond.", ("group",)),
+
+    # ---- SLO burn-rate engine (slo/) -------------------------------------
+    # Names and label sets are slo/engine.py's METRIC_NAMES.
+    "swarm_slo_state": MetricSpec(
+        "gauge", "Alert state of one SLO for one group: 0 = ok, 1 = "
+        "warn, 2 = page (slo/engine.py state machine with hysteresis).",
+        ("slo", "group")),
+    "swarm_slo_burn_rate": MetricSpec(
+        "gauge", "Burn rate of one SLO's error budget over the fast / "
+        "slow evaluation window (1.0 = burning exactly the budget).",
+        ("slo", "group", "window")),
+    "swarm_slo_transitions_total": MetricSpec(
+        "counter", "SLO state-machine transitions, by SLO, group, and "
+        "the state ENTERED (warn escalations, page escalations, "
+        "recoveries to ok).", ("slo", "group", "state")),
 }
 
 

@@ -21,8 +21,9 @@ class Bx:
     Each helper emits today's unbatched op when there is no batch axis
     (`on` False), so the unbatched tick runs the same program as before,
     and its batched form when there is: sender-row gathers (`take`, `at`,
-    `pick`), last-axis ring stores (`put_at`), the transpose and diagonal
-    of the last two axes, per-node vectors broadcast as columns or rows,
+    `pick`), last-axis ring stores (`put_at`), ring slots per row
+    (`ring_ix`), the transpose and diagonal of the last two axes,
+    per-node vectors broadcast as columns or rows,
     the ring rows of all clusters as one [B*N, L] matrix (`rows`),
     reduction axes shifted past the batch axis (`d`), and the tick, a
     per-cluster scalar, shaped for an operand of a given rank (`t`)."""
@@ -76,6 +77,17 @@ class Bx:
         """[.., N, L] -> the ring rows [N, L], or [B*N, L] batched: a view,
         so an in-place write through it lands in x (x contiguous)."""
         return x.view(-1, x.shape[-1]) if self.on else x
+
+    def ring_ix(self, slot):
+        """The advanced index of ring slots `slot` [.., N, K] (int64) in an
+        [.., N, L] ring: x[ring_ix(slot)] reads, and assigns, each row's K
+        slots."""
+        n = slot.shape[-2]
+        rows = torch.arange(n, device=slot.device)
+        if not self.on:
+            return rows[:, None], slot
+        b = torch.arange(self.B, device=slot.device)
+        return b[:, None, None], rows[None, :, None], slot
 
     def take(self, x, idx):
         """x[idx]: rows of a per-node [.., N] or [.., N, M] tensor by the

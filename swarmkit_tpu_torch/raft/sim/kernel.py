@@ -137,13 +137,23 @@ def _read_back(xs: list) -> list:
     return torch.stack([x.to(torch.int64) for x in xs]).tolist()
 
 
+def read_many(xs: list) -> list:
+    """Integer or bool tensors of one device to host int64 arrays of their
+    own shapes, in one device->host read (the host planes' scrapes and
+    the oracle replay's views; not a step sync)."""
+    flat = torch.cat([x.reshape(-1).to(torch.int64) for x in xs]) \
+        .cpu().numpy()
+    sizes = np.cumsum([x.numel() for x in xs])[:-1]
+    return [a.reshape(x.shape) for a, x in zip(np.split(flat, sizes), xs)]
+
+
 # ---- index helpers ---------------------------------------------------------
 
 
 def _refuse_batched(cfg: SimConfig, what: str) -> None:
     """Raise for a lever or plane the batched tick does not run yet, naming
     its ROADMAP item: never a silent fallback."""
-    item = "ROADMAP Queue 1 #2"
+    item = "ROADMAP Queue 1 #1"
     refused = [
         (cfg.tiled, f"cfg.tiled (the banded log: append_band_copy over "
                     f"[B*N, L] rows with a batch-wide band, {item})"),
@@ -425,6 +435,9 @@ def step(state: SimState, cfg: SimConfig,
     prop_count/payload_fn: the fused dense propose — bit-identical to
     ``step(propose_dense(state, cfg, payload_fn, prop_count, alive), ...)``
     with the proposal ring stores folded into Phase C's ring write.
+    prop_count is an int, or a device tensor that is never read back: 0-d,
+    or [B] on a batched state, one count per cluster (the multi-raft
+    plane's per-group counts).
     payload_fn(tick, k) maps the tick and the int64 batch positions k to
     uint32 payload bits (run._payload_at).
     prop_tag: an int host trace tag of the fused propose batch
@@ -486,7 +499,14 @@ def step(state: SimState, cfg: SimConfig,
     fused_prop = payload_fn is not None
     if fused_prop:
         prop_ok = _leader_ok(state, cfg, alive, bx)
-        prop_cnt = int(prop_count)
+        if isinstance(prop_count, torch.Tensor):
+            # a device count, 0-d or per cluster [B]: never read back
+            pc = prop_count.to(I32)
+            if bx.on:
+                pc = pc.reshape(-1).expand(bx.B)
+            prop_cnt, prop_cnt2 = bx.t(pc, 1), bx.t(pc, 2)
+        else:
+            prop_cnt = prop_cnt2 = int(prop_count)
         prop_last0 = last
         prop_anchor = prop_last0 + prop_cnt
         last = last + torch.where(prop_ok, prop_cnt, 0).to(I32)
@@ -547,7 +567,10 @@ def step(state: SimState, cfg: SimConfig,
     # progress segments, which read no ring); a proposing row's new last
     # entry carries its own pre-tick term
     last_term = _term_own(cfg, log_term, snap_idx, snap_term, last, last, bx)
-    if fused_prop and prop_cnt > 0:
+    if fused_prop and isinstance(prop_cnt, torch.Tensor):
+        last_term = torch.where(prop_ok & (prop_cnt > 0), state.term,
+                                last_term)
+    elif fused_prop and prop_cnt > 0:
         last_term = torch.where(prop_ok, state.term, last_term)
 
     # ---- role-sparse progress: the active-row set ------------------------
@@ -1207,7 +1230,7 @@ def step(state: SimState, cfg: SimConfig,
         """The fused propose's stores into a chunk or full view (in place):
         new_idx is the slot->index map anchored one batch ahead."""
         k_of = new_idx - bx.col(prop_last0) - 1
-        valid = bx.col(prop_ok) & (k_of >= 0) & (k_of < prop_cnt)
+        valid = bx.col(prop_ok) & (k_of >= 0) & (k_of < prop_cnt2)
         _put(lt, valid, bx.col(state.term))
         _put(ld, valid, payloads(k_of))
 
@@ -1938,7 +1961,8 @@ def _one_cluster(state: SimState, what: str) -> None:
         raise ValueError(
             f"{what} takes one cluster's state; this one has a leading "
             f"batch axis of {batch_size(state)} (drive a batch through "
-            f"step, propose_dense or the dst verbs)")
+            f"step, propose, propose_dense, run.submit_reads or the dst "
+            f"verbs)")
 
 
 def propose(state: SimState, cfg: SimConfig, payloads, count, alive=None,
@@ -1947,25 +1971,40 @@ def propose(state: SimState, cfg: SimConfig, payloads, count, alive=None,
     uint32 values, array-like; bit 31 is reserved for conf entries and
     masked off) to every row accepting proposals.  `tag` is the batch's
     int trace tag (cfg.trace_tags).  Writes the state's rings (and, with
-    telemetry on, the batch stamp) in place."""
-    _one_cluster(state, "propose")
+    telemetry on, the batch stamp) in place.
+
+    On a batched state each cluster takes its own batch, as the JAX
+    package's jax.vmap(propose) gives it: payloads [B, max_props] and
+    counts [B] (array-likes, or device tensors, which are not read back),
+    with `alive` [B, N]."""
     dev = check_device(state, device)
-    n, count = cfg.n, int(count)
-    ok = _leader_ok(state, cfg, alive)
+    bx = Bx(batch_size(state))
+    if bx.on:
+        _refuse_batched(cfg, "propose")
+    if bx.on or isinstance(count, torch.Tensor):
+        count = torch.as_tensor(count).to(device=dev, dtype=I32)
+        if bx.on:
+            count = count.reshape(-1).expand(bx.B)
+        cnt1, cnt2 = bx.t(count, 1), bx.t(count, 2)
+    else:
+        count = cnt1 = cnt2 = int(count)
+    pl = payloads if isinstance(payloads, torch.Tensor) else \
+        torch.from_numpy(np.asarray(payloads, dtype=np.int64))
+    pl = pl.to(device=dev, dtype=torch.int64).reshape(
+        (bx.B, -1) if bx.on else (-1,))
+    pl = bx.row(u32.to_bits(pl & PAYLOAD_MASK))            # [.., 1, P]
+    ok = _leader_ok(state, cfg, alive, bx)
     k = torch.arange(cfg.max_props, dtype=I32, device=dev)
-    valid = (k[None, :] < count) & ok[:, None]                   # [N, B]
-    slot = _slot(cfg, state.last[:, None] + 1 + k[None, :])
-    rows = torch.arange(n, device=dev)[:, None]
-    pl = u32.to_bits(torch.as_tensor(np.asarray(payloads, dtype=np.int64),
-                                     device=dev) & PAYLOAD_MASK)[None, :]
+    valid = (k < cnt2) & bx.col(ok)                          # [.., N, P]
+    ix = bx.ring_ix(_slot(cfg, bx.col(state.last) + 1 + k))
     lt, ld = state.log_term, state.log_data
-    lt[rows, slot] = torch.where(valid, state.term[:, None], lt[rows, slot])
-    ld[rows, slot] = torch.where(valid, pl, ld[rows, slot])
+    lt[ix] = torch.where(valid, bx.col(state.term), lt[ix])
+    ld[ix] = torch.where(valid, pl, ld[ix])
     if cfg.collect_telemetry and state.tel_prop_idx is not None:
-        _stamp_batch(state, cfg, ok, state.last + 1, count, tag)
-    new_last = state.last + torch.where(ok, count, 0).to(I32)
-    eye = torch.eye(n, dtype=torch.bool, device=dev)
-    match = torch.where(ok[:, None] & eye, new_last[:, None], state.match)
+        _stamp_batch(state, cfg, ok, state.last + 1, cnt1, tag, bx)
+    new_last = state.last + torch.where(ok, cnt1, 0).to(I32)
+    eye = torch.eye(cfg.n, dtype=torch.bool, device=dev)
+    match = torch.where(bx.col(ok) & eye, bx.col(new_last), state.match)
     return dataclasses.replace(state, last=new_last, match=match)
 
 

@@ -27,7 +27,7 @@ from swarmkit_tpu_torch.raft.sim import u32
 from swarmkit_tpu_torch.metrics import catalog as obs_catalog
 from swarmkit_tpu_torch.metrics import registry as obs_registry
 from swarmkit_tpu_torch.metrics import scrape as obs_scrape
-from swarmkit_tpu_torch.raft.sim.kernel import _first_true, _one_cluster, step
+from swarmkit_tpu_torch.raft.sim.kernel import _first_true, step
 from swarmkit_tpu_torch.raft.sim.state import (
     LEADER, NONE, SimConfig, SimState, batch_size, check_device, drop_matrix,
 )
@@ -172,27 +172,41 @@ def submit_reads(state: SimState, cfg: SimConfig, count: int, rows=None,
     take one, and each records max(commit) as its linearizability goal.
     Needs cfg.read_batch > 0 (the read registers).  `tag` is the batch's
     int trace tag (cfg.trace_tags; metrics/trace.py span_trace_tag): the
-    READ_SERVED event that settles it carries the tag.  One cluster's
-    state only: it raises on a batched one."""
-    _one_cluster(state, "submit_reads")
+    READ_SERVED event that settles it carries the tag.
+
+    On a batched state `count` is one count per cluster ([B] array-like,
+    or a device tensor, which is not read back) and each cluster's goal is
+    its own max(commit), as the JAX package's jax.vmap(submit_reads)
+    gives them; `rows` then selects the same rows in every cluster."""
     dev = check_device(state, device)
     if state.read_pend is None:
         raise ValueError("read path is off (SimConfig.read_batch == 0); "
                          "no read registers to submit into")
+    batched = _batched(state)
+    if batched and cfg.trace_tags:
+        raise ValueError("submit_reads on a batched state does not run "
+                         "cfg.trace_tags (trace tags under a batch axis, "
+                         "ROADMAP Queue 1 #1); use an unbatched state")
     sel = torch.ones((cfg.n,), dtype=torch.bool, device=dev)
     if rows is not None:
         sel = torch.zeros_like(sel)
         sel[torch.as_tensor(rows, dtype=torch.int64, device=dev)] = True
     open_ = sel & (state.read_pend == 0)
+    # the goal: each cluster's acked-write frontier (a value reduction)
+    if batched:
+        count = torch.as_tensor(count).to(device=dev, dtype=I32) \
+            .reshape(-1, 1)
+        goal = state.commit.amax(-1, keepdim=True)
+    else:
+        count, goal = int(count), state.commit.amax()
     tag_fields = {}
     if cfg.trace_tags and state.read_tag is not None:
         tag_fields["read_tag"] = torch.where(
             open_, 0 if tag is None else int(tag), state.read_tag)
     return dataclasses.replace(
         state,
-        read_pend=torch.where(open_, int(count), state.read_pend),
-        # the goal: the cluster's acked-write frontier (a value reduction)
-        read_goal=torch.where(open_, state.commit.amax(), state.read_goal),
+        read_pend=torch.where(open_, count, state.read_pend),
+        read_goal=torch.where(open_, goal, state.read_goal),
         read_idx=torch.where(open_, NONE, state.read_idx), **tag_fields)
 
 

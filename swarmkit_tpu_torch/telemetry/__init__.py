@@ -7,7 +7,8 @@ and ring ops the kernel's end-of-tick telemetry block uses when
 TelemetryObs publisher, the ring decoder and the JSON summary.
 """
 
-from .obs import TelemetryObs, decode_series, percentile_edge, summarize_state
+from .obs import (TelemetryObs, decode_series, percentile_edge,
+                  summarize_groups, summarize_state)
 from .series import (GAUGE_ROWS, LATENCY_BUCKET_EDGES, NUM_BUCKETS,
                      NUM_SERIES, PROP_RING, SERIES_COMMIT_RATE,
                      SERIES_LEADER_CHANGES, SERIES_LOG_OCCUPANCY,
@@ -15,7 +16,8 @@ from .series import (GAUGE_ROWS, LATENCY_BUCKET_EDGES, NUM_BUCKETS,
                      hist_fold, percentile_edge_device, ring_write)
 
 __all__ = [
-    "TelemetryObs", "decode_series", "percentile_edge", "summarize_state",
+    "TelemetryObs", "decode_series", "percentile_edge", "summarize_groups",
+    "summarize_state",
     "GAUGE_ROWS", "LATENCY_BUCKET_EDGES", "NUM_BUCKETS", "NUM_SERIES",
     "PROP_RING", "SERIES_COMMIT_RATE", "SERIES_LEADER_CHANGES",
     "SERIES_LOG_OCCUPANCY", "SERIES_NAMES", "SERIES_READS_BLOCKED",

@@ -105,6 +105,33 @@ def summarize_state(state, cfg) -> dict:
     return out
 
 
+# the fields summarize_state reads
+_SUMMARY_FIELDS = ("tick", "tel_commit_hist", "tel_elect_hist",
+                   "tel_read_hist", "tel_series")
+
+
+def summarize_groups(gstate, cfg) -> list:
+    """Per-group ``summarize_state`` over a [G, N, ...] grouped state.
+
+    One device->host read of the fields the summary uses, then host-side
+    slicing: group g's summary is exactly what a solo run of that group
+    would report (the grouped tick folds each group on its own).  Returns
+    ``[{"enabled": False}] * G`` when telemetry is off.
+    """
+    from types import SimpleNamespace
+
+    from swarmkit_tpu_torch.raft.sim.kernel import read_many
+
+    groups = int(gstate.tick.shape[0])
+    if getattr(gstate, "tel_commit_hist", None) is None:
+        return [{"enabled": False} for _ in range(groups)]
+    host = dict(zip(_SUMMARY_FIELDS, read_many(
+        [getattr(gstate, f) for f in _SUMMARY_FIELDS])))
+    return [summarize_state(
+        SimpleNamespace(**{f: a[g] for f, a in host.items()}), cfg)
+        for g in range(groups)]
+
+
 class TelemetryObs:
     """Publishes a telemetry-enabled SimState into a metrics registry."""
 

@@ -23,8 +23,12 @@ headline), the durability A/B (256-fsyncgate: bare, then the storage
 model with fsync every 4 ticks and ack gating, on a ring and window deep
 enough for the fsync pipeline) and the two lowering A/B pairs
 (1024-densepeer: banded vs dense peer counts; 4096-sparseprog: slab vs
-dense progress), seed 7, at the headline's entry count.  Prints the card's
-`nvidia-smi` name and power limit, then one JSON line with bench.py's keys.
+dense progress), seed 7, at the headline's entry count, and bench.py's
+two multi-raft configurations (`measure_multiraft`: multiraft-1024x3, G =
+1024 groups of 3 with reads and leases, and multiraft-telemetry, G = 256
+bare against telemetry on, here in turns with the ratio's spread).
+Prints the card's `nvidia-smi` name and power limit, then one JSON line
+with bench.py's keys.
 
 As in bench.py, every run-loop call is timed into
 swarm_kernel_tick_seconds{call=...} (KernelObs.timed, one registry per
@@ -53,6 +57,7 @@ import time
 
 import torch
 
+from swarmkit_tpu_torch import multiraft
 from swarmkit_tpu_torch.device import resolve_device
 from swarmkit_tpu_torch.metrics.registry import MetricsRegistry
 from swarmkit_tpu_torch.raft.sim import kernel
@@ -257,6 +262,168 @@ def fsyncgate(n: int, entries: int, dev, chunk: int = 64) -> dict:
             "telemetry": telemetry_json(gm)}
 
 
+def multiraft_cfg(n: int, seed: int,
+                  collect_telemetry: bool = False) -> SimConfig:
+    """bench.py::measure_multiraft's per-group shape: the untiled dense
+    tick (L=512, window 128, 32 proposals a tick), the read path with
+    leases, static members; with telemetry, the 64-deep batch ring."""
+    return SimConfig(n=n, log_len=512, window=128, apply_batch=64,
+                     max_props=32, keep=64, seed=seed, election_tick=10,
+                     read_batch=32, read_leases=True, static_members=True,
+                     collect_telemetry=collect_telemetry,
+                     telemetry_prop_ring=64 if collect_telemetry else 0,
+                     collect_stats=True)
+
+
+def elect_groups(gstate: SimState, cfg: SimConfig, dev, groups: int):
+    """bench.py's fleet election: 32-tick run_group_ticks chunks (at most
+    16) until 99% of the groups have a leader, reading the count once a
+    chunk.  Returns (state, ticks, seconds)."""
+    ticks, t0 = 0, time.perf_counter()
+    for _ in range(16):
+        gstate, _ = multiraft.run_group_ticks(gstate, cfg, 32, device=dev)
+        ticks += 32
+        if int(multiraft.groups_with_leader(gstate)) >= groups * 99 // 100:
+            break
+    t_elect = time.perf_counter() - t0
+    led = int(multiraft.groups_with_leader(gstate))
+    if led < groups // 2 + 1:
+        raise MeasureError(f"multiraft: only {led}/{groups} groups elected "
+                           f"a leader within {ticks} ticks")
+    return gstate, ticks, t_elect
+
+
+def _timed_groups(gstate, cfg, dev, n_chunks: int, chunk: int):
+    """`n_chunks` chunks of fused-propose ticks (max_props per group a
+    tick), each ended by a synchronize: (state, committed, reads, s)."""
+    base = int(multiraft.aggregate_committed(gstate))
+    base_reads = int(multiraft.aggregate_reads_served(gstate))
+    t0 = time.perf_counter()
+    for _ in range(n_chunks):
+        gstate, _ = multiraft.run_group_ticks(gstate, cfg, chunk,
+                                              prop_count=cfg.max_props,
+                                              device=dev)
+        _sync(dev)
+    dt = time.perf_counter() - t0
+    return (gstate, int(multiraft.aggregate_committed(gstate)) - base,
+            int(multiraft.aggregate_reads_served(gstate)) - base_reads, dt)
+
+
+def _multiraft_chunks(groups: int, cfg: SimConfig, entries: int,
+                      chunk: int) -> int:
+    per_tick = groups * cfg.max_props
+    return -(-max(100, -(-entries // per_tick)) // chunk)
+
+
+def measure_multiraft(groups: int, n: int, entries: int, seed: int, dev,
+                      collect_telemetry: bool = False,
+                      chunk: int = 64) -> dict:
+    """bench.py::measure_multiraft on the port: elect the [G, N] fleet
+    (staggered timeouts), a warm pass, then the timed chunks of
+    fused-propose ticks; aggregate committed entries/s and lease-served
+    reads/s summed over groups.  bench.py shards the groups over a device
+    mesh when it sees several devices; group sharding is not ported (one
+    card, ROADMAP), so the fleet is unsharded."""
+    cfg = multiraft_cfg(n, seed, collect_telemetry)
+    gstate, elect_ticks, t_elect = elect_groups(
+        multiraft.init_groups(cfg, groups, device=dev), cfg, dev, groups)
+    n_chunks = _multiraft_chunks(groups, cfg, entries, chunk)
+    t0 = time.perf_counter()
+    warm, _, _, _ = _timed_groups(gstate, cfg, dev, n_chunks, chunk)
+    t_warm = time.perf_counter() - t0
+    kernel.reset_counts()
+    final, committed, reads, dt = _timed_groups(warm, cfg, dev, n_chunks,
+                                                chunk)
+    counts = dict(kernel.COUNTS)
+    summary = multiraft.MultiRaftObs(registry=MetricsRegistry()) \
+        .publish(final)
+    return {"cfg": cfg, "final": final, "rate": committed / dt,
+            "read_rate": reads / dt, "dt": dt, "committed": committed,
+            "reads": reads, "groups": groups,
+            "groups_with_leader": summary["groups_with_leader"],
+            "elect_ticks": elect_ticks, "t_elect": t_elect,
+            "t_compile": t_warm, "timed_ticks": n_chunks * chunk,
+            "counts": counts}
+
+
+def multiraft_telemetry_ab(groups: int, n: int, entries: int, dev,
+                           pairs: int = 8, chunk: int = 64) -> dict:
+    """bench.py's multiraft-telemetry A/B on one [G, N] shape, measured in
+    turns: both fleets (bare, telemetry on) elect and warm, then `pairs`
+    timed passes of each alternate, bare first.  Returns bench.py's keys
+    (`dense`, `telemetry`: aggregate entries/s over every pass of each;
+    `telemetry_over_dense`: the median of the per-pair ratios) with the
+    ratios' spread, and each fleet's final state."""
+    fleets = {}
+    for tel in (False, True):
+        cfg = multiraft_cfg(n, 7, tel)
+        st, _, _ = elect_groups(multiraft.init_groups(cfg, groups,
+                                                      device=dev),
+                                cfg, dev, groups)
+        fleets[tel] = [cfg, st, 0, 0.0]
+    n_chunks = _multiraft_chunks(groups, fleets[False][0], entries, chunk)
+    for f in fleets.values():                   # the warm pass
+        f[1] = _timed_groups(f[1], f[0], dev, n_chunks, chunk)[0]
+    ratios = []
+    for _ in range(pairs):
+        rate = {}
+        for tel, f in fleets.items():
+            f[1], committed, _, dt = _timed_groups(f[1], f[0], dev,
+                                                   n_chunks, chunk)
+            f[2] += committed
+            f[3] += dt
+            rate[tel] = committed / dt
+        ratios.append(rate[True] / rate[False])
+    dense = fleets[False][2] / fleets[False][3]
+    tel = fleets[True][2] / fleets[True][3]
+    return {"dense": round(dense, 1), "telemetry": round(tel, 1),
+            "telemetry_over_dense": round(sorted(ratios)[len(ratios) // 2],
+                                          3),
+            "telemetry_over_dense_min": round(min(ratios), 3),
+            "telemetry_over_dense_max": round(max(ratios), 3),
+            "pairs": pairs, "final_bare": fleets[False][1],
+            "final_telemetry": fleets[True][1], "cfg": fleets[True][0]}
+
+
+def _multiraft(args, dev, log, result: dict, extra: dict) -> None:
+    """bench.py's two multi-raft configurations: multiraft-1024x3 (its
+    rate, and its reads as the -reads series) and the grouped-telemetry
+    A/B at G=256 with bench.py's 0.8 tripwire."""
+    name = "multiraft-1024x3"
+    mm = measure_multiraft(1024, 3, args.entries, 7, dev,
+                           chunk=args.chunk_ticks)
+    extra[name] = round(mm["rate"], 1)
+    extra[f"{name}-reads"] = round(mm["read_rate"], 1)
+    extra[f"{name}_detail"] = {
+        "groups_with_leader": mm["groups_with_leader"],
+        "groups": mm["groups"], "election_ticks": mm["elect_ticks"],
+        "election_s": mm["t_elect"], "warm_pass_s": mm["t_compile"],
+        "ms_per_tick": mm["dt"] / mm["timed_ticks"] * 1e3,
+        "host_syncs_per_tick":
+            mm["counts"]["host_syncs"] / mm["timed_ticks"]}
+    log(f"config {name}: {mm['rate']:,.0f} aggregate entries/s + "
+        f"{mm['read_rate']:,.0f} reads/s across "
+        f"{mm['groups_with_leader']}/{mm['groups']} led groups (elected in "
+        f"{mm['elect_ticks']} ticks)")
+    del mm
+    name = "multiraft-telemetry"
+    ab = multiraft_telemetry_ab(256, 3, args.entries, dev,
+                                chunk=args.chunk_ticks)
+    extra[name] = {k: ab[k] for k in (
+        "dense", "telemetry", "telemetry_over_dense",
+        "telemetry_over_dense_min", "telemetry_over_dense_max", "pairs")}
+    log(f"config {name}: bare {ab['dense']:,.0f} vs telemetry "
+        f"{ab['telemetry']:,.0f} aggregate entries/s (median ratio "
+        f"{ab['telemetry_over_dense']:.3f}, "
+        f"{ab['telemetry_over_dense_min']:.3f}-"
+        f"{ab['telemetry_over_dense_max']:.3f} over {ab['pairs']} pairs) "
+        f"across 256 groups")
+    if ab["telemetry_over_dense"] < 0.8:
+        result.setdefault("note", f"grouped-telemetry tripwire: telemetry "
+                                  f"rate {ab['telemetry']:,.0f} < 0.8x bare "
+                                  f"{ab['dense']:,.0f} at {name}")
+
+
 def _secondary(args, dev, log, result: dict) -> dict:
     """BASELINE configs 3-5, the mailbox wire, the log-capacity, read-mix
     and durability configs, and the two lowering A/B pairs; the read mix's
@@ -344,6 +511,7 @@ def _secondary(args, dev, log, result: dict) -> dict:
                                 "sparse_over_dense": sparse / dense}
     for name in ("256-fsyncgate", "1024-densepeer", "4096-sparseprog"):
         log(f"config {name}: {extra[name]}")
+    _multiraft(args, dev, log, result, extra)
     return extra
 
 

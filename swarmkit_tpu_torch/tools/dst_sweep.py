@@ -26,8 +26,9 @@ It runs on the CUDA card and raises without one, unless --device cpu.
 
 The schedules follow the JAX package's profile laws but not its random
 stream (dst/schedule.py), so a seed's schedules, and the demos' numbers,
-are the port's own.  The oracle trace of an artifact is not ported yet
-(ROADMAP Queue 1 #1): replays report the bits and the first tick.
+are the port's own.  A replay also runs the artifact through the host
+golden core in lockstep (dst.oracle_trace) and reports where the two first
+diverge.
 """
 
 from __future__ import annotations
@@ -210,6 +211,7 @@ def run_mutation_demo(schedules: int = 24, ticks: int = 100, seed: int = 0,
         "shrink_s": shrink_s,
         "artifact": out_path,
         "replay_matches": verdict["matches_recorded"],
+        "oracle_diverged_at": verdict["oracle"]["diverged_at"],
         "first_tick": f2,
         "flight_events": len(flight["window"]),
     })
@@ -221,8 +223,14 @@ def run_mutation_demo(schedules: int = 24, ticks: int = 100, seed: int = 0,
               flush=True)
         replayed = "reproduces exactly" if demo["replay_matches"] \
             else "DIVERGED"
-        print(f"repro artifact: {out_path} — replay {replayed} (the oracle "
-              f"trace is not ported yet)", flush=True)
+        oracle_note = (
+            f"oracle trace localizes divergence at tick "
+            f"{demo['oracle_diverged_at']}"
+            if demo["oracle_diverged_at"] >= 0 else
+            "oracle view agrees (mutation corrupts only read registers, "
+            "outside the oracle's field view)")
+        print(f"repro artifact: {out_path} — replay {replayed}, "
+              f"{oracle_note}", flush=True)
         tail = flight["record"].window(6)
         if tail:
             print(f"flight window (last {len(tail)} device events before "
@@ -363,8 +371,8 @@ def run_lost_tail_demo(schedules: int = 8, ticks: int = 120, seed: int = 7,
     cluster can commit entries no surviving copy holds (DURABILITY trips
     at the crash tick); with ``ack_gating`` the same schedules come back
     clean.  The first counterexample is shrunk and dumped as a
-    replay-exact artifact.  (The JAX package also holds the host oracle in
-    lockstep over the clean prefix; that trace is not ported yet.)"""
+    replay-exact artifact, whose replay holds the host oracle in lockstep
+    over the clean prefix (the crash tick is the violation tick)."""
     dev = resolve_device(device)
     out = {"schedules": schedules, "ticks": ticks, "seed": seed, "n": n}
     off = dataclasses.replace(_cfg(n, seed, reads=0), fsync_lag_ticks=6)
@@ -409,9 +417,11 @@ def run_lost_tail_demo(schedules: int = 8, ticks: int = 120, seed: int = 7,
         "shrink_evals": evals,
         "artifact": out_path,
         "replay_matches": verdict["matches_recorded"],
+        "oracle_diverged_at": verdict["oracle"]["diverged_at"],
     })
     out["neutralized"] = (out["gated_violations"] == 0
-                          and out["replay_matches"])
+                          and out["replay_matches"]
+                          and out["oracle_diverged_at"] == -1)
     if verbose:
         print(f"lost_tail x{schedules} schedules x {ticks} ticks: "
               f"gating-off caught {out['caught']} DURABILITY trips "
@@ -422,9 +432,12 @@ def run_lost_tail_demo(schedules: int = 8, ticks: int = 120, seed: int = 7,
             else "DIVERGED"
         verdict = "ack-gating makes committed mean durable" \
             if out["neutralized"] else "NOT neutralized"
-        print(f"repro artifact: {out_path} — replay {replayed}, gating-on "
-              f"{out['gated_violations']} violations — {verdict}",
-              flush=True)
+        lock = "lockstep over the clean prefix" \
+            if out["oracle_diverged_at"] == -1 \
+            else f"diverged at tick {out['oracle_diverged_at']}"
+        print(f"repro artifact: {out_path} — replay {replayed}, oracle "
+              f"{lock}, gating-on {out['gated_violations']} violations — "
+              f"{verdict}", flush=True)
     return out
 
 
@@ -436,6 +449,13 @@ def replay_artifact_file(path: str, verbose: bool = True,
               f"{verdict['first_tick']} — "
               + ("matches recorded run" if verdict["matches_recorded"]
                  else "MISMATCH"), flush=True)
+        tr = verdict["oracle"]
+        if tr["trace"]:
+            print(f"oracle divergence at tick {tr['diverged_at']}: "
+                  f"fields {tr['trace'][0]['fields']}", flush=True)
+        else:
+            print("differential oracle agrees with the tick on every "
+                  "compared tick", flush=True)
     return verdict
 
 

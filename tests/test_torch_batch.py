@@ -225,20 +225,43 @@ def test_batched_step_refuses_what_it_does_not_run(lever):
 @pytest.mark.parametrize("api", ["propose", "propose_conf",
                                  "transfer_leadership", "submit_reads"])
 def test_host_apis_take_one_cluster(api):
+    """propose_conf and transfer_leadership take one cluster's state and
+    refuse a batched one; propose and submit_reads are batch-native, each
+    cluster equal to its own unbatched call."""
     cfg = tstate.SimConfig(**dict(DST5, read_batch=2))
-    batch = tstate.broadcast_state(tstate.init_state(cfg, device=CPU), 2)
+    one = tstate.init_state(cfg, device=CPU)
+    one, _ = trun.run_until_leader(one, cfg, 100, device=CPU)
+    batch = tstate.broadcast_state(one, 2)
     calls = {
-        "propose": lambda: tkernel.propose(batch, cfg, [1, 2], 2,
-                                           device=CPU),
         "propose_conf": lambda: tkernel.propose_conf(batch, cfg, 1, True,
                                                      device=CPU),
         "transfer_leadership": lambda: tkernel.transfer_leadership(
             batch, cfg, 0, 1),
-        "submit_reads": lambda: trun.submit_reads(batch, cfg, 2,
-                                                  device=CPU),
     }
-    with pytest.raises(ValueError, match="one cluster"):
-        calls[api]()
+    if api in calls:
+        with pytest.raises(ValueError, match="one cluster"):
+            calls[api]()
+        return
+    payloads = np.array([[1, 2, 0, 0, 0, 0, 0, 0], [7, 8, 9, 0, 0, 0, 0, 0]])
+    counts = [2, 3]
+    if api == "propose":
+        got = tkernel.propose(batch, cfg, payloads, counts, device=CPU)
+    else:
+        got = trun.submit_reads(batch, cfg, counts, device=CPU)
+    g = tstate.state_to_numpy(got)
+    for b in range(2):
+        single = tstate.state_from_numpy(tstate.state_to_numpy(one),
+                                         device=CPU)
+        if api == "propose":
+            want = tkernel.propose(single, cfg, payloads[b], counts[b],
+                                   device=CPU)
+        else:
+            want = trun.submit_reads(single, cfg, counts[b], device=CPU)
+        for k, w in tstate.state_to_numpy(want).items():
+            assert np.array_equal(g[k][b], w), (api, b, k)
+    if api == "propose":
+        assert g["last"].max(1).tolist() == [
+            int(one.last.amax()) + c for c in counts]
 
 
 def test_batched_telemetry_folds_stay_in_their_cluster():

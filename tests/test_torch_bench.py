@@ -101,3 +101,32 @@ def test_readmix_and_fsyncgate_on_the_cpu():
     assert fg["telemetry"]["commit_latency_ticks_p99"] is not None
     assert fg["dense"] > 0 and fg["gated_k4"] > 0 and fg["durable"]
     assert fg["gated_over_dense"] == fg["gated_k4"] / fg["dense"]
+
+
+def test_measure_multiraft_on_the_cpu():
+    """bench.py's measure_multiraft flow at G=8 groups of 3: the fleet
+    elects (99% of the groups), commits and serves reads in the timed
+    chunks, and a steady grouped tick reads nothing back."""
+    m = bench.measure_multiraft(8, 3, 2000, 7, torch.device("cpu"), chunk=8)
+    assert m["groups_with_leader"] >= 8 * 99 // 100 and m["groups"] == 8
+    assert m["elect_ticks"] % 32 == 0 and m["elect_ticks"] > 0
+    assert m["committed"] > 0 and m["rate"] > 0 and m["read_rate"] > 0
+    assert m["timed_ticks"] == 104 and m["counts"]["host_syncs"] == 0
+    assert m["cfg"].max_props == 32 and m["cfg"].read_batch == 32
+
+
+def test_multiraft_telemetry_pair_on_the_cpu():
+    """The telemetry A/B in turns at G=4: bench.py's keys, the ratio's
+    spread over the pairs, and a telemetry fleet whose per-group
+    summaries saw commits."""
+    from swarmkit_tpu_torch.telemetry import summarize_groups
+
+    ab = bench.multiraft_telemetry_ab(4, 3, 1000, torch.device("cpu"),
+                                      pairs=2, chunk=16)
+    assert {"dense", "telemetry", "telemetry_over_dense"} <= set(ab)
+    assert ab["dense"] > 0 and ab["telemetry"] > 0
+    assert ab["telemetry_over_dense_min"] <= ab["telemetry_over_dense"] \
+        <= ab["telemetry_over_dense_max"] and ab["pairs"] == 2
+    summ = summarize_groups(ab["final_telemetry"], ab["cfg"])
+    assert len(summ) == 4 and all(s["commit"]["total"] > 0 for s in summ)
+    assert ab["final_bare"].tel_commit_hist is None

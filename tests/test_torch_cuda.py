@@ -572,3 +572,77 @@ def test_dst_explore_and_shrink_on_the_card_match_the_cpu(mutation):
         assert np.array_equal(small["cuda"][0].to_numpy()[k], v), k
     assert dst.replay(cfg, small["cuda"][0], 2, mutation, device="cuda") \
         == dst.replay(cfg, small["cpu"][0], 2, mutation, device="cpu")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("extra", [{}, dict(latency=1, latency_jitter=1,
+                                            inflight=2)],
+                         ids=["sync", "mailbox"])
+def test_grouped_tick_on_the_card_matches_the_cpu(extra):
+    """The multi-raft plane at G=8 on the card and on the CPU: the
+    election, per-group fused counts, Router flushes with spills and
+    reads, every field equal after every call; the steady grouped tick
+    reads nothing back and its ring write is one band-copy launch."""
+    _need_card()
+    from swarmkit_tpu_torch import multiraft
+    from swarmkit_tpu_torch.raft.sim import kernel
+
+    cfg = sim.SimConfig(n=3, log_len=512, window=128, apply_batch=64,
+                        max_props=32, keep=64, seed=7, election_tick=10,
+                        read_batch=32, read_leases=True, static_members=True,
+                        collect_telemetry=True, telemetry_prop_ring=64,
+                        collect_stats=True, **extra)
+    sides = {}
+    for d in ("cuda", "cpu"):
+        st, trace = multiraft.run_group_ticks(
+            multiraft.init_groups(cfg, 8, device=d), cfg, 64,
+            prop_count=1, device=d)
+        calls = [sim.state_to_numpy(st), trace.cpu().numpy()]
+        kernel.reset_counts()
+        before = cuda_ops.LAUNCHES["append_band_copy"]
+        st = multiraft.step_groups(
+            st, cfg, prop_count=np.arange(8) % 5 * 8,
+            payload_fn=sim.run._payload_at, device=d)
+        if d == "cuda":
+            assert kernel.COUNTS["host_syncs"] == 0
+            assert cuda_ops.LAUNCHES["append_band_copy"] == before + 1
+        calls.append(sim.state_to_numpy(st))
+        r = multiraft.Router(cfg, 8, device=d)
+        for i in range(8 * cfg.max_props * 2):
+            r.offer(i, payload=i * 7919)
+        r.offer_read("k", count=5)
+        for _ in range(3):
+            st = r.flush(st)
+            calls.append(sim.state_to_numpy(st))
+        sides[d] = calls
+    for t, (got, want) in enumerate(zip(sides["cuda"], sides["cpu"])):
+        if isinstance(want, dict):
+            assert sorted(got) == sorted(want)
+            for name in want:
+                assert np.array_equal(got[name], want[name]), (t, name)
+        else:
+            assert np.array_equal(got, want), t
+    assert sides["cpu"][0]["commit"].max() > 0
+
+
+@pytest.mark.cuda
+def test_oracle_trace_on_the_card_matches_the_cpu():
+    """oracle_trace with the tick on the card: the mutated commit path
+    diverges at the CPU replay's tick with its fields and values; a clean
+    schedule holds lockstep."""
+    _need_card()
+    from swarmkit_tpu_torch import dst
+
+    cfg = sim.SimConfig(**dict(DST5, read_batch=2))
+    sched, _ = dst.make_batch(cfg, ticks=100, schedules=16, seed=0,
+                              device="cpu")
+    res = dst.explore(sim.init_state(cfg, device="cpu"), cfg, sched,
+                      mutation="commit_no_quorum", device="cpu")
+    s = int(res.violating[0])
+    clean = dst.make_schedule(cfg, 60, "random_drop", 0, 1, device="cpu")
+    for one, mutation in ((sched.slice(s), "commit_no_quorum"),
+                          (clean, None)):
+        got = dst.oracle_trace(cfg, one.to("cuda"), 2, mutation,
+                               device="cuda")
+        assert got == dst.oracle_trace(cfg, one, 2, mutation, device="cpu")
+        assert (got["diverged_at"] >= 0) == (mutation is not None)

@@ -89,10 +89,14 @@ def test_artifacts_cross_load_both_ways(tmp_path):
     verdict = tdst.replay_artifact(jpath, device=CPU)
     assert verdict["matches_recorded"], verdict
     assert verdict["violations"] == jdst.bits_to_names(viol)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tdst.replay_artifact(jpath, with_trace=True, device=CPU)
-    with pytest.raises(NotImplementedError, match="golden core"):
-        tdst.oracle_trace(tcfg, tb.slice(s))
+    # the oracle trace of the artifact, and of the schedule, equal JAX's
+    jverdict = jdst.replay_artifact(jpath)
+    assert verdict["oracle"] == jverdict["oracle"]
+    assert verdict["oracle"]["diverged_at"] >= 0
+    assert tdst.replay_artifact(jpath, with_trace=True,
+                                device=CPU)["oracle"] == jverdict["oracle"]
+    assert tdst.oracle_trace(tcfg, tb.slice(s), device=CPU) \
+        == jdst.oracle_trace(jcfg, jb.slice(s))
 
 
 ROWS3 = {"a": 0, "b": 1, "c": 2}
