@@ -197,6 +197,30 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    and first), and FleetSource.scrape -> SloEngine.observe (the same
    readings and transitions).
 
+15. the levers and planes on the batched tick: the JAX package's three
+   lever cross-check configurations (n=5 L=512 log_chunk=128 against 0,
+   n=16 peer_chunk=8 against 0, n=16 active_rows=8 against 0; window 8,
+   apply_batch 16, max_props 8, keep 4, election_tick 10, seed 77) and
+   DST5 with the flight recorder, telemetry and trace tags against
+   without: one 256 x 100 schedule batch each, explored on the card with
+   the lever on and off (equal viol, first_tick, bits_by_tick, 0
+   violations), the lever on against the CPU on the first 16 schedules
+   (masks and every final field), schedules/s, step host syncs a tick (1
+   under the tiled log and the slab, the batch's one read-back; 0 else),
+   slab and fallback ticks, band-copy launches, kernel launches and ms a
+   tick over 8 profiled ticks, and the band copy of one more sweep tick
+   against plain (timed on the tiled log's [1280, 128] chunks).
+16. the exhaustive model checker (mc/): mc_sweep's n3h8 scope on the card
+   must give the pinned ladder exactly (3,455,140 branches, 1,335,494
+   states, 10 passes, 2^20 branches in the widest, 0 violations,
+   exhaustive); prints branches/s, the seconds of the device passes and
+   of the host dedup, peak device memory and the band-copy launches (one
+   a pass); one profiled 2^20-lane pass (launches, kernel ms, the band
+   copy on its [3145728, 32] rings against plain, timed); both mutation
+   self-tests at n3h8 (caught, the shrunk artifact replayed exactly on
+   the card and on the CPU); the smoke scope on the card and the CPU (the
+   same summaries, violations, edges and .aut bytes).
+
 Each path's band-copy launches are counted from 0 (the kernels' record
 carries them).  Before the last line it prints the kernels' JSON record
 and the card's `nvidia-smi` name/power line; the last line is the result
@@ -2105,6 +2129,322 @@ def phase_multiraft_card_vs_cpu(torch, sim, card: str = "cuda") -> dict:
     return out
 
 
+# ---- phase 15: the batched levers; phase 16: the model checker ----------
+
+# the JAX package's lever cross-checks (tests/test_raft_sim.py
+# TestTiledLog / TestTiledPeer / TestSparseProgress
+# test_dst_cross_check_equal_bitmasks), each lever on against off, and
+# DST5 with the three observability planes against without
+LEVER_BASE = dict(n=5, log_len=64, window=8, apply_batch=16, max_props=8,
+                  keep=4, election_tick=10, seed=77)
+LEVER_CFGS = {
+    "log_chunk=128": (dict(LEVER_BASE, log_len=512, log_chunk=128),
+                      dict(LEVER_BASE, log_len=512, log_chunk=0)),
+    "peer_chunk=8": (dict(LEVER_BASE, n=16, peer_chunk=8),
+                     dict(LEVER_BASE, n=16, peer_chunk=0)),
+    "active_rows=8": (dict(LEVER_BASE, n=16, active_rows=8),
+                      dict(LEVER_BASE, n=16, active_rows=0)),
+    "planes": (dict(LEVER_BASE, **PLANES), dict(LEVER_BASE)),
+}
+LEVER_S = 256        # the documented sweep width
+LEVER_SUBSET = 16    # schedules run on the CPU beside the card
+
+
+def _sweep_window(torch, sim, dexp, cfg, sched, dev) -> tuple:
+    """20 sweep ticks, then 8 profiled ones: (state, kernel launches a
+    tick, kernel ms a tick)."""
+    from swarmkit_tpu_torch.tools.profile_tick import _device_us
+
+    st = sim.broadcast_state(sim.init_state(cfg, device=dev),
+                             sched.target_leader.shape[0])
+    for t in range(20):
+        st, _ = dexp._tick_one(st, cfg, sched.at_tick(t), 2, None, dev)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for t in range(20, 20 + PROFILED_TICKS):
+            st, _ = dexp._tick_one(st, cfg, sched.at_tick(t), 2, None, dev)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    return (st, sum(e.count for e in kernels) / PROFILED_TICKS,
+            sum(_device_us(e) for e in kernels) / 1e3 / PROFILED_TICKS)
+
+
+def phase_levers_batched(torch, sim, cuda_ops, card: str = "cuda") -> dict:
+    """The levers and planes on the batched tick: each configuration of
+    LEVER_CFGS swept at 256 x 100 on the card with the lever on and off
+    (equal viol, first_tick, bits_by_tick; 0 violations), the lever on
+    against the CPU on the first 16 schedules (masks and every final
+    field), schedules/s, step host syncs and band-copy launches of each
+    sweep (counted from 0), slab and fallback ticks, kernel launches a
+    tick over 8 profiled ticks, and the band copy of one more sweep tick
+    against plain (timed on the tiled log's [256*5, 128] chunks)."""
+    import importlib
+
+    import numpy as np
+
+    from swarmkit_tpu_torch import dst
+    from swarmkit_tpu_torch.dst.schedule import FaultSchedule
+
+    dexp = importlib.import_module("swarmkit_tpu_torch.dst.explore")
+    dev = torch.device(card)
+    out = {}
+    for name, (on_kw, off_kw) in LEVER_CFGS.items():
+        on, off = sim.SimConfig(**on_kw), sim.SimConfig(**off_kw)
+        sched, names = dst.make_batch(off, DST_TICKS, LEVER_S, seed=9,
+                                      device=dev)
+        runs = {}
+        for tag, cfg in (("off", off), ("on", on)):
+            sim.kernel.reset_counts()
+            cuda_ops.reset_launches()
+            res = dst.explore(sim.init_state(cfg, device=dev), cfg, sched,
+                              profiles=names, device=dev)
+            runs[tag] = (res, dict(sim.kernel.COUNTS),
+                         cuda_ops.LAUNCHES["append_band_copy"])
+        (r_off, c_off, l_off), (r_on, c_on, l_on) = runs["off"], runs["on"]
+        check(np.array_equal(r_on.viol, r_off.viol)
+              and np.array_equal(r_on.first_tick, r_off.first_tick)
+              and np.array_equal(r_on.bits_by_tick, r_off.bits_by_tick),
+              f"{name}: the masks differ between the lever on and off")
+        check(len(r_on.violating) == 0,
+              f"{name}: {len(r_on.violating)} violating schedules")
+        syncs = c_on["host_syncs"] / DST_TICKS
+        want_syncs = 1 if (on.tiled or on.active_rows_on) else 0
+        check(syncs == want_syncs and c_off["host_syncs"] == 0,
+              f"{name}: {syncs} step host syncs a tick (want "
+              f"{want_syncs}), {c_off['host_syncs']} with the lever off")
+        check(l_on >= DST_TICKS and l_off == DST_TICKS,
+              f"{name}: append_band_copy launched {l_on} / {l_off} times "
+              f"in {DST_TICKS} ticks")
+        if on.active_rows_on:
+            check(c_on["slab_ticks"] > 0, f"{name}: no tick ran on the slab")
+        # the lever on, on the CPU, for the first 16 schedules
+        sub = FaultSchedule(**{k: v[:LEVER_SUBSET].cpu()
+                               for k, v in sched.leaves().items()})
+        r_cpu = dst.explore(sim.init_state(on, device="cpu"), on, sub,
+                            profiles=names[:LEVER_SUBSET], device="cpu")
+        k = LEVER_SUBSET
+        check(np.array_equal(r_cpu.viol, r_on.viol[:k])
+              and np.array_equal(r_cpu.first_tick, r_on.first_tick[:k])
+              and np.array_equal(r_cpu.bits_by_tick,
+                                 r_on.bits_by_tick[:, :k]),
+              f"{name}: the card's masks differ from the CPU's")
+        got = sim.state_to_numpy(r_on.final_state)
+        want = sim.state_to_numpy(r_cpu.final_state)
+        check(sorted(got) == sorted(want),
+              f"{name}: final field sets differ")
+        for f in want:
+            check(np.array_equal(got[f][:k], want[f]),
+                  f"{name}: final field {f} differs between card and CPU")
+        st, launches, kernel_ms = _sweep_window(torch, sim, dexp, on, sched,
+                                                dev)
+        # the band copies of the next sweep tick; under the tiled log, of
+        # the next ticks up to the first banded one (the union band fits
+        # only where no cluster elects or restores)
+        box, calls = {"st": st}, []
+        for t in range(20 + PROFILED_TICKS, DST_TICKS):
+            def sweep_tick(t=t):
+                box["st"], _ = dexp._tick_one(box["st"], on, sched.at_tick(t),
+                                              2, None, dev)
+            calls += _record_band_copies(torch, sim, cuda_ops, on, box["st"],
+                                         sweep_tick)
+            if not on.tiled or any(c[5].shape[1] == on.log_chunk
+                                   for c in calls):
+                break
+        err = max(_kernel_vs_plain(torch, cuda_ops, c) for c in calls)
+        check(err == 0, f"{name}: kernel != plain on a sweep tick ({err})")
+        shapes = sorted({tuple(c[5].shape) for c in calls})
+        banded = (l_on - DST_TICKS) // (on.band_chunks - 1) if on.tiled \
+            else 0
+        row = dict(schedules_per_s=r_on.schedules_per_sec,
+                   schedules_per_s_off=r_off.schedules_per_sec,
+                   host_syncs_per_tick=syncs, band_copy_launches=l_on,
+                   band_copy_launches_off=l_off,
+                   slab_ticks=c_on["slab_ticks"],
+                   fallback_ticks=c_on["dense_fallback_ticks"],
+                   launches_per_tick=launches, kernel_ms_per_tick=kernel_ms,
+                   fields=len(want), band_copy_shapes=shapes, err=err)
+        if on.tiled:
+            chunks = [c for c in calls if c[5].shape[1] == on.log_chunk]
+            check(bool(chunks), f"{name}: no banded tick in the sweep")
+            row["band_copy"] = _time_band_copies(torch, cuda_ops, chunks)
+            row["banded_ticks"] = banded
+        out[name] = row
+        log(f"  {name}, {LEVER_S} x {DST_TICKS}: lever on = off on viol, "
+            f"first_tick and bits_by_tick, 0 violations; card = CPU on "
+            f"{k} schedules (masks and all {len(want)} final fields); "
+            f"{r_on.schedules_per_sec:.1f} schedules/s on "
+            f"({r_off.schedules_per_sec:.1f} off); step host syncs "
+            f"{syncs:.2f}/tick; slab {c_on['slab_ticks']} / fallback "
+            f"{c_on['dense_fallback_ticks']} ticks; append_band_copy "
+            f"launches {l_on} on, {l_off} off"
+            + (f" ({banded} banded ticks, {DST_TICKS - banded} full-pass)"
+               if on.tiled else "") + "; 8 profiled ticks: "
+            f"{launches:.2f} kernel launches/tick, {kernel_ms:.3f} ms of "
+            f"kernels/tick; band copy of {len(calls)} sweep-tick calls on "
+            f"{shapes}: max|kernel - plain| = {err}")
+    return out
+
+
+# the n3h8 scope's exact per-level (children, unique) ladder and totals,
+# pinned as the JAX package's tests pin the smoke scope's
+N3H8_LEVELS = ((13, 4), (52, 29), (377, 225), (2925, 1403), (18239, 7938),
+               (103194, 42192), (548496, 213988), (2781844, 1069714))
+N3H8_TOTALS = dict(branches_explored=3_455_140, states_discovered=1_335_494,
+                   duplicates=2_119_647, passes=10,
+                   max_branches_per_pass=1 << 20, frontier_peak=1_069_714)
+MC_PASS_WIDTH = 1 << 20   # the scan's wide pass (exhaustive_scan pass_large)
+
+
+def _mc_pass_on_the_card(torch, sim, cuda_ops, mc, dev) -> dict:
+    """One 2^20-lane expand pass (the scan's wide width) from a state 6
+    noop ticks past the root, each lane under action lane % A: kernel
+    launches and kernel ms of the pass (profiled), and its band-copy call
+    against plain, timed."""
+    import importlib
+
+    from swarmkit_tpu_torch.tools.profile_tick import _device_us
+
+    frontier = importlib.import_module("swarmkit_tpu_torch.mc.frontier")
+    sc = mc.SCOPES["n3h8"]
+    cfg, alphabet = sc.cfg(), sc.alphabet()
+    tables = alphabet.tables(dev)
+    st = sim.broadcast_state(sim.init_state(cfg, device=dev), 1)
+    noop = torch.zeros((1,), dtype=torch.int64, device=dev)
+    for _ in range(6):
+        st, _, _ = frontier._expand(st, noop, tables, cfg, 1, None, False,
+                                    dev)
+    width = MC_PASS_WIDTH
+    aids = torch.arange(width, device=dev) % alphabet.size
+    lanes = torch.zeros((width,), dtype=torch.int64, device=dev)
+
+    def one_pass():
+        chunk = frontier._take(st, lanes)
+        return frontier._expand(chunk, aids, tables, cfg, 1, None, False,
+                                dev)
+    one_pass()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        one_pass()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    calls = _record_band_copies(torch, sim, cuda_ops, cfg, st, one_pass)
+    return dict(launches=sum(e.count for e in kernels),
+                kernel_ms=sum(_device_us(e) for e in kernels) / 1e3,
+                band_copy_shape=list(calls[0][5].shape),
+                band_copy=_time_band_copies(torch, cuda_ops, calls))
+
+
+def phase_mc(torch, sim, cuda_ops, outdir: str, card: str = "cuda") -> dict:
+    """The exhaustive model checker (swarmkit_tpu_torch/mc/) on the card:
+    mc_sweep's n3h8 scan (the ladder and totals above exactly, 0
+    violations, exhaustive; branches/s, seconds in device passes and in the
+    host dedup, peak device memory, band-copy launches counted from 0: one
+    a pass), one profiled 2^20-lane pass (launches, kernel ms, the band
+    copy on its [2^20*3, 32] rings against plain, timed), both mutation
+    self-tests at n3h8 (caught; the shrunk artifact replays exactly on the
+    card and on the CPU), and the smoke scope on the card and on the CPU
+    (the same summaries, violations, edges and .aut bytes)."""
+    from swarmkit_tpu_torch import dst, mc
+    from swarmkit_tpu_torch.tools import mc_export, mc_sweep
+
+    dev = torch.device(card)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    sim.kernel.reset_counts()
+    cuda_ops.reset_launches()
+    res = mc_sweep.run_scan("n3h8", verbose=False, device=dev)
+    launched = cuda_ops.LAUNCHES["append_band_copy"]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    summ = res.summary()
+    ladder = tuple((lv["children"], lv["unique"]) for lv in res.levels)
+    check(ladder == N3H8_LEVELS, f"n3h8 ladder {ladder}")
+    for key, want in N3H8_TOTALS.items():
+        check(summ[key] == want, f"n3h8 {key} = {summ[key]}, want {want}")
+    check(not res.violations and res.exhaustive,
+          f"n3h8: {len(res.violations)} violations, exhaustive "
+          f"{res.exhaustive}")
+    check(launched == res.passes,
+          f"n3h8: append_band_copy launched {launched} times in "
+          f"{res.passes} passes")
+    check(sim.kernel.COUNTS["host_syncs"] == 0,
+          f"n3h8: {sim.kernel.COUNTS['host_syncs']} step host syncs")
+    out = {"n3h8": dict(branches=res.branches_explored,
+                        states=res.states_discovered, passes=res.passes,
+                        seconds=res.elapsed,
+                        branches_per_s=res.branches_per_sec,
+                        device_s=res.timing["device_s"],
+                        host_s=res.timing["host_s"], peak_gib=peak,
+                        band_copy_launches=launched)}
+    log(f"  n3h8: {res.branches_explored:,} branches over "
+        f"{res.states_discovered:,} states (ladder and totals as pinned), "
+        f"{res.passes} passes, max {res.max_branches_per_pass:,}/pass, 0 "
+        f"violations, exhaustive; {res.elapsed:.3f} s "
+        f"({res.branches_per_sec:,.1f} branches/s): "
+        f"{res.timing['device_s']:.3f} s from gather to read-back of the "
+        f"passes, {res.timing['host_s']:.3f} s in the host dedup; peak "
+        f"device memory {peak:.3f} GiB; append_band_copy launches "
+        f"{launched}")
+    one = _mc_pass_on_the_card(torch, sim, cuda_ops, mc, dev)
+    check(one["band_copy"]["err"] == 0,
+          f"kernel != plain on an mc pass ({one['band_copy']['err']})")
+    out["pass"] = one
+    log(f"  one 2^20-lane pass: {one['launches']} kernel launches, "
+        f"{one['kernel_ms']:.3f} ms of kernels; band copy on "
+        f"{one['band_copy_shape']}: max|kernel - plain| = 0")
+    out["mutations"] = {}
+    for mutation in mc_sweep.MUTATIONS:
+        t0 = time.perf_counter()
+        demo = mc_sweep.run_self_test(
+            "n3h8", mutation, out_path=f"{outdir}/mc_{mutation}.json",
+            verbose=False, device=dev)
+        secs = time.perf_counter() - t0
+        check(demo["caught"], f"mc: mutation {mutation} was not caught")
+        check(demo["replay_matches"],
+              f"mc {mutation}: the artifact did not replay exactly")
+        on_cpu = dst.replay_artifact(demo["artifact"], with_trace=False,
+                                     device="cpu")
+        check(on_cpu["matches_recorded"],
+              f"mc {mutation}: the artifact replayed on the CPU to "
+              f"{on_cpu['violations']} at tick {on_cpu['first_tick']}")
+        out["mutations"][mutation] = dict(
+            level=demo["level"], bits=demo["bits"],
+            actions=demo["actions"], branches=demo["branches_explored"],
+            seconds=secs)
+        log(f"  mutation {mutation}: caught at level {demo['level']} "
+            f"({demo['bits']}) after {demo['branches_explored']:,} "
+            f"branches via {demo['actions']}; the shrunk artifact replays "
+            f"exactly on the card and on the CPU; {secs:.3f} s")
+    sc = mc.SCOPES["smoke"]
+    drop = ("elapsed_sec", "branches_per_sec")
+    for mutation in (None, "commit_no_quorum"):
+        runs = [mc.exhaustive_scan(sc.cfg(), sc.alphabet(), sc.horizon,
+                                   mutation=mutation, collect_edges=True,
+                                   scope="smoke", device=d)
+                for d in (dev, "cpu")]
+        a, b = ({k: v for k, v in r.summary().items() if k not in drop}
+                for r in runs)
+        check(a == b and runs[0].edges == runs[1].edges,
+              f"smoke [{mutation}]: the card's scan differs from the CPU's")
+    auts = []
+    for d in (dev, "cpu"):
+        path = f"{outdir}/smoke_{d}.aut"
+        mc_export.export_scope("smoke", path, verbose=False, device=d)
+        check(mc_export.validate_aut(path) == [], f"{path} does not validate")
+        with open(path, "rb") as f:
+            auts.append(f.read())
+    check(auts[0] == auts[1], "the card's .aut differs from the CPU's")
+    log(f"  smoke scope: card = CPU on the summary, edges and violations "
+        f"(stock and commit_no_quorum) and the .aut bytes "
+        f"({len(auts[0])} bytes)")
+    return out
+
+
 def matmul_tol(torch, ref, k: int) -> float:
     """bf16: 2 bf16 ulps of max|ref|; f32: 1e-5 of max|ref|, scaled by
     sqrt(K / 512) past K = 512."""
@@ -2459,6 +2799,16 @@ def main() -> int:
     stage("phase 14c: the serving plane on the card vs on the CPU (G=8, "
           "both wires)")
     mcpu = phase_multiraft_card_vs_cpu(torch, sim)
+    stage(f"phase 15: the levers and planes on the batched tick ("
+          f"{LEVER_S} x {DST_TICKS} sweeps, lever on against off)")
+    levers = phase_levers_batched(torch, sim, cuda_ops)
+    stage("phase 16: mc_sweep's n3h8 scope on the card, the mutation "
+          "self-tests, the smoke scope against the CPU")
+    outdir = tempfile.mkdtemp(prefix="chip_smoke_mc_")
+    try:
+        mc16 = phase_mc(torch, sim, cuda_ops, outdir)
+    finally:
+        shutil.rmtree(outdir, ignore_errors=True)
 
     elapsed = time.perf_counter() - started
     log(f"all phases passed in {elapsed:.1f} s")
@@ -2471,7 +2821,8 @@ def main() -> int:
                                  "planes": planes, "dst": dst13,
                                  "oracle": oracle, "multiraft": mraft,
                                  "multiraft_telemetry": mtel,
-                                 "multiraft_card_vs_cpu": mcpu},
+                                 "multiraft_card_vs_cpu": mcpu,
+                                 "levers_batched": levers, "mc": mc16},
                                 default=str))
     records = [{
         "name": "append_band_copy", "route": "cuda",
@@ -2489,9 +2840,25 @@ def main() -> int:
         "multiraft_plain_ms": mraft["band_copy"]["plain_ms"],
         "multiraft_bound_ms": mraft["band_copy"]["bound_ms"],
         "multiraft_library_ms": mraft["band_copy"]["library_ms"],
+        "levers_launches": {n: r["band_copy_launches"]
+                            for n, r in levers.items()},
+        "levers_tiled_ms": levers["log_chunk=128"]["band_copy"]["ms"],
+        "levers_tiled_plain_ms":
+            levers["log_chunk=128"]["band_copy"]["plain_ms"],
+        "levers_tiled_bound_ms":
+            levers["log_chunk=128"]["band_copy"]["bound_ms"],
+        "levers_tiled_library_ms":
+            levers["log_chunk=128"]["band_copy"]["library_ms"],
+        "mc_launches": mc16["n3h8"]["band_copy_launches"],
+        "mc_ms": mc16["pass"]["band_copy"]["ms"],
+        "mc_plain_ms": mc16["pass"]["band_copy"]["plain_ms"],
+        "mc_bound_ms": mc16["pass"]["band_copy"]["bound_ms"],
+        "mc_library_ms": mc16["pass"]["band_copy"]["library_ms"],
         "max_abs_err": max(err2, k["err"], err9, rmix["err"], planes["err"],
                            dst13["sweep_256"]["err"],
-                           mraft["band_copy"]["err"]),
+                           mraft["band_copy"]["err"],
+                           max(r["err"] for r in levers.values()),
+                           mc16["pass"]["band_copy"]["err"]),
         "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
         "bound_by": "bytes", "library_ms": k["library_ms"]}]
     for name, line, bound_by in (("matmul", 76, "operations"),

@@ -151,7 +151,28 @@ def ring_append_many(ev_buf: torch.Tensor, ev_pos: torch.Tensor, tick,
     ring's device.  On each row the masked events take consecutive slots
     from the cursor; where a row appends more than `cap` events in one
     tick, only the last `cap` of them are written, as the sequential
-    appends leave it."""
+    appends leave it.
+
+    B clusters' rings, ev_buf [B, N, cap, W] with ev_pos [B, N] and the
+    tick [B], append as one ring of B*N rows: masks are [B, N], and each
+    argument or tag broadcasts against [B, N] (a per-cluster value as
+    [B, 1])."""
+    if ev_buf.dim() == 4:
+        b, n = ev_buf.shape[:2]
+
+        def flat(x):
+            if not isinstance(x, torch.Tensor):
+                return x
+            if x.dtype != torch.bool:
+                x = x.to(I32)
+            return x.expand(b, n).reshape(-1)
+
+        tick_rows = torch.as_tensor(tick, device=ev_buf.device).to(I32) \
+            .reshape(-1, 1).expand(b, n).reshape(-1)
+        _, pos = ring_append_many(
+            ev_buf.view((b * n,) + ev_buf.shape[2:]), ev_pos.reshape(-1),
+            tick_rows, [tuple(flat(x) for x in e) for e in events], codes)
+        return ev_buf, pos.view(b, n)
     n, cap, width = ev_buf.shape
     dev = ev_buf.device
     k = len(events)

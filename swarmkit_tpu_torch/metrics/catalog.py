@@ -157,6 +157,28 @@ CATALOG: dict[str, MetricSpec] = {
         "schedules, by attack profile (dst/schedule.py ATTACK_PROFILES).",
         ("attack",)),
 
+    # ---- exhaustive model checker (mc/) ----------------------------------
+    # Names and label sets are mc/metrics.py's METRIC_NAMES.
+    "swarm_mc_branches_total": MetricSpec(
+        "counter", "Model-checker (state, action) expansions, by result "
+        "(clean / violation).", ("result",)),
+    "swarm_mc_states_total": MetricSpec(
+        "counter", "Reached states, by dedup verdict (unique = entered "
+        "the frontier, duplicate = merged into an existing fingerprint).",
+        ("kind",)),
+    "swarm_mc_violations_total": MetricSpec(
+        "counter", "Invariants tripped by at least one enumerated branch, "
+        "by invariant (dst/invariants.py bit names).", ("invariant",)),
+    "swarm_mc_branches_per_second": MetricSpec(
+        "gauge", "Expansion throughput of the last exhaustive_scan, by "
+        "scope preset.", ("scope",)),
+    "swarm_mc_frontier_peak_states": MetricSpec(
+        "gauge", "Largest per-level unique frontier of the last "
+        "exhaustive_scan, by scope preset.", ("scope",)),
+    "swarm_mc_truncations_total": MetricSpec(
+        "counter", "Fresh states dropped by the --budget frontier cap "
+        "(scan no longer exhaustive), by scope preset.", ("scope",)),
+
     # ---- multi-raft serving plane (multiraft/) ---------------------------
     # Names and label sets are multiraft/obs.py's METRIC_NAMES.
     "swarm_multiraft_groups": MetricSpec(

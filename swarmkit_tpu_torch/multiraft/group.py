@@ -8,8 +8,7 @@ batch axis the tick already runs natively (raft/sim/batch.py): where the
 JAX package vmaps `kernel.step`, the port hands the grouped state to
 `kernel.step` itself, which advances every group in one pass of launches
 and keeps every value reduction inside its group.  The batched tick runs
-the untiled dense configurations; the levers it refuses (tiled log,
-banded peers, the progress slab, the flight recorder, trace tags) raise.
+every lever and plane of the single-group one.
 
 Bit-identity contract: `step_groups` is Python-gated on the group count.
 At G == 1 it runs the plain single-group `step` on the squeezed state

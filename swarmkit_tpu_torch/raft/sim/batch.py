@@ -23,10 +23,16 @@ class Bx:
     and its batched form when there is: sender-row gathers (`take`, `at`,
     `pick`), last-axis ring stores (`put_at`), ring slots per row
     (`ring_ix`), the transpose and diagonal of the last two axes,
-    per-node vectors broadcast as columns or rows,
-    the ring rows of all clusters as one [B*N, L] matrix (`rows`),
+    per-node vectors broadcast as columns or rows, column bands and row
+    bands of a cluster's [R, N] matrix (`cols`, `row_band`), the slab's
+    scatter of [A] rows back into N (`put_rows`), the ring rows of all
+    clusters, or of one chunk of them, as one [B*N, C] matrix (`rows`),
     reduction axes shifted past the batch axis (`d`), and the tick, a
-    per-cluster scalar, shaped for an operand of a given rank (`t`)."""
+    per-cluster scalar, shaped for an operand of a given rank (`t`).
+
+    Under role-sparse progress the row ids are [A] (unbatched) or [B, A],
+    each cluster's own active rows: `take` gathers them, `put_rows`
+    writes them back."""
 
     def __init__(self, batch: Optional[int] = None):
         self.on = batch is not None
@@ -74,9 +80,19 @@ class Bx:
             else torch.diagonal(x)
 
     def rows(self, x):
-        """[.., N, L] -> the ring rows [N, L], or [B*N, L] batched: a view,
-        so an in-place write through it lands in x (x contiguous)."""
+        """[.., N, C] -> the ring rows [N, C], or [B*N, C] batched: a view,
+        so an in-place write through it lands in x (x contiguous).  C is
+        the whole ring L, or one chunk's width for a chunk's operands."""
         return x.view(-1, x.shape[-1]) if self.on else x
+
+    def cols(self, x, j0: int, w: int):
+        """Columns [j0, j0 + w) of the last axis of an [.., R, N] matrix:
+        a peer band, or a log chunk of an [.., N, L] ring (a view)."""
+        return x[..., j0:j0 + w] if self.on else x[:, j0:j0 + w]
+
+    def row_band(self, x, i0: int, w: int):
+        """Rows [i0, i0 + w) of an [.., N, M] matrix (a view)."""
+        return x[:, i0:i0 + w] if self.on else x[i0:i0 + w]
 
     def ring_ix(self, slot):
         """The advanced index of ring slots `slot` [.., N, K] (int64) in an
@@ -90,22 +106,44 @@ class Bx:
         return b[:, None, None], rows[None, :, None], slot
 
     def take(self, x, idx):
-        """x[idx]: rows of a per-node [.., N] or [.., N, M] tensor by the
-        int64 row ids idx [.., N]."""
+        """x[idx]: rows of a per-node [.., N], [.., N, M] or [.., N, M, K]
+        tensor by the int64 row ids idx [.., R] (R = N for sender rows, A
+        for the slab's rows)."""
         if not self.on:
             return x[idx]
         if x.dim() == 2:
             return x.gather(1, idx)
-        return x.gather(1, idx[:, :, None].expand(-1, -1, x.shape[2]))
+        return x.gather(1, self._rows_ix(x, idx))
+
+    @staticmethod
+    def _rows_ix(x, idx):
+        """[B, R] row ids broadcast over x's trailing axes (axis-1 gather
+        and scatter index)."""
+        return idx.view(idx.shape + (1,) * (x.dim() - 2)) \
+            .expand(idx.shape + x.shape[2:])
+
+    def put_rows(self, full, idx, rows, inplace: bool = True):
+        """full[idx] = rows along the row axis (the slab's rows written
+        back): in place, or into a copy with inplace=False."""
+        if not self.on:
+            return full.index_copy_(0, idx, rows) if inplace \
+                else full.index_copy(0, idx, rows)
+        ix = self._rows_ix(full, idx)
+        return full.scatter_(1, ix, rows) if inplace \
+            else full.scatter(1, ix, rows)
 
     def at(self, x, i, j):
         """x[i, j]: one element of an [.., N, M] tensor per (i, j) pair of
-        broadcastable int64 index tensors."""
+        broadcastable int64 index tensors ([.., N] pairs, or [.., N, K]
+        windows of them)."""
         if not self.on:
             return x[i, j]
         m = x.shape[2]
-        return x.reshape(x.shape[0], -1).gather(
-            1, (i * m + j).expand(x.shape[0], -1))
+        k = i * m + j
+        if k.dim() > 2:
+            return x.reshape(x.shape[0], -1).gather(
+                1, k.reshape(x.shape[0], -1)).view(k.shape)
+        return x.reshape(x.shape[0], -1).gather(1, k.expand(x.shape[0], -1))
 
     def put_at(self, x, i, j, vals) -> None:
         """x[i, j] = vals, in place (x contiguous)."""

@@ -150,35 +150,14 @@ def read_many(xs: list) -> list:
 # ---- index helpers ---------------------------------------------------------
 
 
-def _refuse_batched(cfg: SimConfig, what: str) -> None:
-    """Raise for a lever or plane the batched tick does not run yet, naming
-    its ROADMAP item: never a silent fallback."""
-    item = "ROADMAP Queue 1 #1"
-    refused = [
-        (cfg.tiled, f"cfg.tiled (the banded log: append_band_copy over "
-                    f"[B*N, L] rows with a batch-wide band, {item})"),
-        (cfg.peer_tiled, f"cfg.peer_tiled (banded peer counts under a "
-                         f"batch axis, {item})"),
-        (cfg.active_rows_on, f"cfg.active_rows_on (the role-sparse slab "
-                             f"with [B, A] row ids, {item})"),
-        (cfg.record_events, f"cfg.record_events (the flight recorder under "
-                            f"a batch axis, {item}; capture_flight re-runs "
-                            f"one schedule unbatched)"),
-        (cfg.trace_tags, f"cfg.trace_tags (trace tags under a batch axis, "
-                         f"{item})")]
-    for on, name in refused:
-        if on:
-            raise ValueError(f"{what} on a batched state does not run "
-                             f"{name}; use an unbatched state")
-
-
 def _stamp_batch(state: SimState, cfg: SimConfig, ok: torch.Tensor,
                  first: torch.Tensor, count, tag, bx: Bx = NOBATCH) -> None:
     """The telemetry record of one propose batch at the state's tick, in
     place: its first index, its count and the tick (NONE/0 on rows that
     took no batch), and the batch's trace tag under cfg.trace_tags (0 when
     `tag` is None).  `count` is an int, or a per-cluster tensor shaped
-    against [N]."""
+    against [N]; `tag` an int, or on a batched state one tag per cluster
+    ([B] array-like or tensor), as jax.vmap with a mapped tag gives it."""
     col = torch.remainder(state.tick, state.tel_prop_idx.shape[-1])
     ts.col_set(state.tel_prop_idx, col, torch.where(ok, first, NONE))
     ts.col_set(state.tel_prop_cnt, col, torch.where(ok, count, 0))
@@ -186,7 +165,19 @@ def _stamp_batch(state: SimState, cfg: SimConfig, ok: torch.Tensor,
                torch.where(ok, bx.t(state.tick, 1), NONE))
     if cfg.trace_tags and state.tel_prop_tag is not None:
         ts.col_set(state.tel_prop_tag, col,
-                   torch.where(ok, 0 if tag is None else int(tag), 0))
+                   torch.where(ok, tag_lane(tag, bx, ok.device), 0))
+
+
+def tag_lane(tag, bx: Bx, dev):
+    """A host trace tag as a where() operand against [.., N]: 0 for None,
+    an int, or on a batched state a per-cluster [B] tag (array-like or
+    tensor, never read back) shaped [B, 1]."""
+    if tag is None:
+        return 0
+    if bx.on and not isinstance(tag, (int, np.integer)):
+        t = torch.as_tensor(tag).to(device=dev, dtype=I32)
+        return bx.t(t.reshape(-1).expand(bx.B), 1)
+    return int(tag)
 
 
 def _slot(cfg: SimConfig, idx: torch.Tensor) -> torch.Tensor:
@@ -205,13 +196,22 @@ def _idx_at_slots(cfg: SimConfig, last: torch.Tensor,
     return a - torch.remainder(a - (s + 1), cfg.log_len)
 
 
-def _idx_at_band(cfg: SimConfig, anchor: torch.Tensor,
-                 off: int) -> torch.Tensor:
+def _idx_at_band(cfg: SimConfig, anchor: torch.Tensor, off: int,
+                 bx: Bx = NOBATCH) -> torch.Tensor:
     """[N, log_chunk] analog of _idx_at_slots for the chunk at slot `off`."""
     s = (off + torch.arange(cfg.log_chunk, dtype=I32,
                             device=anchor.device))[None, :]
-    a = anchor[:, None]
+    a = bx.col(anchor)
     return a - torch.remainder(a - (s + 1), cfg.log_len)
+
+
+def _band_nch(cfg: SimConfig, lo: torch.Tensor,
+              hi: torch.Tensor) -> torch.Tensor:
+    """_band_origin's chunk count on the device, per cluster: int32, the
+    same floor divisions (the batched tick's per-cluster FALLBACK_TICK
+    reads it, where JAX's vmap sees each cluster's own band)."""
+    c0u = torch.div(lo, cfg.log_chunk, rounding_mode="floor")
+    return torch.div(hi - 1, cfg.log_chunk, rounding_mode="floor") - c0u + 1
 
 
 def _term_own(cfg, log_term, snap_idx, snap_term, last, idx,
@@ -271,7 +271,8 @@ def _count(mask: torch.Tensor, dim: int) -> torch.Tensor:
 
 
 def _pcount(cfg: SimConfig, band: Callable, banded: bool,
-            mem: Optional[torch.Tensor] = None, dim: int = 1) -> torch.Tensor:
+            mem: Optional[torch.Tensor] = None, dim: int = 1,
+            bx: Bx = NOBATCH) -> torch.Tensor:
     """Per-row int32 count of the peers j where `band(j0, w)`, the [R, w]
     predicate over columns [j0, j0 + w), is true; with `mem` (the [R, N]
     membership views of the deciding rows) only peers in the row's view
@@ -281,20 +282,20 @@ def _pcount(cfg: SimConfig, band: Callable, banded: bool,
     column band at a time with the band counts summed, so no temporary is
     wider than peer_chunk (the JAX package's _pcount, whose fori_loop over
     bands is a Python loop over column views here).  Integer sums commute:
-    both forms give the same bits.  `dim` is the peer axis: 2 under a
-    batch axis, where only the one-pass form runs (its band (0, n) slices
-    nothing off the row axis that `[:, j0:j0 + w]` then names)."""
+    both forms give the same bits.  `dim` is the peer axis (2 under a
+    batch axis, where `band` cuts the same columns of every cluster's
+    [R, N] through bx.cols)."""
     if mem is not None:
         pred = band
 
         def band(j0, w):
-            return pred(j0, w) & mem[:, j0:j0 + w]
+            return pred(j0, w) & bx.cols(mem, j0, w)
     if not banded:
         return _count(band(0, cfg.n), dim)
     pc = cfg.peer_chunk
-    total = _count(band(0, pc), 1)
+    total = _count(band(0, pc), dim)
     for j0 in range(pc, cfg.n, pc):
-        total = total + _count(band(j0, pc), 1)
+        total = total + _count(band(j0, pc), dim)
     return total
 
 
@@ -303,9 +304,10 @@ class _Rows:
 
     Dense (`idx` None): all n rows, and every helper is the identity, so a
     segment instantiated on it is the dense code op for op; its peer counts
-    go band by band under cfg.peer_tiled.  Sparse: `idx`, the [A] int64 ids
-    of the slab's rows (active rows first, ascending); row-indexed operands
-    are gathered into [A, N] slabs, and the slab's peer counts take one pass
+    go band by band under cfg.peer_tiled.  Sparse: `idx`, the int64 ids of
+    the slab's rows (active rows first, ascending), [A], or [B, A] with
+    each cluster's own rows under a batch axis; row-indexed operands are
+    gathered into [A, N] slabs, and the slab's peer counts take one pass
     (an [A, N] temporary is no wider than peer_chunk rows of n columns)."""
 
     def __init__(self, cfg: SimConfig, node: torch.Tensor, eye: torch.Tensor,
@@ -322,10 +324,19 @@ class _Rows:
             self.ids, self.eye, self.drop, self.drop_t = node, eye, drop, drop_t
         else:
             self.ids = idx.to(I32)
-            self.eye = self.ids[:, None] == node[None, :]
+            if bx.on:
+                self.eye = self.idc() == node
+            else:
+                self.eye = self.ids[:, None] == node[None, :]
             # drop_t[idx] is drop[:, idx].T, gathered as contiguous rows
-            self.drop, self.drop_t = drop[idx], drop_t[idx]
+            self.drop, self.drop_t = bx.take(drop, idx), bx.take(drop_t, idx)
         self.set_member(member)
+
+    def idc(self) -> torch.Tensor:
+        """The segment's row ids as a column against [.., R, N]."""
+        if self.bx.on and not self.dense:
+            return self.ids[:, :, None]
+        return self.ids[:, None]
 
     def set_member(self, member: torch.Tensor) -> None:
         """The segment's rows of the membership views (None under static
@@ -339,60 +350,64 @@ class _Rows:
     def count(self, band: Callable) -> torch.Tensor:
         """_pcount over the segment's rows, in their views."""
         return _pcount(self.cfg, band, self.banded, self.member_r,
-                       self.bx.d(1))
+                       self.bx.d(1), self.bx)
 
     def lat(self) -> tuple:
         """(lat, lat_T): the latency of this tick's sends from and to the
         segment's rows, [R, N] (latency_matrix and its transpose, rebuilt
         for the slab's rows); computed once per segment instance."""
         if self._lat is None:
-            cfg, now, node = self.cfg, self.now, self.node
+            cfg, now, node, bx = self.cfg, self.now, self.node, self.bx
             if self.dense:
-                bx = self.bx
                 lat = latency_at(cfg, bx.t(now, 2), node[:, None],
                                  node[None, :])
                 if bx.on:
                     lat = lat.expand(bx.B, self.n, self.n)
                 self._lat = (lat, bx.T(lat))
             else:
-                self._lat = (latency_at(cfg, now, self.ids[:, None],
+                now2 = bx.t(now, 2)
+                self._lat = (latency_at(cfg, now2, self.idc(),
                                         node[None, :]),
-                             latency_at(cfg, now, node[None, :],
-                                        self.ids[:, None]))
+                             latency_at(cfg, now2, node[None, :],
+                                        self.idc()))
         return self._lat
 
     def g(self, x: torch.Tensor) -> torch.Tensor:
         """The segment's rows of a row-indexed [N], [N, N] or [N, N, K]
         operand."""
-        return x if self.dense else x[self.idx]
+        return x if self.dense else self.bx.take(x, self.idx)
 
     def merge(self, full: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
         """A segment's matrix output as the full [N, N(, K)] tensor: the
         slab's rows are written into `full` in place (the dense output
         already is the full tensor)."""
-        return rows if self.dense else full.index_copy_(0, self.idx, rows)
+        return rows if self.dense else self.bx.put_rows(full, self.idx, rows)
 
     def sfull(self, vals: torch.Tensor, fill) -> torch.Tensor:
         """A per-row [R] result at [N]: `fill` lands on the rows outside the
         slab, whose consumers are role-gated off."""
         if self.dense:
             return vals
-        base = torch.full((self.n,), fill, dtype=vals.dtype,
+        lead = (self.bx.B,) if self.bx.on else ()
+        base = torch.full(lead + (self.n,), fill, dtype=vals.dtype,
                           device=vals.device)
-        return base.index_copy_(0, self.idx, vals)
+        return self.bx.put_rows(base, self.idx, vals)
 
     def row_of(self, sel: torch.Tensor, gate: torch.Tensor) -> torch.Tensor:
         """Row id of the segment position `sel` (a _first_true over the row
         axis), 0 where `gate` is False, as the dense first-true gives."""
         if self.dense:
             return sel
-        return torch.where(gate, self.ids[sel.to(torch.int64)], 0)
+        return torch.where(gate, self.bx.take(self.ids, sel.to(torch.int64)),
+                           0)
 
     def eye_cols(self, j0: int, w: int) -> torch.Tensor:
         """Columns [j0, j0 + w) of the segment's rows of the identity."""
         if w == self.n:
             return self.eye
         cols = torch.arange(j0, j0 + w, dtype=I32, device=self.ids.device)
+        if self.bx.on and not self.dense:
+            return self.idc() == cols
         return self.ids[:, None] == cols[None, :]
 
 
@@ -427,11 +442,10 @@ def step(state: SimState, cfg: SimConfig,
     A state whose fields carry a leading batch axis ([B, N], [B, N, N],
     ..., tick [B]) advances B independent clusters, as the JAX package's
     jax.vmap(step) does, with alive [B, N] and drop [B, N, N]; every value
-    reduction stays inside its cluster.  The batched tick runs the untiled
-    dense configurations (either wire, PreVote, both membership modes,
-    the fused propose, reads, vote guard, cooldown, storage, telemetry)
-    and refuses the tiled log, banded peers, the progress slab, the flight
-    recorder and trace tags with a ValueError; it reads nothing back.
+    reduction stays inside its cluster.  The batched tick runs every
+    lever and plane of the unbatched one.  Its dense untiled program reads
+    nothing back; under the tiled log or the slab it reads the batch's
+    union band and fit once a tick (see Host syncs).
     prop_count/payload_fn: the fused dense propose — bit-identical to
     ``step(propose_dense(state, cfg, payload_fn, prop_count, alive), ...)``
     with the proposal ring stores folded into Phase C's ring write.
@@ -442,7 +456,9 @@ def step(state: SimState, cfg: SimConfig,
     uint32 payload bits (run._payload_at).
     prop_tag: an int host trace tag of the fused propose batch
     (cfg.trace_tags; metrics/trace.py span_trace_tag), carried to the
-    COMMIT_ADVANCE event that commits it.  Ignored with trace tags off.
+    COMMIT_ADVANCE event that commits it; on a batched state one int for
+    every cluster, or one tag per cluster ([B]).  Ignored with trace tags
+    off.
 
     Runs on `device` (the CUDA card unless the caller names another) and
     consumes the state's ring buffers and, on a slab tick, its progress
@@ -460,14 +476,17 @@ def step(state: SimState, cfg: SimConfig,
     end-of-tick conf-gate scan's band from that same read (a superset of
     the band JAX computes at the end of the tick; see the probe), so the
     mailbox wire, PreVote and membership add no sync.  COUNTS records the
-    syncs and the branch taken.
+    syncs and the branch taken.  Under a batch axis the read-back is the
+    batch's: the union of the clusters' bands (the full pass if it does
+    not fit, or if any cluster elects or restores) and the slab only if
+    every cluster's active rows fit; both choices give each cluster the
+    bits of its own, and the recorder's FALLBACK_TICK event still comes
+    from each cluster's own fit and band width.
     """
     dev = check_device(state, device)
     phase = _Phases()
     n, L, W = cfg.n, cfg.log_len, cfg.window
     bx = Bx(batch_size(state))
-    if bx.on:
-        _refuse_batched(cfg, "step")
     lead_shape = (bx.B,) if bx.on else ()
     node_l = torch.arange(n, device=dev)
     node = node_l.to(I32)
@@ -580,17 +599,24 @@ def step(state: SimState, cfg: SimConfig,
     # their active_ttl drain window.  The stable sort of an integer key
     # puts the active rows first in ascending order, so slab tie-breaks
     # (lowest row wins) match the dense ones.
+    # Under a batch axis each cluster sorts its own rows ([B, A] ids) and
+    # the slab runs only if every cluster's active rows fit, else the
+    # dense rows run for all: where JAX's vmap selects per cluster between
+    # two bit-identical lowerings, the port picks one for the batch.
     sparse_on = cfg.active_rows_on
     dense_rows = _Rows(cfg, node, eye, drop, drop_t, member, now, bx=bx)
     if sparse_on:
         sp_act = (role != FOLLOWER) | (state.active_ttl > 0) \
             | (alive & self_mem & (elapsed >= timeout)) | (state.tn_at > 0)
-        # a host decision (refused under a batch axis, as is the slab)
-        sp_fits = sp_act.sum(dtype=I32) <= cfg.active_rows
-        sp_rows = torch.argsort((~sp_act).to(I32),
-                                stable=True)[:cfg.active_rows]
+        # a host decision (read back below)
+        if bx.on:
+            sp_fits = (sp_act.sum(-1, dtype=I32) <= cfg.active_rows).all()
+        else:
+            sp_fits = sp_act.sum(dtype=I32) <= cfg.active_rows
+        sp_rows = torch.argsort((~sp_act).to(I32), dim=-1,
+                                stable=True)[..., :cfg.active_rows]
         slab_rows = _Rows(cfg, node, eye, drop, drop_t, member, now,
-                          sp_rows)
+                          sp_rows, bx)
 
     def _progress_a(sl: _Rows, term=term, vote=vote, role=role, lead=lead,
                     elapsed=elapsed, contact=contact, timeout=timeout,
@@ -624,7 +650,7 @@ def step(state: SimState, cfg: SimConfig,
         check_due = is_leader & (elapsed >= cfg.election_tick)
         if cfg.check_quorum:
             n_heard = sl.sfull(sl.count(
-                lambda j0, w: recent_active[:, j0:j0 + w]
+                lambda j0, w: bx.cols(recent_active, j0, w)
                 | sl.eye_cols(j0, w)), 0)
             cq_fail = check_due & (n_heard < quorum)
             role = torch.where(cq_fail, FOLLOWER, role)
@@ -744,7 +770,7 @@ def step(state: SimState, cfg: SimConfig,
             pv_term = torch.where(preq, term_r + 1, -1)          # msg term
             pv_cur = preq & (pv_term >= bx.row(term))
             pv_can = (bx.row(vote) == NONE) | (pv_term > bx.row(term)) \
-                | (bx.row(vote) == sl.ids[:, None])
+                | (bx.row(vote) == sl.idc())
             pv_grant = pv_cur & pv_can & log_ok
             # a rejection counts only at the candidacy's own term
             pv_reject = pv_cur & ~pv_grant & (bx.row(term) == term_r)
@@ -770,7 +796,7 @@ def step(state: SimState, cfg: SimConfig,
                                      .any(bx.d(1)), False)
             # pre-quorum -> the real campaign, on poll events only
             votes_pv = sl.sfull(sl.count(
-                lambda j0, w: granted[:, j0:j0 + w]), 0)
+                lambda j0, w: bx.cols(granted, j0, w)), 0)
             pre_win = pre_cand & (votes_pv >= quorum) \
                 & (campaign | pv_polled)
             term = term + pre_win.to(I32)
@@ -798,12 +824,12 @@ def step(state: SimState, cfg: SimConfig,
         timeout = torch.where(newer, rand_timeout(cfg, node, term), timeout)
         is_cand = (role == CANDIDATE) & alive
 
-        can_vote = (bx.row(vote) == NONE) | (bx.row(vote) == sl.ids[:, None])
+        can_vote = (bx.row(vote) == NONE) | (bx.row(vote) == sl.idc())
         if vguard:
             # a row that already voted this term re-grants only the same
             # candidate, whatever `vote` says
             can_vote = can_vote & ((bx.row(vg_term) < bx.row(term))
-                                   | (bx.row(vg_vote) == sl.ids[:, None]))
+                                   | (bx.row(vg_vote) == sl.idc()))
         if gated:
             # a stalled disk cannot persist the vote record before replying,
             # so it refuses the grant (PreVote polls above stay un-gated)
@@ -812,7 +838,7 @@ def step(state: SimState, cfg: SimConfig,
         grantable = cur & can_vote & log_ok
         any_grant = grantable.any(bx.d(0))
         chosen_cand = sl.row_of(_first_true(grantable, bx.d(0)), any_grant)
-        grant_mat = grantable & (sl.ids[:, None] == bx.row(chosen_cand))
+        grant_mat = grantable & (sl.idc() == bx.row(chosen_cand))
         vote = torch.where(any_grant, chosen_cand, vote)
         if vguard:
             vg_vote = torch.where(any_grant, chosen_cand, vg_vote)
@@ -854,11 +880,11 @@ def step(state: SimState, cfg: SimConfig,
             polled = polled | pv_polled
         else:
             fresh_real = tn_ok | campaign
-        votes = sl.sfull(sl.count(lambda j0, w: granted[:, j0:j0 + w]), 0)
+        votes = sl.sfull(sl.count(lambda j0, w: bx.cols(granted, j0, w)), 0)
         win = is_cand & ~pre & (votes >= quorum) & (fresh_real | polled)
         n_rej = sl.sfull(sl.count(
-            lambda j0, w: rejected[:, j0:j0 + w]
-            & ~granted[:, j0:j0 + w]), 0)
+            lambda j0, w: bx.cols(rejected, j0, w)
+            & ~bx.cols(granted, j0, w)), 0)
         lose = is_cand & ~win & (n_rej >= quorum) & (fresh_real | polled)
         role = torch.where(lose, FOLLOWER, role)
         lead = torch.where(lose, NONE, lead)
@@ -1155,28 +1181,30 @@ def step(state: SimState, cfg: SimConfig,
         # the sender's (p, p + window]; gather it before the ring write and
         # patch entries still pending in this tick's write (fused
         # proposals, a fresh winner's noop) analytically.
-        widx = p[:, None] + 1 + torch.arange(W, dtype=I32, device=dev)[None]
+        widx = bx.col(p) + 1 + torch.arange(W, dtype=I32, device=dev)[None]
         wslot = _slot(cfg, widx)
-        wsrc_t = log_term[src_l[:, None], wslot]
-        wsrc_d = log_data[src_l[:, None], wslot]
-        wown_t = log_term.gather(1, wslot)
+        wsrc_t = bx.at(log_term, bx.col(src_l), wslot)
+        wsrc_d = bx.at(log_data, bx.col(src_l), wslot)
+        wown_t = log_term.gather(bx.d(1), wslot)
         if fused_prop:
-            k_src = widx - prop_last0[src_l][:, None] - 1
-            pend_s = prop_ok[src_l][:, None] & (k_src >= 0) \
-                & (k_src < prop_cnt)
-            wsrc_t = torch.where(pend_s, state.term[src_l][:, None], wsrc_t)
+            k_src = widx - bx.col(bx.take(prop_last0, src_l)) - 1
+            pend_s = bx.col(bx.take(prop_ok, src_l)) & (k_src >= 0) \
+                & (k_src < prop_cnt2)
+            wsrc_t = torch.where(pend_s, bx.col(bx.take(state.term, src_l)),
+                                 wsrc_t)
             wsrc_d = torch.where(pend_s, payloads(k_src), wsrc_d)
-            k_own = widx - prop_last0[:, None] - 1
-            pend_o = prop_ok[:, None] & (k_own >= 0) & (k_own < prop_cnt)
-            wown_t = torch.where(pend_o, state.term[:, None], wown_t)
-        noop_s = win[src_l][:, None] & (widx == last_src[:, None])
-        wsrc_t = torch.where(noop_s, noop_term[src_l][:, None], wsrc_t)
+            k_own = widx - bx.col(prop_last0) - 1
+            pend_o = bx.col(prop_ok) & (k_own >= 0) & (k_own < prop_cnt2)
+            wown_t = torch.where(pend_o, bx.col(state.term), wown_t)
+        noop_s = bx.col(bx.take(win, src_l)) & (widx == bx.col(last_src))
+        wsrc_t = torch.where(noop_s, bx.col(bx.take(noop_term, src_l)),
+                             wsrc_t)
         wsrc_d = torch.where(noop_s, 0, wsrc_d)
-        wown_t = torch.where(win[:, None] & (widx == last[:, None]),
-                             noop_term[:, None], wown_t)
+        wown_t = torch.where(bx.col(win) & (widx == bx.col(last)),
+                             bx.col(noop_term), wown_t)
         # find_conflict on the window axis
-        w_in = got_app[:, None] & (widx <= hi[:, None])
-        w_exists = (widx <= last[:, None]) & (widx > snap_idx[:, None])
+        w_in = bx.col(got_app) & (widx <= bx.col(hi))
+        w_exists = (widx <= bx.col(last)) & (widx > bx.col(snap_idx))
         w_mism = w_in & (~w_exists | (wown_t != wsrc_t))
         any_mism = w_mism.any(bx.d(1))
         ci_idx = torch.where(w_mism, widx, BIG).amin(bx.d(1))
@@ -1184,8 +1212,10 @@ def step(state: SimState, cfg: SimConfig,
         # The band of this tick's writes, read back to pick the ring write
         # (with the slab's fit, on a speculative slab pass).  Election
         # ticks (pending noop) and restore ticks (full-width wipe) take
-        # the full pass.  Whole-tensor reductions that are host decisions,
-        # so the tiled log is refused under a batch axis.
+        # the full pass.  Whole-tensor reductions: under a batch axis the
+        # union of the clusters' bands, and the full pass if any cluster
+        # elects or restores (every write is exact on any band covering
+        # its cluster's, so the union gives each cluster its own bits).
         probe = [torch.where(got_app, p, BIG).amin(),
                  torch.where(got_app, hi, 0).amax(),
                  do_restore.any(), win.any()]
@@ -1237,42 +1267,58 @@ def step(state: SimState, cfg: SimConfig,
     if cfg.tiled:
         def write_at(lead_idx, off):
             """Masked append write-back of the chunk at `off` whose sender
-            index map is lead_idx; values come from the window buffers."""
-            in_win = got_app[:, None] & (lead_idx > p[:, None]) \
-                & (lead_idx <= hi[:, None])
-            write = in_win & accept[:, None] & (lead_idx >= ci_idx[:, None])
-            wk = torch.clamp(lead_idx - p[:, None] - 1, 0, W - 1) \
+            index map is lead_idx; values come from the window buffers.
+            One launch over every ring row of the chunk: [N, C], or
+            [B*N, C] batched."""
+            in_win = bx.col(got_app) & (lead_idx > bx.col(p)) \
+                & (lead_idx <= bx.col(hi))
+            write = in_win & bx.col(accept) \
+                & (lead_idx >= bx.col(ci_idx))
+            wk = torch.clamp(lead_idx - bx.col(p) - 1, 0, W - 1) \
                 .to(torch.int64)
-            cuda_ops.append_band_copy(log_term, log_data, off,
-                                      wsrc_t.gather(1, wk),
-                                      wsrc_d.gather(1, wk), write)
+            cuda_ops.append_band_copy(bx.rows(log_term), bx.rows(log_data),
+                                      off, bx.rows(wsrc_t.gather(-1, wk)),
+                                      bx.rows(wsrc_d.gather(-1, wk)),
+                                      bx.rows(write))
 
         c0u, nch = _band_origin(cfg, host[0], host[1])
         fits = nch <= cfg.band_chunks and not host[2] and not host[3]
         if fused_prop:
             c0p, nch_p = _band_origin(cfg, host[4], host[5])
             fits = fits and nch_p <= cfg.band_chunks
+        if bx.on and cfg.record_events:
+            # each cluster's own fit and band width, for its FALLBACK_TICK
+            # event (the host's `fits` above is the union's)
+            nch_c = _band_nch(cfg, torch.where(got_app, p, BIG).amin(-1),
+                              torch.where(got_app, hi, 0).amax(-1))
+            fits_c = (nch_c <= cfg.band_chunks) & ~do_restore.any(-1) \
+                & ~win.any(-1)
+            if fused_prop:
+                fits_c = fits_c & (_band_nch(
+                    cfg, torch.where(prop_ok, prop_last0, BIG).amin(-1),
+                    torch.where(prop_ok, prop_anchor, 0).amax(-1))
+                    <= cfg.band_chunks)
         C = cfg.log_chunk
         if fits:
             if fused_prop:
                 for off in _band_offsets(cfg, c0p):
-                    prop_write(log_term[:, off:off + C],
-                               log_data[:, off:off + C],
-                               _idx_at_band(cfg, prop_anchor, off))
+                    prop_write(bx.cols(log_term, off, C),
+                               bx.cols(log_data, off, C),
+                               _idx_at_band(cfg, prop_anchor, off, bx))
             for off in _band_offsets(cfg, c0u):
-                write_at(_idx_at_band(cfg, last_src, off), off)
+                write_at(_idx_at_band(cfg, last_src, off, bx), off)
         else:
             # full-pass fallback: the same mutations over the whole ring
             if fused_prop:
                 prop_write(log_term, log_data,
-                           _idx_at_slots(cfg, prop_anchor))
-            noop_m = win[:, None] & (_idx_at_slots(cfg, last)
-                                     == last[:, None])
-            _put(log_term, noop_m, noop_term[:, None])
+                           _idx_at_slots(cfg, prop_anchor, bx))
+            noop_m = bx.col(win) & (_idx_at_slots(cfg, last, bx)
+                                    == bx.col(last))
+            _put(log_term, noop_m, bx.col(noop_term))
             log_data.masked_fill_(noop_m, 0)
-            write_at(_idx_at_slots(cfg, last_src), 0)
-            log_term.masked_fill_(do_restore[:, None], 0)
-            log_data.masked_fill_(do_restore[:, None], 0)
+            write_at(_idx_at_slots(cfg, last_src, bx), 0)
+            log_term.masked_fill_(bx.col(do_restore), 0)
+            log_data.masked_fill_(bx.col(do_restore), 0)
     else:
         if fused_prop:
             prop_write(log_term, log_data,
@@ -1373,7 +1419,7 @@ def step(state: SimState, cfg: SimConfig,
             # ack enqueue into the first free of ack_depth slots (one
             # always is: acks arrive once per tick per edge and live at
             # most latency + jitter ticks)
-            send_ar = (sl.ids[:, None] == bx.row(src)) & bx.row(has_lmsg) \
+            send_ar = (sl.idc() == bx.row(src)) & bx.row(has_lmsg) \
                 & ~sl.drop_t
             wslot = _first_true(aresp_at == 0, bx.d(2))
             put_r = bx.slot(send_ar) & (bx.slot(wslot) == kr_idx)
@@ -1389,7 +1435,7 @@ def step(state: SimState, cfg: SimConfig,
                 # follower re-acks min(last, sync_mark) to its known leader,
                 # best effort (skipped while the edge's slots are all busy)
                 fa_tgt = torch.clamp(lead, 0, n - 1)
-                send_fa = (sl.ids[:, None] == bx.row(fa_tgt)) \
+                send_fa = (sl.idc() == bx.row(fa_tgt)) \
                     & bx.row(fsync_ack) & ~sl.drop_t & ~eye_r
                 free_f = aresp_at == 0
                 fa_slot = _first_true(free_f, bx.d(2))
@@ -1417,7 +1463,7 @@ def step(state: SimState, cfg: SimConfig,
                                           BIG).amin(bx.d(2))
             aresp_at = torch.where(due_r, 0, aresp_at)
         else:
-            arrive_back = ~sl.drop_t & (sl.ids[:, None] == bx.row(src)) \
+            arrive_back = ~sl.drop_t & (sl.idc() == bx.row(src)) \
                 & bx.col(g(is_leader)) & bx.row(has_lmsg)
             ok_mat = arrive_back & bx.row(resp_ok)
             rej_mat = arrive_back & bx.row(resp_reject)
@@ -1520,11 +1566,12 @@ def step(state: SimState, cfg: SimConfig,
         lo, hi_b = g(commit), g(last)
         for _ in range(max(1, L.bit_length() + 1)):
             mid = (lo + hi_b + 1) >> 1
-            cnt = sl.count(lambda j0, w: match[:, j0:j0 + w] >= bx.col(mid))
+            cnt = sl.count(lambda j0, w: bx.cols(match, j0, w) >= bx.col(mid))
             ok = (cnt >= q_row) & (hi_b >= mid) & (mid > lo)
             lo = torch.where(ok, mid, lo)
             hi_b = torch.where(ok, hi_b, mid - 1)
-        mci = lo if sl.dense else commit.index_copy(0, sl.idx, lo)
+        mci = lo if sl.dense else bx.put_rows(commit, sl.idx, lo,
+                                              inplace=False)
         if reads_on:
             # Phase R1's ack count: this tick's ack collective (and the
             # heartbeat responses on the mailbox wire) confirms leadership
@@ -1533,7 +1580,7 @@ def step(state: SimState, cfg: SimConfig,
             if mail:
                 rd_ack = rd_ack | sl.mview(val_hbr)
             out["rd_nack"] = sl.sfull(sl.count(
-                lambda j0, w: rd_ack[:, j0:j0 + w] | sl.eye_cols(j0, w)), 0)
+                lambda j0, w: bx.cols(rd_ack, j0, w) | sl.eye_cols(j0, w)), 0)
         return dict(out, match=match, next_=next_,
                     recent_active=recent_active, tn_at=tn_at,
                     tn_term=tn_term, tn_from=tn_from, mci=mci,
@@ -1586,14 +1633,14 @@ def step(state: SimState, cfg: SimConfig,
     if cfg.tiled:
         # per-row gather window: (applied, new_applied] is at most
         # apply_batch wide by construction
-        aidx = applied[:, None] + 1 \
+        aidx = bx.col(applied) + 1 \
             + torch.arange(cfg.apply_batch, dtype=I32, device=dev)[None]
-        avals = log_data.gather(1, _slot(cfg, aidx))
-        in_win = aidx <= new_applied[:, None]
+        avals = log_data.gather(bx.d(1), _slot(cfg, aidx))
+        in_win = aidx <= bx.col(new_applied)
         if not static_m:
             first_conf = torch.where(in_win & _is_conf(avals), aidx,
                                      BIG).amin(bx.d(1))
-            in_win = in_win & (aidx <= first_conf[:, None])
+            in_win = in_win & (aidx <= bx.col(first_conf))
         chk = torch.where(in_win, _entry_chk(aidx, avals), 0)
     else:
         own_idx = _idx_at_slots(cfg, last, bx)
@@ -1654,10 +1701,10 @@ def step(state: SimState, cfg: SimConfig,
     nst = _term_own(cfg, log_term, snap_idx, snap_term, last, new_snap, bx)
     if cfg.tiled:
         # (new_snap, applied] is at most `keep` wide by construction
-        fidx = new_snap[:, None] + 1 \
+        fidx = bx.col(new_snap) + 1 \
             + torch.arange(max(cfg.keep, 1), dtype=I32, device=dev)[None]
-        fvals = log_data.gather(1, _slot(cfg, fidx))
-        ahead = torch.where(fidx <= applied[:, None],
+        fvals = log_data.gather(bx.d(1), _slot(cfg, fidx))
+        ahead = torch.where(fidx <= bx.col(applied),
                             _entry_chk(fidx, fvals), 0)
     else:
         own_idx = _idx_at_slots(cfg, last, bx)
@@ -1718,8 +1765,8 @@ def step(state: SimState, cfg: SimConfig,
             C = cfg.log_chunk
             hup_conf = tail_conf = None
             for off in gate_band:
-                h, t = gates(log_data[:, off:off + C],
-                             _idx_at_band(cfg, last, off))
+                h, t = gates(bx.cols(log_data, off, C),
+                             _idx_at_band(cfg, last, off, bx))
                 hup_conf = h if hup_conf is None else hup_conf | h
                 tail_conf = t if tail_conf is None else tail_conf | t
 
@@ -1754,17 +1801,16 @@ def step(state: SimState, cfg: SimConfig,
     if cfg.trace_tags and state.tel_prop_tag is not None:
         ttag, tidx = state.tel_prop_tag, state.tel_prop_idx
         tcnt, ttick = state.tel_prop_cnt, state.tel_prop_tick
-        t_ring = ttag.shape[1]
-        tlo = torch.maximum(tidx, state.commit[:, None] + 1)
-        thi = torch.minimum(tidx + tcnt - 1, commit[:, None])
-        tsel = can_commit[:, None] & (tidx != NONE) & (ttick >= 0) \
-            & (now - ttick < t_ring) & (thi >= tlo) & (ttag != 0)
-        tbest = torch.where(tsel, ttick, -1).argmax(1)
-        commit_tag = torch.where(tsel.any(bx.d(1)),
-                                 ttag.gather(1, tbest[:, None])[:, 0], 0)
+        t_ring = ttag.shape[-1]
+        tlo = torch.maximum(tidx, bx.col(state.commit) + 1)
+        thi = torch.minimum(tidx + tcnt - 1, bx.col(commit))
+        tsel = bx.col(can_commit) & (tidx != NONE) & (ttick >= 0) \
+            & (now2 - ttick < t_ring) & (thi >= tlo) & (ttag != 0)
+        tbest = torch.where(tsel, ttick, -1).argmax(bx.d(1))
+        commit_tag = torch.where(tsel.any(bx.d(1)), bx.pick(ttag, tbest), 0)
         # the step-down wipe, as the batch ring's below: a regained
         # leadership must not link another leader's entries to a tag
-        planes["tel_prop_tag"] = torch.where(is_leader[:, None], ttag, 0)
+        planes["tel_prop_tag"] = torch.where(bx.col(is_leader), ttag, 0)
         if reads_on and state.read_tag is not None:
             read_tag_now = torch.where(alive & (state.read_pend == 0), 0,
                                        state.read_tag)
@@ -1777,13 +1823,15 @@ def step(state: SimState, cfg: SimConfig,
         # the drop degree is out- plus in-degree, band by band under peer
         # tiling (no temporary wider than a band), zero without a matrix
         if not drop_given:
-            drop_deg = torch.zeros((n,), dtype=I32, device=dev)
+            drop_deg = torch.zeros(lead_shape + (n,), dtype=I32, device=dev)
         elif cfg.peer_tiled:
-            drop_deg = _pcount(cfg, lambda j0, w: drop[:, j0:j0 + w], True)
+            drop_deg = _pcount(cfg, lambda j0, w: bx.cols(drop, j0, w), True,
+                               dim=bx.d(1), bx=bx)
             for i0 in range(0, n, cfg.peer_chunk):
-                drop_deg = drop_deg + _count(drop[i0:i0 + cfg.peer_chunk], 0)
+                drop_deg = drop_deg + _count(
+                    bx.row_band(drop, i0, cfg.peer_chunk), bx.d(0))
         else:
-            drop_deg = _count(drop, 1) + _count(drop, 0)
+            drop_deg = _count(drop, bx.d(1)) + _count(drop, bx.d(0))
         ev = [(state.ev_alive & ~alive, fc.FAULT_EDGE, fc.EDGE_DOWN, 0),
               (~state.ev_alive & alive, fc.FAULT_EDGE, fc.EDGE_UP, 0),
               (drop_deg != state.ev_drop, fc.FAULT_EDGE, fc.EDGE_DROP,
@@ -1801,7 +1849,11 @@ def step(state: SimState, cfg: SimConfig,
             if snap_refuse is not None:
                 ev.append((snap_refuse, fc.RECOVER_REJECT_SNAP, src,
                            snap_idx))
-        if cfg.tiled:
+        if cfg.tiled and bx.on:
+            # per cluster: its own fit and band width, as JAX's vmap sees
+            ev.append(((node == 0) & ~fits_c[:, None], fc.FALLBACK_TICK,
+                       nch_c[:, None], cfg.band_chunks))
+        elif cfg.tiled:
             # the full-pass ring write (decided on the host) is one
             # cluster-wide event, recorded on row 0
             ev.append(((node == 0) & (not fits), fc.FALLBACK_TICK, nch,
@@ -1912,8 +1964,6 @@ def propose_dense(state: SimState, cfg: SimConfig,
     A device count is not read back."""
     check_device(state, device)
     bx = Bx(batch_size(state))
-    if bx.on:
-        _refuse_batched(cfg, "propose_dense")
     if isinstance(count, torch.Tensor):
         count = count.to(I32)
         if bx.on:
@@ -1941,10 +1991,10 @@ def propose_dense(state: SimState, cfg: SimConfig,
         if nch_p <= cfg.band_chunks:
             C = cfg.log_chunk
             for off in _band_offsets(cfg, c0p):
-                write(lt[:, off:off + C], ld[:, off:off + C],
-                      _idx_at_band(cfg, anchor, off))
+                write(bx.cols(lt, off, C), bx.cols(ld, off, C),
+                      _idx_at_band(cfg, anchor, off, bx))
         else:
-            write(lt, ld, _idx_at_slots(cfg, anchor))
+            write(lt, ld, _idx_at_slots(cfg, anchor, bx))
     else:
         write(lt, ld, _idx_at_slots(cfg, anchor, bx))
     if cfg.collect_telemetry and state.tel_prop_idx is not None:
@@ -1979,8 +2029,6 @@ def propose(state: SimState, cfg: SimConfig, payloads, count, alive=None,
     with `alive` [B, N]."""
     dev = check_device(state, device)
     bx = Bx(batch_size(state))
-    if bx.on:
-        _refuse_batched(cfg, "propose")
     if bx.on or isinstance(count, torch.Tensor):
         count = torch.as_tensor(count).to(device=dev, dtype=I32)
         if bx.on:

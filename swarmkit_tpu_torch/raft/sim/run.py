@@ -27,7 +27,8 @@ from swarmkit_tpu_torch.raft.sim import u32
 from swarmkit_tpu_torch.metrics import catalog as obs_catalog
 from swarmkit_tpu_torch.metrics import registry as obs_registry
 from swarmkit_tpu_torch.metrics import scrape as obs_scrape
-from swarmkit_tpu_torch.raft.sim.kernel import _first_true, step
+from swarmkit_tpu_torch.raft.sim.batch import Bx
+from swarmkit_tpu_torch.raft.sim.kernel import _first_true, step, tag_lane
 from swarmkit_tpu_torch.raft.sim.state import (
     LEADER, NONE, SimConfig, SimState, batch_size, check_device, drop_matrix,
 )
@@ -177,16 +178,13 @@ def submit_reads(state: SimState, cfg: SimConfig, count: int, rows=None,
     On a batched state `count` is one count per cluster ([B] array-like,
     or a device tensor, which is not read back) and each cluster's goal is
     its own max(commit), as the JAX package's jax.vmap(submit_reads)
-    gives them; `rows` then selects the same rows in every cluster."""
+    gives them; `rows` then selects the same rows in every cluster, and
+    `tag` is one int for every cluster or one tag per cluster ([B])."""
     dev = check_device(state, device)
     if state.read_pend is None:
         raise ValueError("read path is off (SimConfig.read_batch == 0); "
                          "no read registers to submit into")
     batched = _batched(state)
-    if batched and cfg.trace_tags:
-        raise ValueError("submit_reads on a batched state does not run "
-                         "cfg.trace_tags (trace tags under a batch axis, "
-                         "ROADMAP Queue 1 #1); use an unbatched state")
     sel = torch.ones((cfg.n,), dtype=torch.bool, device=dev)
     if rows is not None:
         sel = torch.zeros_like(sel)
@@ -202,7 +200,8 @@ def submit_reads(state: SimState, cfg: SimConfig, count: int, rows=None,
     tag_fields = {}
     if cfg.trace_tags and state.read_tag is not None:
         tag_fields["read_tag"] = torch.where(
-            open_, 0 if tag is None else int(tag), state.read_tag)
+            open_, tag_lane(tag, Bx(batch_size(state)), dev),
+            state.read_tag)
     return dataclasses.replace(
         state,
         read_pend=torch.where(open_, count, state.read_pend),

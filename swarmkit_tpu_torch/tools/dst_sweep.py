@@ -83,7 +83,8 @@ def add_active_rows_arg(ap: argparse.ArgumentParser) -> None:
     ap.add_argument("--active-rows", type=int, default=None, metavar="A",
                     help="role-sparse progress lowering "
                     "(SimConfig.active_rows): 0 = dense; a multiple of 8 < n "
-                    "= [A, N] slab, which the batched sweep refuses; "
+                    "= [A, N] slab (the batch's, with the dense rows "
+                    "when a cluster's active rows overflow it); "
                     "default = SimConfig default")
 
 
@@ -112,7 +113,7 @@ def _cfg(n: int, seed: int, reads: int = 2,
     not cluster size, is the search dimension.  `reads` enables the
     linearizable read path (0 sweeps the read-free kernel); `peer_chunk`
     and `active_rows` pick the lowerings (None = SimConfig default, which
-    is dense at these sizes; the batched tick refuses the banded ones)."""
+    is dense at these sizes)."""
     kw = {} if peer_chunk is None else {"peer_chunk": peer_chunk}
     kw.update(active_rows_kw(active_rows))
     return SimConfig(n=n, log_len=64, window=8, apply_batch=16, max_props=8,
@@ -473,8 +474,8 @@ def main(argv=None) -> int:
                     "LINEARIZABLE_READ checker (0 = read-free kernel)")
     ap.add_argument("--peer-chunk", type=int, default=None,
                     help="peer-axis lowering: 0 = dense; a divisor of --n "
-                    "(multiple of 8) = banded counts, which the batched "
-                    "sweep refuses; default = SimConfig default")
+                    "(multiple of 8) = banded counts; default = "
+                    "SimConfig default")
     add_active_rows_arg(ap)
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card; 'cpu' to "

@@ -6,8 +6,9 @@ from a seed (every cluster its own drop rate and crash rate) and hands
 them to both packages: JAX runs jax.vmap of its step over the stacked
 state, the port runs its step once on the batched state.  Every field of
 every cluster is compared after every tick; all raft state is integer, so
-the tolerance is exact equality.  Also: B=1 equals the unbatched tick, and
-the levers and planes the batched tick does not run raise.
+the tolerance is exact equality.  Also: B=1 equals the unbatched tick, on
+the dense configurations and under each lever and plane (the tiled log,
+banded peer counts, the progress slab, the flight recorder, trace tags).
 """
 
 from __future__ import annotations
@@ -199,7 +200,8 @@ def test_batched_run_schedule_and_reductions_are_per_cluster():
             == int(trun.committed_entries(one))
 
 
-REFUSED = {
+# the levers and planes under a batch axis
+LEVERS = {
     "tiled log": dict(DST5, log_len=1024, window=64, apply_batch=64,
                       max_props=64, keep=32, log_chunk=128),
     "banded peers": dict(DST5, n=16, peer_chunk=8, active_rows=0),
@@ -208,18 +210,60 @@ REFUSED = {
     "trace tags": dict(DST5, record_events=True, collect_telemetry=True,
                        trace_tags=True),
 }
+LEVER_B = 3
+LEVER_DROP = np.array([0.0, 0.1, 0.3])[:, None, None]
+LEVER_DOWN = np.array([0.0, 0.05, 0.1])[:, None]
 
 
-@pytest.mark.parametrize("lever", sorted(REFUSED))
-def test_batched_step_refuses_what_it_does_not_run(lever):
-    """A lever or plane the batched tick does not run raises a ValueError
-    that names its ROADMAP item; it never runs something else."""
-    cfg = tstate.SimConfig(**REFUSED[lever])
-    batch = tstate.broadcast_state(tstate.init_state(cfg, device=CPU), 2)
-    with pytest.raises(ValueError, match="ROADMAP"):
-        tkernel.step(batch, cfg, device=CPU)
-    with pytest.raises(ValueError, match="ROADMAP"):
-        tkernel.propose_dense(batch, cfg, trun._payload_at, 1, device=CPU)
+def _jstep_tag_impl(st, alive, drop, tag, cfg, prop):
+    def one(s, a, d, t):
+        return jkernel.step(s, cfg, alive=a, drop=d,
+                            prop_count=jnp.asarray(prop, jnp.int32),
+                            payload_fn=jrun._payload_at, prop_tag=t)
+    return jax.vmap(one)(st, alive, drop, tag)
+
+
+# jax.vmap(step) with a mapped trace tag (one per cluster)
+_vstep_tag = jax.jit(_jstep_tag_impl, static_argnames=("cfg", "prop"))
+
+
+@pytest.mark.parametrize("lever", sorted(LEVERS))
+def test_batched_levers_equal_jax_vmap_and_the_unbatched_tick(lever):
+    """Each lever and plane under a batch axis: every cluster of B=3, each
+    under its own faults and its own trace tag, equals jax.vmap(step) on
+    every field and tick; B=1 equals the unbatched tick."""
+    kw = LEVERS[lever]
+    jcfg, tcfg = jstate.SimConfig(**kw), tstate.SimConfig(**kw)
+    n = jcfg.n
+    jb, tb = _stacked(jcfg, LEVER_B)
+    one = tstate.init_state(tcfg, device=CPU)
+    b1 = tstate.broadcast_state(tstate.init_state(tcfg, device=CPU), 1)
+    rng = np.random.default_rng(13)
+    tags = np.array([5, 0, 9], np.int32)
+    for t in range(48):
+        drop = rng.random((LEVER_B, n, n)) < LEVER_DROP
+        alive = rng.random((LEVER_B, n)) >= LEVER_DOWN
+        tag = tags + t * (tags > 0)
+        jb = _vstep_tag(jb, jnp.asarray(alive), jnp.asarray(drop),
+                        jnp.asarray(tag), cfg=jcfg, prop=2)
+        tb = tkernel.step(tb, tcfg, alive=torch.from_numpy(alive),
+                          drop=torch.from_numpy(drop), prop_count=2,
+                          payload_fn=trun._payload_at,
+                          prop_tag=torch.from_numpy(tag), device=CPU)
+        assert_same(f"{lever} tick {t}", jb, tb)
+        one = tkernel.step(one, tcfg, alive=torch.from_numpy(alive[1]),
+                           drop=torch.from_numpy(drop[1]), prop_count=2,
+                           payload_fn=trun._payload_at, prop_tag=int(tag[1]),
+                           device=CPU)
+        b1 = tkernel.step(b1, tcfg, alive=torch.from_numpy(alive[1:2]),
+                          drop=torch.from_numpy(drop[1:2]), prop_count=2,
+                          payload_fn=trun._payload_at, prop_tag=int(tag[1]),
+                          device=CPU)
+        want, got = tstate.state_to_numpy(one), tstate.state_to_numpy(b1)
+        assert sorted(want) == sorted(got)
+        for k, w in want.items():
+            assert np.array_equal(got[k][0], w), f"{lever} B=1 tick {t}: {k}"
+    assert int(tb.commit.amax()) > 0
 
 
 @pytest.mark.parametrize("api", ["propose", "propose_conf",

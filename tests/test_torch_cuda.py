@@ -646,3 +646,79 @@ def test_oracle_trace_on_the_card_matches_the_cpu():
                                device="cuda")
         assert got == dst.oracle_trace(cfg, one, 2, mutation, device="cpu")
         assert (got["diverged_at"] >= 0) == (mutation is not None)
+
+
+BATCH_LEVERS = {
+    "tiled_log": dict(log_len=512, log_chunk=128, record_events=True),
+    "peer_chunk": dict(n=16, peer_chunk=8, active_rows=0),
+    "active_rows": dict(n=16, active_rows=8),
+    "planes": dict(record_events=True, collect_telemetry=True,
+                   trace_tags=True),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lever", sorted(BATCH_LEVERS))
+def test_batched_levers_on_the_card_match_the_cpu(lever):
+    """Each lever and plane under a batch axis on the card and on the
+    CPU: 8 clusters under their own faults (and their own trace tags),
+    every field of every tick equal, and the same host decisions."""
+    _need_card()
+    from swarmkit_tpu_torch.raft.sim import kernel
+
+    cfg = sim.SimConfig(**dict(DST5, **BATCH_LEVERS[lever]))
+    rng = np.random.default_rng(5)
+    states = {d: sim.broadcast_state(sim.init_state(cfg, device=d), 8)
+              for d in ("cuda", "cpu")}
+    counts = {}
+    for t in range(80):
+        alive = rng.random((8, cfg.n)) > 0.05
+        drop = rng.random((8, cfg.n, cfg.n)) < 0.1 * (t % 40 < 30)
+        tags = torch.arange(8, dtype=torch.int32) + 100 * t
+        for d in states:
+            kernel.reset_counts()
+            states[d] = sim.step(
+                states[d], cfg, alive=torch.from_numpy(alive).to(d),
+                drop=torch.from_numpy(drop).to(d), prop_count=2,
+                payload_fn=sim.run._payload_at, prop_tag=tags.to(d),
+                device=d)
+            counts[d] = dict(kernel.COUNTS)
+        assert counts["cuda"] == counts["cpu"], t
+        got = sim.state_to_numpy(states["cuda"])
+        want = sim.state_to_numpy(states["cpu"])
+        assert sorted(got) == sorted(want)
+        for name in want:
+            assert np.array_equal(got[name], want[name]), (t, name)
+    assert int(states["cpu"].commit.max()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mutation", [None, "commit_no_quorum"])
+def test_mc_smoke_scan_on_the_card_matches_the_cpu(mutation, tmp_path):
+    """The smoke scope's exhaustive scan on the card and on the CPU: the
+    same summary (ladder, passes, violations), edges and .aut bytes."""
+    _need_card()
+    from swarmkit_tpu_torch import mc
+    from swarmkit_tpu_torch.tools import mc_export
+
+    sc = mc.SCOPES["smoke"]
+    res = {d: mc.exhaustive_scan(sc.cfg(), sc.alphabet(), sc.horizon,
+                                 mutation=mutation, collect_edges=True,
+                                 scope="smoke", device=d)
+           for d in ("cuda", "cpu")}
+    drop = ("elapsed_sec", "branches_per_sec")
+    got, want = ({k: v for k, v in res[d].summary().items() if k not in drop}
+                 for d in ("cuda", "cpu"))
+    assert got == want
+    assert res["cuda"].edges == res["cpu"].edges
+    if mutation is None:
+        assert [(lv["children"], lv["unique"]) for lv in got["levels"]] \
+            == [(13, 4), (52, 29), (377, 225), (2925, 1403)]
+        auts = []
+        for d in ("cuda", "cpu"):
+            path = str(tmp_path / f"{d}.aut")
+            mc_export.export_scope("smoke", path, verbose=False, device=d)
+            auts.append(open(path, "rb").read())
+        assert auts[0] == auts[1]
+    else:
+        assert got["violations"]
