@@ -220,11 +220,33 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    self-tests at n3h8 (caught, the shrunk artifact replayed exactly on
    the card and on the CPU); the smoke scope on the card and the CPU (the
    same summaries, violations, edges and .aut bytes).
+17. the scheduler's group placement at Docker's published scale (1,000
+   nodes and 30,000 containers; swarmkit_tpu_torch/tools/sched_world.py:
+   three zones, 5% of the nodes down, 2% tainted, 0-3 tasks running on
+   each).  Groups A (30,000 replicas reserving 0.25 CPU / 512 MiB, spread
+   over the zones), B (30,000 on zone!=c, at most 40 a node) and C (4,096
+   spread by node.id), each on a fresh copy of the world through
+   Scheduler.schedule with the kernel on the card: exactly one
+   sched_place launch and no host fallback a group, the decisions equal
+   to the kernel's choices, the kernel equal to the plain loop on the CPU
+   over every task, and the host Pipeline (use_kernel=False) on the first
+   256 tasks equal to the kernel's first 256.  Prints the schedule,
+   encode_group, encode + place and grouping + decode seconds, the
+   launch's device ms between CUDA events and us a task, its bound, the
+   host Pipeline's us a task, the plain loop on the card over a 1,024-task
+   prefix (ms, and for group A its launches; a yardstick never on the
+   path) beside the kernel on the same prefix, placed and unplaced
+   counts, the kernel with one warp of nodes (the per-task chain alone)
+   and peak device memory.
+18. the multi-raft tools on the card: multiraft_sweep's G=64 point
+   (--entries 200000 --no-single --json; its JSON line parsed, the band
+   copy launched) and three swarm_top frames over its in-process demo
+   (the fleet's leader rows, hottest groups and SLO alerts present).
 
 Each path's band-copy launches are counted from 0 (the kernels' record
-carries them).  Before the last line it prints the kernels' JSON record
-and the card's `nvidia-smi` name/power line; the last line is the result
-JSON.  Without a CUDA card, or run from a directory that holds nothing
+carries them), and each phase-17 group's sched_place launches likewise.
+Before the last line it prints the kernels' JSON record and the card's
+`nvidia-smi` name/power line; the last line is the result JSON.  Without a CUDA card, or run from a directory that holds nothing
 else of the repo, it exits non-zero and prints no result.
 """
 
@@ -2445,6 +2467,288 @@ def phase_mc(torch, sim, cuda_ops, outdir: str, card: str = "cuda") -> dict:
     return out
 
 
+# ---- phase 17: the scheduler's group placement at Docker's scale -------
+
+SCHED_HOST_PREFIX = 256      # tasks the host Pipeline places per group
+SCHED_PLAIN_PREFIX = 1024    # tasks of the plain loop on the card
+# the group whose plain-loop launches are counted: tracing ~50,000
+# launches costs the profiler ~10 s a group
+SCHED_PROFILED_GROUP = "A"
+SCHED_CHAIN_NODES = 32       # one warp: the kernel's per-task chain alone
+
+
+def place_bound_ms(n: int, n_branches: int, tasks: int, ran: int) -> tuple:
+    """The least time of one place_greedy call, from what the placement
+    needs rather than from the kernel's rescan: bytes (the [6, N] int32
+    columns read once, the choices written) over the memory rate, and
+    integer operations over the card's rate outside the tensor cores.
+    Between tasks only a[choice] changes, so one node's key and one
+    branch's (load, first) change: an incremental argmin (a tournament
+    tree over the nodes, and one over the branches with a spread level)
+    needs ceil(log2 N) + ceil(log2 B) tuple compares of up to 4 integer
+    operations each, for each task the loop ran.  Returns
+    (ms, "bytes" | "operations")."""
+    bytes_ = 24 * n + 4 * tasks
+    levels = math.ceil(math.log2(max(n, 2)))
+    if n_branches:
+        levels += math.ceil(math.log2(max(n_branches, 2)))
+    ops = ran * 4 * levels
+    by_bytes, by_ops = bytes_ / HBM_BYTES_PER_S, ops / F32_FLOP_PER_S
+    return max(by_bytes, by_ops) * 1e3, \
+        "bytes" if by_bytes >= by_ops else "operations"
+
+
+def events_ms(torch, fn, reps: int = 3, warm: bool = True) -> float:
+    """Mean device time of fn() in ms between CUDA events, after one
+    warm call unless `warm` is false (the caller has just run it)."""
+    if warm:
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _profiled_launches(torch, fn) -> int:
+    """The kernel launches of fn(), under torch.profiler tracing the card
+    only (tracing the host's ops too costs seconds at ~50,000 launches)."""
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
+def phase_scheduler(torch, cuda_ops, card: str = "cuda") -> dict:
+    """Each group of sched_world.GROUPS on a fresh copy of the Docker-scale
+    world through Scheduler.schedule on the card (one launch a group), the
+    kernel against the plain loop on the CPU over every task, the host
+    Pipeline on the first SCHED_HOST_PREFIX tasks against the kernel's
+    choices, and the timings."""
+    from swarmkit_tpu_torch.manager.scheduler import Scheduler
+    from swarmkit_tpu_torch.manager.scheduler import kernel as skernel
+    from swarmkit_tpu_torch.manager.scheduler.nodeinfo import NodeInfo
+    from swarmkit_tpu_torch.metrics import catalog
+    from swarmkit_tpu_torch.metrics.registry import MetricsRegistry
+    from swarmkit_tpu_torch.tools import sched_world as W
+    from swarmkit_tpu_torch.utils.clock import SystemClock
+
+    desc = W.describe_world(seed=0)
+    log(f"  world: {len(desc['zone'])} nodes in zones {W.ZONES}, "
+        f"{int(desc['down'].sum())} down, {int(desc['tainted'].sum())} "
+        f"tainted, {int(desc['running'].sum())} tasks running "
+        f"({int(desc['running_own'].sum())} of {W.SERVICE!r})")
+    out = {}
+    torch.cuda.reset_peak_memory_stats()
+    for name in sorted(W.GROUPS):
+        t0 = time.perf_counter()
+        tasks = W.group_tasks(name)
+        n_tasks = len(tasks)
+        make_s = time.perf_counter() - t0
+        # the main path: one scheduler pass on the card
+        obs = MetricsRegistry()
+        sched = Scheduler(obs=obs, use_kernel=True, device=card)
+        W.fill(sched, desc, tasks[0])
+        node_ids = list(sched.node_set.nodes)
+        cuda_ops.reset_launches()
+        t0 = time.perf_counter()
+        decisions = sched.schedule(tasks)
+        schedule_s = time.perf_counter() - t0
+        launches = cuda_ops.LAUNCHES["sched_place"]
+        paths = catalog.get(obs, "swarm_sched_kernel_groups_total").snapshot()
+        check(launches == 1, f"group {name}: sched_place launched "
+              f"{launches} times, not once")
+        check(paths == {"path=kernel": 1.0}, f"group {name}: encode_group "
+              f"fell back to the host Pipeline ({paths})")
+        snap = obs.snapshot()
+        kernel_s = snap["swarm_sched_kernel_seconds"]["sum"]
+        latency_s = snap["swarm_scheduler_latency_seconds"]["sum"]
+
+        # the same group's pieces on a fresh copy: encode, the launch
+        # timed between CUDA events, the plain loop on the CPU
+        clock = SystemClock()
+        nodes = W.build_nodes(desc, tasks[0], clock.now())
+        prefs = list(tasks[0].spec.placement.preferences)
+        t0 = time.perf_counter()
+        enc = skernel.encode_group(tasks[0], prefs, nodes,
+                                   NodeInfo.failure_key(tasks[0]),
+                                   clock.now())
+        encode_s = time.perf_counter() - t0
+        check(enc is not None, f"group {name}: encode_group returned None")
+        cols_cpu = skernel.group_columns(enc, n_tasks, device="cpu")
+        cols = cols_cpu.to(card)
+        nb, hs = enc.n_branches, enc.has_service
+
+        def run(cols=cols, k=n_tasks):
+            return cuda_ops.place_greedy(cols, nb, hs, k)
+
+        got = run()
+        device_ms = events_ms(torch, run)
+        t0 = time.perf_counter()
+        want = cuda_ops.place_greedy_plain(cols_cpu, nb, hs, n_tasks)
+        plain_cpu_s = time.perf_counter() - t0
+        err = int((got.cpu().long() - want.long()).abs().max())
+        check(err == 0, f"group {name}: the kernel differs from the plain "
+              f"loop (max |diff| {err})")
+        choices = want.tolist()
+        placed = sum(c >= 0 for c in choices)
+        check([(t.id, n) for t, n, _ in decisions] ==
+              [(tasks[i].id, node_ids[c]) for i, c in enumerate(choices)
+               if c >= 0], f"group {name}: Scheduler.schedule's decisions "
+              f"differ from the kernel's choices")
+        check(placed > 0, f"group {name}: nothing placed")
+
+        # the host Pipeline on the prefix: the greedy loop makes task i's
+        # choice depend only on tasks < i
+        host = Scheduler(obs=MetricsRegistry(), use_kernel=False)
+        W.fill(host, desc, tasks[0])
+        prefix = tasks[:SCHED_HOST_PREFIX]
+        t0 = time.perf_counter()
+        host_dec = host.schedule(prefix)
+        host_s = time.perf_counter() - t0
+        check([(t.id, n) for t, n, _ in host_dec] ==
+              [(tasks[i].id, node_ids[c])
+               for i, c in enumerate(choices[:SCHED_HOST_PREFIX])
+               if c >= 0], f"group {name}: the host Pipeline differs from "
+              f"the kernel on the first {SCHED_HOST_PREFIX} tasks")
+
+        # the yardstick, never on the path: the plain loop on the card
+        # over a prefix, and the kernel on the same prefix
+        k = SCHED_PLAIN_PREFIX
+        plain_launches = _profiled_launches(
+            torch, lambda: cuda_ops.place_greedy_plain(cols, nb, hs, k)) \
+            if name == SCHED_PROFILED_GROUP else None
+        plain_ms = events_ms(
+            torch, lambda: cuda_ops.place_greedy_plain(cols, nb, hs, k), 1,
+            warm=False)
+        prefix_ms = events_ms(torch, lambda: run(k=k))
+        ran = min(n_tasks, placed + 1)
+        bound, bound_by = place_bound_ms(len(nodes), nb, n_tasks, ran)
+        out[name] = dict(
+            tasks=n_tasks, nodes=len(nodes), branches=nb, placed=placed,
+            unplaced=n_tasks - placed, tasks_run=ran, launches=launches,
+            schedule_s=schedule_s, encode_place_s=kernel_s,
+            latency_s=latency_s, grouping_decode_s=latency_s - kernel_s,
+            encode_s=encode_s, ms=device_ms,
+            us_per_task=device_ms * 1e3 / n_tasks, bound_ms=bound,
+            bound_by=bound_by, plain_cpu_s=plain_cpu_s, host_s=host_s,
+            host_us_per_task=host_s * 1e6 / len(prefix),
+            plain_prefix_ms=plain_ms, plain_prefix_launches=plain_launches,
+            prefix_ms=prefix_ms, err=err, make_tasks_s=make_s)
+        log(f"  group {name}: {n_tasks} tasks over {len(nodes)} nodes "
+            f"({nb} spread branches): placed {placed}, unplaced "
+            f"{n_tasks - placed}; Scheduler.schedule {schedule_s:.3f} s "
+            f"(encode + place {kernel_s:.4f} s, grouping + decode "
+            f"{latency_s - kernel_s:.3f} s), sched_place launches "
+            f"{launches}; encode_group {encode_s:.4f} s; device "
+            f"{device_ms:.3f} ms between CUDA events "
+            f"({device_ms * 1e3 / n_tasks:.3f} us a task), bound "
+            f"{bound:.3e} ms ({bound_by}); kernel = plain loop on the CPU "
+            f"over all {n_tasks} tasks (plain {plain_cpu_s:.2f} s); host "
+            f"Pipeline {host_s:.3f} s for {len(prefix)} tasks "
+            f"({host_s * 1e6 / len(prefix):.1f} us a task) = the kernel's "
+            f"first {len(prefix)}; plain loop on the card over {k} tasks "
+            f"{plain_ms:.2f} ms in "
+            f"{plain_launches if plain_launches is not None else 'uncounted'}"
+            f" launches, the kernel {prefix_ms:.3f} ms")
+
+    # the chain alone: the kernel with one warp of nodes, every task placed
+    n = SCHED_CHAIN_NODES
+    chain_cols = torch.zeros((6, n), dtype=torch.int32, device=card)
+    chain_cols[0] = 1
+    chain_cols[1] = 1 << 20
+    t_a = out["A"]["tasks"]
+    chain_ms = events_ms(
+        torch, lambda: cuda_ops.place_greedy(chain_cols, 0, True, t_a))
+    out["chain"] = dict(nodes=n, tasks=t_a, ms=chain_ms,
+                        us_per_task=chain_ms * 1e3 / t_a)
+    out["peak_mem_mib"] = torch.cuda.max_memory_allocated() / 2**20
+    log(f"  the chain alone ({n} nodes, one warp, no spread, {t_a} tasks "
+        f"all placed): {chain_ms:.3f} ms ({chain_ms * 1e3 / t_a:.3f} us a "
+        f"task); peak device memory {out['peak_mem_mib']:.3f} MiB")
+    return out
+
+
+# ---- phase 18: the multi-raft tools on the card -------------------------
+
+SWEEP_ARGS = ["--groups", "64", "--entries", "200000", "--no-single",
+              "--json"]
+TOP_FRAMES = 3
+
+
+def phase_tools(torch, cuda_ops) -> dict:
+    """multiraft_sweep's G=64 point and three swarm_top frames over its
+    in-process demo, both on the card."""
+    import contextlib
+    import io
+
+    from swarmkit_tpu_torch.tools import multiraft_sweep, swarm_top
+
+    cuda_ops.reset_launches()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = multiraft_sweep.main(SWEEP_ARGS)
+    sweep_s = time.perf_counter() - t0
+    text = buf.getvalue()
+    sweep_launches = cuda_ops.LAUNCHES["append_band_copy"]
+    check(rc == 0, f"multiraft_sweep exited {rc}")
+    points = [json.loads(line) for line in text.splitlines()
+              if line.startswith("{")]
+    check(len(points) == 1, f"multiraft_sweep printed {len(points)} JSON "
+          f"lines, not 1")
+    point = points[0]
+    check(set(point) == {"groups", "n", *multiraft_sweep.POINT_KEYS},
+          f"multiraft_sweep's keys {sorted(point)}")
+    check(point["groups"] == 64 and point["committed"] > 0
+          and point["groups_with_leader"] >= 64 * 99 // 100,
+          f"multiraft_sweep's point {point}")
+    check(sweep_launches > 0, "multiraft_sweep never launched the band copy")
+    for line in text.rstrip().splitlines()[-3:]:
+        log(f"  {line}")
+    log(f"  multiraft_sweep {' '.join(SWEEP_ARGS)}: {sweep_s:.2f} s, "
+        f"append_band_copy launches {sweep_launches}; {json.dumps(point)}")
+
+    cuda_ops.reset_launches()
+    poll = swarm_top.source_demo()
+    state = swarm_top.TopState()
+    t0 = time.perf_counter()
+    for _ in range(TOP_FRAMES):
+        snaps = poll()
+        state.observe(snaps)
+        frame = swarm_top.render_frame(snaps, state)
+    top_s = time.perf_counter() - t0
+    top_launches = cuda_ops.LAUNCHES["append_band_copy"]
+    fleet = snaps["sim-fleet"]
+    led = fleet["metrics"]["swarm_multiraft_groups_with_leader"]
+    for want in ("== sim-quorum", "== sim-fleet",
+                 "swarm_multiraft_groups_with_leader", "hottest groups:",
+                 "SLO ALERTS", "swarm_kernel_commit_advance_total"):
+        check(want in frame, f"swarm_top's frame lacks {want!r}")
+    check(led == fleet["objects"]["groups"],
+          f"swarm_top's fleet: {led} of {fleet['objects']['groups']} groups "
+          f"lead")
+    check(top_launches > 0, "swarm_top's demo never launched the band copy")
+    log(f"  swarm_top --demo: {TOP_FRAMES} frames in {top_s:.2f} s, "
+        f"append_band_copy launches {top_launches}; the fleet's "
+        f"{int(led)} groups lead, hottest {fleet['hottest']}, "
+        f"{len(fleet['slo_active'])} SLO states active, "
+        f"{len(fleet['alerts'])} alerts; the last frame's fleet panel:")
+    for line in frame.splitlines():
+        if "hottest" in line or "SLO" in line or "⚠" in line \
+                or "groups_with_leader" in line:
+            log(f"  | {line}")
+    return dict(sweep=point, sweep_s=sweep_s, sweep_launches=sweep_launches,
+                top_s=top_s, top_launches=top_launches,
+                top_slo_active=len(fleet["slo_active"]))
+
+
 def matmul_tol(torch, ref, k: int) -> float:
     """bf16: 2 bf16 ulps of max|ref|; f32: 1e-5 of max|ref|, scaled by
     sqrt(K / 512) past K = 512."""
@@ -2809,6 +3113,12 @@ def main() -> int:
         mc16 = phase_mc(torch, sim, cuda_ops, outdir)
     finally:
         shutil.rmtree(outdir, ignore_errors=True)
+    stage("phase 17: the scheduler's group placement at Docker's published "
+          "scale (1,000 nodes, groups A-C)")
+    sched17 = phase_scheduler(torch, cuda_ops)
+    stage("phase 18: the multi-raft tools on the card (multiraft_sweep at "
+          "G=64, swarm_top's demo)")
+    tools18 = phase_tools(torch, cuda_ops)
 
     elapsed = time.perf_counter() - started
     log(f"all phases passed in {elapsed:.1f} s")
@@ -2822,7 +3132,8 @@ def main() -> int:
                                  "oracle": oracle, "multiraft": mraft,
                                  "multiraft_telemetry": mtel,
                                  "multiraft_card_vs_cpu": mcpu,
-                                 "levers_batched": levers, "mc": mc16},
+                                 "levers_batched": levers, "mc": mc16,
+                                 "scheduler": sched17, "tools": tools18},
                                 default=str))
     records = [{
         "name": "append_band_copy", "route": "cuda",
@@ -2836,6 +3147,8 @@ def main() -> int:
         "dst_launches": dst13["sweep_256"]["band_copy_launches"],
         "dst_wide_launches": dst13["sweep_wide"]["band_copy_launches"],
         "multiraft_launches": mraft["band_copy_launches"],
+        "multiraft_sweep_launches": tools18["sweep_launches"],
+        "swarm_top_launches": tools18["top_launches"],
         "multiraft_ms": mraft["band_copy"]["ms"],
         "multiraft_plain_ms": mraft["band_copy"]["plain_ms"],
         "multiraft_bound_ms": mraft["band_copy"]["bound_ms"],
@@ -2874,6 +3187,26 @@ def main() -> int:
             "bound_by": bound_by, "library_ms": t["library"]})
     # the WMMA kernel that the wgmma kernel replaced, on the same inputs
     records[1]["previous_ms"] = f8["matmul"]["previous"]
+    groups = sorted(g for g in sched17 if len(g) == 1)
+    a17 = sched17["A"]
+    records.append({
+        "name": "sched_place", "route": "cuda",
+        "source": "swarmkit_tpu_torch/csrc/sched_place.cu",
+        # no Pallas ancestor: the JAX package's jitted greedy fori_loop
+        "replaces": "swarmkit_tpu/manager/scheduler/kernel.py:183",
+        "launches": sum(sched17[g]["launches"] for g in groups),
+        "max_abs_err": max(sched17[g]["err"] for g in groups),
+        "ms": a17["ms"], "tasks": a17["tasks"],
+        # the plain loop on the card over the first plain_tasks tasks,
+        # and the kernel on the same prefix
+        "plain_ms": a17["plain_prefix_ms"],
+        "plain_tasks": SCHED_PLAIN_PREFIX, "prefix_ms": a17["prefix_ms"],
+        "plain_launches": a17["plain_prefix_launches"],
+        "bound_ms": a17["bound_ms"], "bound_by": a17["bound_by"],
+        "library_ms": None, "chain_ms": sched17["chain"]["ms"],
+        "groups": {g: {k: sched17[g][k] for k in (
+            "tasks", "launches", "ms", "bound_ms", "plain_prefix_ms",
+            "prefix_ms", "host_us_per_task")} for g in groups}})
     print(json.dumps({"kernels": records}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,17 +1,23 @@
-"""The API objects the port's task executor uses."""
+"""The API objects the port's task executor and scheduler use."""
 
-from swarmkit_tpu_torch.api.objects import Task
+from swarmkit_tpu_torch.api.objects import Node, NodeStatus, Task
+from swarmkit_tpu_torch.api.serde import Message
 from swarmkit_tpu_torch.api.specs import (
-    ConfigReference, ContainerSpec, SecretReference, TaskSpec,
+    ConfigReference, ContainerSpec, NodeSpec, Placement, ResourceRequirements,
+    Resources, SecretReference, TaskSpec,
 )
 from swarmkit_tpu_torch.api.types import (
-    TERMINAL_STATES, Annotations, EngineDescription, NodeDescription,
-    NodeResources, Platform, TaskState, TaskStatus,
+    TERMINAL_STATES, Annotations, Driver, Endpoint, EngineDescription,
+    NetworkAttachment, NodeAvailability, NodeDescription, NodeResources,
+    NodeRole, NodeState, Platform, PortConfig, TaskState, TaskStatus,
 )
 
 __all__ = [
-    "Task", "ConfigReference", "ContainerSpec", "SecretReference",
-    "TaskSpec", "TERMINAL_STATES", "Annotations", "EngineDescription",
-    "NodeDescription", "NodeResources", "Platform", "TaskState",
-    "TaskStatus",
+    "Node", "NodeStatus", "Task", "Message", "ConfigReference",
+    "ContainerSpec", "NodeSpec", "Placement", "ResourceRequirements",
+    "Resources", "SecretReference", "TaskSpec", "TERMINAL_STATES",
+    "Annotations", "Driver", "Endpoint", "EngineDescription",
+    "NetworkAttachment", "NodeAvailability", "NodeDescription",
+    "NodeResources", "NodeRole", "NodeState", "Platform", "PortConfig",
+    "TaskState", "TaskStatus",
 ]

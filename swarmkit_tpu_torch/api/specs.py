@@ -1,30 +1,64 @@
-"""The task spec fields the executor reads (the port's own copy of the
-JAX package's api/specs.py ContainerSpec, SecretReference,
-ConfigReference and TaskSpec; fields the executor never reads are left
-out)."""
+"""The spec fields the executor and the scheduler read (the port's own
+copy of the JAX package's api/specs.py NodeSpec, Resources,
+ResourceRequirements, Placement, ContainerSpec, SecretReference,
+ConfigReference and TaskSpec; fields neither reads are left out)."""
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
 from typing import Optional
 
+from swarmkit_tpu_torch.api.serde import Message
+from swarmkit_tpu_torch.api.types import (
+    Annotations, Driver, NodeAvailability, NodeRole,
+)
+
 
 @dataclass
-class SecretReference:
+class NodeSpec(Message):
+    annotations: Annotations = field(default_factory=Annotations)
+    desired_role: NodeRole = NodeRole.WORKER
+    membership: int = 1  # MembershipState.ACCEPTED
+    availability: NodeAvailability = NodeAvailability.ACTIVE
+
+
+@dataclass
+class Resources(Message):
+    nano_cpus: int = 0
+    memory_bytes: int = 0
+    generic: dict[str, int] = field(default_factory=dict)
+
+
+@dataclass
+class ResourceRequirements(Message):
+    limits: Optional[Resources] = None
+    reservations: Optional[Resources] = None
+
+
+@dataclass
+class Placement(Message):
+    constraints: list[str] = field(default_factory=list)
+    preferences: list[str] = field(default_factory=list)  # "spread=node.labels.X"
+    max_replicas: int = 0  # max replicas per node; 0 = unlimited
+    platforms: list[str] = field(default_factory=list)  # "os/arch"
+
+
+@dataclass
+class SecretReference(Message):
     secret_id: str = ""
     secret_name: str = ""
     target_name: str = ""
 
 
 @dataclass
-class ConfigReference:
+class ConfigReference(Message):
     config_id: str = ""
     config_name: str = ""
     target_name: str = ""
 
 
 @dataclass
-class ContainerSpec:
+class ContainerSpec(Message):
     image: str = ""
     command: list[str] = field(default_factory=list)
     args: list[str] = field(default_factory=list)
@@ -34,5 +68,9 @@ class ContainerSpec:
 
 
 @dataclass
-class TaskSpec:
+class TaskSpec(Message):
     container: Optional[ContainerSpec] = None
+    resources: Optional[ResourceRequirements] = None
+    placement: Optional[Placement] = None
+    networks: list[str] = field(default_factory=list)  # network ids
+    log_driver: Optional[Driver] = None

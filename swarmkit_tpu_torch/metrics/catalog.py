@@ -9,7 +9,8 @@ modules publish: the kernel counters and tick timer (raft/sim/run.py
 KernelObs), the telemetry plane (telemetry/obs.py), the flight recorder
 (flightrec/record.py), the trace export (flightrec/clock.py, export.py),
 the DST sweep (dst/explore.py, dst/repro.py), the multi-raft serving
-plane (multiraft/obs.py) and the SLO engine (slo/engine.py).
+plane (multiraft/obs.py), the SLO engine (slo/engine.py) and the
+scheduler with its group-placement kernel (manager/scheduler/).
 """
 
 from __future__ import annotations
@@ -231,6 +232,28 @@ CATALOG: dict[str, MetricSpec] = {
         "counter", "SLO state-machine transitions, by SLO, group, and "
         "the state ENTERED (warn escalations, page escalations, "
         "recoveries to ok).", ("slo", "group", "state")),
+
+    # ---- scheduler (manager/scheduler/scheduler.py) ----------------------
+    "swarm_scheduler_latency_seconds": MetricSpec(
+        "histogram", "One scheduler tick: snapshot, score, and commit of "
+        "all pending assignments.", ()),
+    "swarm_scheduler_decisions_total": MetricSpec(
+        "counter", "Task placement decisions, by outcome "
+        "(assigned / preassigned / unassigned).", ("result",)),
+    "swarm_scheduler_pending_tasks": MetricSpec(
+        "gauge", "Tasks currently awaiting placement.", ()),
+
+    # ---- group-placement kernel (manager/scheduler/kernel.py) ------------
+    # Names and label sets are pinned to kernel.METRIC_NAMES by a test.
+    "swarm_sched_kernel_groups_total": MetricSpec(
+        "counter", "Task groups scheduled, by path (kernel = jitted "
+        "[tasks, nodes] kernel, host = host Pipeline fallback).",
+        ("path",)),
+    "swarm_sched_kernel_tasks_total": MetricSpec(
+        "counter", "Tasks placed through the jitted kernel path.", ()),
+    "swarm_sched_kernel_seconds": MetricSpec(
+        "histogram", "Wall time of one kernel group-placement call "
+        "(encode + device + decode).", (), buckets=_TICK_BUCKETS),
 }
 
 

@@ -6,7 +6,8 @@ on the CPU, and otherwise launches its CUDA kernel (csrc/, built by
 _build.py for sm_90a) or raises — it never falls back.  `LAUNCHES` counts
 kernel launches per wrapper, so a run can show that its path went through
 the kernels; matmul also counts each of its three kernels under
-`matmul_<variant>`.
+`matmul_<variant>`.  `place_greedy` (the scheduler's group placement) has
+no Pallas ancestor: the JAX package runs that loop as plain jnp/lax.
 """
 
 from __future__ import annotations
@@ -20,12 +21,12 @@ from swarmkit_tpu_torch import _build
 
 MATMUL_VARIANTS = ("wgmma", "wmma", "simt")
 LAUNCHES: dict[str, int] = {
-    "append_band_copy": 0, "matmul": 0, "sumsq": 0,
+    "append_band_copy": 0, "matmul": 0, "sumsq": 0, "sched_place": 0,
     **{f"matmul_{v}": 0 for v in MATMUL_VARIANTS}}
 _launches_lock = threading.Lock()   # tasks launch from executor threads
 
 _P, _I64, _I32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-# (csrc/<source>.cu, C function) -> its argument types; all return int
+# (csrc/<source>.cu, C function) -> its argument types
 _ENTRY = {
     ("band_copy", "band_copy"): [_P] * 5 + [_I64] * 4 + [_P],
     **{("matmul", f"matmul_{v}"): [_P] * 3 + [_I64] * 3 + [_P]
@@ -33,7 +34,12 @@ _ENTRY = {
     ("matmul", "matmul_wgmma_smem_bytes"): [],
     ("sumsq", "sumsq"): [_P, _I64, _I32, _P, _P],
     ("sumsq", "sumsq_scratch_floats"): [],
+    ("sched_place", "sched_place"): [_P, _I64, _I64, _I64, _I32, _I32, _P,
+                                     _P, _P],
+    ("sched_place", "sched_place_scratch_words"): [_I64, _I64],
 }
+# the C functions that return something other than an int
+_RESTYPE = {("sched_place", "sched_place_scratch_words"): ctypes.c_longlong}
 # the dtypes the kernels take, with sumsq.cu's codes for them
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -56,7 +62,7 @@ def _kernel(source: str, name: str | None = None):
     fn = getattr(_build.load(source), name)
     if fn.argtypes is None:
         fn.argtypes = _ENTRY[source, name]
-        fn.restype = ctypes.c_int
+        fn.restype = _RESTYPE.get((source, name), ctypes.c_int)
     return fn
 
 
@@ -263,3 +269,109 @@ def matmul_chain(x: torch.Tensor, a: torch.Tensor, steps: int, *,
         denom = torch.clamp_min(torch.sqrt(ss / y.numel()), 1e-6)
         x = (y.float() / denom).to(y.dtype)
     return x
+
+
+# the rows of place_greedy's [6, N] int32 column block
+PLACE_COLUMNS = ("static_ok", "cap", "count0", "active0", "taint", "branch")
+_NONE = 1 << 30   # the JAX kernel's "no node" index
+
+
+def _refine(m: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
+    """Narrow mask m to the entries minimising vals (one lexicographic
+    stage; an all-false mask stays all-false)."""
+    best = torch.where(m, vals, _NONE).min()
+    return m & (vals == best)
+
+
+def place_greedy_plain(cols: torch.Tensor, n_branches: int,
+                       has_service: bool, n_tasks: int) -> torch.Tensor:
+    """Plain PyTorch version of place_greedy: the JAX package's greedy
+    fori_loop body, one task at a time, in torch ops on cols' device.  On
+    the CPU it stops at the first task that finds no node (none later can:
+    `a` only grows); elsewhere it runs every task without reading back."""
+    ok, cap, count0, active0, taint, branch = cols
+    n, dev = cols.shape[1], cols.device
+    if n_branches and n and not 0 <= int(branch.min()) <= int(branch.max()) \
+            < n_branches:
+        raise ValueError(f"branch ids must lie in [0, {n_branches})")
+    idx = torch.arange(n, dtype=torch.int32, device=dev)
+    branch64 = branch.long()
+    ok = ok != 0
+    a = torch.zeros(n, dtype=torch.int32, device=dev)
+    choices = torch.full((n_tasks,), -1, dtype=torch.int32, device=dev)
+    hs = 1 if has_service else 0
+    for i in range(n_tasks if n else 0):
+        count = count0 + a * hs
+        active = active0 + a
+        feas = ok & (a < cap)
+        found = feas.any()
+        if n_branches:
+            load_b = torch.zeros(n_branches, dtype=torch.int32,
+                                 device=dev).scatter_add_(
+                0, branch64, torch.where(feas, count, 0))
+            first_b = torch.full((n_branches,), _NONE, dtype=torch.int32,
+                                 device=dev).scatter_reduce_(
+                0, branch64, torch.where(feas, idx, _NONE), "amin")
+            bm = _refine(first_b < _NONE, load_b)
+            bm = _refine(bm, first_b)
+            feas = feas & (branch == bm.to(torch.int8).argmax())
+        m = _refine(feas, taint)
+        m = _refine(m, count)
+        m = _refine(m, active)
+        pick = torch.where(m, idx, _NONE).min()
+        choice = torch.where(found, pick, -1).to(torch.int32)
+        a.index_add_(0, choice.clamp(min=0).view(1),
+                     found.to(torch.int32).view(1))
+        choices[i] = choice
+        if dev.type == "cpu" and not bool(found):
+            break
+    return choices
+
+
+def _place_threads(n: int, n_branches: int) -> int:
+    """The block's width: about four nodes (or branches) a thread, in
+    whole warps, 32 to 1024."""
+    per = -(-max(n, n_branches, 1) // 4)
+    return min(1024, max(32, -(-per // 32) * 32))
+
+
+def place_greedy(cols: torch.Tensor, n_branches: int, has_service: bool,
+                 n_tasks: int) -> torch.Tensor:
+    """Greedy placement of `n_tasks` tasks of one spec over N encoded
+    nodes; returns [n_tasks] int32 node indices, -1 where no node fits.
+
+    cols: [6, N] int32, the rows of PLACE_COLUMNS (static_ok and taint 0
+    or 1, cap already clamped, branch ids in [0, n_branches) or all 0
+    with n_branches = 0 for no spread level).  Task i takes the feasible
+    node (static_ok and fewer than cap tasks of the group so far) with
+    the least (taint, count, active, index), inside the least-loaded
+    spread branch (least (load, first feasible index)) when there is one;
+    as the JAX package's place_group.  On the card, one launch of one
+    thread block runs every task."""
+    if cols.dim() != 2 or cols.shape[0] != len(PLACE_COLUMNS) \
+            or cols.dtype != torch.int32:
+        raise ValueError(f"cols: expected int32 [{len(PLACE_COLUMNS)}, N], "
+                         f"got {cols.dtype} {tuple(cols.shape)}")
+    if not cols.is_contiguous():
+        raise ValueError("cols must be contiguous")
+    n = cols.shape[1]
+    if n >= _NONE:
+        raise ValueError(f"{n} nodes: node indices must stay below 2^30")
+    if n_branches < 0 or n_tasks < 0:
+        raise ValueError(f"n_branches={n_branches}, n_tasks={n_tasks} for "
+                         f"{n} nodes")
+    if cols.device.type == "cpu":
+        return place_greedy_plain(cols, n_branches, has_service, n_tasks)
+    if cols.device.type != "cuda":
+        raise ValueError(f"no kernel for device {cols.device}")
+    choices = torch.empty(n_tasks, dtype=torch.int32, device=cols.device)
+    words = _kernel("sched_place", "sched_place_scratch_words")(n,
+                                                                n_branches)
+    scratch = torch.empty(words, dtype=torch.int32, device=cols.device) \
+        if words else None
+    _launch("sched_place", cols.device, cols.data_ptr(), n, n_tasks,
+            n_branches, int(bool(has_service)),
+            _place_threads(n, n_branches), choices.data_ptr(),
+            scratch.data_ptr() if scratch is not None else None)
+    _count("sched_place")
+    return choices

@@ -46,7 +46,13 @@ def test_port_imports_without_jax():
             "swarmkit_tpu_torch.dst.invariants",
             "swarmkit_tpu_torch.dst.explore",
             "swarmkit_tpu_torch.dst.repro",
-            "swarmkit_tpu_torch.tools.dst_sweep"} <= set(mods)
+            "swarmkit_tpu_torch.tools.dst_sweep",
+            "swarmkit_tpu_torch.manager.constraint",
+            "swarmkit_tpu_torch.manager.scheduler.kernel",
+            "swarmkit_tpu_torch.manager.scheduler.scheduler",
+            "swarmkit_tpu_torch.tools.multiraft_sweep",
+            "swarmkit_tpu_torch.tools.swarm_top",
+            "swarmkit_tpu_torch.tools.sched_world"} <= set(mods)
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
             "sys.modules['swarmkit_tpu'] = None\n"

@@ -8,7 +8,8 @@ installed, without the repository's conftest:
     python -m pytest --noconftest -p no:cacheprovider -m cuda \
         tests/test_torch_cuda.py -q
 
-The raft values compared are integers, so those comparisons are exact.
+The raft values and the scheduler's placements compared are integers, so
+those comparisons are exact.
 The float kernels are held to their plain versions on the same card
 tensors: bf16 matmul within 2 bf16 ulps of max|ref| (both round one f32
 sum, summed in another order), f32 matmul within 1e-5 of max|ref|, scaled
@@ -722,3 +723,74 @@ def test_mc_smoke_scan_on_the_card_matches_the_cpu(mutation, tmp_path):
         assert auts[0] == auts[1]
     else:
         assert got["violations"]
+
+
+def _group_columns(group: str, replicas: int):
+    """sched_world's Docker-scale world (1,000 nodes) encoded for the
+    first `replicas` tasks of `group`."""
+    from swarmkit_tpu_torch.manager.scheduler import kernel as skernel
+    from swarmkit_tpu_torch.manager.scheduler.nodeinfo import NodeInfo
+    from swarmkit_tpu_torch.tools import sched_world
+
+    tasks = sched_world.group_tasks(group, replicas)
+    nodes = sched_world.build_nodes(sched_world.describe_world(0), tasks[0],
+                                    0.0)
+    p = tasks[0].spec.placement
+    enc = skernel.encode_group(tasks[0], list(p.preferences), nodes,
+                               NodeInfo.failure_key(tasks[0]), 0.0)
+    assert enc is not None
+    return skernel.group_columns(enc, replicas, device="cpu"), enc
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("group,replicas", [("A", 6000), ("B", 6000),
+                                            ("C", 1024)])
+def test_place_greedy_matches_plain_on_the_card(group, replicas):
+    """The placement kernel on the card against the plain loop on the CPU
+    over every task of a Docker-scale group (exact); one launch."""
+    _need_card()
+    cols, enc = _group_columns(group, replicas)
+    want = cuda_ops.place_greedy(cols, enc.n_branches, enc.has_service,
+                                 replicas)
+    before = cuda_ops.LAUNCHES["sched_place"]
+    got = cuda_ops.place_greedy(cols.cuda(), enc.n_branches,
+                                enc.has_service, replicas)
+    torch.cuda.synchronize()
+    assert cuda_ops.LAUNCHES["sched_place"] == before + 1
+    assert torch.equal(got.cpu(), want)
+    assert int((want >= 0).sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,spread", [(20000, True), (40000, False)])
+def test_place_greedy_scratch_path_matches_plain(n, spread):
+    """Columns too large for shared memory run on the global scratch."""
+    _need_card()
+    rng = np.random.default_rng(n)
+    branch = np.arange(n) if spread else np.zeros(n, dtype=np.int64)
+    cols = torch.from_numpy(np.stack([
+        rng.random(n) < 0.7, rng.integers(0, 3, n), rng.integers(0, 4, n),
+        rng.integers(0, 6, n), rng.random(n) < 0.1, branch,
+    ]).astype(np.int32))
+    nb = n if spread else 0
+    assert cuda_ops._kernel("sched_place", "sched_place_scratch_words")(
+        n, nb) > 0
+    want = cuda_ops.place_greedy(cols, nb, True, 300)
+    got = cuda_ops.place_greedy(cols.cuda(), nb, True, 300)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_place_greedy_never_takes_the_plain_version(monkeypatch):
+    _need_card()
+
+    def refuse(*a):
+        raise AssertionError("plain version called on CUDA tensors")
+
+    cols, enc = _group_columns("A", 512)
+    monkeypatch.setattr(cuda_ops, "place_greedy_plain", refuse)
+    before = cuda_ops.LAUNCHES["sched_place"]
+    cuda_ops.place_greedy(cols.cuda(), enc.n_branches, enc.has_service, 512)
+    torch.cuda.synchronize()
+    assert cuda_ops.LAUNCHES["sched_place"] == before + 1
