@@ -242,6 +242,34 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    (--entries 200000 --no-single --json; its JSON line parsed, the band
    copy launched) and three swarm_top frames over its in-process demo
    (the fleet's leader rows, hottest groups and SLO alerts present).
+19. differential_sweep on the card: each of the JAX tool's 11 families
+   (sync and mailbox wires, faults, membership churn, a leader removing
+   itself, transfers, snapshot catch-up at n=64, a pipelined mailbox at
+   n=64, drops and crashes at n=128) at seeds 0 .. DIFF_SEEDS-1 through
+   run_family: the tick held to the host golden core (OracleCluster) on
+   term, vote, role, lead, last, commit, applied, apply_chk and member
+   after every tick, with the zero-commit rerun at 3x the horizon.  Per
+   family: schedules, ticks, max commit and term, reruns, host ms a tick
+   split into the card tick (step and the host calls, enqueued), the
+   oracle, the view read and the schedule draw, device->host reads a tick
+   and the band-copy launches (one a tick).  Then the kernel against
+   plain on a sync128-faults tick's [128, 128] call, exact, and timed as
+   in phase 5.
+20. fault_sweep's device half on the card: run_device_precheck on the
+   five fault plans at seed 2009343 (n=16, 60 ticks) at peer_chunk=8
+   (banded = dense) and at active_rows=8 (sparse = dense), and two plans
+   card = CPU on viol, first_tick and bits_by_tick; run_attack_sweep over
+   the four attacks and run_storage_sweep over the four storage faults at
+   seed 7, n=5, 8 schedules: every row ok (caught with the defense off,
+   shrunk, replayed exactly, the oracle in lockstep, clean with the
+   defense on; or contained with recovery events), every card artifact
+   replayed on the CPU with its recorded viol and first tick.  Per row:
+   seconds, caught/schedules, fault events before and after the shrink,
+   its evals, the oracle's diverged_at and the band-copy launches.  Each
+   lowering and each row counts its launches from 0 (one a tick driven)
+   and holds every band-copy call it made against the plain version,
+   exactly; append_flood's explore call on [40, 64] rings is timed as in
+   phase 5.
 
 Each path's band-copy launches are counted from 0 (the kernels' record
 carries them), and each phase-17 group's sched_place launches likewise.
@@ -2749,6 +2777,257 @@ def phase_tools(torch, cuda_ops) -> dict:
                 top_slo_active=len(fleet["slo_active"]))
 
 
+# ---- phase 19: differential_sweep; phase 20: fault_sweep's device half ---
+
+# seeds 0 .. DIFF_SEEDS-1 of every differential_sweep family (one keeps
+# phases 19 and 20 within 240 s; see PERF.md)
+DIFF_SEEDS = 1
+# fault_sweep's pinned seeds and sizes (the JAX tool's defaults)
+FAULT_SEED, FAULT_SCHEDULES, FAULT_N = 7, 8, 5
+PRECHECK_CPU_PLANS = ("drop", "crash")
+# the attack row whose explore band-copy call phase 20 times
+FAULT_TIMED = "append_flood"
+
+
+def _per_tick_ms(info: dict, key: str) -> float:
+    return info[key] * 1e3 / info["ticks"]
+
+
+def phase_differential(torch, sim, cuda_ops, card: str = "cuda") -> dict:
+    """differential_sweep on the card: every family at seeds 0 ..
+    DIFF_SEEDS-1 through run_family, the tick held to the host golden core
+    on the nine fields every tick; per family the ticks, maxima, reruns,
+    the host ms a tick split four ways, the device->host reads a tick and
+    the band-copy launches (one a tick); then the kernel against plain on
+    one sync128-faults tick's [128, 128] call, timed."""
+    from swarmkit_tpu_torch.raft.sim.differential import run_differential
+    from swarmkit_tpu_torch.tools import differential_sweep as ds
+
+    dev = torch.device(card)
+    out = {"families": {}, "seeds": DIFF_SEEDS}
+    t_phase = time.perf_counter()
+    launches_all = 0
+    for name, cfg, _ in ds.FAMILIES:
+        info = {}
+        cuda_ops.reset_launches()
+        runs = []
+        t0 = time.perf_counter()
+        for seed in range(DIFF_SEEDS):
+            r = ds.run_family(name, seed, device=dev, info=info)
+            check(r["ok"], f"differential family {name} seed {seed} "
+                  f"diverged or stalled (repro: {r.get('repro')})")
+            runs.append(r)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launched = cuda_ops.LAUNCHES["append_band_copy"]
+        launches_all += launched
+        ticks = info["ticks"]
+        check(launched == ticks, f"{name}: append_band_copy launched "
+              f"{launched} times in {ticks} ticks")
+        row = dict(
+            n=cfg.n, schedules=len(runs), ticks=ticks, secs=secs,
+            max_commit=max(r["max_commit"] for r in runs),
+            max_term=max(r["max_term"] for r in runs),
+            reruns=sum(r["reran"] for r in runs),
+            host_ms_per_tick=secs * 1e3 / ticks,
+            draw_ms=_per_tick_ms(info, "draw_s"),
+            tick_ms=_per_tick_ms(info, "tick_s"),
+            oracle_ms=_per_tick_ms(info, "oracle_s"),
+            view_ms=_per_tick_ms(info, "view_s"),
+            reads_per_tick=(info["reads"] + info["step_syncs"]) / ticks,
+            step_syncs_per_tick=info["step_syncs"] / ticks,
+            band_copy_launches=launched)
+        out["families"][name] = row
+        log(f"  {name} (n={cfg.n}): {row['schedules']} schedules, {ticks} "
+            f"ticks in {secs:.2f} s, tick = golden core on every field; "
+            f"max commit {row['max_commit']}, max term {row['max_term']}, "
+            f"zero-commit reruns {row['reruns']}; host ms a tick "
+            f"{row['host_ms_per_tick']:.3f}: card tick (step + host calls, "
+            f"enqueue) {row['tick_ms']:.3f}, oracle {row['oracle_ms']:.3f}, "
+            f"view read {row['view_ms']:.3f}, schedule draw "
+            f"{row['draw_ms']:.3f}; device->host reads a tick "
+            f"{row['reads_per_tick']:.2f} (step syncs "
+            f"{row['step_syncs_per_tick']:.2f}); append_band_copy "
+            f"launches {launched}")
+    out["secs"] = time.perf_counter() - t_phase
+    out["band_copy_launches"] = launches_all
+
+    # the kernel against plain on a sync128-faults tick's [128, 128] call:
+    # the call of the first 30 ticks of seed 0 that writes the most slots
+    cfg, kw = ds.FAMILY["sync128-faults"]
+    calls = _record_band_copies(
+        torch, sim, cuda_ops, cfg, None,
+        lambda: run_differential(cfg, seed=0, device=dev,
+                                 **dict(kw, n_ticks=30)))
+    best = max(calls, key=lambda c: int(c[5].sum()))
+    check(tuple(best[0].shape) == (cfg.n, cfg.log_len),
+          f"the sync128 ring write ran on {tuple(best[0].shape)}")
+    timed = _time_band_copies(torch, cuda_ops, [best])
+    check(timed["err"] == 0,
+          f"kernel != plain on a sync128 tick's inputs ({timed['err']})")
+    out["band_copy"] = dict(timed, rows=list(best[0].shape),
+                            written=int(best[5].sum()))
+    log(f"  phase 19 in {out['secs']:.1f} s; {launches_all} band-copy "
+        f"launches; the [128, 128] call ({out['band_copy']['written']} "
+        f"slots written): kernel {timed['ms']:.4f} ms, plain "
+        f"{timed['plain_ms']:.4f}, torch.where x2 {timed['library_ms']:.4f},"
+        f" bound {timed['bound_ms']:.6f}, max|kernel - plain| = "
+        f"{timed['err']}")
+    return out
+
+
+def _replays_on_cpu(dst, path: str) -> dict:
+    verdict = dst.replay_artifact(path, with_trace=False, device="cpu")
+    check(verdict["matches_recorded"],
+          f"{path}: the card's artifact replayed on the CPU to "
+          f"{verdict['violations']} at tick {verdict['first_tick']}")
+    return verdict
+
+
+def _fault_run(torch, sim, cuda_ops, what: str, run):
+    """`run()` on the card with the band-copy counts set to 0 just before
+    it and every band-copy call recorded: (its result, the launches, the
+    recorded calls).  The launches must equal the ticks it drove (each a
+    call of the tick's `step`, batched or not, makes one full-pass ring
+    write), and every recorded call is then held against the plain
+    version on its own inputs, exactly."""
+    import importlib
+
+    dexp = importlib.import_module("swarmkit_tpu_torch.dst.explore")
+    homes = (sim.kernel, dexp)
+    steps = [m.step for m in homes]
+    ticks, box = [0], {}
+
+    def counted(step):
+        def tick(*args, **kw):
+            ticks[0] += 1
+            return step(*args, **kw)
+        return tick
+
+    for m, step in zip(homes, steps):
+        m.step = counted(step)
+    cuda_ops.reset_launches()
+    try:
+        calls = _record_band_copies(torch, sim, cuda_ops, None, None,
+                                    lambda: box.update(out=run()))
+    finally:
+        for m, step in zip(homes, steps):
+            m.step = step
+    launched = cuda_ops.LAUNCHES["append_band_copy"]
+    check(launched == ticks[0] > 0, f"{what}: append_band_copy launched "
+          f"{launched} times in {ticks[0]} ticks")
+    err = max(_kernel_vs_plain(torch, cuda_ops, c) for c in calls)
+    check(err == 0, f"{what}: kernel != plain on the path's inputs ({err})")
+    return box["out"], launched, calls
+
+
+def phase_fault_sweep(torch, sim, cuda_ops, outdir: str,
+                      card: str = "cuda") -> dict:
+    """fault_sweep's device half on the card: the lowering precheck on
+    all five plans at seed 2009343 (banded = dense at peer_chunk=8, sparse
+    = dense at active_rows=8), two plans card = CPU on viol, first_tick
+    and bits_by_tick; the four attack and four storage pipelines at seed
+    7, n=5, 8 schedules, each row ok and each card artifact replayed on
+    the CPU with its recorded viol and first tick.  Each lowering and
+    each row counts its band-copy launches from 0 (one a tick driven) and
+    holds every band-copy call it made against the plain version; the
+    append_flood row's explore call that writes the most slots is timed
+    as in phase 5."""
+    import numpy as np
+
+    from swarmkit_tpu_torch import dst
+    from swarmkit_tpu_torch.tools import fault_sweep as fs
+
+    dev = torch.device(card)
+    out = {"precheck": {}, "rows": {}}
+    t_phase = time.perf_counter()
+    launches_all = 0
+    seed = fs.DEFAULT_SEEDS[0]
+    on_card = {}
+    for lowering, ar in (("banded", None), ("sparse", 8)):
+        rows, launched, _ = _fault_run(
+            torch, sim, cuda_ops, f"precheck {lowering}",
+            lambda: fs.run_device_precheck(
+                fs.PLANS, [seed], peer_chunk=8, active_rows=ar,
+                verbose=False, device=dev,
+                stats=on_card if ar is None else None))
+        launches_all += launched
+        want = "== dense-progress" if ar else "== dense-peer"
+        for r in rows:
+            check(r["ok"] and want in r["notes"],
+                  f"precheck {lowering} {r['plan']}: {r['notes']} "
+                  f"{r['error']}")
+        out["precheck"][lowering] = dict(
+            secs=sum(r["secs"] for r in rows), band_copy_launches=launched,
+            notes={r["plan"]: r["notes"] for r in rows})
+        log(f"  precheck {rows[0]['wire']} at seed {seed} (n=16, 60 "
+            f"ticks): " + "; ".join(f"{r['plan']} {r['notes']} "
+                                    f"({r['secs']} s)" for r in rows)
+            + f"; append_band_copy launches {launched}, one a tick, each "
+            f"call = plain")
+    on_cpu = {}
+    fs.run_device_precheck(PRECHECK_CPU_PLANS, [seed], peer_chunk=8,
+                           verbose=False, device="cpu", stats=on_cpu)
+    for plan in PRECHECK_CPU_PLANS:
+        a, b = on_card[(plan, seed)], on_cpu[(plan, seed)]
+        check(all(np.array_equal(getattr(a, k), getattr(b, k))
+                  for k in ("viol", "first_tick", "bits_by_tick")),
+              f"precheck {plan}: the card's masks differ from the CPU's")
+        log(f"  precheck {plan}: card = CPU on viol 0x{int(b.viol[0]):x}, "
+            f"first_tick {int(b.first_tick[0])} and bits_by_tick")
+
+    rows_of = FAULT_SCHEDULES * FAULT_N
+    for kind, names, sweep in (
+            ("attack", list(fs.ATTACK_SCENARIOS), fs.run_attack_sweep),
+            ("storage", list(fs.STORAGE_SCENARIOS), fs.run_storage_sweep)):
+        for name in names:
+            stats = {}
+            rows, launched, calls = _fault_run(
+                torch, sim, cuda_ops, f"{kind} {name}",
+                lambda: sweep([name], seed=FAULT_SEED,
+                              schedules=FAULT_SCHEDULES, n=FAULT_N,
+                              out_dir=outdir, wires=(), verbose=False,
+                              device=dev, stats=stats))
+            launches_all += launched
+            r, st = rows[0], stats[name]
+            check(r["ok"], f"{kind} {name}: {r['error']}")
+            if name == FAULT_TIMED:
+                explore = [c for c in calls if c[0].shape[0] == rows_of]
+                check(explore, f"{name}: no band-copy call on the "
+                      f"explore's [{rows_of}, L] rings")
+                best = max(explore, key=lambda c: int(c[5].sum()))
+                timed = _time_band_copies(torch, cuda_ops, [best])
+                check(timed["err"] == 0, f"kernel != plain on an {name} "
+                      f"explore tick's inputs ({timed['err']})")
+                out["band_copy"] = dict(timed, rows=list(best[0].shape),
+                                        written=int(best[5].sum()))
+            if "artifact" in st:
+                _replays_on_cpu(dst, st["artifact"])
+                what = (f"caught {st['caught']}/{st['schedules']}, fault "
+                        f"events {st['faults_before']} -> "
+                        f"{st['faults_after']} in {st['shrink_evals']} "
+                        f"evals, oracle diverged_at {st['diverged_at']}, "
+                        f"the card's artifact replays on the CPU")
+            else:
+                what = (f"contained: 0/{st['schedules']} violations, "
+                        f"{st['recovery_events']} recovery events")
+            out["rows"][name] = dict(
+                {k: v for k, v in st.items() if k != "artifact"},
+                kind=kind, band_copy_launches=launched)
+            log(f"  {kind} {name}: ok in {st['secs']:.2f} s; {what}; "
+                f"append_band_copy launches {launched}, one a tick, "
+                f"each of {len(calls)} calls = plain")
+    out["secs"] = time.perf_counter() - t_phase
+    out["band_copy_launches"] = launches_all
+    bc = out["band_copy"]
+    log(f"  phase 20 in {out['secs']:.1f} s; {launches_all} band-copy "
+        f"launches; {FAULT_TIMED}'s {bc['rows']} explore call "
+        f"({bc['written']} slots written): kernel {bc['ms']:.4f} ms, plain "
+        f"{bc['plain_ms']:.4f}, torch.where x2 {bc['library_ms']:.4f}, "
+        f"bound {bc['bound_ms']:.6f}, max|kernel - plain| = {bc['err']}")
+    return out
+
+
 def matmul_tol(torch, ref, k: int) -> float:
     """bf16: 2 bf16 ulps of max|ref|; f32: 1e-5 of max|ref|, scaled by
     sqrt(K / 512) past K = 512."""
@@ -3119,6 +3398,16 @@ def main() -> int:
     stage("phase 18: the multi-raft tools on the card (multiraft_sweep at "
           "G=64, swarm_top's demo)")
     tools18 = phase_tools(torch, cuda_ops)
+    stage(f"phase 19: differential_sweep on the card (all 11 families, "
+          f"{DIFF_SEEDS} seed a family, tick = golden core)")
+    diff19 = phase_differential(torch, sim, cuda_ops)
+    stage("phase 20: fault_sweep's device half on the card (precheck, "
+          "attacks, storage)")
+    outdir = tempfile.mkdtemp(prefix="chip_smoke_fault_")
+    try:
+        fault20 = phase_fault_sweep(torch, sim, cuda_ops, outdir)
+    finally:
+        shutil.rmtree(outdir, ignore_errors=True)
 
     elapsed = time.perf_counter() - started
     log(f"all phases passed in {elapsed:.1f} s")
@@ -3133,12 +3422,14 @@ def main() -> int:
                                  "multiraft_telemetry": mtel,
                                  "multiraft_card_vs_cpu": mcpu,
                                  "levers_batched": levers, "mc": mc16,
-                                 "scheduler": sched17, "tools": tools18},
+                                 "scheduler": sched17, "tools": tools18,
+                                 "differential": diff19,
+                                 "fault_sweep": fault20},
                                 default=str))
     records = [{
         "name": "append_band_copy", "route": "cuda",
         "source": "swarmkit_tpu_torch/csrc/band_copy.cu",
-        "replaces": "swarmkit_tpu/parallel/pallas_ops.py:174",
+        "replaces": "swarmkit_tpu/parallel/pallas_ops.py:175",
         "launches": head["launches"], "mailbox_launches": mbox_launches,
         "readmix_launches": rmix["band_copy_launches"],
         "readmix_4096_launches": rwide["band_copy_launches"],
@@ -3167,11 +3458,23 @@ def main() -> int:
         "mc_plain_ms": mc16["pass"]["band_copy"]["plain_ms"],
         "mc_bound_ms": mc16["pass"]["band_copy"]["bound_ms"],
         "mc_library_ms": mc16["pass"]["band_copy"]["library_ms"],
+        "differential_launches": diff19["band_copy_launches"],
+        "fault_sweep_launches": fault20["band_copy_launches"],
+        "differential_ms": diff19["band_copy"]["ms"],
+        "differential_plain_ms": diff19["band_copy"]["plain_ms"],
+        "differential_bound_ms": diff19["band_copy"]["bound_ms"],
+        "differential_library_ms": diff19["band_copy"]["library_ms"],
+        "fault_sweep_ms": fault20["band_copy"]["ms"],
+        "fault_sweep_plain_ms": fault20["band_copy"]["plain_ms"],
+        "fault_sweep_bound_ms": fault20["band_copy"]["bound_ms"],
+        "fault_sweep_library_ms": fault20["band_copy"]["library_ms"],
         "max_abs_err": max(err2, k["err"], err9, rmix["err"], planes["err"],
                            dst13["sweep_256"]["err"],
                            mraft["band_copy"]["err"],
                            max(r["err"] for r in levers.values()),
-                           mc16["pass"]["band_copy"]["err"]),
+                           mc16["pass"]["band_copy"]["err"],
+                           diff19["band_copy"]["err"],
+                           fault20["band_copy"]["err"]),
         "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
         "bound_by": "bytes", "library_ms": k["library_ms"]}]
     for name, line, bound_by in (("matmul", 76, "operations"),

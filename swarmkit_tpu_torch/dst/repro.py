@@ -33,7 +33,9 @@ from swarmkit_tpu_torch.device import resolve_device
 from swarmkit_tpu_torch.dst.explore import _tick_one
 from swarmkit_tpu_torch.dst.invariants import SAFETY_BITS, bits_to_names
 from swarmkit_tpu_torch.dst.schedule import _OPTIONAL_LEAVES, FaultSchedule
-from swarmkit_tpu_torch.raft.sim.kernel import read_many
+from swarmkit_tpu_torch.raft.sim.differential import (
+    VIEW_FIELDS, kernel_view,
+)
 from swarmkit_tpu_torch.raft.sim.state import (
     FIELD_NAMES, SimConfig, SimState, broadcast_state, init_state,
 )
@@ -408,24 +410,6 @@ def shrink(cfg: SimConfig, schedule: FaultSchedule, required_bits: int,
 # ---------------------------------------------------------------------------
 # differential-oracle replay (field-level trace)
 
-_VIEW_FIELDS = ("term", "vote", "role", "lead", "last", "commit", "applied",
-                "apply_chk", "member")
-
-
-def _kernel_view(state: SimState) -> dict:
-    """The compared fields on the host, in the JAX package's dtypes, in
-    one device->host read."""
-    out = dict(zip(_VIEW_FIELDS, read_many(
-        [getattr(state, f) for f in _VIEW_FIELDS])))
-    for f, a in out.items():
-        if f == "member":
-            out[f] = a.astype(bool)
-        elif f == "apply_chk":
-            out[f] = (a & 0xFFFFFFFF).astype(np.uint32)
-        else:
-            out[f] = a.astype(np.int32)
-    return out
-
 
 def oracle_trace(cfg: SimConfig, schedule: FaultSchedule,
                  prop_count: int = 2, mutation: Optional[str] = None,
@@ -487,7 +471,7 @@ def oracle_trace(cfg: SimConfig, schedule: FaultSchedule,
 
     trace: list[dict] = []
     diverged_at = -1
-    kv = _kernel_view(state)
+    kv = kernel_view(state)
     reads = 1
     stop = schedule.ticks if until is None else min(until, schedule.ticks)
     t = -1
@@ -561,10 +545,10 @@ def oracle_trace(cfg: SimConfig, schedule: FaultSchedule,
                      device=dev)
         state = apply_mutation(state, cfg, mutation)
         oracle.tick(alive, drop, payloads, prop_count)
-        kv = _kernel_view(state)
+        kv = kernel_view(state)
         reads += 1
         ov = oracle.view()
-        diffs = [f for f in _VIEW_FIELDS
+        diffs = [f for f in VIEW_FIELDS
                  if not np.array_equal(kv[f], getattr(ov, f))]
         if diffs:
             if diverged_at < 0:

@@ -44,7 +44,7 @@ import json
 from swarmkit_tpu_torch import mc
 from swarmkit_tpu_torch.device import resolve_device
 from swarmkit_tpu_torch.dst import repro
-from swarmkit_tpu_torch.tools.dst_sweep import add_common_args, artifact_path
+from swarmkit_tpu_torch.tools._cli_common import add_common_args, artifact_path
 
 MUTATIONS = ("commit_no_quorum", "stale_lease_read")
 

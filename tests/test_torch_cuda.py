@@ -794,3 +794,41 @@ def test_place_greedy_never_takes_the_plain_version(monkeypatch):
     cuda_ops.place_greedy(cols.cuda(), enc.n_branches, enc.has_service, 512)
     torch.cuda.synchronize()
     assert cuda_ops.LAUNCHES["sched_place"] == before + 1
+
+
+@pytest.mark.cuda
+def test_differential_family_on_the_card():
+    """One differential_sweep family on the card: the tick held to the
+    host golden core on every field of every tick, one band-copy launch a
+    tick, and the same result as on the CPU."""
+    _need_card()
+    from swarmkit_tpu_torch.tools import differential_sweep as ds
+
+    before = cuda_ops.LAUNCHES["append_band_copy"]
+    info = {}
+    got = ds.run_family("sync7-membership", 0, device="cuda", info=info)
+    assert got["ok"], got
+    assert cuda_ops.LAUNCHES["append_band_copy"] - before == info["ticks"]
+    want = ds.run_family("sync7-membership", 0, device="cpu")
+    assert {k: got[k] for k in ("max_commit", "max_term", "n_ticks")} == \
+        {k: want[k] for k in ("max_commit", "max_term", "n_ticks")}
+
+
+@pytest.mark.cuda
+def test_attack_sweep_append_flood_on_the_card(tmp_path):
+    """fault_sweep's append_flood pipeline on the card: caught with the
+    defense off, shrunk, replayed exactly (on the CPU too), the oracle in
+    lockstep, clean with the inflight cap."""
+    _need_card()
+    from swarmkit_tpu_torch import dst
+    from swarmkit_tpu_torch.tools import fault_sweep as fs
+
+    stats = {}
+    rows = fs.run_attack_sweep(["append_flood"], out_dir=str(tmp_path),
+                               verbose=False, device="cuda", stats=stats)
+    device = [r for r in rows if r["wire"] == "device"]
+    assert len(device) == 1 and device[0]["ok"], device
+    assert stats["append_flood"]["diverged_at"] == -1
+    on_cpu = dst.replay_artifact(stats["append_flood"]["artifact"],
+                                 device="cpu")
+    assert on_cpu["matches_recorded"]
