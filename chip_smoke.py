@@ -270,6 +270,26 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    and holds every band-copy call it made against the plain version,
    exactly; append_flood's explore call on [40, 64] rings is timed as in
    phase 5.
+21. the executor's rest: tpu://pmatmul n=8192 steps=16 batch=8 (the JAX
+   program's default batch; 1 GiB of bf16 activations, 140.7 TFLOP), one
+   shard a card over every local card, twice: its prepare s, run s and
+   TFLOP/s beside phase 7's tpu://matmul rate; the same program at n=256
+   batch=4 on the card and on the CPU (the chains within rtol=atol=1e-1, the
+   results within the sum of the chains' |diff|); a task whose n and
+   steps come from a templated secret (n=3{{.Task.Slot}} at slot 2) runs
+   on the card with no secret value in its log lines, and the buffer's
+   watch() gives its lifecycle lines in order; describe names
+   gpu-chip: torch.cuda.device_count().
+22. the device wire: three raft/core.py nodes behind DeviceMeshTransports
+   on a DeviceMeshNet(rows=8) on the card elect a leader, commit 256
+   proposals on every node under 5% drops on every edge and a partition
+   of the leader (half before it, half to the re-elected leader), heal,
+   and end with equal logs; flushes, messages and the exchange's p50/p99
+   from swarm_transport_exchange_seconds.  Then a scripted flush for
+   each of the four width buckets (every edge of 8 rows, 1-3 messages an
+   edge, 10% of the slots blocked): the card's receiver-major words and
+   lengths equal the CPU's, every kept slot holds its message's bytes and
+   every blocked slot comes back with length 0.
 
 Each path's band-copy launches are counted from 0 (the kernels' record
 carries them), and each phase-17 group's sched_place launches likewise.
@@ -3086,22 +3106,25 @@ def phase_float_kernels_vs_plain(torch, cuda_ops) -> dict:
     return worst
 
 
-def drive_task(image: str, args: list, device: str, operands=None):
+def drive_task(image: str, args: list, device: str, operands=None,
+               executor=None, slot: int = 0, secrets=()):
     """One task ASSIGNED -> COMPLETE through do_task_state, the way the
-    agent's worker drives a controller.  Returns (controller, prepare s,
-    run s): the seconds of the prepare call and of the start+wait calls."""
+    agent's worker drives a controller (on `executor`, else a fresh one on
+    `device`).  Returns (controller, describe, prepare s, run s): the
+    seconds of the prepare call and of the start+wait calls."""
     from swarmkit_tpu_torch.agent.exec import do_task_state
     from swarmkit_tpu_torch.agent.tpu import TpuExecutor
     from swarmkit_tpu_torch.api import (
-        ContainerSpec, Task, TaskSpec, TaskState, TaskStatus,
+        Annotations, ContainerSpec, Task, TaskSpec, TaskState, TaskStatus,
     )
 
     async def go():
-        ex = TpuExecutor(hostname="chip", device=device)
-        task = Task(id="t", spec=TaskSpec(container=ContainerSpec(
-            image=image, args=list(args))),
+        ex = executor or TpuExecutor(hostname="chip", device=device)
+        task = Task(id="t", slot=slot, spec=TaskSpec(container=ContainerSpec(
+            image=image, args=list(args), secrets=list(secrets))),
             status=TaskStatus(state=TaskState.ASSIGNED),
-            desired_state=TaskState.RUNNING)
+            desired_state=TaskState.RUNNING,
+            service_annotations=Annotations(name="chip"))
         ctl = await ex.controller(task, operands=operands)
         spent = {}
         while True:
@@ -3269,6 +3292,411 @@ def phase_float_kernels_on_path(torch, cuda_ops, a) -> dict:
     return {"matmul": mm, "sumsq": ss}
 
 
+# ---- phase 21: the executor's rest; phase 22: the device wire ----------
+
+PMATMUL_BATCH = 8            # the JAX program's default batch
+PMATMUL_SMALL = dict(n=256, batch=4, steps=4)   # card against the CPU
+# the templated secret of the JAX package's executor test: slot 2 expands
+# n=3{{.Task.Slot}} to n=32
+SECRET_DATA = b"n=3{{.Task.Slot}}\nsteps=2"
+WIRE_MANAGERS = 3            # Docker's smallest fault-tolerant quorum
+WIRE_ROWS = 8                # mailbox rows: room for a quorum of 7
+WIRE_PROPOSALS = 256
+WIRE_DROP = 0.05
+
+
+def _pmatmul_args(n: int, batch: int, steps: int, seed: int = 0) -> list:
+    return [f"n={n}", f"steps={steps}", f"batch={batch}", f"seed={seed}"]
+
+
+def _on_host(shards):
+    """The shards of a sharded task, in order, as one CPU tensor."""
+    import torch
+
+    return torch.cat([x.cpu() for x in shards])
+
+
+def phase_executor_rest(torch, task7: dict, card: str = "cuda",
+                        n: int = TASK_N, steps: int = TASK_STEPS) -> dict:
+    """tpu://pmatmul at the JAX program's default batch over every card (at
+    n x n activations, `steps` steps), and at n=256 against the CPU; a
+    task whose parameters come from a templated secret; describe; the
+    buffer's watch()."""
+    from swarmkit_tpu_torch import api
+    from swarmkit_tpu_torch.agent import tpu
+    from swarmkit_tpu_torch.agent.dependency import Dependencies
+
+    out = {}
+    cards = tpu.TpuExecutor(device=card).devices
+    args = _pmatmul_args(n, PMATMUL_BATCH, steps)
+    flop = steps * 2 * PMATMUL_BATCH * n ** 3
+    # twice: a card's first product in a fresh executor thread also sets
+    # up cuBLAS there (phase 7 has done so on the first card only)
+    runs = [drive_task("tpu://pmatmul", args, card) for _ in range(2)]
+    ctl, desc = runs[-1][:2]
+    prep_s = [r[2] for r in runs]
+    run_s = [r[3] for r in runs]
+    d = tpu.pmatmul_shards(PMATMUL_BATCH, cards)
+    check(len(ctl._args) == d and all(
+        x.device == dev for x, dev in zip(ctl._args, cards)),
+        f"pmatmul ran {len(ctl._args)} shards, not one on each of {d} "
+        f"cards")
+    check(math.isfinite(ctl.result), "pmatmul result is not finite")
+    chain = [TASK_STEPS * 2 * TASK_N ** 3 / r / 1e12
+             for r in task7.get("xla_chain_run_s", [])]
+    rates = [flop / r / 1e12 for r in run_s]
+    log(f"  tpu://pmatmul {' '.join(args)} on {d} card(s) "
+        f"({PMATMUL_BATCH * n * n * 2 / 2**30:.2f} GiB of bf16 "
+        f"activations, {flop / 1e12:.2f} TFLOP), twice: prepare "
+        f"{', '.join(f'{p:.3f}' for p in prep_s)} s, run "
+        f"{', '.join(f'{r:.3f}' for r in run_s)} s, "
+        f"{', '.join(f'{r:.1f}' for r in rates)} TFLOP/s; tpu://matmul "
+        f"(phase 7, batch 1) {', '.join(f'{c:.1f}' for c in chain)} "
+        f"TFLOP/s; result {ctl.result!r}")
+    check(runs[0][0].result == ctl.result, "pmatmul gave two results")
+    out["pmatmul"] = dict(shards=d, prepare_s=prep_s, run_s=run_s,
+                          tflop=flop / 1e12, tflop_per_s=rates,
+                          matmul_tflop_per_s=chain)
+    gen = ", ".join(f"{k}: {v}" for k, v in desc.resources.generic.items())
+    log(f"  describe: {gen} {desc.resources.generic_named}")
+    if card == "cuda":
+        want = {"gpu-chip": torch.cuda.device_count()}
+        check(desc.resources.generic == want, f"describe {gen} != {want}")
+        check(desc.resources.generic_named["gpu-chip"] == [
+            str(i) for i in range(torch.cuda.device_count())],
+            "describe does not name every card")
+    del ctl, runs
+
+    sm = PMATMUL_SMALL
+    args = _pmatmul_args(sm["n"], sm["batch"], sm["steps"], seed=1)
+    got = drive_task("tpu://pmatmul", args, card)[0]
+    ref = drive_task("tpu://pmatmul", args, "cpu")[0]
+    a_card = tpu._seeded_normal((sm["n"], sm["n"]), 1, card)
+    a_cpu = a_card.cpu()
+    check(torch.equal(_on_host(got._args), _on_host(ref._args)),
+          "seeded pmatmul operands differ between card and CPU")
+    x_card = _on_host(tpu.pmatmul_chain(
+        list(got._args), [a_card.to(x.device) for x in got._args],
+        sm["steps"])).float()
+    x_cpu = _on_host(tpu.pmatmul_chain(
+        list(ref._args), [a_cpu] * len(ref._args), sm["steps"])).float()
+    diff = (x_card - x_cpu).abs()
+    check(bool((diff <= 1e-1 + 1e-1 * x_cpu.abs()).all()),
+          "pmatmul chains differ beyond rtol=atol=1e-1")
+    bound = float(diff.sum() + 1e-5 * x_cpu.abs().sum())
+    log(f"  pmatmul {' '.join(args)}: card {got.result!r}, cpu "
+        f"{ref.result!r}, |diff| {abs(got.result - ref.result):.6g} <= "
+        f"{bound:.6g} (chains' max|diff| {float(diff.max()):.6g}; "
+        f"tolerance rtol=atol=1e-1)")
+    check(abs(got.result - ref.result) <= bound, "pmatmul card and CPU")
+    out["pmatmul_small"] = dict(card=got.result, cpu=ref.result,
+                                max_abs_err=float(diff.max()))
+
+    ex = tpu.TpuExecutor(hostname="chip", device=card)
+    ex.dependencies = Dependencies()
+    ex.dependencies.secrets.add(api.Secret(id="sec1", spec=api.SecretSpec(
+        annotations=api.Annotations(name="tuning"), data=SECRET_DATA,
+        templating=api.Driver(name="golang"))))
+    watcher = ex.logs.watch()
+    ctl = drive_task("tpu://matmul", ["seed=0"], card, executor=ex, slot=2,
+                     secrets=[api.SecretReference(secret_id="sec1",
+                                                  secret_name="tuning")])[0]
+    lines = [m.data.decode() for m in watcher.poll()]
+    watcher.close()
+    check(ctl._args[0].shape == (32, 32) and ctl._args[0].device.type
+          == torch.device(card).type, "the secret's n=32 did not reach the "
+          "program on the card")
+    check(any("n=<from-dependency>" in ln and "steps=<from-dependency>" in ln
+              for ln in lines), f"prepare line names no dependency: {lines}")
+    check(not any("n=32" in ln or "steps=2" in ln for ln in lines),
+          f"a secret value reached the logs: {lines}")
+    want = ["prepared tpu://matmul seed=0 n=<from-dependency> "
+            f"steps=<from-dependency> on {ex.device}", "started on device",
+            f"result: {ctl.result}", "task complete"]
+    check(lines == want, f"watch() gave {lines}, not {want}")
+    log(f"  secret-templated task on {ex.device}: watch() gave "
+        f"{len(lines)} lines in order: {lines}")
+    out["secret_task_lines"] = lines
+    return out
+
+
+class _WireClock:
+    """The wire's clock: raft ticks, advanced by the run loop."""
+
+    def __init__(self) -> None:
+        self.t = 0.0
+
+    def now(self) -> float:
+        return self.t
+
+    async def sleep(self, dt: float) -> None:
+        await asyncio.sleep(0)
+
+
+class WireNode:
+    """One raft/core.py Raft behind a DeviceMeshTransport: the server the
+    wire delivers to and the handlers its transport reports to.  Each
+    step's outbox goes out through the transport; entries are stable as
+    soon as appended, and committed entries are applied at once."""
+
+    def __init__(self, net, raft_id: int, peers: tuple, clock,
+                 seed: int) -> None:
+        from swarmkit_tpu_torch.raft.core import Config, Raft
+        from swarmkit_tpu_torch.transport import DeviceMeshTransport
+
+        self.raft = Raft(Config(id=raft_id, peers=peers, election_tick=10,
+                                heartbeat_tick=1, check_quorum=True,
+                                seed=seed))
+        self.addr = f"manager-{raft_id}"
+        self.transport = DeviceMeshTransport(net, self, self.addr, clock)
+        for p in peers:
+            if p != raft_id:
+                self.transport.add_peer(p, f"manager-{p}")
+        net.register(self.addr, self)
+
+    def ready(self) -> None:
+        log_ = self.raft.log
+        log_.stabilized(log_.last_index())
+        log_.applied_to(log_.committed)
+        msgs, self.raft.msgs = self.raft.msgs, []
+        for m in msgs:
+            self.transport.send(m)
+
+    def step(self, m) -> None:
+        self.raft.step(m)
+        self.ready()
+
+    async def process_raft_message(self, m) -> None:
+        self.step(m)
+
+    def report_unreachable(self, raft_id: int, failures: int = 1) -> None:
+        from swarmkit_tpu_torch.raft.messages import Message, MsgType
+
+        if failures and self.raft.state == "leader":
+            self.step(Message(type=MsgType.UNREACHABLE, frm=raft_id))
+
+    def report_snapshot(self, raft_id: int, ok: bool) -> None:
+        from swarmkit_tpu_torch.raft.messages import Message, MsgType
+
+        if self.raft.state == "leader":
+            self.step(Message(type=MsgType.SNAP_STATUS, frm=raft_id,
+                              reject=not ok))
+
+    def is_id_removed(self, raft_id: int) -> bool:
+        return False
+
+    def node_removed(self) -> None:
+        pass
+
+    def committed(self) -> list:
+        log_ = self.raft.log
+        return [(e.index, e.term, int(e.type), e.data)
+                for e in log_.slice(log_.first_index(), log_.committed + 1)]
+
+
+async def _wire_quorum_run(net, seed: int, proposals: int, drop: float):
+    """Three WireNodes on `net`: elect, commit `proposals` entries (half
+    before and half after a partition of the leader) under `drop` loss on
+    every edge, heal, and run until the logs are equal.  Returns the nodes
+    and the counts of the run."""
+    from swarmkit_tpu_torch.raft.messages import Entry, Message, MsgType
+
+    clock = _WireClock()
+    ids = tuple(range(1, WIRE_MANAGERS + 1))
+    nodes = [WireNode(net, i, ids, clock, seed) for i in ids]
+    ticks = 0
+
+    async def settle():
+        for _ in range(64):
+            await asyncio.sleep(0)
+            if not net._staged:
+                return
+
+    async def tick(n: int = 1):
+        nonlocal ticks
+        for _ in range(n):
+            clock.t += 1.0
+            ticks += 1
+            for nd in nodes:
+                if nd.addr not in net._down:
+                    nd.raft.tick()
+                    nd.ready()
+            await settle()
+
+    def leaders(among):
+        return [nd for nd in among if nd.raft.state == "leader"]
+
+    async def until(pred, what: str, limit: int = 400):
+        for _ in range(limit):
+            if pred():
+                return
+            await tick()
+        fail(f"device wire: {what} within {limit} ticks")
+
+    await until(lambda: len(leaders(nodes)) == 1, "no leader elected")
+    first = leaders(nodes)[0]
+    elected_at = ticks
+    for a in nodes:
+        for b in nodes:
+            if a is not b:
+                net.set_drop(a.addr, b.addr, drop)
+    payloads = [f"proposal-{i}".encode() for i in range(proposals)]
+
+    async def propose(batch, among):
+        for p in batch:
+            await until(lambda: len(leaders(among)) == 1,
+                        "no leader for a proposal")
+            leaders(among)[0].step(Message(type=MsgType.PROP,
+                                           entries=(Entry(data=p),)))
+            await settle()
+
+    def committed_everywhere(among, batch):
+        want = set(batch)
+        return all(want <= {e[3] for e in nd.committed()} for nd in among)
+
+    half = proposals // 2
+    await propose(payloads[:half], nodes)
+    await until(lambda: committed_everywhere(nodes, payloads[:half]),
+                "the first half committed on every node")
+    rest = [nd for nd in nodes if nd is not first]
+    net.partition({first.addr}, {nd.addr for nd in rest})
+    await until(lambda: len(leaders(rest)) == 1
+                and first.raft.state != "leader",
+                "re-election after the leader's partition")
+    second = leaders(rest)[0]
+    reelected_at = ticks
+    await propose(payloads[half:], rest)
+    await until(lambda: committed_everywhere(rest, payloads[half:]),
+                "the second half committed on the majority")
+    net.heal()
+    for a in nodes:
+        for b in nodes:
+            if a is not b:
+                net.set_drop(a.addr, b.addr, drop)
+    await until(lambda: committed_everywhere(nodes, payloads)
+                and len({tuple(nd.committed()) for nd in nodes}) == 1
+                and len({nd.raft.log.last_index() for nd in nodes}) == 1,
+                "equal logs after the heal")
+    return nodes, dict(ticks=ticks, elected_at=elected_at,
+                       reelected_at=reelected_at, first_leader=first.raft.id,
+                       second_leader=second.raft.id, dropped=net.dropped,
+                       delivered=net.delivered)
+
+
+def _histogram_quantile(fam, q: float) -> float:
+    """The upper edge of the histogram bucket that holds quantile q."""
+    child = fam._default()
+    counts = child.cumulative()
+    total = counts[-1]
+    for edge, c in zip(list(child.buckets) + [math.inf], counts):
+        if c >= q * total:
+            return edge
+    return math.inf
+
+
+def wire_flush_script(seed: int = 0) -> list:
+    """(frm, to, k, raw) slots of a scripted flush for each width bucket
+    of the mailbox: every edge among WIRE_ROWS rows, one to three messages
+    an edge, the widest of each exchange needing that bucket."""
+    import random
+
+    from swarmkit_tpu_torch.raft.messages import Entry, Message, MsgType
+    from swarmkit_tpu_torch.raft.wire import encode_message
+    from swarmkit_tpu_torch.transport import device_mesh
+
+    rng = random.Random(seed)
+    scripts = []
+    for w in device_mesh.W_BUCKETS:
+        entries = []
+        for frm in range(WIRE_ROWS):
+            for to in range(WIRE_ROWS):
+                for k in range(rng.randint(1, 3)):
+                    size = rng.randint(0, 4 * w - 200)
+                    if (frm, to, k) == (0, 1, 0):
+                        size = 4 * w - 200   # the widest fills the bucket
+                    m = Message(type=MsgType.APP, to=to + 1, frm=frm + 1,
+                                term=rng.randint(1, 9), index=rng.randint(
+                                    0, 1 << 40),
+                                entries=(Entry(index=1, term=1,
+                                               data=rng.randbytes(size)),))
+                    entries.append((frm, to, k, encode_message(m)))
+        scripts.append(entries)
+    return scripts
+
+
+def phase_device_wire(torch, card: str = "cuda",
+                      proposals: int = WIRE_PROPOSALS) -> dict:
+    """Three raft/core.py nodes over DeviceMeshTransports on a card's
+    DeviceMeshNet, and a scripted flush through every width bucket on the
+    card and on the CPU."""
+    import numpy as np
+
+    from swarmkit_tpu_torch.metrics import catalog, registry
+    from swarmkit_tpu_torch.transport import DeviceMeshNet, device_mesh
+
+    reg = registry.MetricsRegistry()
+    net = DeviceMeshNet(seed=0, rows=WIRE_ROWS, device=card, obs=reg)
+    t0 = time.perf_counter()
+    try:
+        nodes, run = asyncio.run(_wire_quorum_run(net, 0, proposals,
+                                                  WIRE_DROP))
+    finally:
+        net.close()
+    secs = time.perf_counter() - t0
+    logs = {tuple(nd.committed()) for nd in nodes}
+    check(len(logs) == 1, "the managers' logs differ")
+    n_entries = len(next(iter(logs)))
+    fam = catalog.get(reg, "swarm_transport_exchange_seconds")
+    p50, p99 = (_histogram_quantile(fam, q) for q in (0.5, 0.99))
+    mean = fam._default().sum / max(fam._default().count, 1)
+    check(net.device_flushes > 0 and
+          catalog.get(reg, "swarm_transport_device_flushes_total").value
+          == net.device_flushes, "flush counter and metric disagree")
+    log(f"  {WIRE_MANAGERS} managers on {net.device}: leader "
+        f"{run['first_leader']} at tick {run['elected_at']}, partitioned, "
+        f"{run['second_leader']} re-elected at tick {run['reelected_at']}; "
+        f"{proposals} proposals committed on every node ({n_entries} "
+        f"entries, equal logs) in {run['ticks']} ticks, {secs:.2f} s; "
+        f"{net.device_flushes} flushes, {net.device_messages} messages, "
+        f"{run['dropped']} dropped ({WIRE_DROP:.0%} an edge), exchange "
+        f"p50 <= {p50} s, p99 <= {p99} s (histogram bucket edges), mean "
+        f"{mean:.6f} s")
+    out = dict(run, secs=secs, entries=n_entries,
+               flushes=net.device_flushes, messages=net.device_messages,
+               exchange_p50_le_s=p50, exchange_p99_le_s=p99,
+               exchange_mean_s=mean)
+
+    nets = {dev: DeviceMeshNet(rows=WIRE_ROWS, device=dev)
+            for dev in (card, "cpu")}
+    rng = np.random.default_rng(0)
+    out["flush"] = []
+    for entries in wire_flush_script():
+        words, lens, keep = nets[card].pack(entries)
+        keep[:] = rng.random(keep.shape) < 0.9
+        res = {dev: n.run_exchange(words, lens, keep)
+               for dev, n in nets.items()}
+        for a, b in zip(res[card], res["cpu"]):
+            check(np.array_equal(a, b), "card and CPU exchanges differ")
+        d_words, d_lens = res[card]
+        for frm, to, k, raw in entries:
+            n = int(d_lens[to, frm, k])
+            if keep[frm, to, k]:
+                check(d_words[to, frm, k].tobytes()[:n] == raw,
+                      "a delivered slot's bytes differ")
+            else:
+                check(n == 0, "a blocked slot came back with a length")
+        blocked = int((~keep & (lens > 0)).sum())
+        out["flush"].append(dict(shape=list(words.shape),
+                                 messages=len(entries), blocked=blocked))
+        log(f"  scripted flush {tuple(words.shape)} "
+            f"({words.nbytes / 2**20:.2f} MiB, {len(entries)} messages, "
+            f"{blocked} blocked): card = CPU, bytes and lengths")
+    widths = [f["shape"][3] for f in out["flush"]]
+    check(widths == list(device_mesh.W_BUCKETS),
+          f"the script used widths {widths}")
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -3409,6 +3837,18 @@ def main() -> int:
     finally:
         shutil.rmtree(outdir, ignore_errors=True)
 
+    stage(f"phase 21: the executor's rest (tpu://pmatmul n={TASK_N} "
+          f"batch={PMATMUL_BATCH}, secret parameters, describe, watch)")
+    t21 = time.perf_counter()
+    exec21 = phase_executor_rest(torch, task)
+    exec21["secs"] = time.perf_counter() - t21
+    stage(f"phase 22: the device wire ({WIRE_MANAGERS} raft nodes over "
+          f"DeviceMeshTransports, rows={WIRE_ROWS}; scripted flushes)")
+    t22 = time.perf_counter()
+    wire22 = phase_device_wire(torch)
+    wire22["secs"] = time.perf_counter() - t22
+    log(f"  phases 21-22 in {exec21['secs']:.1f} + {wire22['secs']:.1f} s")
+
     elapsed = time.perf_counter() - started
     log(f"all phases passed in {elapsed:.1f} s")
     log("summary " + json.dumps({"card": card, "elapsed_s": elapsed,
@@ -3424,7 +3864,9 @@ def main() -> int:
                                  "levers_batched": levers, "mc": mc16,
                                  "scheduler": sched17, "tools": tools18,
                                  "differential": diff19,
-                                 "fault_sweep": fault20},
+                                 "fault_sweep": fault20,
+                                 "executor_rest": exec21,
+                                 "device_wire": wire22},
                                 default=str))
     records = [{
         "name": "append_band_copy", "route": "cuda",

@@ -27,9 +27,13 @@ CPU and on the card; they are not the JAX package's ``jax.random`` values.
 numpy arrays, bfloat16 included) replaces the seeded ones, so a task can
 run on operands carried across from elsewhere.
 
-Not ported yet: ``tpu://pmatmul`` (the multi-GPU slice; its factory rejects
-the task), and parameters from secret/config payloads (a task that
-references secrets or configs is rejected at prepare).  There is no
+``tpu://pmatmul`` shards its batch over the executor's list of local
+devices (`TpuExecutor.devices`: every card of the machine, or the CPU),
+one controller in one process as the JAX package's single-process SPMD
+program is: the per-shard scalars are summed across the devices where JAX
+calls ``psum``.  ``k=v`` lines of the secrets and configs a task
+references, template-expanded per task, become program parameters; the
+prepare log line names them and never shows their values.  There is no
 fallback: without a card the executor needs ``device="cpu"``.
 """
 
@@ -46,6 +50,7 @@ import torch
 from swarmkit_tpu_torch.agent.exec import (
     Controller, Executor, TaskError, TaskRejected,
 )
+from swarmkit_tpu_torch.agent.dependency import Dependencies
 from swarmkit_tpu_torch.agent.logs import TaskLogBuffer
 from swarmkit_tpu_torch.api.types import (
     EngineDescription, NodeDescription, NodeResources, Platform,
@@ -57,12 +62,19 @@ from swarmkit_tpu_torch.parallel import cuda_ops
 SCHEME = "tpu://"
 _LANE = 128   # with 256, the aligned default tiles of pallas_matmul
 
-# name -> factory(params, device, operands=None) -> (fn, args)
+# name -> factory(params, device, operands=None) -> (fn, args); a sharded
+# program's factory also takes devices=, the executor's local devices
 PROGRAMS: dict[str, Callable] = {}
+SHARDED: set[str] = set()
 
 
-def register_program(name: str, factory: Callable) -> None:
+def register_program(name: str, factory: Callable,
+                     sharded: bool = False) -> None:
     PROGRAMS[name] = factory
+    if sharded:
+        SHARDED.add(name)
+    else:
+        SHARDED.discard(name)
 
 
 def operands_from_numpy(arrays: dict, device) -> dict[str, torch.Tensor]:
@@ -92,10 +104,10 @@ def _operand(operands, name, shape, dtype, device, make):
     return t.to(device)
 
 
-def _seeded_normal(n: int, seed: int, device) -> torch.Tensor:
-    """A bf16 [n, n] standard normal from a CPU generator, then moved."""
+def _seeded_normal(shape, seed: int, device) -> torch.Tensor:
+    """A bf16 standard normal from a CPU generator, then moved."""
     g = torch.Generator("cpu").manual_seed(seed)
-    return torch.randn((n, n), generator=g).to(torch.bfloat16).to(device)
+    return torch.randn(shape, generator=g).to(torch.bfloat16).to(device)
 
 
 def _square_operand(params, device, operands):
@@ -103,7 +115,7 @@ def _square_operand(params, device, operands):
     n = int(params.get("n", 256))
     seed = int(params.get("seed", 0))
     return _operand(operands, "a", (n, n), torch.bfloat16, device,
-                       lambda: _seeded_normal(n, seed, device))
+                    lambda: _seeded_normal((n, n), seed, device))
 
 
 def _builtin_matmul(params: dict, device, operands=None):
@@ -139,9 +151,66 @@ def _builtin_axpy(params: dict, device, operands=None):
     return fn, (x, y)
 
 
-def _builtin_pmatmul(params: dict, device, operands=None):
-    raise TaskRejected("pmatmul is not ported yet: the sharded chain waits "
-                       "for the multi-GPU slice")
+def pmatmul_shards(batch: int, devices) -> int:
+    """The shard count d: the largest count <= len(devices) that divides
+    `batch` (the JAX package's rule)."""
+    d = len(devices)
+    while d > 1 and batch % d != 0:
+        d -= 1
+    return d
+
+
+def psum(scalars: list, devices: list) -> list:
+    """The sum of one scalar per shard, back on every shard's device (the
+    JAX package's ``lax.psum`` over the batch axis): gathered onto the
+    first device, summed, and broadcast."""
+    total = torch.stack([s.to(devices[0]) for s in scalars]).sum()
+    return [total.to(dev) for dev in devices]
+
+
+def pmatmul_chain(xs: list, as_: list, steps: int) -> list:
+    """The sharded chain: shard i holds xs[i] and its copy as_[i] of `a` on
+    one device.  Each step is a local bf16 product, the mean square in
+    f32 per shard, and the shards' sum of those, dividing by
+    sqrt(total / d)."""
+    d = len(xs)
+    devices = [x.device for x in xs]
+    for _ in range(steps):
+        ys = [torch.matmul(x, a) for x, a in zip(xs, as_)]
+        totals = psum([torch.mean(torch.square(y.float())) for y in ys],
+                      devices)
+        xs = [y / torch.clamp_min(torch.sqrt(t / d), 1e-6)
+              .to(torch.bfloat16) for y, t in zip(ys, totals)]
+    return xs
+
+
+def _builtin_pmatmul(params: dict, device, operands=None, devices=None):
+    """Sharded bf16 matmul chain over the local devices: the batch axis is
+    split into d shards, one a device (`pmatmul_chain`), and the result
+    is the shards' sum of their f32 sums.  The product is the JAX
+    package's XLA ``carry @ a``, outside any Pallas kernel, so here it is
+    torch.matmul.  `devices` defaults to [device]; a list may name one
+    device more than once (the CPU's shards are slices on the one CPU
+    device)."""
+    n = int(params.get("n", 256))
+    steps = int(params.get("steps", 4))
+    batch = int(params.get("batch", 8))
+    if n <= 0 or batch <= 0:
+        raise TaskRejected(f"n={n} and batch={batch} must be positive")
+    devices = list(devices or [device])
+    d = pmatmul_shards(batch, devices)
+    devices = devices[:d]
+    a = _square_operand(params, devices[0], operands)
+    x = _operand(operands, "x", (batch, n, n), torch.bfloat16, devices[0],
+                 lambda: _seeded_normal((batch, n, n), 1, devices[0]))
+    xs = [xi.to(dev) for xi, dev in zip(torch.chunk(x, d), devices)]
+    as_ = [a.to(dev) for dev in devices]
+
+    def fn(*xs):
+        out = pmatmul_chain(list(xs), as_, steps)
+        return psum([torch.sum(o.float()) for o in out], devices)[0]
+
+    return fn, tuple(xs)
 
 
 def _builtin_pallas_matmul(params: dict, device, operands=None):
@@ -187,7 +256,7 @@ def _builtin_spin(params: dict, device, operands=None):
 
 register_program("matmul", _builtin_matmul)
 register_program("pallas_matmul", _builtin_pallas_matmul)
-register_program("pmatmul", _builtin_pmatmul)
+register_program("pmatmul", _builtin_pmatmul, sharded=True)
 register_program("axpy", _builtin_axpy)
 register_program("spin", _builtin_spin)
 
@@ -240,31 +309,59 @@ class TpuController(Controller):
         self.task = task  # spec changes beyond desired-state are rejected
         # upstream by the orchestrator creating a replacement task
 
-    async def prepare(self) -> None:
+    def _dep_params(self) -> dict:
+        """k=v lines from referenced secret/config payloads become program
+        parameters (the runtime's analog of mounting secret files; payloads
+        are template-expanded per task, template/getter.go)."""
+        deps = self.executor.dependencies
         c = self.task.spec.container
-        name, params = parse_program(c)
-        if c.secrets or c.configs:
-            raise NotImplementedError(
-                "dependency parameters (secret/config payloads as program "
-                "parameters) are not ported yet")
+        if deps is None or c is None or (not c.secrets and not c.configs):
+            return {}
+        view = deps.templated(self.task, self.executor._node)
+        out: dict[str, str] = {}
+        for ref, store in ([(r, view.secrets) for r in c.secrets]
+                           + [(r, view.configs) for r in c.configs]):
+            dep_id = getattr(ref, "secret_id", "") \
+                or getattr(ref, "config_id", "")
+            item = store.get(dep_id)
+            if item is None:
+                raise TaskError(f"missing dependency {dep_id!r}")
+            for line in item.spec.data.decode("utf-8",
+                                              "replace").splitlines():
+                if "=" in line:
+                    k, v = line.split("=", 1)
+                    out[k.strip().lower()] = v.strip()
+        return out
+
+    async def prepare(self) -> None:
+        name, params = parse_program(self.task.spec.container)
+        public_params = dict(params)   # loggable: image args/env only
+        dep = self._dep_params()
+        params.update(dep)
         factory = PROGRAMS.get(name)
         if factory is None:
             raise TaskRejected(f"unknown TPU program {name!r} "
                                f"(have: {sorted(PROGRAMS)})")
         dev = self.executor.device
+        kw = {"devices": self.executor.devices} if name in SHARDED else {}
         loop = asyncio.get_running_loop()
 
         def build():
             with _on(dev):
-                fn, args = factory(params, dev, self.operands)
-                if dev.type == "cuda":
-                    torch.cuda.synchronize(dev)
+                fn, args = factory(params, dev, self.operands, **kw)
+                for d in {dev, *kw.get("devices", ())}:
+                    if d.type == "cuda":
+                        torch.cuda.synchronize(d)
             return fn, args
 
         try:
             self._fn, self._args = await loop.run_in_executor(None, build)
-            shown = " ".join(f"{k}={v}" for k, v in params.items())
-            self._log(f"prepared tpu://{name} {shown} on {dev}")
+            # dependency-sourced params are secret material: log their
+            # names only, never values (they would be served cluster-wide
+            # through `service logs`)
+            shown = [f"{k}={v}" for k, v in public_params.items()]
+            shown += [f"{k}=<from-dependency>" for k in dep]
+            self._log(f"prepared tpu://{name} {' '.join(shown)} on {dev}")
         except TaskRejected:
             raise
         except Exception as e:
@@ -319,35 +416,49 @@ class TpuController(Controller):
 
 
 class TpuExecutor(Executor):
-    """Executor advertising its device; reference: dockerapi/executor.go
-    Describe + Controller factory.
+    """Executor advertising its local devices; reference:
+    dockerapi/executor.go Describe + Controller factory.
 
     `device` defaults to the current CUDA card and raises without one; pass
-    ``device="cpu"`` to run on the CPU.  The node advertises the one device
-    the executor runs on: ``gpu-chip`` for a card (the key the JAX
-    package's executor emits on a GPU node), ``cpu-chip`` for the CPU."""
+    ``device="cpu"`` to run on the CPU.  Programs run on `device`;
+    ``tpu://pmatmul`` shards over `devices`, which defaults to every card
+    of the machine on CUDA and to the CPU alone on the CPU.  A list may
+    name a device more than once, each entry one shard (the CPU's
+    counterpart of XLA's virtual host devices).  The node advertises the
+    distinct devices of `devices`: ``gpu-chip`` with each card's index
+    (the key and shape the JAX package's executor emits on a GPU node),
+    ``cpu-chip`` for the CPU.  `dependencies` (an
+    agent.dependency.Dependencies, set by the agent's worker) serves the
+    secrets and configs that tasks reference."""
 
-    def __init__(self, hostname: str = "", device=None) -> None:
+    def __init__(self, hostname: str = "", device=None, devices=None) -> None:
         dev = resolve_device(device)
         if dev.type == "cuda" and dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
+        if devices is None:
+            devices = ([torch.device("cuda", i)
+                        for i in range(torch.cuda.device_count())]
+                       if dev.type == "cuda" else [dev])
         self.hostname = hostname
         self.device = dev
+        self.devices = [torch.device(d) for d in devices]
+        self.dependencies: Optional[Dependencies] = None
         self._node = None
         self.logs = TaskLogBuffer()   # served via `service logs`
 
     async def describe(self) -> NodeDescription:
         platform = "gpu" if self.device.type == "cuda" else self.device.type
         key = f"{platform}-chip"
+        ids = sorted({d.index or 0 for d in self.devices})
         return NodeDescription(
             hostname=self.hostname,
             platform=Platform(architecture=platform, os="torch"),
             engine=EngineDescription(engine_version=f"torch/{platform}",
                                      labels={"executor": "tpu"}),
             resources=NodeResources(
-                generic={key: 1},
+                generic={key: len(ids)},
                 # named ids let the scheduler claim SPECIFIC chips per task
-                generic_named={key: [str(self.device.index or 0)]}),
+                generic_named={key: [str(i) for i in ids]}),
         )
 
     async def configure(self, node) -> None:

@@ -1,6 +1,6 @@
 """The Node and Task objects (the port's own copy of the JAX package's
-api/objects.py Node, NodeStatus and Task, without the store's meta and
-the fields neither the executor nor the scheduler reads)."""
+api/objects.py Node, NodeStatus, Task, Secret and Config, without the
+store's meta and the fields neither the executor nor the scheduler reads)."""
 
 from __future__ import annotations
 
@@ -8,7 +8,9 @@ from dataclasses import dataclass, field
 from typing import Optional
 
 from swarmkit_tpu_torch.api.serde import Message
-from swarmkit_tpu_torch.api.specs import NodeSpec, TaskSpec
+from swarmkit_tpu_torch.api.specs import (
+    ConfigSpec, NodeSpec, SecretSpec, TaskSpec,
+)
 from swarmkit_tpu_torch.api.types import (
     Annotations, Driver, Endpoint, NetworkAttachment, NodeDescription,
     NodeRole, NodeState, TaskStatus,
@@ -51,3 +53,24 @@ class Task(Message):
     service_annotations: Annotations = field(default_factory=Annotations)
     # specific named-resource ids claimed by the scheduler for this task
     assigned_generic: dict[str, list[str]] = field(default_factory=dict)
+
+
+@dataclass
+class Secret(Message):
+    id: str = ""
+    spec: SecretSpec = field(default_factory=SecretSpec)
+    internal: bool = False
+
+    @property
+    def annotations(self) -> Annotations:
+        return self.spec.annotations
+
+
+@dataclass
+class Config(Message):
+    id: str = ""
+    spec: ConfigSpec = field(default_factory=ConfigSpec)
+
+    @property
+    def annotations(self) -> Annotations:
+        return self.spec.annotations

@@ -1,7 +1,8 @@
 """The spec fields the executor and the scheduler read (the port's own
 copy of the JAX package's api/specs.py NodeSpec, Resources,
 ResourceRequirements, Placement, ContainerSpec, SecretReference,
-ConfigReference and TaskSpec; fields neither reads are left out)."""
+ConfigReference, TaskSpec, SecretSpec and ConfigSpec; fields neither the
+executor nor the scheduler reads are left out)."""
 
 from __future__ import annotations
 
@@ -74,3 +75,20 @@ class TaskSpec(Message):
     placement: Optional[Placement] = None
     networks: list[str] = field(default_factory=list)  # network ids
     log_driver: Optional[Driver] = None
+
+
+@dataclass
+class SecretSpec(Message):
+    annotations: Annotations = field(default_factory=Annotations)
+    data: bytes = b""
+    driver: Optional[Driver] = None
+    # when set (driver name "golang"), the payload is template-expanded
+    # per task when served to a workload (template.expand_secret_spec)
+    templating: Optional[Driver] = None
+
+
+@dataclass
+class ConfigSpec(Message):
+    annotations: Annotations = field(default_factory=Annotations)
+    data: bytes = b""
+    templating: Optional[Driver] = None

@@ -9,8 +9,9 @@ modules publish: the kernel counters and tick timer (raft/sim/run.py
 KernelObs), the telemetry plane (telemetry/obs.py), the flight recorder
 (flightrec/record.py), the trace export (flightrec/clock.py, export.py),
 the DST sweep (dst/explore.py, dst/repro.py), the multi-raft serving
-plane (multiraft/obs.py), the SLO engine (slo/engine.py) and the
-scheduler with its group-placement kernel (manager/scheduler/).
+plane (multiraft/obs.py), the SLO engine (slo/engine.py), the
+scheduler with its group-placement kernel (manager/scheduler/) and the
+raft transports (raft/transport.py, transport/device_mesh.py).
 """
 
 from __future__ import annotations
@@ -41,6 +42,27 @@ _TICK_BUCKETS = (0.0001, 0.00025, 0.0005, 0.001, 0.0025, 0.005, 0.01,
 _TEL_TICK_BUCKETS = (1.0, 2.0, 4.0, 8.0, 16.0, 32.0, 64.0, 128.0, 256.0)
 
 CATALOG: dict[str, MetricSpec] = {
+    # ---- transports (raft/transport.py, transport/device_mesh.py) --------
+    "swarm_transport_delivery_latency_seconds": MetricSpec(
+        "histogram", "Queue-to-delivered wall time per raft message on the "
+        "sending side.", ("wire",)),
+    "swarm_transport_redials_total": MetricSpec(
+        "counter", "Backoff redial sleeps taken by per-peer drain loops "
+        "after delivery failures.", ("wire",)),
+    "swarm_transport_send_failures_total": MetricSpec(
+        "counter", "Message delivery failures across all peers.", ("wire",)),
+    "swarm_transport_mailbox_depth": MetricSpec(
+        "gauge", "Device-mesh messages staged and awaiting the next "
+        "all-to-all flush.", ()),
+    "swarm_transport_device_flushes_total": MetricSpec(
+        "counter", "Device-mesh all-to-all exchange invocations.", ()),
+    "swarm_transport_device_messages_total": MetricSpec(
+        "counter", "Raft messages moved through device-mesh exchanges.", ()),
+    "swarm_transport_exchange_seconds": MetricSpec(
+        "histogram", "Wall time of one device-mesh exchange flush "
+        "(host-side, around the jitted all-to-all).", (),
+        _TICK_BUCKETS),
+
     # ---- device tick kernel (raft/sim/kernel.py, run.py KernelObs) -------
     "swarm_kernel_tick_seconds": MetricSpec(
         "histogram", "Host-side wall time around jitted kernel calls, by "

@@ -12,6 +12,7 @@ import torch
 
 from swarmkit_tpu_torch.agent.tpu import TpuExecutor
 from swarmkit_tpu_torch.raft.sim import kernel, run, state
+from swarmkit_tpu_torch.transport import DeviceMeshNet
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT = ROOT / "swarmkit_tpu_torch"
@@ -52,7 +53,15 @@ def test_port_imports_without_jax():
             "swarmkit_tpu_torch.manager.scheduler.scheduler",
             "swarmkit_tpu_torch.tools.multiraft_sweep",
             "swarmkit_tpu_torch.tools.swarm_top",
-            "swarmkit_tpu_torch.tools.sched_world"} <= set(mods)
+            "swarmkit_tpu_torch.tools.sched_world",
+            "swarmkit_tpu_torch.transport",
+            "swarmkit_tpu_torch.transport.device_mesh",
+            "swarmkit_tpu_torch.raft.wire",
+            "swarmkit_tpu_torch.raft.transport",
+            "swarmkit_tpu_torch.agent.dependency",
+            "swarmkit_tpu_torch.agent.logs",
+            "swarmkit_tpu_torch.template",
+            "swarmkit_tpu_torch.watch.queue"} <= set(mods)
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
             "sys.modules['swarmkit_tpu'] = None\n"
@@ -91,7 +100,8 @@ def test_entry_points_raise_without_a_card(monkeypatch):
                  lambda: run.run_ticks(st, cfg, 1),
                  lambda: run.run_until_leader(st, cfg, 1),
                  lambda: state.state_from_numpy(state.state_to_numpy(st)),
-                 lambda: TpuExecutor(hostname="w1")):
+                 lambda: TpuExecutor(hostname="w1"),
+                 lambda: DeviceMeshNet(rows=8)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
     assert TpuExecutor(device="cpu").device.type == "cpu"

@@ -832,3 +832,78 @@ def test_attack_sweep_append_flood_on_the_card(tmp_path):
     on_cpu = dst.replay_artifact(stats["append_flood"]["artifact"],
                                  device="cpu")
     assert on_cpu["matches_recorded"]
+
+
+@pytest.mark.cuda
+def test_pmatmul_task_on_the_card_matches_the_cpu():
+    """tpu://pmatmul n=256 batch=4 on the card, one shard a card, and on
+    the CPU: one seed gives both the same operands; the chains within
+    rtol=atol=1e-1, the results within the sum of the chains' |diff|."""
+    _need_card()
+    from swarmkit_tpu_torch.agent import tpu
+
+    n, steps, batch = 256, 3, 4
+
+    async def run(device):
+        ex = TpuExecutor(device=device)
+        task = Task(id="t", spec=TaskSpec(container=ContainerSpec(
+            image="tpu://pmatmul",
+            args=[f"n={n}", f"steps={steps}", f"batch={batch}"])),
+            status=TaskStatus(state=TaskState.ASSIGNED),
+            desired_state=TaskState.RUNNING)
+        ctl = await ex.controller(task)
+        for _ in range(10):
+            st = await do_task_state(task, ctl, now=0.0)
+            if st is None:
+                break
+            task.status = st
+        assert task.status.state == TaskState.COMPLETE, task.status.err
+        return ctl
+
+    card, cpu = asyncio.run(run("cuda")), asyncio.run(run("cpu"))
+    assert len(card._args) == tpu.pmatmul_shards(batch, list(range(
+        torch.cuda.device_count())))
+    def on_host(shards):
+        return torch.cat([x.cpu() for x in shards])
+
+    assert torch.equal(on_host(card._args), on_host(cpu._args))
+    a = tpu._seeded_normal((n, n), 0, "cpu")
+    got = on_host(tpu.pmatmul_chain(
+        list(card._args), [a.to(x.device) for x in card._args],
+        steps)).float()
+    want = on_host(tpu.pmatmul_chain(list(cpu._args), [a], steps)).float()
+    torch.testing.assert_close(got, want, rtol=1e-1, atol=1e-1)
+    bound = float((got - want).abs().sum() + 1e-5 * want.abs().sum())
+    assert math.isfinite(card.result)
+    assert abs(card.result - cpu.result) <= bound
+
+
+@pytest.mark.cuda
+def test_device_wire_flush_on_the_card_matches_the_cpu():
+    """One mailbox of every edge of 8 rows through the exchange on the
+    card and on the CPU: equal receiver-major words and lengths, each kept
+    slot its message's bytes, each blocked slot length 0."""
+    _need_card()
+    from swarmkit_tpu_torch.raft.messages import Entry, Message, MsgType
+    from swarmkit_tpu_torch.raft.wire import encode_message
+    from swarmkit_tpu_torch.transport import DeviceMeshNet
+
+    rng = np.random.default_rng(1)
+    entries = [(f, t, k, encode_message(Message(
+        type=MsgType.APP, to=t + 1, frm=f + 1, term=1, entries=(Entry(
+            index=k + 1, term=1, data=rng.bytes(int(rng.integers(0, 3000)))),
+        ))))
+        for f in range(8) for t in range(8) for k in range(3)]
+    card = DeviceMeshNet(rows=8, device="cuda")
+    cpu = DeviceMeshNet(rows=8, device="cpu")
+    words, lens, keep = card.pack(entries)
+    keep[:] = rng.random(keep.shape) < 0.8
+    got, want = card.run_exchange(words, lens, keep), \
+        cpu.run_exchange(words, lens, keep)
+    assert words.shape == (8, 8, 4, 1024)
+    for a, b in zip(got, want):
+        assert np.array_equal(a, b)
+    for f, t, k, raw in entries:
+        n = int(got[1][t, f, k])
+        assert n == (len(raw) if keep[f, t, k] else 0)
+        assert got[0][t, f, k].tobytes()[:n] == raw[:n]

@@ -10,17 +10,22 @@ summary, level ladder, LTS edges and state count, and the Aldebaran .aut
 bytes), a budget-truncated scan, and the commit_no_quorum mutation's
 violations.  Repro artifacts cross-load both ways: each package replays
 the other's exactly.  All values are integers, so every comparison is
-exact.  One JAX smoke scan is shared by the module; it runs only the
+exact.  Each JAX smoke scan runs once for the test session, on one
+device as the port's does, shared by the xdist workers through a file
+under pytest's temporary root (the `scans` fixture); it runs only the
 4096-wide pass.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import fcntl
 import functools
 import importlib
 import json
 import os
+import pathlib
+import pickle
 import sys
 
 import jax
@@ -53,17 +58,62 @@ jfp = importlib.import_module("swarmkit_tpu.mc.fingerprint")
 tfp = importlib.import_module("swarmkit_tpu_torch.mc.fingerprint")
 
 
-@functools.lru_cache(maxsize=None)
-def scans(mutation=None, budget=None):
-    """JAX's and the port's exhaustive_scan of the smoke scope (edges on)."""
+def _scan_kw(mutation, budget):
+    return dict(prop_count=jmc.SCOPES[SMOKE].prop_count, mutation=mutation,
+                budget=budget, collect_edges=True, scope=SMOKE)
+
+
+def _jax_scan(mutation, budget):
+    """JAX's scan on one device (shard=False), the counterpart of the
+    port's one-card scan, which takes shard= and ignores it.  Sharding is
+    a layout: the sharded scan gives the same summary, edges, states and
+    violations.  Under xdist load its all-reduce over the 8 virtual CPU
+    devices can miss XLA's 40 s rendezvous timeout and abort the worker
+    (rendezvous.cc "Termination timeout ... Exiting"); tests/test_mc.py
+    covers the sharded path."""
     sc = jmc.SCOPES[SMOKE]
-    kw = dict(prop_count=sc.prop_count, mutation=mutation, budget=budget,
-              collect_edges=True, scope=SMOKE)
-    j = jmc.exhaustive_scan(sc.cfg(), sc.alphabet(), sc.horizon, **kw)
-    tsc = tmc.SCOPES[SMOKE]
-    t = tmc.exhaustive_scan(tsc.cfg(), tsc.alphabet(), tsc.horizon,
-                            device=CPU, **kw)
-    return j, t
+    return jmc.exhaustive_scan(sc.cfg(), sc.alphabet(), sc.horizon,
+                               shard=False, **_scan_kw(mutation, budget))
+
+
+def _shared_jax_scan(shared: pathlib.Path, mutation, budget):
+    """JAX's scan for (mutation, budget), run once for the whole test
+    session: under xdist the workers share `shared`, and the first to need
+    a scan runs it under a file lock and leaves it there for the others.
+    One lock serializes all of this file's JAX scans, so at most one runs
+    at a time beside tests/test_mc.py's own."""
+    out = shared / f"torch_mc_jax_scan_{mutation}_{budget}.pkl"
+    with open(shared / "torch_mc_jax_scan.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            if not out.exists():
+                tmp = out.with_suffix(".tmp")
+                tmp.write_bytes(pickle.dumps(_jax_scan(mutation, budget)))
+                tmp.replace(out)
+            return pickle.loads(out.read_bytes())
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+
+
+@pytest.fixture(scope="session")
+def scans(request, tmp_path_factory):
+    """scans(mutation=None, budget=None) -> JAX's and the port's
+    exhaustive_scan of the smoke scope (edges on), each computed once:
+    JAX's once for the session across the xdist workers, the port's once
+    a worker."""
+    shared = (tmp_path_factory.getbasetemp().parent
+              if hasattr(request.config, "workerinput") else None)
+
+    @functools.lru_cache(maxsize=None)
+    def get(mutation=None, budget=None):
+        j = (_jax_scan(mutation, budget) if shared is None
+             else _shared_jax_scan(shared, mutation, budget))
+        tsc = tmc.SCOPES[SMOKE]
+        t = tmc.exhaustive_scan(tsc.cfg(), tsc.alphabet(), tsc.horizon,
+                                device=CPU, **_scan_kw(mutation, budget))
+        return j, t
+
+    return get
 
 
 def _same_scan(j, t):
@@ -187,7 +237,7 @@ def test_fingerprints_equal_jax_on_dst_states():
 # the scan
 
 
-def test_smoke_scan_equals_jax():
+def test_smoke_scan_equals_jax(scans):
     j, t = scans()
     _same_scan(j, t)
     assert tuple((lv["children"], lv["unique"]) for lv in t.levels) \
@@ -196,21 +246,21 @@ def test_smoke_scan_equals_jax():
     assert set(t.timing) == {"device_s", "host_s"}
 
 
-def test_budget_truncation_equals_jax():
+def test_budget_truncation_equals_jax(scans):
     j, t = scans(budget=16)
     _same_scan(j, t)
     assert t.truncated and not t.exhaustive
     assert all(lv["unique"] <= 16 for lv in t.levels)
 
 
-def test_commit_no_quorum_caught_on_jaxs_path():
+def test_commit_no_quorum_caught_on_jaxs_path(scans):
     j, t = scans(mutation="commit_no_quorum")
     _same_scan(j, t)
     assert t.violations and t.stopped_early
     assert t.violations[0]["path"] == j.violations[0]["path"]
 
 
-def test_aut_bytes_equal_jax(tmp_path):
+def test_aut_bytes_equal_jax(tmp_path, scans):
     j, t = scans()
     names = tmc.SCOPES[SMOKE].alphabet().names
     jp, tp = str(tmp_path / "j.aut"), str(tmp_path / "t.aut")
@@ -226,7 +276,7 @@ def test_aut_bytes_equal_jax(tmp_path):
     assert texport.validate_aut(bad)
 
 
-def test_artifacts_cross_load_both_ways(tmp_path):
+def test_artifacts_cross_load_both_ways(tmp_path, scans):
     """The port's artifact of the commit_no_quorum violation (shrunk, with
     a flight capture) replays exactly in the JAX package; JAX's (unshrunk,
     no capture) equals the port's key for key and replays exactly here."""
@@ -253,7 +303,7 @@ def test_artifacts_cross_load_both_ways(tmp_path):
                                   device=CPU)["matches_recorded"]
 
 
-def test_mc_sweep_cli_smoke(tmp_path, capsys):
+def test_mc_sweep_cli_smoke(tmp_path, capsys, scans):
     out = str(tmp_path / "summary.json")
     assert tsweep.main(["--smoke", "--json", out, "--device", CPU]) == 0
     assert "PASS" in capsys.readouterr().out
