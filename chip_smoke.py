@@ -227,17 +227,21 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    over the zones), B (30,000 on zone!=c, at most 40 a node) and C (4,096
    spread by node.id), each on a fresh copy of the world through
    Scheduler.schedule with the kernel on the card: exactly one
-   sched_place launch and no host fallback a group, the decisions equal
-   to the kernel's choices, the kernel equal to the plain loop on the CPU
+   sched_place launch (the tree kernel) and no host fallback a group, the
+   decisions equal to the kernel's choices, each of sched_place.cu's
+   kernels (the tree kernel, the same comparing every key field by field,
+   and the rescan kernel it replaced) equal to the plain loop on the CPU
    over every task, and the host Pipeline (use_kernel=False) on the first
    256 tasks equal to the kernel's first 256.  Prints the schedule,
-   encode_group, encode + place and grouping + decode seconds, the
-   launch's device ms between CUDA events and us a task, its bound, the
-   host Pipeline's us a task, the plain loop on the card over a 1,024-task
-   prefix (ms, and for group A its launches; a yardstick never on the
-   path) beside the kernel on the same prefix, placed and unplaced
-   counts, the kernel with one warp of nodes (the per-task chain alone)
-   and peak device memory.
+   encode_group, encode + place and grouping + decode seconds; each
+   kernel's device ms between CUDA events, timed in turns on the same
+   columns (3 launches after a warm one, twice each), and us a task; the
+   bound; the host Pipeline's us a task; the plain
+   loop on the card over a 1,024-task prefix (ms, and for group A its
+   launches; a yardstick never on the path) beside the kernel on the same
+   prefix; placed and unplaced counts; the chain alone (no spread, every
+   task placed round robin) at 32 and 1,000 nodes for each kernel; and
+   peak device memory.
 18. the multi-raft tools on the card: multiraft_sweep's G=64 point
    (--entries 200000 --no-single --json; its JSON line parsed, the band
    copy launched) and three swarm_top frames over its in-process demo
@@ -2522,7 +2526,8 @@ SCHED_PLAIN_PREFIX = 1024    # tasks of the plain loop on the card
 # the group whose plain-loop launches are counted: tracing ~50,000
 # launches costs the profiler ~10 s a group
 SCHED_PROFILED_GROUP = "A"
-SCHED_CHAIN_NODES = 32       # one warp: the kernel's per-task chain alone
+# the chain alone, no spread: one warp of nodes, and Docker's 1,000
+SCHED_CHAIN_NODES = (32, 1000)
 
 
 def place_bound_ms(n: int, n_branches: int, tasks: int, ran: int) -> tuple:
@@ -2609,9 +2614,12 @@ def phase_scheduler(torch, cuda_ops, card: str = "cuda") -> dict:
         decisions = sched.schedule(tasks)
         schedule_s = time.perf_counter() - t0
         launches = cuda_ops.LAUNCHES["sched_place"]
+        variant = {v: cuda_ops.LAUNCHES[f"sched_place_{v}"]
+                   for v in cuda_ops.PLACE_VARIANTS}
         paths = catalog.get(obs, "swarm_sched_kernel_groups_total").snapshot()
-        check(launches == 1, f"group {name}: sched_place launched "
-              f"{launches} times, not once")
+        check(launches == 1 and variant[cuda_ops.PLACE_VARIANT] == 1,
+              f"group {name}: sched_place launched {launches} times "
+              f"({variant}), not once as {cuda_ops.PLACE_VARIANT}")
         check(paths == {"path=kernel": 1.0}, f"group {name}: encode_group "
               f"fell back to the host Pipeline ({paths})")
         snap = obs.snapshot()
@@ -2636,14 +2644,25 @@ def phase_scheduler(torch, cuda_ops, card: str = "cuda") -> dict:
         def run(cols=cols, k=n_tasks):
             return cuda_ops.place_greedy(cols, nb, hs, k)
 
-        got = run()
-        device_ms = events_ms(torch, run)
+        def launch(variant, cols=cols, k=n_tasks):
+            return cuda_ops._place_launch(cols, nb, hs, k, variant)
+
+        got = {v: launch(v).cpu() for v in cuda_ops.PLACE_VARIANTS}
         t0 = time.perf_counter()
         want = cuda_ops.place_greedy_plain(cols_cpu, nb, hs, n_tasks)
         plain_cpu_s = time.perf_counter() - t0
-        err = int((got.cpu().long() - want.long()).abs().max())
-        check(err == 0, f"group {name}: the kernel differs from the plain "
-              f"loop (max |diff| {err})")
+        errs = {v: int((c.long() - want.long()).abs().max())
+                for v, c in got.items()}
+        err = errs[cuda_ops.PLACE_VARIANT]
+        check(max(errs.values()) == 0, f"group {name}: a kernel differs "
+              f"from the plain loop (max |diff| {errs})")
+        # each kernel timed in turns on the same columns
+        turns = {v: [] for v in cuda_ops.PLACE_VARIANTS}
+        for v in (*cuda_ops.PLACE_VARIANTS,
+                  *reversed(cuda_ops.PLACE_VARIANTS)):
+            turns[v].append(events_ms(torch, lambda v=v: launch(v)))
+        kernel_ms = {v: sum(t) / len(t) for v, t in turns.items()}
+        device_ms = kernel_ms[cuda_ops.PLACE_VARIANT]
         choices = want.tolist()
         placed = sum(c >= 0 for c in choices)
         check([(t.id, n) for t, n, _ in decisions] ==
@@ -2684,7 +2703,10 @@ def phase_scheduler(torch, cuda_ops, card: str = "cuda") -> dict:
             schedule_s=schedule_s, encode_place_s=kernel_s,
             latency_s=latency_s, grouping_decode_s=latency_s - kernel_s,
             encode_s=encode_s, ms=device_ms,
-            us_per_task=device_ms * 1e3 / n_tasks, bound_ms=bound,
+            us_per_task=device_ms * 1e3 / n_tasks,
+            us_per_task_run=device_ms * 1e3 / ran,
+            previous_ms=kernel_ms["rescan"], kernel_ms=kernel_ms,
+            kernel_turns_ms=turns, kernel_errs=errs, bound_ms=bound,
             bound_by=bound_by, plain_cpu_s=plain_cpu_s, host_s=host_s,
             host_us_per_task=host_s * 1e6 / len(prefix),
             plain_prefix_ms=plain_ms, plain_prefix_launches=plain_launches,
@@ -2694,11 +2716,14 @@ def phase_scheduler(torch, cuda_ops, card: str = "cuda") -> dict:
             f"{n_tasks - placed}; Scheduler.schedule {schedule_s:.3f} s "
             f"(encode + place {kernel_s:.4f} s, grouping + decode "
             f"{latency_s - kernel_s:.3f} s), sched_place launches "
-            f"{launches}; encode_group {encode_s:.4f} s; device "
-            f"{device_ms:.3f} ms between CUDA events "
-            f"({device_ms * 1e3 / n_tasks:.3f} us a task), bound "
-            f"{bound:.3e} ms ({bound_by}); kernel = plain loop on the CPU "
-            f"over all {n_tasks} tasks (plain {plain_cpu_s:.2f} s); host "
+            f"{launches}; encode_group {encode_s:.4f} s; device ms "
+            f"between CUDA events, in turns: "
+            + ", ".join(f"{v} {ms:.3f} ({ms * 1e3 / n_tasks:.4f} us a "
+                        f"task, {ms * 1e3 / ran:.4f} a task run; turns "
+                        f"{turns[v]})" for v, ms in kernel_ms.items())
+            + f"; bound {bound:.3e} ms ({bound_by}); every kernel = plain "
+            f"loop on the CPU over all {n_tasks} tasks (plain "
+            f"{plain_cpu_s:.2f} s); host "
             f"Pipeline {host_s:.3f} s for {len(prefix)} tasks "
             f"({host_s * 1e6 / len(prefix):.1f} us a task) = the kernel's "
             f"first {len(prefix)}; plain loop on the card over {k} tasks "
@@ -2706,20 +2731,33 @@ def phase_scheduler(torch, cuda_ops, card: str = "cuda") -> dict:
             f"{plain_launches if plain_launches is not None else 'uncounted'}"
             f" launches, the kernel {prefix_ms:.3f} ms")
 
-    # the chain alone: the kernel with one warp of nodes, every task placed
-    n = SCHED_CHAIN_NODES
-    chain_cols = torch.zeros((6, n), dtype=torch.int32, device=card)
-    chain_cols[0] = 1
-    chain_cols[1] = 1 << 20
+    # the chain alone: no spread, every key equal, every task placed
+    # (round robin by index), each kernel in turns
     t_a = out["A"]["tasks"]
-    chain_ms = events_ms(
-        torch, lambda: cuda_ops.place_greedy(chain_cols, 0, True, t_a))
-    out["chain"] = dict(nodes=n, tasks=t_a, ms=chain_ms,
-                        us_per_task=chain_ms * 1e3 / t_a)
+    out["chain"] = {}
+    for n in SCHED_CHAIN_NODES:
+        chain_cols = torch.zeros((6, n), dtype=torch.int32, device=card)
+        chain_cols[0] = 1
+        chain_cols[1] = 1 << 20
+        expect = torch.arange(t_a, dtype=torch.int32) % n
+        turns = {v: [] for v in cuda_ops.PLACE_VARIANTS}
+        for v in (*cuda_ops.PLACE_VARIANTS,
+                  *reversed(cuda_ops.PLACE_VARIANTS)):
+            def go(v=v):
+                return cuda_ops._place_launch(chain_cols, 0, True, t_a, v)
+            check(torch.equal(go().cpu(), expect),
+                  f"the chain at {n} nodes: {v} is not round robin")
+            turns[v].append(events_ms(torch, go, warm=False))
+        ms = {v: sum(t) / len(t) for v, t in turns.items()}
+        out["chain"][n] = dict(
+            tasks=t_a, ms=ms, turns_ms=turns,
+            us_per_task={v: m * 1e3 / t_a for v, m in ms.items()})
+        log(f"  the chain alone ({n} nodes, no spread, {t_a} tasks all "
+            f"placed), in turns: " + ", ".join(
+                f"{v} {m:.3f} ms ({m * 1e3 / t_a:.4f} us a task)"
+                for v, m in ms.items()))
     out["peak_mem_mib"] = torch.cuda.max_memory_allocated() / 2**20
-    log(f"  the chain alone ({n} nodes, one warp, no spread, {t_a} tasks "
-        f"all placed): {chain_ms:.3f} ms ({chain_ms * 1e3 / t_a:.3f} us a "
-        f"task); peak device memory {out['peak_mem_mib']:.3f} MiB")
+    log(f"  peak device memory {out['peak_mem_mib']:.3f} MiB")
     return out
 
 
@@ -3948,10 +3986,17 @@ def main() -> int:
         "plain_tasks": SCHED_PLAIN_PREFIX, "prefix_ms": a17["prefix_ms"],
         "plain_launches": a17["plain_prefix_launches"],
         "bound_ms": a17["bound_ms"], "bound_by": a17["bound_by"],
-        "library_ms": None, "chain_ms": sched17["chain"]["ms"],
+        "library_ms": None,
+        # the rescan kernel the tree kernel replaced, on the same columns
+        "previous_ms": a17["previous_ms"],
+        "chain_ms": sched17["chain"][SCHED_CHAIN_NODES[0]]["ms"][
+            cuda_ops.PLACE_VARIANT],
+        "chain": {n: c["ms"] for n, c in sched17["chain"].items()},
         "groups": {g: {k: sched17[g][k] for k in (
-            "tasks", "launches", "ms", "bound_ms", "plain_prefix_ms",
-            "prefix_ms", "host_us_per_task")} for g in groups}})
+            "tasks", "tasks_run", "launches", "ms", "previous_ms",
+            "kernel_ms", "us_per_task", "us_per_task_run", "bound_ms",
+            "plain_prefix_ms", "prefix_ms", "host_us_per_task")}
+            for g in groups}})
     print(json.dumps({"kernels": records}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

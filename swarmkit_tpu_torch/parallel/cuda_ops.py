@@ -6,8 +6,9 @@ on the CPU, and otherwise launches its CUDA kernel (csrc/, built by
 _build.py for sm_90a) or raises — it never falls back.  `LAUNCHES` counts
 kernel launches per wrapper, so a run can show that its path went through
 the kernels; matmul also counts each of its three kernels under
-`matmul_<variant>`.  `place_greedy` (the scheduler's group placement) has
-no Pallas ancestor: the JAX package runs that loop as plain jnp/lax.
+`matmul_<variant>`, and place_greedy each of its kernels under
+`sched_place_<variant>`.  `place_greedy` (the scheduler's group placement)
+has no Pallas ancestor: the JAX package runs that loop as plain jnp/lax.
 """
 
 from __future__ import annotations
@@ -20,9 +21,14 @@ import torch
 from swarmkit_tpu_torch import _build
 
 MATMUL_VARIANTS = ("wgmma", "wmma", "simt")
+# sched_place.cu's kernels: the tree kernel (keys in two words where they
+# fit), the same comparing every key field by field, and the rescan kernel
+# the tree kernel replaced
+PLACE_VARIANTS = ("tree", "tree_fields", "rescan")
 LAUNCHES: dict[str, int] = {
     "append_band_copy": 0, "matmul": 0, "sumsq": 0, "sched_place": 0,
-    **{f"matmul_{v}": 0 for v in MATMUL_VARIANTS}}
+    **{f"matmul_{v}": 0 for v in MATMUL_VARIANTS},
+    **{f"sched_place_{v}": 0 for v in PLACE_VARIANTS}}
 _launches_lock = threading.Lock()   # tasks launch from executor threads
 
 _P, _I64, _I32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
@@ -34,9 +40,9 @@ _ENTRY = {
     ("matmul", "matmul_wgmma_smem_bytes"): [],
     ("sumsq", "sumsq"): [_P, _I64, _I32, _P, _P],
     ("sumsq", "sumsq_scratch_floats"): [],
-    ("sched_place", "sched_place"): [_P, _I64, _I64, _I64, _I32, _I32, _P,
-                                     _P, _P],
-    ("sched_place", "sched_place_scratch_words"): [_I64, _I64],
+    **{("sched_place", f): [_P, _I64, _I64, _I64, _I32, _I32, _P, _P, _P]
+       for f in ("sched_place", "sched_place_rescan")},
+    ("sched_place", "sched_place_scratch_words"): [_I64, _I64, _I32],
 }
 # the C functions that return something other than an int
 _RESTYPE = {("sched_place", "sched_place_scratch_words"): ctypes.c_longlong}
@@ -271,6 +277,8 @@ def matmul_chain(x: torch.Tensor, a: torch.Tensor, steps: int, *,
     return x
 
 
+# the kernel place_greedy launches
+PLACE_VARIANT = "tree"
 # the rows of place_greedy's [6, N] int32 column block
 PLACE_COLUMNS = ("static_ok", "cap", "count0", "active0", "taint", "branch")
 _NONE = 1 << 30   # the JAX kernel's "no node" index
@@ -328,11 +336,35 @@ def place_greedy_plain(cols: torch.Tensor, n_branches: int,
     return choices
 
 
-def _place_threads(n: int, n_branches: int) -> int:
-    """The block's width: about four nodes (or branches) a thread, in
-    whole warps, 32 to 1024."""
+def _rescan_threads(n: int, n_branches: int) -> int:
+    """The rescan kernel's block width: about four nodes (or branches) a
+    thread, in whole warps, 32 to 1024."""
     per = -(-max(n, n_branches, 1) // 4)
     return min(1024, max(32, -(-per // 32) * 32))
+
+
+def _place_launch(cols: torch.Tensor, n_branches: int, has_service: bool,
+                  n_tasks: int, variant: str) -> torch.Tensor:
+    """Launch one of sched_place.cu's kernels on checked CUDA columns and
+    count it.  `place_greedy` passes PLACE_VARIANT; only the card's tests
+    and chip_smoke.py pass another, to hold the kernels side by side on
+    the same columns."""
+    n = cols.shape[1]
+    rescan = variant == "rescan"
+    choices = torch.empty(n_tasks, dtype=torch.int32, device=cols.device)
+    words = _kernel("sched_place", "sched_place_scratch_words")(
+        n, n_branches, int(rescan))
+    scratch = torch.empty(words, dtype=torch.int32, device=cols.device) \
+        if words else None
+    _launch("sched_place", cols.device, cols.data_ptr(), n, n_tasks,
+            n_branches, int(bool(has_service)),
+            _rescan_threads(n, n_branches) if rescan
+            else int(variant == "tree"), choices.data_ptr(),
+            scratch.data_ptr() if scratch is not None else None,
+            name="sched_place_rescan" if rescan else "sched_place")
+    _count("sched_place")
+    _count(f"sched_place_{variant}")
+    return choices
 
 
 def place_greedy(cols: torch.Tensor, n_branches: int, has_service: bool,
@@ -346,8 +378,8 @@ def place_greedy(cols: torch.Tensor, n_branches: int, has_service: bool,
     node (static_ok and fewer than cap tasks of the group so far) with
     the least (taint, count, active, index), inside the least-loaded
     spread branch (least (load, first feasible index)) when there is one;
-    as the JAX package's place_group.  On the card, one launch of one
-    thread block runs every task."""
+    as the JAX package's place_group.  On the card, one launch of the
+    tree kernel (an incremental argmin in one warp) runs every task."""
     if cols.dim() != 2 or cols.shape[0] != len(PLACE_COLUMNS) \
             or cols.dtype != torch.int32:
         raise ValueError(f"cols: expected int32 [{len(PLACE_COLUMNS)}, N], "
@@ -364,14 +396,5 @@ def place_greedy(cols: torch.Tensor, n_branches: int, has_service: bool,
         return place_greedy_plain(cols, n_branches, has_service, n_tasks)
     if cols.device.type != "cuda":
         raise ValueError(f"no kernel for device {cols.device}")
-    choices = torch.empty(n_tasks, dtype=torch.int32, device=cols.device)
-    words = _kernel("sched_place", "sched_place_scratch_words")(n,
-                                                                n_branches)
-    scratch = torch.empty(words, dtype=torch.int32, device=cols.device) \
-        if words else None
-    _launch("sched_place", cols.device, cols.data_ptr(), n, n_tasks,
-            n_branches, int(bool(has_service)),
-            _place_threads(n, n_branches), choices.data_ptr(),
-            scratch.data_ptr() if scratch is not None else None)
-    _count("sched_place")
-    return choices
+    return _place_launch(cols, n_branches, has_service, n_tasks,
+                         PLACE_VARIANT)

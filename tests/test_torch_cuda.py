@@ -774,11 +774,87 @@ def test_place_greedy_scratch_path_matches_plain(n, spread):
     ]).astype(np.int32))
     nb = n if spread else 0
     assert cuda_ops._kernel("sched_place", "sched_place_scratch_words")(
-        n, nb) > 0
+        n, nb, 0) > 0
     want = cuda_ops.place_greedy(cols, nb, True, 300)
     got = cuda_ops.place_greedy(cols.cuda(), nb, True, 300)
     torch.cuda.synchronize()
     assert torch.equal(got.cpu(), want)
+
+
+def _place_all(cols: torch.Tensor, nb: int, hs: bool, n_tasks: int) -> dict:
+    """Each of sched_place.cu's kernels on the same card columns."""
+    out = {v: cuda_ops._place_launch(cols, nb, hs, n_tasks, v)
+           for v in cuda_ops.PLACE_VARIANTS}
+    torch.cuda.synchronize()
+    return {v: c.cpu() for v, c in out.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("group,replicas", [("A", 30_000), ("B", 30_000),
+                                            ("C", 4_096)])
+def test_place_tree_equals_rescan_on_every_task(group, replicas):
+    """The tree kernel, two-word keys and field by field, against the
+    rescan kernel over every task of a Docker-scale group, on the same
+    card columns (exact)."""
+    _need_card()
+    cols, enc = _group_columns(group, replicas)
+    got = _place_all(cols.cuda(), enc.n_branches, enc.has_service, replicas)
+    assert torch.equal(got["tree"], got["rescan"])
+    assert torch.equal(got["tree_fields"], got["rescan"])
+    assert 0 < int((got["rescan"] >= 0).sum())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nb", [0, 3])
+def test_place_tree_on_tie_heavy_columns(nb):
+    """Every key equal, and with a spread level equal branch loads: the
+    tie-breaks alone decide, down to the node index."""
+    _need_card()
+    n = 96
+    cols = torch.zeros((6, n), dtype=torch.int32)
+    cols[0], cols[1] = 1, 2
+    if nb:
+        cols[5] = torch.arange(n, dtype=torch.int32) % nb
+    want = cuda_ops.place_greedy(cols, nb, True, 3 * n)
+    got = _place_all(cols.cuda(), nb, True, 3 * n)
+    for v, c in got.items():
+        assert torch.equal(c, want), v
+    assert int((want >= 0).sum()) == 2 * n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 45, 999])
+@pytest.mark.parametrize("spread", ["one branch", "three", "one a node"])
+def test_place_tree_on_ragged_widths(n, spread):
+    """N not a multiple of 32 with nb of 1, 3 and N, against the plain
+    loop on the CPU."""
+    _need_card()
+    nb = {"one branch": 1, "three": 3, "one a node": n}[spread]
+    rng = np.random.default_rng(n + nb)
+    cols = torch.from_numpy(np.stack([
+        rng.random(n) < 0.8, rng.integers(0, 4, n), rng.integers(0, 3, n),
+        rng.integers(0, 5, n), rng.random(n) < 0.2,
+        rng.permutation(n) % nb]).astype(np.int32))
+    want = cuda_ops.place_greedy(cols, nb, True, 2 * n + 5)
+    got = _place_all(cols.cuda(), nb, True, 2 * n + 5)
+    for v, c in got.items():
+        assert torch.equal(c, want), v
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("count0", [2**30 - 13, 2**30 - 12, -1])
+def test_place_tree_at_the_two_word_edge(count0):
+    """Counts that reach 2^30 - 1 (keys in two words), one more, and a
+    negative count (both field by field), against the plain loop."""
+    _need_card()
+    n, n_tasks = 6, 12
+    cols = torch.tensor([[1] * n, [2] * n, [count0, 0, 5, count0, 1, 0],
+                         [0, 1, 0, 1, 0, 1], [0] * n, [0] * n],
+                        dtype=torch.int32)
+    for nb in (0, 1):
+        want = cuda_ops.place_greedy(cols, nb, True, n_tasks)
+        for v, c in _place_all(cols.cuda(), nb, True, n_tasks).items():
+            assert torch.equal(c, want), (v, nb)
 
 
 @pytest.mark.cuda
@@ -790,10 +866,13 @@ def test_place_greedy_never_takes_the_plain_version(monkeypatch):
 
     cols, enc = _group_columns("A", 512)
     monkeypatch.setattr(cuda_ops, "place_greedy_plain", refuse)
-    before = cuda_ops.LAUNCHES["sched_place"]
+    before = dict(cuda_ops.LAUNCHES)
     cuda_ops.place_greedy(cols.cuda(), enc.n_branches, enc.has_service, 512)
     torch.cuda.synchronize()
-    assert cuda_ops.LAUNCHES["sched_place"] == before + 1
+    assert cuda_ops.LAUNCHES["sched_place"] == before["sched_place"] + 1
+    for v in cuda_ops.PLACE_VARIANTS:   # the tree kernel, never the rescan
+        assert cuda_ops.LAUNCHES[f"sched_place_{v}"] == \
+            before[f"sched_place_{v}"] + (v == cuda_ops.PLACE_VARIANT)
 
 
 @pytest.mark.cuda

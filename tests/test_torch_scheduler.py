@@ -11,12 +11,15 @@ integers, so every comparison is exact.
 
 from __future__ import annotations
 
+import itertools
 import random
 import types
 
 import numpy as np
 import pytest
 import torch
+from hypothesis import HealthCheck, given, settings
+from hypothesis import strategies as st
 
 from swarmkit_tpu import api as japi
 from swarmkit_tpu.api.objects import NodeStatus as JNodeStatus
@@ -385,6 +388,19 @@ def test_place_greedy_checks_its_arguments():
                                  3).tolist() == [-1] * 3
 
 
+def test_place_greedy_on_the_cpu_launches_nothing():
+    """The plain loop is no launch; every kernel of sched_place.cu has a
+    count, and place_greedy's is one of them."""
+    assert cuda_ops.PLACE_VARIANT in cuda_ops.PLACE_VARIANTS
+    assert {f"sched_place_{v}" for v in cuda_ops.PLACE_VARIANTS} <= \
+        set(cuda_ops.LAUNCHES)
+    before = dict(cuda_ops.LAUNCHES)
+    cols = tkernel.group_columns(
+        tkernel.GroupEncoding(**_synthetic(0, n=9)), 5, device="cpu")
+    cuda_ops.place_greedy(cols, 0, True, 5)
+    assert cuda_ops.LAUNCHES == before
+
+
 def test_place_group_needs_a_card_unless_asked(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     enc = tkernel.GroupEncoding(**_synthetic(0, n=4))
@@ -397,6 +413,307 @@ def test_place_group_needs_a_card_unless_asked(monkeypatch):
     _world_of(PORT, sched, [(1, GIG, "a")])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         sched._schedule_group(tasks)
+
+
+# ---- a numpy model of csrc/sched_place.cu's tree kernel ---------------
+
+_BIG = 1 << 30
+
+
+def _i32(x: int) -> int:
+    """x wrapped to int32, as the kernel's two's complement sums."""
+    return (x + 2**31) % 2**32 - 2**31
+
+
+def _inner_size(s: int, k: int) -> int:
+    """sched_place.cu's inner_size: the slots of a k-ary tree over s
+    leaves, level by level above them, at least one level."""
+    total = 0
+    while s > 0:
+        s = -(-s // k)
+        total += s
+        if s == 1:
+            break
+    return total
+
+
+class _Tree:
+    """One tournament tree as the kernel stores it: leaves read through
+    `leaf(j)`, the inner slots level by level in `inner`, the root last.
+    Keys are tuples, so min() is the kernel's field-by-field order."""
+
+    def __init__(self, leaf, n_leaves: int, k: int):
+        self.leaf, self.s, self.k = leaf, n_leaves, k
+        self.inner: list = [None] * _inner_size(n_leaves, k)
+
+    def _reduce(self, lvl: int, lo: int, hi: int):
+        return min(self.leaf(j) if lvl < 0 else self.inner[lvl + j]
+                   for j in range(lo, hi))
+
+    def build(self) -> None:
+        lvl, out, sz = -1, 0, self.s
+        while True:
+            up = -(-sz // self.k)
+            for j in range(up):
+                self.inner[out + j] = self._reduce(
+                    lvl, j * self.k, min(j * self.k + self.k, sz))
+            lvl, out, sz = out, out + up, up
+            if sz <= 1:
+                return
+
+    def update(self, i: int) -> None:
+        """Leaf i changed: recompute its path to the root."""
+        lvl, out, sz = -1, 0, self.s
+        while True:
+            j = i // self.k
+            self.inner[out + j] = self._reduce(
+                lvl, j * self.k, min(j * self.k + self.k, sz))
+            lvl, i, sz = out, j, -(-sz // self.k)
+            out += sz
+            if sz <= 1:
+                return
+
+
+def _packs(cols, nb: int, has_service: bool, n_tasks: int) -> bool:
+    """The tree kernel's set-up proof that every key fits its two words
+    for the whole launch (positions below 2^pbits)."""
+    count0, active0 = np.asarray(cols)[2:4].astype(np.int64)
+    n = count0.size
+    pbits = (n - 1).bit_length()
+    count_max = int(count0.max(initial=0)) + n_tasks * int(bool(has_service))
+    return bool(n > 0 and count0.min() >= 0 and active0.min() >= 0
+                and count_max < 2**30
+                and active0.max() + n_tasks < 2**(32 - pbits)
+                and (nb == 0 or n * count_max < 2**31))
+
+
+def _tree_place(cols, nb: int, has_service: bool, n_tasks: int,
+                k: int, pack: bool = True) -> list[int]:
+    """The tree kernel's algorithm on the host, structure for structure:
+    the stable grouping by branch, one k-ary tree a branch over its
+    positions (key (taint, count, active, position), taint 2 when
+    infeasible), the tree over the branches (key (none, load, first)),
+    the forward-only first pointer and the incremental int32 load.  Where
+    the kernel's set-up proves that the fields fit, keys are its two
+    words ((taint << 30 | count, active << pbits | position) and
+    (none << 31 | load, first)), compared as pairs; elsewhere, and with
+    pack=False, field by field.  It also checks that the trees fit the
+    kernel's slots (2 N and 2 nb)."""
+    ok, cap, count0, active0, taint, branch = (
+        [int(v) for v in row] for row in np.asarray(cols))
+    n, nbe, hs = len(ok), max(nb, 1), int(bool(has_service))
+    brid = branch if nb else [0] * n
+    inside = [0 <= b < nbe for b in brid]
+    size = [0] * nbe
+    for i in range(n):
+        if inside[i]:
+            size[brid[i]] += 1
+    bstart = list(itertools.accumulate(size, initial=0))
+    cursor, nidx = bstart[:-1], [0] * bstart[-1]
+    for i in range(n):
+        if inside[i]:
+            nidx[cursor[brid[i]]] = i
+            cursor[brid[i]] += 1
+    rem = [cap[i] if ok[i] else 0 for i in nidx]
+    kt = [(1 if taint[i] else 0) if r > 0 else 2 for i, r in zip(nidx, rem)]
+    kc = [count0[i] for i in nidx]
+    ka = [active0[i] for i in nidx]
+    bload, bptr = [0] * nbe, bstart[1:]
+    for b in range(nbe):
+        for p in range(bstart[b], bstart[b + 1]):
+            if kt[p] != 2:
+                bload[b] = _i32(bload[b] + kc[p])
+                bptr[b] = min(bptr[b], p)
+    pbits = (n - 1).bit_length()
+    packed = pack and _packs(cols, nb, hs, n_tasks)
+
+    def node_key(t, c, a, p):
+        return ((t << 30 | c, a << pbits | p) if packed else (t, c, a, p))
+
+    def root_of(key):   # the kernel's unpacking
+        if not packed:
+            return key
+        hi, lo = key
+        return hi >> 30, hi & (2**30 - 1), lo >> pbits, lo & (2**pbits - 1)
+
+    def node_leaf(start):
+        return lambda j: node_key(kt[start + j], kc[start + j],
+                                  ka[start + j], start + j)
+
+    def bfirst(b):
+        return nidx[bptr[b]] if bptr[b] < bstart[b + 1] else _BIG
+
+    def branch_leaf(b):
+        none, first = int(bfirst(b) >= _BIG), bfirst(b)
+        return (none << 31 | bload[b], first) if packed \
+            else (none, bload[b], first)
+
+    trees = [_Tree(node_leaf(bstart[b]), size[b], k) for b in range(nbe)]
+    for tree in trees:
+        if tree.s:
+            tree.build()
+    branches = _Tree(branch_leaf, nbe, k)
+    branches.build()
+    assert sum(len(tr.inner) for tr in trees) <= 2 * n
+    assert len(branches.inner) <= 2 * nbe
+    choices = []
+    for _ in range(n_tasks if n else 0):
+        b = 0
+        if nb:
+            first = branches.inner[-1][-1]
+            if first >= _BIG:
+                break
+            b = brid[first]
+        tree = trees[b]
+        t, _, _, p = root_of(tree.inner[-1])
+        if t > 1:
+            break
+        choices.append(nidx[p])
+        before, left = kc[p], rem[p] == 1
+        rem[p] -= 1
+        kc[p] = _i32(before + hs)
+        ka[p] = _i32(ka[p] + 1)
+        if left:
+            kt[p] = 2
+        tree.update(p - bstart[b])
+        if not nb:
+            continue
+        if left and p == bptr[b]:
+            q = p + 1
+            while q < bstart[b + 1] and kt[q] == 2:
+                q += 1
+            bptr[b] = q
+        bload[b] = _i32(bload[b] - before if left else bload[b] + hs)
+        branches.update(b)
+    return choices + [-1] * (n_tasks - len(choices))
+
+
+def test_tree_slots_fit_the_kernel_layout():
+    """inner_size(s) <= 2 s - 1 at both arities, so one branch a node and
+    one branch of every node both fit the kernel's 2 N slots."""
+    for k in (2, 32):
+        assert _inner_size(0, k) == 0 and _inner_size(1, k) == 1
+        assert all(_inner_size(s, k) <= 2 * s - 1 for s in range(1, 5000))
+    assert _inner_size(1000, 32) == 33 and _inner_size(1000, 2) == 1001
+
+
+def _references(cols: torch.Tensor, nb: int, hs: bool,
+                n_tasks: int) -> tuple[list, list]:
+    """The plain loop's and JAX's place_group's choices for a column
+    block.  A node whose branch id lies outside [0, nb) is never placed:
+    both see it as statically infeasible in branch 0, which is the same
+    placement."""
+    cols = cols.clone()
+    if nb:
+        out = (cols[5] < 0) | (cols[5] >= nb)
+        cols[0][out] = 0
+        cols[5][out] = 0
+    ok, cap, count0, active0, taint, branch = (
+        [int(v) for v in row] for row in cols)
+    enc = jkernel.GroupEncoding(
+        node_list=[None] * len(ok), static_ok=[bool(v) for v in ok],
+        cap=cap, count0=count0, active0=active0,
+        taint=[bool(v) for v in taint], branch=branch, n_branches=nb,
+        has_service=hs, gen={})
+    return (cuda_ops.place_greedy_plain(cols, nb, hs, n_tasks).tolist(),
+            jkernel.place_group(enc, n_tasks))
+
+
+# the tree kernel's variants as (arity, keys in two words where they
+# fit); arity 2 walks the same level layout many levels deep on these
+# small inputs, where arity 32 has one or two levels
+_MODELS = {"tree": (32, True), "tree_fields": (32, False),
+           "deep levels": (2, True)}
+
+
+@pytest.mark.parametrize("variant", sorted(_MODELS))
+@pytest.mark.parametrize("case", sorted(PLACE_CASES))
+def test_tree_model_matches_plain_and_jax(case, variant):
+    kw, n_tasks = PLACE_CASES[case]
+    for seed in range(3):
+        enc = tkernel.GroupEncoding(**_synthetic(seed, **kw))
+        cols = tkernel.group_columns(enc, n_tasks, device="cpu")
+        got = _tree_place(cols, enc.n_branches, enc.has_service, n_tasks,
+                          *_MODELS[variant])
+        plain, jax_ = _references(cols, enc.n_branches, enc.has_service,
+                                  n_tasks)
+        assert got == plain == jax_, (case, seed)
+
+
+def test_tree_model_packs_only_where_the_fields_fit():
+    """At the edge of the two-word proof: counts reaching 2^30 - 1 pack,
+    one more does not, and both place as the plain loop does."""
+    n, n_tasks = 6, 12
+    for count0, packs in ((2**30 - 1 - n_tasks, True),
+                          (2**30 - n_tasks, False)):
+        cols = torch.tensor([[1] * n, [2] * n, [count0, 0, 5, count0, 1, 0],
+                             [0, 1, 0, 1, 0, 1], [0] * n, [0] * n],
+                            dtype=torch.int32)
+        plain = cuda_ops.place_greedy_plain(cols, 0, True, n_tasks).tolist()
+        assert _packs(cols, 0, True, n_tasks) is packs
+        assert not _packs(cols, 1, True, n_tasks)   # n * count > 2^31
+        for pack in (True, False):
+            assert _tree_place(cols, 0, True, n_tasks, 32, pack) == plain
+
+
+# column sets that stress the tree kernel, drawn by hypothesis; every set
+# places 48 tasks (JAX's padded program compiles once a shape)
+_DRAWN_TASKS = 48
+_DRAWN = ("ties", "first leaves", "has_service=False", "nb=N", "N=1",
+          "ids out of range")
+
+
+@st.composite
+def _drawn_columns(draw, mode: str):
+    n = 1 if mode == "N=1" else draw(st.integers(1, 24))
+
+    def col(lo, hi):
+        return draw(st.lists(st.integers(lo, hi), min_size=n, max_size=n))
+
+    if mode == "ties":   # few values a field, often one for every node
+        same = draw(st.booleans())
+        field = (lambda: [draw(st.integers(0, 1))] * n) if same \
+            else (lambda: col(0, 1))
+        ok, count0, active0, taint = [1] * n, field(), field(), field()
+        cap = [draw(st.integers(1, 3))] * n if same else col(0, 3)
+    else:   # caps of one make nodes, a branch's first among them, leave
+        ok, count0, active0, taint = col(0, 1), col(0, 3), col(0, 5), \
+            col(0, 1)
+        cap = col(0, 1) if mode == "first leaves" else col(0, 4)
+    if mode == "nb=N":
+        nb, branch = n, draw(st.permutations(list(range(n))))
+    elif draw(st.booleans()) or mode == "ids out of range":
+        nb = draw(st.integers(1, 4))
+        branch = col(0, nb - 1)
+        if mode == "ids out of range":
+            bad = draw(st.lists(st.integers(0, n - 1), min_size=1,
+                                max_size=n))
+            for i in bad:
+                branch[i] = draw(st.sampled_from([-1, nb, nb + 2]))
+    else:
+        nb, branch = 0, [0] * n
+    hs = mode != "has_service=False" and draw(st.booleans())
+    cols = torch.tensor([ok, cap, count0, active0, taint, list(branch)],
+                        dtype=torch.int32)
+    return cols, nb, hs
+
+
+@pytest.mark.parametrize("variant", sorted(_MODELS))
+@pytest.mark.parametrize("mode", _DRAWN)
+def test_tree_model_on_drawn_columns(mode, variant):
+    """The model equals the plain loop and JAX's place_group on drawn
+    columns: ties at every field, a branch's first node leaving, no
+    service, one branch a node, one node, branch ids out of range."""
+    @settings(max_examples=20, deadline=None, derandomize=True,
+              database=None, suppress_health_check=list(HealthCheck))
+    @given(_drawn_columns(mode))
+    def check(drawn):
+        cols, nb, hs = drawn
+        got = _tree_place(cols, nb, hs, _DRAWN_TASKS, *_MODELS[variant])
+        plain, jax_ = _references(cols, nb, hs, _DRAWN_TASKS)
+        assert got == plain == jax_
+
+    check()
 
 
 # ---- the Docker-scale world at a reduced size -------------------------
