@@ -18,17 +18,17 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    densities, plus an unaligned chunk (the scalar path); exact equality.
 3. card vs CPU: the port's run at n=256 (L=8192, log_chunk=1024, the
    headline chunk width) on the card and on the CPU, twice.  Dense peers
-   and progress through an election and 64 ticks with 5% drops and a
+   and progress through an election and 40 ticks with 5% drops and a
    leader crash; then peer_chunk=64 and active_rows=16 through
-   run_schedule, 120 ticks with 2% drops and a 30-tick storm in which
+   run_schedule, 90 ticks with 2% drops and a 30-tick storm in which
    every non-self edge drops, so the progress slab overflows and the
    dense fallback runs.  Every SimState field (active_ttl included) and
    every trace row equal, the kernel launched, and the card took both
    progress branches (the counts are printed).  Third, the mailbox wire
    (latency 2, jitter 1, inflight 4) with PreVote, dynamic membership,
-   peer_chunk=64 and active_rows=16: 180 ticks, card and CPU in lockstep
+   peer_chunk=64 and active_rows=16: 155 ticks, card and CPU in lockstep
    with every field compared after every call, a follower removed through
-   propose_conf at tick 80 and re-added at 110, a storm at 140-169; both
+   propose_conf at tick 80 and re-added at 110, a storm at 123-152; both
    progress branches on the card, the flips on every row.  Fourth, the
    read path, the vote guard, transfer cooldown and the gated storage
    model on that wire (PreVote, static members, election_tick 16,
@@ -162,8 +162,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    ticks and the busy share against 8 unprofiled ones); 16384 x 100
    (schedules/s, peak memory); both mutation self-tests at 24 x 100
    (caught, shrunk: seconds, evals and batched replays; the artifact
-   replayed exactly on the card and on the CPU); the term-inflation,
-   disruptive-rejoin, transfer-abuse and lost-tail demos (neutralized).
+   replayed exactly on the card and on the CPU); the term-inflation demo
+   (8 x 60) and the disruptive-rejoin, transfer-abuse and lost-tail demos
+   at 8 x DEMO_TICKS (neutralized).
    The sweep's ring write is one band-copy launch a tick over all
    clusters' rows ([S*5, 64]): both sweeps' launches are counted from 0,
    and the kernel is held to plain on one sweep tick's call.
@@ -294,6 +295,27 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    edge, 10% of the slots blocked): the card's receiver-major words and
    lengths equal the CPU's, every kept slot holds its message's bytes and
    every blocked slot comes back with length 0.
+23. the meshes (swarmkit_tpu_torch/parallel/) on the card, over a mesh
+   that names cuda:0 four times (every card where there are several):
+   explore at 256 x 100 (PROFILES, reads 2) over schedule_mesh(256), the
+   multiraft-1024x3 fleet for 128 fused-propose ticks from a fresh fleet
+   over group_mesh(1024), and mc_sweep's n3h8 scan over
+   schedule_mesh(2^20), each equal to its unsharded card run (the masks
+   and every final field; the trace and every field; phase 16's summary,
+   and the smoke scope's edges), each timed beside it, one band-copy
+   launch a tick (a pass) a shard, and each shard's first call held to
+   plain; the device wire's all-to-all over four entries equal to the
+   one-card exchange on phase 22's scripted flushes; then bench.py's
+   32768-sharded rung (n=32768, L=8192, peer_chunk 1024, bench.py's
+   measure() config) whole on one card: peak memory at n=4096 and 8192
+   (election and 64 steady ticks) fitted as a N^2 + b N L and
+   extrapolated, the rung run only under 70 GiB, its chunked election
+   and 2 x 64 steady ticks of run_ticks(prop_count=2048): entries/s,
+   election ticks and seconds, host and CUDA-event ms a tick, step host
+   syncs, slab and fallback ticks, peak memory after the election and
+   after the steady ticks, one leader, checksums agreeing; and the band
+   copy of one more tick on its [32768, 8192] rings against plain, timed
+   against its bound.
 
 Each path's band-copy launches are counted from 0 (the kernels' record
 carries them), and each phase-17 group's sched_place launches likewise.
@@ -320,6 +342,7 @@ TASK_N, TASK_STEPS = 8192, 16   # the executor task at full width
 # ticks in each torch.profiler window: the profiler's own processing costs
 # seconds per window at ~1400 launches a tick, so the windows stay short
 PROFILED_TICKS = 8
+PHASE3_STEADY = 40    # phase 3's first run: ticks after the election
 # bench.py::measure's headline configuration; peer_chunk and active_rows
 # stay at their SimConfig defaults (1024 and 16), as bench.py runs them
 HEADLINE = dict(n=4096, log_len=8192, window=2048, apply_batch=2048,
@@ -474,11 +497,11 @@ def phase_card_vs_cpu(torch, sim, cuda_ops, card: str = "cuda") -> None:
         st, ticks = sim.run_until_leader(sim.init_state(cfg, device=dev),
                                          cfg, max_ticks=500, device=dev)
         check(bool(sim.has_leader(st)), f"n=256 on {dev}: no leader")
-        st, trace = sim.run_ticks(st, cfg, 64, device=dev, **kw)
+        st, trace = sim.run_ticks(st, cfg, PHASE3_STEADY, device=dev, **kw)
         if dev == card:
             torch.cuda.synchronize()
             launches = cuda_ops.LAUNCHES["append_band_copy"]
-        log(f"  {dev}: election {ticks} ticks, then 64 ticks, "
+        log(f"  {dev}: election {ticks} ticks, then {PHASE3_STEADY} ticks, "
             f"{time.perf_counter() - t0:.2f} s")
         results[dev] = (ticks, trace.cpu(), sim.state_to_numpy(st))
     (tg, trg, sg), (tc, trc, sc) = results[card], results["cpu"]
@@ -498,13 +521,13 @@ def phase_card_vs_cpu(torch, sim, cuda_ops, card: str = "cuda") -> None:
     # fallback runs on the card
     cfg = sim.SimConfig(**{**HEADLINE, "n": 256, "peer_chunk": 64,
                            "active_rows": 16})
-    T, n = 120, cfg.n
+    T, n = 90, cfg.n
     g = torch.Generator().manual_seed(3)
     drop = torch.rand((T, n, n), generator=g) < 0.02
-    drop[50:80] |= ~torch.eye(n, dtype=torch.bool)
+    drop[40:70] |= ~torch.eye(n, dtype=torch.bool)
     alive = torch.ones((T, n), dtype=torch.bool)
     log(f"  peer_chunk=64, active_rows=16, run_schedule of {T} ticks with "
-        f"a storm at ticks 50-79:")
+        f"a storm at ticks 40-69:")
     results = {}
     for dev in (card, "cpu"):
         cuda_ops.reset_launches()
@@ -558,17 +581,17 @@ def phase_mailbox_card_vs_cpu(torch, sim, card: str) -> None:
     and CPU in lockstep, every field compared after every call: 2% drops,
     a conf remove of a follower at tick 80 and its re-add at tick 110
     through propose_conf, and a storm (every non-self edge dropped) at
-    ticks 140-169 so the dense fallback runs."""
+    ticks 123-152 so the dense fallback runs."""
     cfg = sim.SimConfig(**{**HEADLINE, **MAILBOX, "n": 256, "pre_vote": True,
                            "static_members": False, "peer_chunk": 64,
                            "active_rows": 16})
-    T, n = 180, cfg.n
+    T, n = 155, cfg.n
     g = torch.Generator().manual_seed(5)
     drop = torch.rand((T, n, n), generator=g) < 0.02
-    drop[140:170] |= ~torch.eye(n, dtype=torch.bool)
+    drop[123:153] |= ~torch.eye(n, dtype=torch.bool)
     log(f"  mailbox (latency 2, jitter 1, inflight 4), PreVote, dynamic "
         f"membership, peer_chunk=64, active_rows=16: {T} ticks in lockstep, "
-        f"conf remove at tick 80, re-add at 110, storm at ticks 140-169:")
+        f"conf remove at tick 80, re-add at 110, storm at ticks 123-152:")
     states = {d: sim.init_state(cfg, device=d) for d in (card, "cpu")}
     counts = {d: {k: 0 for k in sim.kernel.COUNTS} for d in states}
     spent = {d: 0.0 for d in states}
@@ -629,7 +652,7 @@ def phase_levers_card_vs_cpu(torch, sim, card: str) -> None:
     up, and a transfer at E+32 to the follower furthest along has its
     target taken down once its TIMEOUT_NOW is on the wire, so the leader
     stays and its cooldown refuses a second request two ticks later; a
-    storm at E+52..E+71 so the dense fallback runs; the run ends at E+76."""
+    storm at E+44..E+55 so the dense fallback runs; the run ends at E+60."""
     cfg = sim.SimConfig(**{**HEADLINE, **MAILBOX, "n": 256,
                            "election_tick": 16, "pre_vote": True,
                            "peer_chunk": 64, "active_rows": 16,
@@ -651,7 +674,7 @@ def phase_levers_card_vs_cpu(torch, sim, card: str) -> None:
     flags, down = {}, {}
     refused = False
     t = 0
-    while E is None or t < E + 76:
+    while E is None or t < E + 60:
         check(E is not None or t < 200, "no leader within 200 ticks")
         cpu = states["cpu"]
         if E is None and bool(sim.has_leader(cpu)):
@@ -693,7 +716,7 @@ def phase_levers_card_vs_cpu(torch, sim, card: str) -> None:
                       f"tick {t}: the cooling leader took a second transfer")
                 refused = True
         drop = torch.rand((n, n), generator=g) < 0.02
-        if E is not None and E + 52 <= t < E + 72:
+        if E is not None and E + 44 <= t < E + 56:
             drop |= ~eye
         alive = torch.ones(n, dtype=torch.bool)
         alive[down.get(t, [])] = False
@@ -754,7 +777,7 @@ def phase_planes_card_vs_cpu(torch, sim, card: str) -> None:
     9th.  From the tick E when a leader first stands: 2% drops, two rows'
     disks stalled at E+5..E+10, a row down at E+8..E+19 that comes back to
     a compacted leader (a snapshot restore), a storm at E+35..E+47 so the
-    dense fallback runs; the run ends at E+60."""
+    dense fallback runs; the run ends at E+52."""
     import numpy as np
 
     from swarmkit_tpu_torch.flightrec import decode_state
@@ -776,7 +799,7 @@ def phase_planes_card_vs_cpu(torch, sim, card: str) -> None:
     counts = {d: {k: 0 for k in sim.kernel.COUNTS} for d in states}
     spent = {d: 0.0 for d in states}
     E, t = None, 0
-    while E is None or t < E + 60:
+    while E is None or t < E + 52:
         check(E is not None or t < 200, "no leader within 200 ticks")
         if E is None and bool(sim.has_leader(states["cpu"])):
             E = t
@@ -1121,28 +1144,51 @@ def phase_lever_ab(torch, sim, st) -> dict:
     return out
 
 
+class _BandCopies:
+    """Within the block, append_band_copy goes through a wrapper that keeps
+    a copy of the inputs of its calls (the first `keep`, of `rows` ring
+    rows when given) and then calls the wrapper as ever, so its launch
+    count is the path's own."""
+
+    def __init__(self, cuda_ops, keep=None, rows=None) -> None:
+        self.cuda_ops, self.keep, self.rows = cuda_ops, keep, rows
+        self.calls = []
+
+    def __enter__(self):
+        launch = self.launch = self.cuda_ops.append_band_copy
+
+        def record(lt, ld, off, s_t, s_d, w):
+            if (self.keep is None or len(self.calls) < self.keep) and (
+                    self.rows is None or lt.shape[0] == self.rows):
+                self.calls.append((lt.clone(), ld.clone(), off, s_t.clone(),
+                                   s_d.clone(), w.clone()))
+            launch(lt, ld, off, s_t, s_d, w)
+        self.cuda_ops.append_band_copy = record
+        return self
+
+    def __exit__(self, *exc):
+        self.cuda_ops.append_band_copy = self.launch
+
+    def err(self, torch) -> int:
+        """max |kernel - plain| over the recorded calls, all `keep` of
+        them recorded."""
+        check(len(self.calls) == self.keep,
+              f"{len(self.calls)} band-copy calls recorded, not {self.keep}")
+        return max(_kernel_vs_plain(torch, self.cuda_ops, c)
+                   for c in self.calls)
+
+
 def _record_band_copies(torch, sim, cuda_ops, cfg, st, tick=None) -> list:
     """The band-copy calls of one more proposing tick (or of `tick()`),
     with their inputs as the tick gave them."""
-    calls = []
-    launch = cuda_ops.append_band_copy
-
-    def record(lt, ld, off, s_t, s_d, w):
-        calls.append((lt.clone(), ld.clone(), off, s_t.clone(), s_d.clone(),
-                      w.clone()))
-        launch(lt, ld, off, s_t, s_d, w)
-
-    cuda_ops.append_band_copy = record
-    try:
+    with _BandCopies(cuda_ops) as rec:
         if tick is None:
             sim.run_ticks(st, cfg, 1, prop_count=cfg.max_props)
         else:
             tick()
-    finally:
-        cuda_ops.append_band_copy = launch
     torch.cuda.synchronize()
-    check(len(calls) > 0, "the recorded tick made no band-copy call")
-    return calls
+    check(len(rec.calls) > 0, "the recorded tick made no band-copy call")
+    return rec.calls
 
 
 def _kernel_vs_plain(torch, cuda_ops, call) -> int:
@@ -1655,6 +1701,7 @@ DST_STORAGE = dict(fsync_lag_ticks=4, ack_gating=True, collect_telemetry=True,
                    slo_log_occupancy=40, slo_fsync_lag=40)
 DST_TICKS = 100
 DST_WIDE = 16384      # the sweep's width at scale
+DEMO_TICKS = 80       # the rejoin, transfer-abuse and lost-tail demos
 
 
 def _dst_card_vs_cpu(torch, sim, dst, cfg, schedules: int, profiles,
@@ -1703,9 +1750,9 @@ def phase_dst(torch, sim, cuda_ops, outdir: str,
     ticks and the device busy share against 8 unprofiled ticks); 16384 x
     100 (schedules/s); both mutation self-tests at 24 x 100 (caught,
     shrunk, artifact replayed on the card and on the CPU); the four demos
-    (neutralized).  The commit_no_quorum and lost-tail artifacts are
-    written to `outdir`, which the caller makes and removes, and their
-    paths returned under "artifacts"."""
+    (neutralized; three at DEMO_TICKS ticks).  The commit_no_quorum and
+    lost-tail artifacts are written to `outdir`, which the caller makes
+    and removes, and their paths returned under "artifacts"."""
     import importlib
 
     from swarmkit_tpu_torch import dst
@@ -1846,11 +1893,13 @@ def phase_dst(torch, sim, cuda_ops, outdir: str,
             f"{demo['first_tick']})")
     demos = {
         "term_inflation": dst_sweep.run_term_inflation_demo(device=dev),
-        "disruptive_rejoin":
-            dst_sweep.run_disruptive_rejoin_demo(device=dev),
-        "transfer_abuse": dst_sweep.run_transfer_abuse_demo(device=dev),
+        "disruptive_rejoin": dst_sweep.run_disruptive_rejoin_demo(
+            ticks=DEMO_TICKS, device=dev),
+        "transfer_abuse": dst_sweep.run_transfer_abuse_demo(
+            ticks=DEMO_TICKS, device=dev),
         "lost_tail": dst_sweep.run_lost_tail_demo(
-            out_path=f"{outdir}/lost_tail.json", device=dev)}
+            ticks=DEMO_TICKS, out_path=f"{outdir}/lost_tail.json",
+            device=dev)}
     out["artifacts"] = {"commit_no_quorum": f"{outdir}/commit_no_quorum.json",
                         "lost_tail": f"{outdir}/lost_tail.json"}
     for name, demo in demos.items():
@@ -2450,7 +2499,9 @@ def phase_mc(torch, sim, cuda_ops, outdir: str, card: str = "cuda") -> dict:
           f"n3h8: {sim.kernel.COUNTS['host_syncs']} step host syncs")
     out = {"n3h8": dict(branches=res.branches_explored,
                         states=res.states_discovered, passes=res.passes,
-                        seconds=res.elapsed,
+                        seconds=res.elapsed, summary={
+                            k: v for k, v in summ.items()
+                            if k not in ("elapsed_sec", "branches_per_sec")},
                         branches_per_s=res.branches_per_sec,
                         device_s=res.timing["device_s"],
                         host_s=res.timing["host_s"], peak_gib=peak,
@@ -3735,6 +3786,389 @@ def phase_device_wire(torch, card: str = "cuda",
     return out
 
 
+# ---- phase 23: the meshes (parallel/) on the card -----------------------
+
+SHARD_ENTRIES = 4        # one card named this many times when alone
+SHARD_DST_S = 256        # tools/dst_sweep.py's documented sweep width
+SHARD_GROUPS = 1024      # bench.py's multiraft-1024x3 fleet
+SHARD_GROUP_TICKS = 128
+RUNG = 32768             # bench.py's 32768-sharded rung
+RUNG_STEADY = 2          # 64-tick run_ticks chunks after the election
+RUNG_PROBES = (4096, 8192)   # peak-memory probes before the rung
+RUNG_MEMORY_CAP_GIB = 70.0   # the rung runs only if predicted below this
+
+
+def shard_devices(torch) -> list:
+    """The mesh entries of phase 23: every card where there are several,
+    else cuda:0 named SHARD_ENTRIES times (each entry one shard, as the
+    CPU's repeated device is in the tests)."""
+    n = torch.cuda.device_count()
+    if n > 1:
+        return [torch.device("cuda", i) for i in range(n)]
+    return [torch.device("cuda", 0)] * SHARD_ENTRIES
+
+
+def _sync_all(torch, devices) -> None:
+    for d in set(devices):
+        if d.type == "cuda":
+            torch.cuda.synchronize(d)
+
+
+def _same_fields(sim, a, b, label: str) -> int:
+    import numpy as np
+
+    got, want = sim.state_to_numpy(a), sim.state_to_numpy(b)
+    check(sorted(got) == sorted(want), f"{label}: field sets differ")
+    for name in want:
+        check(np.array_equal(got[name], want[name]),
+              f"{label}: field {name} differs from the unsharded run")
+    return len(want)
+
+
+def _sharded_dst(torch, sim, cuda_ops, devices, dev) -> dict:
+    """explore at SHARD_DST_S x DST_TICKS on PROFILES (reads 2): unsharded
+    on the card, then over schedule_mesh(S) of `devices`; equal masks and
+    final fields, one band-copy launch a tick a shard."""
+    import numpy as np
+
+    from swarmkit_tpu_torch import dst, parallel
+    from swarmkit_tpu_torch.tools import dst_sweep
+
+    cfg = dst_sweep._cfg(5, 0, reads=2)
+    sched, names = dst.make_batch(cfg, DST_TICKS, SHARD_DST_S, seed=0,
+                                  profiles=dst.PROFILES, device=dev)
+    mesh = parallel.schedule_mesh(SHARD_DST_S, devices)
+    d = mesh.size
+    runs = {}
+    for label, kw in (("unsharded", dict(shard=False)),
+                      ("sharded", dict(mesh=mesh))):
+        cuda_ops.reset_launches()
+        with _BandCopies(cuda_ops, d if label == "sharded" else 0) \
+                as rec:
+            t0 = time.perf_counter()
+            res = dst.explore(sim.init_state(cfg, device=dev), cfg, sched,
+                              profiles=names, device=dev, **kw)
+            _sync_all(torch, devices)
+            secs = time.perf_counter() - t0
+        runs[label] = (res, secs, cuda_ops.LAUNCHES["append_band_copy"], rec)
+    (ru, su, lu, _), (rs, ss, ls, rec) = runs["unsharded"], runs["sharded"]
+    check(np.array_equal(ru.viol, rs.viol)
+          and np.array_equal(ru.first_tick, rs.first_tick)
+          and np.array_equal(ru.bits_by_tick, rs.bits_by_tick),
+          "sharded explore: masks differ from the unsharded run")
+    fields = _same_fields(sim, rs.final_state, ru.final_state,
+                          "sharded explore")
+    check(lu == DST_TICKS and ls == DST_TICKS * d,
+          f"explore launched append_band_copy {lu} (unsharded) and {ls} "
+          f"(sharded over {d}) times in {DST_TICKS} ticks")
+    err = rec.err(torch)
+    check(err == 0, f"kernel != plain on a shard's sweep tick ({err})")
+    log(f"  explore {SHARD_DST_S} x {DST_TICKS} over {d} entries "
+        f"({SHARD_DST_S // d} schedules a shard): = unsharded on viol, "
+        f"first_tick, bits_by_tick and all {fields} final fields; "
+        f"{len(rs.violating)} violating; {su:.3f} s unsharded, {ss:.3f} s "
+        f"sharded; append_band_copy launches {lu} / {ls} (one a tick a "
+        f"shard); each shard's first call {list(rec.calls[0][0].shape)} = "
+        f"plain")
+    return dict(shards=d, unsharded_s=su, sharded_s=ss, launches=ls,
+                unsharded_launches=lu, fields=fields, err=err)
+
+
+def _sharded_fleet(torch, sim, cuda_ops, devices, dev) -> dict:
+    """bench.py's multiraft-1024x3 fleet for SHARD_GROUP_TICKS ticks of
+    fused proposals from a fresh fleet: unsharded, then over
+    group_mesh(G) of `devices`; equal traces and fields."""
+    import numpy as np
+
+    from swarmkit_tpu_torch import multiraft, parallel
+    from swarmkit_tpu_torch.metrics.registry import MetricsRegistry
+    from swarmkit_tpu_torch.tools import bench
+
+    cfg = bench.multiraft_cfg(3, 7)
+    mesh = parallel.group_mesh(SHARD_GROUPS, devices)
+    d = mesh.size
+    runs = {}
+    for label in ("unsharded", "sharded"):
+        g0 = multiraft.init_groups(cfg, SHARD_GROUPS, device=dev)
+        if label == "sharded":
+            g0 = parallel.shard_rows(g0, mesh, axis=parallel.GROUP_AXIS,
+                                     leading=SHARD_GROUPS)
+        cuda_ops.reset_launches()
+        with _BandCopies(cuda_ops, d if label == "sharded" else 0) \
+                as rec:
+            _sync_all(torch, devices)
+            t0 = time.perf_counter()
+            out, trace = multiraft.run_group_ticks(
+                g0, cfg, SHARD_GROUP_TICKS, prop_count=cfg.max_props,
+                device=dev)
+            _sync_all(torch, devices)
+            secs = time.perf_counter() - t0
+        runs[label] = (out, trace.cpu().numpy(), secs,
+                       cuda_ops.LAUNCHES["append_band_copy"], rec)
+    (ou, tu, su, lu, _), (os_, ts, ss, ls, rec) = (runs["unsharded"],
+                                                   runs["sharded"])
+    check(np.array_equal(tu, ts), "sharded fleet: trace rows differ")
+    fields = _same_fields(sim, parallel.gather(os_), ou, "sharded fleet")
+    led, committed = int(ts[-1, 0]), int(ts[-1, 1])
+    check(led >= SHARD_GROUPS * 99 // 100 and committed > 0,
+          f"sharded fleet: {led} groups led, {committed} committed")
+    summ = multiraft.MultiRaftObs(registry=MetricsRegistry()).publish(os_)
+    check(summ["groups_with_leader"] == led
+          and summ["committed_entries"] == committed,
+          f"MultiRaftObs on the sharded fleet: {summ}")
+    check(lu == SHARD_GROUP_TICKS and ls == SHARD_GROUP_TICKS * d,
+          f"the fleet launched append_band_copy {lu} / {ls} times")
+    err = rec.err(torch)
+    check(err == 0, f"kernel != plain on a shard's grouped tick ({err})")
+    log(f"  fleet G={SHARD_GROUPS} x N=3, {SHARD_GROUP_TICKS} ticks over "
+        f"{d} entries ({SHARD_GROUPS // d} groups a shard): = unsharded on "
+        f"every trace row and all {fields} fields; {led} groups led, "
+        f"{committed} committed (MultiRaftObs adds the shards up); "
+        f"{su:.3f} s unsharded, {ss:.3f} s sharded; append_band_copy "
+        f"launches {lu} / {ls}; each shard's first call "
+        f"{list(rec.calls[0][0].shape)} = plain")
+    return dict(shards=d, unsharded_s=su, sharded_s=ss, launches=ls,
+                unsharded_launches=lu, fields=fields, err=err)
+
+
+def _sharded_scan(torch, cuda_ops, devices, dev, n3h8: dict) -> dict:
+    """mc_sweep's n3h8 scan over schedule_mesh(2^20) of `devices` against
+    phase 16's unsharded run (summary: ladder, passes, widest pass, states,
+    violations), and the smoke scope sharded against unsharded (summary,
+    edges)."""
+    from swarmkit_tpu_torch import mc, parallel
+
+    sc = mc.SCOPES["n3h8"]
+    mesh = parallel.schedule_mesh(MC_PASS_WIDTH, devices)
+    d = mesh.size
+    block = MC_PASS_WIDTH // d * sc.cfg().n
+    cuda_ops.reset_launches()
+    drop = ("elapsed_sec", "branches_per_sec")
+    with _BandCopies(cuda_ops, d, rows=block) as rec:
+        res = mc.exhaustive_scan(sc.cfg(), sc.alphabet(), sc.horizon,
+                                 prop_count=sc.prop_count,
+                                 budget=sc.budget, mesh=mesh, scope="n3h8",
+                                 device=dev)
+        _sync_all(torch, devices)
+    launched = cuda_ops.LAUNCHES["append_band_copy"]
+    got = {k: v for k, v in res.summary().items() if k not in drop}
+    check(got == n3h8["summary"],
+          "sharded n3h8: the summary differs from phase 16's unsharded scan")
+    err = rec.err(torch)
+    check(err == 0, f"kernel != plain on a shard of an n3h8 pass ({err})")
+    check(launched > res.passes, f"n3h8 over {d} entries: {launched} "
+          f"band-copy launches in {res.passes} passes")
+    s = mc.SCOPES["smoke"]
+    smoke = [mc.exhaustive_scan(s.cfg(), s.alphabet(), s.horizon,
+                                prop_count=s.prop_count, collect_edges=True,
+                                scope="smoke", device=dev, **kw)
+             for kw in (dict(shard=False),
+                        dict(mesh=parallel.schedule_mesh(4096, devices)))]
+    a, b = ({k: v for k, v in r.summary().items() if k not in drop}
+            for r in smoke)
+    check(a == b and smoke[0].edges == smoke[1].edges,
+          "sharded smoke scan differs from the unsharded one")
+    log(f"  n3h8 over {d} entries: = phase 16's unsharded scan on the "
+        f"summary ({res.branches_explored:,} branches, "
+        f"{res.states_discovered:,} states, {res.passes} passes, the "
+        f"ladder); {res.elapsed:.3f} s against {n3h8['seconds']:.3f} s "
+        f"unsharded ({res.timing['device_s']:.3f} s in device passes); "
+        f"append_band_copy launches {launched} (one a pass a shard with "
+        f"lanes); each shard's block of a wide pass "
+        f"{list(rec.calls[0][0].shape)} = plain; smoke scope sharded = "
+        f"unsharded on the summary and {len(smoke[1].edges)} edges")
+    return dict(shards=d, seconds=res.elapsed,
+                unsharded_s=n3h8["seconds"], launches=launched, err=err)
+
+
+def _sharded_wire(torch, devices, dev) -> dict:
+    """The device wire's all-to-all over a row mesh of `devices` against
+    the one-card exchange, on phase 22's scripted flushes."""
+    import numpy as np
+
+    from swarmkit_tpu_torch import parallel
+    from swarmkit_tpu_torch.transport import DeviceMeshNet
+
+    mesh = parallel.row_mesh(WIRE_ROWS, devices)
+    nets = [DeviceMeshNet(rows=WIRE_ROWS, device=dev,
+                          mesh=parallel.row_mesh(WIRE_ROWS, [dev])),
+            DeviceMeshNet(rows=WIRE_ROWS, device=dev, mesh=mesh)]
+    rng = np.random.default_rng(1)
+    for entries in wire_flush_script(seed=1):
+        words, lens, keep = nets[0].pack(entries)
+        keep[:] = rng.random(keep.shape) < 0.9
+        one, many = (n.run_exchange(words, lens, keep) for n in nets)
+        for a, b in zip(one, many):
+            check(np.array_equal(a, b),
+                  "the all-to-all differs from the one-card exchange")
+        check(np.array_equal(many[0], words.transpose(1, 0, 2, 3)),
+              "the all-to-all is not the transpose")
+    log(f"  the wire's all-to-all over {mesh.size} entries "
+        f"({WIRE_ROWS // mesh.size} rows an entry, {mesh.size ** 2} blocks "
+        f"a tensor) = the one-card exchange on the four width buckets' "
+        f"scripted flushes")
+    return dict(shards=mesh.size)
+
+
+def _rung_run(torch, sim, cuda_ops, parallel, cfg, dev, steady: int,
+              label: str) -> dict:
+    """bench.py's rung flow at cfg.n: the state placed on row_mesh(n)
+    over the local cards, bench.py's chunked election, then `steady`
+    64-tick chunks of run_ticks(prop_count=max_props): host and device ms
+    per tick, peaks after the election and after the steady ticks."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    mesh = parallel.row_mesh(cfg.n, parallel.local_devices(dev))
+    check(mesh.size == 1, f"{label}: a row mesh of {mesh.size} cards (the "
+          f"multi-device row tick is not ported)")
+    base = torch.cuda.memory_allocated()
+    st = parallel.shard_rows(sim.init_state(cfg, device=dev), mesh)
+    peak_init = torch.cuda.max_memory_allocated()
+    sim.kernel.reset_counts()
+    t0 = time.perf_counter()
+    ticks = 0
+    while ticks < 2000 and not bool(sim.has_leader(st)):
+        st, t = sim.run_until_leader(st, cfg, max_ticks=256, device=dev)
+        ticks += t
+    torch.cuda.synchronize()
+    t_elect = time.perf_counter() - t0
+    check(bool(sim.has_leader(st)), f"{label}: no leader in 2000 ticks")
+    e_counts = dict(sim.kernel.COUNTS)
+    peak_elect = torch.cuda.max_memory_allocated()
+    out = dict(n=cfg.n, election_ticks=ticks, election_s=t_elect,
+               election_counts=e_counts, base_bytes=base,
+               peak_init_bytes=peak_init, peak_election_bytes=peak_elect)
+    if steady:
+        sim.kernel.reset_counts()
+        cuda_ops.reset_launches()
+        host, dev_ms, committed = [], [], 0
+        for _ in range(steady):
+            st, h, e, c = _timed_ticks(torch, sim, cfg, st, 64, device=dev)
+            host.append(h)
+            dev_ms.append(e)
+            committed += c
+        out.update(host_ms=host, device_ms=dev_ms, committed=committed,
+                   entries_per_s=committed / (sum(host) * 64 / 1e3),
+                   steady_counts=dict(sim.kernel.COUNTS),
+                   band_copy_launches=cuda_ops.LAUNCHES["append_band_copy"])
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    out["state"] = st
+    return out
+
+
+def phase_rung(torch, sim, cuda_ops, card: str = "cuda", n: int = RUNG,
+               probes=RUNG_PROBES) -> dict:
+    """bench.py's 32768-sharded rung on one card: peak memory at the
+    RUNG_PROBES widths first (election + 64 steady ticks), fitted as a N^2
+    + b N L and extrapolated; the rung runs only if that stays under
+    RUNG_MEMORY_CAP_GIB.  Then the rung itself: the election and
+    RUNG_STEADY x 64 steady ticks, and the band copy on its rings against
+    plain, timed."""
+    from swarmkit_tpu_torch import parallel
+    from swarmkit_tpu_torch.tools import bench
+
+    dev = torch.device(card)
+    name, rung_n, kw = bench.SHARDED_RUNG
+    check(rung_n == RUNG and kw == {"shard": True, "peer_chunk": 1024},
+          f"the bench's rung is {bench.SHARDED_RUNG}")
+
+    def cfg_at(width):
+        return bench.bench_cfg(width, 7, bench.election_tick_for(width),
+                               peer_chunk=kw["peer_chunk"])
+    runs = []
+    for width in probes:
+        r = _rung_run(torch, sim, cuda_ops, parallel, cfg_at(width), dev, 1,
+                      f"n={width}")
+        del r["state"]
+        runs.append(r)
+        log(f"  probe n={width}: election {r['election_ticks']} ticks in "
+            f"{r['election_s']:.2f} s, peak {r['peak_bytes'] / 2**30:.3f} "
+            f"GiB ({r['peak_init_bytes'] / 2**30:.3f} after init_state, "
+            f"{r['peak_election_bytes'] / 2**30:.3f} after the election; "
+            f"{r['base_bytes'] / 2**30:.3f} held before)")
+    L = cfg_at(n).log_len
+    (n1, p1), (n2, p2) = ((r["n"], r["peak_bytes"] - r["base_bytes"])
+                          for r in runs)
+    # p = a N^2 + b N L through both probes
+    det = n1 * n1 * n2 * L - n2 * n2 * n1 * L
+    a = (p1 * n2 * L - p2 * n1 * L) / det
+    b = (n1 * n1 * p2 - n2 * n2 * p1) / det
+    predicted = a * n * n + b * n * L
+    log(f"  the run's own peak memory fit a N^2 + b N L: a = {a:.3f} B, "
+        f"b = {b:.3f} B; predicted at n={n}: {predicted / 2**30:.2f} GiB")
+    check(predicted + torch.cuda.memory_allocated()
+          < RUNG_MEMORY_CAP_GIB * 2**30,
+          f"the rung would need {predicted / 2**30:.1f} GiB")
+    cfg = cfg_at(n)
+    r = _rung_run(torch, sim, cuda_ops, parallel, cfg, dev, RUNG_STEADY,
+                  name)
+    st = r.pop("state")
+    leaders = int(sim.leader_mask(st).sum())
+    check(leaders == 1, f"{name}: {leaders} leaders")
+    check(r["committed"] > 0, f"{name}: nothing committed")
+    check(_checksums_agree(sim, st), f"{name}: checksum divergence")
+    check(r["band_copy_launches"] > 0, f"{name}: no band-copy launch")
+    torch.cuda.synchronize()
+    calls = _record_band_copies(
+        torch, sim, cuda_ops, cfg, st,
+        lambda: sim.run_ticks(st, cfg, 1, prop_count=cfg.max_props,
+                              device=dev))
+    del st
+    bc = _time_band_copies(torch, cuda_ops, calls)
+    bc["chunks"] = [list(c[5].shape) for c in calls]
+    bc["ring"] = list(calls[0][0].shape)
+    del calls
+    check(bc["err"] == 0, f"kernel != plain on the rung's rings "
+          f"({bc['err']})")
+    sc = r["steady_counts"]
+    steady_ticks = RUNG_STEADY * 64
+    log(f"  {name} (n={n}, L={L}, peer_chunk 1024, active_rows "
+        f"{cfg.active_rows}, the whole state on one card): election "
+        f"{r['election_ticks']} ticks in {r['election_s']:.2f} s (slab "
+        f"{r['election_counts']['slab_ticks']}, dense fallback "
+        f"{r['election_counts']['dense_fallback_ticks']}); "
+        f"{steady_ticks} steady ticks: {r['entries_per_s']:,.1f} entries/s, "
+        f"ms/tick host {[round(x, 3) for x in r['host_ms']]}, CUDA events "
+        f"{[round(x, 3) for x in r['device_ms']]}; step host syncs "
+        f"{sc['host_syncs'] / steady_ticks:.2f}/tick, slab "
+        f"{sc['slab_ticks']} / fallback {sc['dense_fallback_ticks']}; "
+        f"append_band_copy launches {r['band_copy_launches']}; peak "
+        f"device memory {r['peak_init_bytes'] / 2**30:.3f} GiB after "
+        f"init_state, {r['peak_election_bytes'] / 2**30:.3f} after the "
+        f"election, {r['peak_bytes'] / 2**30:.3f} after the steady ticks "
+        f"({r['base_bytes'] / 2**30:.3f} held before; the run's own "
+        f"predicted {predicted / 2**30:.2f}); one leader, checksums "
+        f"agree; band copy of one more tick ({bc['calls']} calls, chunks "
+        f"{bc['chunks']} of {bc['ring']} rings): kernel "
+        f"{bc['ms']:.4f} ms, plain {bc['plain_ms']:.4f}, torch.where x2 "
+        f"{bc['library_ms']:.4f}, bound {bc['bound_ms']:.4f}")
+    r.update(probes=runs, predicted_bytes=predicted, band_copy=bc,
+             leaders=leaders)
+    return r
+
+
+def phase_sharded(torch, sim, cuda_ops, mc16: dict, card: str = "cuda",
+                  **rung) -> dict:
+    """Phase 23: the three batch paths sharded over a mesh of the card
+    (SHARD_ENTRIES entries naming cuda:0, or every card) against their
+    unsharded card runs, the wire's all-to-all, and bench.py's n=32768
+    rung whole on one card (`rung`: phase_rung's n and probes)."""
+    if card == "cuda":
+        devices = shard_devices(torch)
+        dev = torch.device("cuda", torch.cuda.current_device())
+    else:
+        dev = torch.device(card)
+        devices = [dev] * SHARD_ENTRIES
+    out = {"entries": [str(d) for d in devices]}
+    out["dst"] = _sharded_dst(torch, sim, cuda_ops, devices, dev)
+    out["fleet"] = _sharded_fleet(torch, sim, cuda_ops, devices, dev)
+    out["mc"] = _sharded_scan(torch, cuda_ops, devices, dev, mc16["n3h8"])
+    out["wire"] = _sharded_wire(torch, devices, dev)
+    out["rung"] = phase_rung(torch, sim, cuda_ops, card=str(dev), **rung)
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -3886,6 +4320,14 @@ def main() -> int:
     wire22 = phase_device_wire(torch)
     wire22["secs"] = time.perf_counter() - t22
     log(f"  phases 21-22 in {exec21['secs']:.1f} + {wire22['secs']:.1f} s")
+    stage(f"phase 23: the meshes: explore, the fleet and the scan sharded "
+          f"over {len(shard_devices(torch))} entries, the wire's "
+          f"all-to-all, bench.py's n={RUNG} rung on one card")
+    t23 = time.perf_counter()
+    mesh23 = phase_sharded(torch, sim, cuda_ops, mc16)
+    mesh23["secs"] = time.perf_counter() - t23
+    mc16["n3h8"].pop("summary")
+    log(f"  phase 23 in {mesh23['secs']:.1f} s")
 
     elapsed = time.perf_counter() - started
     log(f"all phases passed in {elapsed:.1f} s")
@@ -3904,7 +4346,7 @@ def main() -> int:
                                  "differential": diff19,
                                  "fault_sweep": fault20,
                                  "executor_rest": exec21,
-                                 "device_wire": wire22},
+                                 "device_wire": wire22, "meshes": mesh23},
                                 default=str))
     records = [{
         "name": "append_band_copy", "route": "cuda",
@@ -3948,13 +4390,24 @@ def main() -> int:
         "fault_sweep_plain_ms": fault20["band_copy"]["plain_ms"],
         "fault_sweep_bound_ms": fault20["band_copy"]["bound_ms"],
         "fault_sweep_library_ms": fault20["band_copy"]["library_ms"],
+        "sharded_dst_launches": mesh23["dst"]["launches"],
+        "sharded_fleet_launches": mesh23["fleet"]["launches"],
+        "sharded_mc_launches": mesh23["mc"]["launches"],
+        "rung_launches": mesh23["rung"]["band_copy_launches"],
+        "rung_ms": mesh23["rung"]["band_copy"]["ms"],
+        "rung_plain_ms": mesh23["rung"]["band_copy"]["plain_ms"],
+        "rung_bound_ms": mesh23["rung"]["band_copy"]["bound_ms"],
+        "rung_library_ms": mesh23["rung"]["band_copy"]["library_ms"],
         "max_abs_err": max(err2, k["err"], err9, rmix["err"], planes["err"],
                            dst13["sweep_256"]["err"],
                            mraft["band_copy"]["err"],
                            max(r["err"] for r in levers.values()),
                            mc16["pass"]["band_copy"]["err"],
                            diff19["band_copy"]["err"],
-                           fault20["band_copy"]["err"]),
+                           fault20["band_copy"]["err"],
+                           mesh23["dst"]["err"], mesh23["fleet"]["err"],
+                           mesh23["mc"]["err"],
+                           mesh23["rung"]["band_copy"]["err"]),
         "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
         "bound_by": "bytes", "library_ms": k["library_ms"]}]
     for name, line, bound_by in (("matmul", 76, "operations"),

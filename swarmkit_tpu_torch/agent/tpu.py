@@ -57,7 +57,9 @@ from swarmkit_tpu_torch.api.types import (
 )
 from swarmkit_tpu_torch.device import resolve_device
 from swarmkit_tpu_torch.manager.logbroker import LogStream
-from swarmkit_tpu_torch.parallel import cuda_ops
+from swarmkit_tpu_torch.parallel import (
+    cuda_ops, local_devices, psum, shard_count,
+)
 
 SCHEME = "tpu://"
 _LANE = 128   # with 256, the aligned default tiles of pallas_matmul
@@ -151,21 +153,9 @@ def _builtin_axpy(params: dict, device, operands=None):
     return fn, (x, y)
 
 
-def pmatmul_shards(batch: int, devices) -> int:
-    """The shard count d: the largest count <= len(devices) that divides
-    `batch` (the JAX package's rule)."""
-    d = len(devices)
-    while d > 1 and batch % d != 0:
-        d -= 1
-    return d
-
-
-def psum(scalars: list, devices: list) -> list:
-    """The sum of one scalar per shard, back on every shard's device (the
-    JAX package's ``lax.psum`` over the batch axis): gathered onto the
-    first device, summed, and broadcast."""
-    total = torch.stack([s.to(devices[0]) for s in scalars]).sum()
-    return [total.to(dev) for dev in devices]
+# tpu://pmatmul's shard count is the meshes' divisor rule: the largest
+# count <= len(devices) that divides the batch
+pmatmul_shards = shard_count
 
 
 def pmatmul_chain(xs: list, as_: list, steps: int) -> list:
@@ -198,7 +188,7 @@ def _builtin_pmatmul(params: dict, device, operands=None, devices=None):
     if n <= 0 or batch <= 0:
         raise TaskRejected(f"n={n} and batch={batch} must be positive")
     devices = list(devices or [device])
-    d = pmatmul_shards(batch, devices)
+    d = shard_count(batch, devices)
     devices = devices[:d]
     a = _square_operand(params, devices[0], operands)
     x = _operand(operands, "x", (batch, n, n), torch.bfloat16, devices[0],
@@ -436,9 +426,7 @@ class TpuExecutor(Executor):
         if dev.type == "cuda" and dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
         if devices is None:
-            devices = ([torch.device("cuda", i)
-                        for i in range(torch.cuda.device_count())]
-                       if dev.type == "cuda" else [dev])
+            devices = local_devices(dev)
         self.hostname = hostname
         self.device = dev
         self.devices = [torch.device(d) for d in devices]

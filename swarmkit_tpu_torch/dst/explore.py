@@ -10,6 +10,13 @@ The violation mask `viol` [S] and the per-tick masks `bits_by_tick`
 [T, S] stay on the device and come back in one read at the end, so a
 sweep tick makes no host sync.
 
+With `shard` (the default, as in the JAX package) the S schedules split
+over a schedule mesh (parallel.schedule_mesh: every local card, or the
+devices a caller names with `mesh=`), one shard an entry; each tick is
+issued on every shard before the next, each shard is read back once, and
+viol, first_tick and bits_by_tick come back in schedule order.  The
+clusters are independent, so the sharded run gives the unsharded bits.
+
 The `mutation` knob runs a DELIBERATELY broken kernel variant (e.g.
 ``commit_no_quorum``) — the detection self-test: the checkers must catch
 it and the repro pipeline must shrink it (tools/dst_sweep.py --mutate).
@@ -25,6 +32,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from swarmkit_tpu_torch import parallel
 from swarmkit_tpu_torch.dst.invariants import (
     ALL_BITS, BIT_NAMES, check_state, check_transition,
 )
@@ -142,20 +150,60 @@ def _first_tick(bits_by_tick: torch.Tensor) -> torch.Tensor:
     return torch.where(any_t.any(0), any_t.argmax(0).to(I32), -1)
 
 
+def _run_shards(states: list, cfg: SimConfig, schedules: list,
+                prop_count: int, mutation: Optional[str], devices: list):
+    """The explore loop on the device, over shards of the schedule axis
+    (one shard when unsharded): each tick is issued on every shard before
+    the next tick, so shards on different cards overlap.  Returns, per
+    shard, (final, viol [S_i], bits [T, S_i])."""
+    viol, bits_by_tick = [], []
+    for st, sc in zip(states, schedules):
+        s_count, ticks = sc.target_leader.shape
+        dev = st.term.device
+        viol.append(torch.zeros((s_count,), dtype=I32, device=dev))
+        bits_by_tick.append(torch.zeros((ticks, s_count), dtype=I32,
+                                        device=dev))
+    sts = list(states)
+    for t in range(schedules[0].ticks):
+        for i, (sc, dev) in enumerate(zip(schedules, devices)):
+            sts[i], bits = _tick_one(sts[i], cfg, sc.at_tick(t), prop_count,
+                                     mutation, dev)
+            viol[i] = viol[i] | bits
+            bits_by_tick[i][t] = bits
+    return sts, viol, bits_by_tick
+
+
 def _run_batch(batched: SimState, cfg: SimConfig, schedule: FaultSchedule,
                prop_count: int, mutation: Optional[str], device):
-    """The explore loop on the device: (final, viol [S], bits [T, S])."""
-    s_count, ticks = schedule.target_leader.shape
-    dev = batched.term.device
-    viol = torch.zeros((s_count,), dtype=I32, device=dev)
-    bits_by_tick = torch.zeros((ticks, s_count), dtype=I32, device=dev)
-    st = batched
-    for t in range(ticks):
-        st, bits = _tick_one(st, cfg, schedule.at_tick(t), prop_count,
-                             mutation, device)
-        viol = viol | bits
-        bits_by_tick[t] = bits
-    return st, viol, bits_by_tick
+    """The explore loop on one device: (final, viol [S], bits [T, S])."""
+    (st,), (viol,), (bits,) = _run_shards([batched], cfg, [schedule],
+                                          prop_count, mutation, [device])
+    return st, viol, bits
+
+
+def _schedule_shards(state: SimState, schedule: FaultSchedule, dev,
+                     shard: bool, mesh) -> tuple:
+    """(per-shard batched init states, per-shard schedules, devices): the
+    broadcast state and the [S, T, ...] schedule split over `mesh`
+    (default: schedule_mesh(S) over the local devices of dev's type), or
+    one shard on dev when `shard` is off or the mesh has one entry."""
+    s_count = schedule.target_leader.shape[0]
+    if shard and mesh is None:
+        mesh = parallel.schedule_mesh(s_count, parallel.local_devices(dev))
+    if not shard or mesh.size == 1:
+        return [broadcast_state(state, s_count)], [schedule], [dev]
+    devices = mesh.device_list()
+    if s_count % len(devices) or any(torch.device(d).type != dev.type
+                                     for d in devices):
+        raise ValueError(f"a mesh of {len(devices)} {devices} cannot split "
+                         f"{s_count} schedules on {dev}")
+    per = s_count // len(devices)
+    states = [broadcast_state(parallel.tree_map(lambda t, d=d: t.to(d),
+                                                state), per)
+              for d in devices]
+    return (states, parallel.shard_rows(schedule, mesh,
+                                        axis=parallel.SCHEDULE_AXIS).shards,
+            devices)
 
 
 @dataclass
@@ -196,13 +244,18 @@ def postmortem(result: ExploreResult, cfg: SimConfig,
 
 def explore(state: SimState, cfg: SimConfig, schedule: FaultSchedule,
             profiles=(), prop_count: int = 2,
-            mutation: Optional[str] = None, obs=None,
+            mutation: Optional[str] = None, shard: bool = True,
+            mesh: Optional[parallel.Mesh] = None, obs=None,
             device=None) -> ExploreResult:
     """Run every schedule in the batch to completion and check invariants.
 
     `state` is ONE cluster's init state (copied S times); `schedule` is an
     [S, T, ...] batch from `schedule.make_batch`, on the state's device.
     Runs on `device` (the CUDA card unless the caller names another).
+    With `shard` the schedules split over `mesh` (default: schedule_mesh(S)
+    over every local card; the CPU once), one shard an entry, and the
+    results come back in schedule order; a one-entry mesh is the unsharded
+    run.  The final state is gathered onto `device`.
     """
     from swarmkit_tpu_torch.metrics import catalog
     from swarmkit_tpu_torch.metrics import registry as obs_registry
@@ -211,27 +264,38 @@ def explore(state: SimState, cfg: SimConfig, schedule: FaultSchedule,
     if batch_size(state) is not None:
         raise ValueError("explore takes one cluster's init state")
     s_count = schedule.target_leader.shape[0]
+    ticks = schedule.ticks
     gates = {attack: getattr(schedule, leaf) for attack, leaf in
              {**ATTACK_LEAVES, **STORAGE_LEAVES}.items()
              if getattr(schedule, leaf) is not None}
+    states, schedules, devices = _schedule_shards(state, schedule, dev,
+                                                  shard, mesh)
 
     t0 = time.monotonic()
-    final, viol, bits = _run_batch(broadcast_state(state, s_count), cfg,
-                                   schedule, prop_count, mutation, dev)
-    first = _first_tick(bits)
-    fired = [g.sum(dtype=torch.int64) for g in gates.values()]
-    # the one read-back of the run
-    host = torch.cat([viol.to(torch.int64), first.to(torch.int64),
-                      bits.reshape(-1).to(torch.int64)]
-                     + [f.reshape(1) for f in fired]).cpu().numpy()
+    finals, viols, bitss = _run_shards(states, cfg, schedules, prop_count,
+                                       mutation, devices)
+    fired = [g.sum(dtype=torch.int64).reshape(1) for g in gates.values()]
+    # one read-back per shard, in schedule order
+    viol_h, first_h, bits_h = [], [], []
+    for i, (viol, bits) in enumerate(zip(viols, bitss)):
+        s_i = viol.shape[0]
+        host = torch.cat([viol.to(torch.int64),
+                          _first_tick(bits).to(torch.int64),
+                          bits.reshape(-1).to(torch.int64)]
+                         + (fired if i == 0 else [])).cpu().numpy()
+        viol_h.append(host[:s_i].astype(np.uint32))
+        first_h.append(host[s_i:2 * s_i].astype(np.int32))
+        bits_h.append(host[2 * s_i:2 * s_i + ticks * s_i]
+                      .reshape(ticks, s_i).astype(np.uint32))
+        if i == 0:
+            fired_h = host[2 * s_i + ticks * s_i:]
     elapsed = time.monotonic() - t0
     rate = s_count / elapsed if elapsed > 0 else float("inf")
-    ticks = schedule.ticks
-    viol_h = host[:s_count].astype(np.uint32)
-    first_h = host[s_count:2 * s_count].astype(np.int32)
-    bits_h = host[2 * s_count:2 * s_count + ticks * s_count] \
-        .reshape(ticks, s_count).astype(np.uint32)
-    fired_h = host[2 * s_count + ticks * s_count:]
+    viol_h = np.concatenate(viol_h)
+    first_h = np.concatenate(first_h)
+    bits_h = np.concatenate(bits_h, axis=1)
+    final = finals[0] if len(finals) == 1 else parallel.tree_map(
+        lambda *xs: torch.cat([x.to(dev) for x in xs]), *finals)
 
     obs = obs or obs_registry.DEFAULT
     m_sched = catalog.get(obs, "swarm_dst_schedules_total")

@@ -40,6 +40,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from swarmkit_tpu_torch import parallel
 from swarmkit_tpu_torch.device import resolve_device
 from swarmkit_tpu_torch.dst.explore import _tick_one
 from swarmkit_tpu_torch.dst.invariants import (
@@ -171,7 +172,7 @@ def exhaustive_scan(cfg: SimConfig, alphabet: Alphabet, horizon: int, *,
                     collect_edges: bool = False, symmetry: bool = False,
                     stop_on_violation: bool = True,
                     max_violations: int = 8, shard: bool = True,
-                    scope: str = "custom", obs=None, log=None,
+                    mesh=None, scope: str = "custom", obs=None, log=None,
                     device=None) -> ScanResult:
     """BFS the reachable states of (cfg, alphabet) to `horizon` ticks, on
     `device` (the CUDA card unless the caller names another).
@@ -185,16 +186,25 @@ def exhaustive_scan(cfg: SimConfig, alphabet: Alphabet, horizon: int, *,
     (src, action, dst) transitions — the LTS the
     ``swarmkit_tpu_torch.tools.mc_export`` Aldebaran writer emits; meant
     for smoke-sized scopes (the edge list is host memory and python-loop
-    time).  `shard` is accepted for the JAX package's signature and does
-    nothing: the port's scan runs on one card.
+    time).  With `shard` a pass's W lanes split over the devices of
+    `mesh` (default: every local card; the CPU once) in blocks of W / D
+    when D divides W, as the JAX package's schedule_mesh(W) does; the
+    bits and fingerprints come back in lane order before the host dedup,
+    so the ladder, edges and violations do not depend on D.
     """
     from swarmkit_tpu_torch.metrics import catalog
     from swarmkit_tpu_torch.metrics import registry as obs_registry
 
-    del shard
     dev = resolve_device(device)
     A = alphabet.size
-    tables = alphabet.tables(dev)
+    devices = [dev]
+    if shard:
+        devices = [torch.device(d) for d in (
+            mesh.device_list() if mesh is not None
+            else parallel.local_devices(dev))]
+        if any(d.type != dev.type for d in devices):
+            raise ValueError(f"mesh devices {devices} are not {dev.type}")
+    tables = {d: alphabet.tables(d) for d in {dev, *devices}}
     t0 = time.monotonic()
     dev_s = host_s = 0.0
 
@@ -241,13 +251,29 @@ def exhaustive_scan(cfg: SimConfig, alphabet: Alphabet, horizon: int, *,
             aid = g % A
 
             ts = time.monotonic()
-            chunk = _take(frontier, torch.from_numpy(pidx).to(dev))
-            new, bits, fps = _expand(chunk, torch.from_numpy(aid).to(dev),
-                                     tables, cfg, prop_count, mutation,
-                                     symmetry, dev)
-            del chunk
-            host = torch.cat([bits.to(torch.int64)[:, None], fps],
-                             dim=1).cpu().numpy()
+            # the pass's lanes over the mesh in blocks of W / D (the JAX
+            # package's padded layout, clipped to the real lanes), or one
+            # block on dev; every block's tick is issued before any read
+            spans, sdevs = [(0, real)], [dev]
+            if len(devices) > 1 and W % len(devices) == 0:
+                spans = parallel.split_lanes(real, W, len(devices))
+                sdevs = devices
+            news, outs = [], []
+            for (a, b), sdev in zip(spans, sdevs):
+                if a == b:
+                    continue
+                chunk = _take(frontier, torch.from_numpy(pidx[a:b]).to(dev))
+                if sdev != dev:
+                    chunk = parallel.tree_map(lambda t: t.to(sdev), chunk)
+                new, bits, fps = _expand(
+                    chunk, torch.from_numpy(aid[a:b]).to(sdev),
+                    tables[sdev], cfg, prop_count, mutation, symmetry, sdev)
+                del chunk
+                news.append((a, new))
+                outs.append(torch.cat([bits.to(torch.int64)[:, None], fps],
+                                      dim=1))
+            host = np.concatenate([o.cpu().numpy() for o in outs])
+            del outs
             th = time.monotonic()
             dev_s += th - ts
             result.passes += 1
@@ -306,12 +332,18 @@ def exhaustive_scan(cfg: SimConfig, alphabet: Alphabet, horizon: int, *,
                 block_ids.append(child_ids[fresh_pos])
 
             if fresh_pos.size and not last_level:
-                blocks.append(_take(new, torch.from_numpy(fresh_pos)
-                                    .to(dev)))
+                for a, new in news:
+                    sel = fresh_pos[(fresh_pos >= a)
+                                    & (fresh_pos < a + new.tick.shape[0])]
+                    if sel.size:
+                        kept = _take(new, torch.from_numpy(sel - a)
+                                     .to(new.tick.device))
+                        blocks.append(parallel.tree_map(
+                            lambda t: t.to(dev), kept))
                 block_paths.append(np.concatenate(
                     [paths[pidx[fresh_pos]],
                      aid[fresh_pos, None].astype(np.int16)], axis=1))
-            del new
+            del news
             host_s += time.monotonic() - th
 
         result.states_discovered += lvl_unique

@@ -24,6 +24,15 @@ one group's plain SimState for the single-group summarize/publish path.
 Every entry point runs on the state's device: the CUDA card unless the
 caller names another.  `run_group_ticks` is a host loop, as run.py's
 drivers are: it reads nothing back.
+
+Group placement: ``parallel.shard_rows(gstate, parallel.group_mesh(G),
+axis=GROUP_AXIS, leading=G)`` splits a built fleet over the mesh's
+devices (a `parallel.Sharded` fleet when the mesh has several entries;
+group identity is kept, since only `init_groups` derives anything from
+the group index).  `step_groups`, `run_group_ticks` and the aggregates
+take such a fleet: they step every shard (each tick issued on every shard
+before the next) and add the shards' aggregates up as int32 sums, as the
+JAX package's jnp.sum over a sharded [G] axis does.
 """
 
 from __future__ import annotations
@@ -33,6 +42,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from swarmkit_tpu_torch.parallel import Sharded
 from swarmkit_tpu_torch.raft.sim.kernel import _first_true, propose, step
 from swarmkit_tpu_torch.raft.sim.run import (
     _payload_at, leader_mask, submit_reads,
@@ -46,8 +56,46 @@ I32 = torch.int32
 
 
 def groups_of(gstate: SimState) -> int:
-    """Group count G of a grouped state (leading-axis length)."""
-    return int(gstate.tick.shape[0])
+    """Group count G of a grouped state (leading-axis length), summed over
+    the shards of a sharded fleet."""
+    return sum(int(s.tick.shape[0]) for s in _shards(gstate))
+
+
+def _shards(gstate) -> list:
+    """The per-device fleets of a sharded fleet, or [gstate]."""
+    return gstate.shards if isinstance(gstate, Sharded) else [gstate]
+
+
+def _check_shards(gstate: Sharded, device) -> None:
+    dev = torch.device(device) if device is not None else None
+    for s in gstate.shards:
+        if dev is not None and s.term.device.type != dev.type:
+            raise ValueError(f"a shard lives on {s.term.device}, but the "
+                             f"call runs on {dev}")
+
+
+def _combine(gstate, fn, cat: bool) -> torch.Tensor:
+    """fn of each shard, concatenated along the group axis (`cat`) or
+    summed as int32, on the first shard's device; fn(gstate) unsharded."""
+    if not isinstance(gstate, Sharded):
+        return fn(gstate)
+    parts = [fn(s) for s in gstate.shards]
+    dev = parts[0].device
+    parts = [p.to(dev) for p in parts]
+    if cat:
+        return torch.cat(parts)
+    return torch.stack(parts).sum(0, dtype=I32)
+
+
+def _split_groups(x, sizes: list) -> list:
+    """A per-group input ([G, ...] array-like or tensor) cut into the
+    shards' group blocks; a scalar or None is every shard's."""
+    if x is None or not (isinstance(x, torch.Tensor) or np.ndim(x)):
+        return [x] * len(sizes)
+    if isinstance(x, torch.Tensor) and x.dim() == 0:
+        return [x] * len(sizes)
+    bounds = np.cumsum([0] + sizes)
+    return [x[a:b] for a, b in zip(bounds[:-1], bounds[1:])]
 
 
 def _map(state: SimState, fn) -> SimState:
@@ -60,8 +108,13 @@ def slice_group(gstate: SimState, g: int) -> SimState:
     """One group's plain (ungrouped) SimState: every field indexed at g,
     as views of the grouped fields (a tick on it writes the group's rings
     in place).  The seam between the [G, ...] plane and the single-group
-    host tooling (`telemetry.obs.summarize_state`, `KernelObs.publish`)."""
-    return _map(gstate, lambda a: a[g])
+    host tooling (`telemetry.obs.summarize_state`, `KernelObs.publish`).
+    On a sharded fleet, g indexes the whole fleet."""
+    for s in _shards(gstate):
+        if g < s.tick.shape[0]:
+            return _map(s, lambda a: a[g])
+        g -= int(s.tick.shape[0])
+    raise IndexError("group index out of range")
 
 
 def init_groups(cfg: SimConfig, groups: int, stagger: bool = True,
@@ -115,8 +168,20 @@ def step_groups(gstate: SimState, cfg: SimConfig, alive=None, drop=None,
     `payload_fn` exactly as in the single-group drivers.
 
     G == 1 runs the plain single-group `step` (module docstring: the
-    bit-identity gate).  Consumes the state (see `kernel.step`).
+    bit-identity gate).  A sharded fleet steps shard by shard, its
+    per-group inputs cut to each shard's groups.  Consumes the state (see
+    `kernel.step`).
     """
+    if isinstance(gstate, Sharded):
+        _check_shards(gstate, device)
+        sizes = [int(s.tick.shape[0]) for s in gstate.shards]
+        per = zip(gstate.shards, _split_groups(alive, sizes),
+                  _split_groups(drop, sizes),
+                  _split_groups(prop_count, sizes))
+        return Sharded(gstate.mesh, gstate.axis, gstate.specs, [
+            step_groups(s, cfg, alive=a, drop=d, prop_count=pc,
+                        payload_fn=payload_fn, device=s.term.device)
+            for s, a, d, pc in per])
     dev = check_device(gstate, device)
     if groups_of(gstate) == 1:
         pc = None if prop_count is None else _one_count(prop_count)
@@ -158,21 +223,36 @@ def run_group_ticks(gstate: SimState, cfg: SimConfig, n_ticks: int,
     Returns (final, trace): trace is a [n_ticks, 2] int32 device tensor of
     per-tick rows [groups_with_leader, aggregate_commit], stacked on the
     device, so the loop reads nothing back; read it once after the run.
+    A sharded fleet runs each tick on every shard before the next, and its
+    trace is the shards' rows summed (int32), on the first shard's device.
     Consumes the state (see `kernel.step`).
     """
-    dev = check_device(gstate, device)
-    st, rows = gstate, []
+    if isinstance(gstate, Sharded):
+        _check_shards(gstate, device)
+    else:
+        check_device(gstate, device)
+    shards, rows = list(_shards(gstate)), []
     for _ in range(n_ticks):
-        if prop_count:
-            st = step_groups(st, cfg, prop_count=prop_count,
-                             payload_fn=_payload_at, device=dev)
-        else:
-            st = step_groups(st, cfg, device=dev)
-        rows.append(torch.stack([groups_with_leader(st),
-                                 aggregate_committed(st)]))
+        for i, s in enumerate(shards):
+            if prop_count:
+                shards[i] = step_groups(s, cfg, prop_count=prop_count,
+                                        payload_fn=_payload_at,
+                                        device=s.term.device)
+            else:
+                shards[i] = step_groups(s, cfg, device=s.term.device)
+        rows.append([torch.stack([groups_with_leader(s),
+                                  aggregate_committed(s)])
+                     for s in shards])
+    dev = shards[0].term.device
     if not rows:
-        return st, torch.zeros((0, 2), dtype=I32, device=dev)
-    return st, torch.stack(rows)
+        trace = torch.zeros((0, 2), dtype=I32, device=dev)
+    else:
+        trace = torch.stack([
+            torch.stack([r.to(dev) for r in per_shard]).sum(0, dtype=I32)
+            if len(per_shard) > 1 else per_shard[0] for per_shard in rows])
+    if isinstance(gstate, Sharded):
+        return Sharded(gstate.mesh, gstate.axis, gstate.specs, shards), trace
+    return shards[0], trace
 
 
 # --- aggregate observables (the serving plane's headline quantities) -----
@@ -181,7 +261,7 @@ def run_group_ticks(gstate: SimState, cfg: SimConfig, n_ticks: int,
 
 def group_leader_mask(gstate: SimState) -> torch.Tensor:
     """[G, N] bool: rows currently acting as their group's leader."""
-    return leader_mask(gstate)
+    return _combine(gstate, leader_mask, cat=True)
 
 
 def group_leaders(gstate: SimState) -> torch.Tensor:
@@ -194,25 +274,36 @@ def group_leaders(gstate: SimState) -> torch.Tensor:
 def groups_with_leader(gstate: SimState) -> torch.Tensor:
     """Scalar int32: number of groups that currently have an acting
     leader."""
-    return group_leader_mask(gstate).any(-1).sum(dtype=I32)
+    return _combine(gstate, lambda s: leader_mask(s).any(-1).sum(dtype=I32),
+                    cat=False)
 
 
 def aggregate_committed(gstate: SimState) -> torch.Tensor:
     """Total entries committed through consensus, summed over groups (per
     group: max commit across rows, as `committed_entries`)."""
-    return gstate.commit.amax(-1).sum(dtype=I32)
+    return _combine(gstate, lambda s: s.commit.amax(-1).sum(dtype=I32),
+                    cat=False)
+
+
+def group_commits(gstate: SimState) -> torch.Tensor:
+    """[G] int32: each group's commit (max across its rows)."""
+    return _combine(gstate, lambda s: s.commit.amax(-1), cat=True)
 
 
 def aggregate_reads_served(gstate: SimState) -> torch.Tensor:
     """Total linearizable read ops served across all groups and rows (0
     when the read path is off)."""
-    if gstate.read_srv is None:
-        return torch.zeros((), dtype=I32, device=gstate.term.device)
-    return gstate.read_srv.sum(dtype=I32)
+    def served(s):
+        if s.read_srv is None:
+            return torch.zeros((), dtype=I32, device=s.term.device)
+        return s.read_srv.sum(dtype=I32)
+    return _combine(gstate, served, cat=False)
 
 
 def aggregate_reads_blocked(gstate: SimState) -> torch.Tensor:
     """Total read ops refused (deposal / lease expiry) across groups."""
-    if gstate.read_block is None:
-        return torch.zeros((), dtype=I32, device=gstate.term.device)
-    return gstate.read_block.sum(dtype=I32)
+    def blocked(s):
+        if s.read_block is None:
+            return torch.zeros((), dtype=I32, device=s.term.device)
+        return s.read_block.sum(dtype=I32)
+    return _combine(gstate, blocked, cat=False)

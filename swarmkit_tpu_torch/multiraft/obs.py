@@ -19,7 +19,8 @@ commit rate (multiraft/heat.py).  Per-group label sets are bounded: the
 registry caps a family at MAX_LABEL_SETS children, so fleets beyond
 ``GROUP_LABEL_CAP`` groups publish heat for the top ``HEAT_TOP_K``
 hottest groups only and skip the other per-group families; the
-aggregates always publish, whatever G is.
+aggregates always publish, whatever G is.  A sharded fleet
+(parallel.Sharded) publishes every shard's groups, in group order.
 """
 
 from __future__ import annotations
@@ -27,7 +28,8 @@ from __future__ import annotations
 import numpy as np
 
 from swarmkit_tpu_torch.multiraft.group import (
-    aggregate_reads_served, group_leaders, groups_of,
+    _combine, _shards, aggregate_reads_served, group_commits, group_leaders,
+    groups_of,
 )
 from swarmkit_tpu_torch.multiraft.heat import HeatTracker
 from swarmkit_tpu_torch.raft.sim.kernel import read_many
@@ -121,14 +123,17 @@ class MultiRaftObs:
     def publish(self, gstate: SimState, router=None) -> dict:
         g = groups_of(gstate)
         per_group_ok = g <= GROUP_LABEL_CAP
-        want_hist = per_group_ok and gstate.tel_commit_hist is not None
+        one = _shards(gstate)[0]      # field presence (every shard's)
+        want_hist = per_group_ok and one.tel_commit_hist is not None
         # one device->host read: leaders, per-group commit, reads served
-        # and (when published) the commit-latency histograms
-        parts = [group_leaders(gstate), gstate.commit.amax(-1)]
-        if gstate.read_srv is not None:
+        # and (when published) the commit-latency histograms, every
+        # shard's groups on the first shard's device
+        parts = [group_leaders(gstate), group_commits(gstate)]
+        if one.read_srv is not None:
             parts.append(aggregate_reads_served(gstate))
         if want_hist:
-            parts.append(gstate.tel_commit_hist)
+            parts.append(_combine(gstate, lambda s: s.tel_commit_hist,
+                                  cat=True))
         host = read_many(parts)
         leaders = host[0].astype(np.int32)
         commit_by_group = host[1].astype(np.int32)
@@ -156,7 +161,7 @@ class MultiRaftObs:
         if d:
             self._m[METRIC_COMMITTED].inc(d)
         out["committed_entries"] = committed
-        if gstate.read_srv is not None:
+        if one.read_srv is not None:
             reads = int(host[2])
             d = self._deltas.advance((METRIC_READS,), reads)
             if d:

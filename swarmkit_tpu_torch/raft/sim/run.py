@@ -27,6 +27,7 @@ from swarmkit_tpu_torch.raft.sim import u32
 from swarmkit_tpu_torch.metrics import catalog as obs_catalog
 from swarmkit_tpu_torch.metrics import registry as obs_registry
 from swarmkit_tpu_torch.metrics import scrape as obs_scrape
+from swarmkit_tpu_torch.parallel import gather
 from swarmkit_tpu_torch.raft.sim.batch import Bx
 from swarmkit_tpu_torch.raft.sim.kernel import _first_true, step, tag_lane
 from swarmkit_tpu_torch.raft.sim.state import (
@@ -267,7 +268,9 @@ class KernelObs:
     def publish(self, state: SimState) -> dict:
         """Returns the cumulative counters as a dict (empty when the state
         carries none), each the device's value mod 2**32.  A grouped
-        state's [G, 4] stats fold over groups."""
+        state's [G, 4] stats fold over groups, a sharded one's over every
+        shard's groups."""
+        state = gather(state)
         if self.clock_sync is not None:
             tick = sync_point(self.clock_sync, state)
         else:

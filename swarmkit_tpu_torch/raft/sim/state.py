@@ -34,6 +34,9 @@ from swarmkit_tpu_torch.device import resolve_device
 from swarmkit_tpu_torch.flightrec.codes import (  # noqa: F401
     EVENT_WIDTH, EVENT_WIDTH_TAGGED,
 )
+from swarmkit_tpu_torch.parallel import (
+    GROUP_AXIS, ROW_TICK_TODO, SCHEDULE_AXIS, Sharded,
+)
 from swarmkit_tpu_torch.raft.sim import u32
 from swarmkit_tpu_torch.telemetry.series import (  # noqa: F401
     NUM_BUCKETS, NUM_SERIES, PROP_RING,
@@ -64,7 +67,17 @@ def conf_payload(target: int, remove: bool) -> int:
 
 
 def check_device(state: "SimState", device=None) -> torch.device:
-    """Resolve `device` and require the state to live there."""
+    """Resolve `device` and require the state to live there.  A state
+    sharded over several devices (parallel.shard_rows) is refused: the
+    batch paths step it shard by shard themselves, and one cluster's row
+    axis does not shard."""
+    if isinstance(state, Sharded):
+        if state.axis in (SCHEDULE_AXIS, GROUP_AXIS):
+            raise NotImplementedError(
+                f"a state sharded on {state.axis!r} over {len(state)} "
+                f"devices: step each shard (multiraft.step_groups and "
+                f"run_group_ticks take a group-sharded fleet)")
+        raise NotImplementedError(ROW_TICK_TODO)
     dev = resolve_device(device)
     if state.term.device.type != dev.type:
         raise ValueError(f"state lives on {state.term.device}, but the call "

@@ -23,10 +23,15 @@ headline), the durability A/B (256-fsyncgate: bare, then the storage
 model with fsync every 4 ticks and ack gating, on a ring and window deep
 enough for the fsync pipeline) and the two lowering A/B pairs
 (1024-densepeer: banded vs dense peer counts; 4096-sparseprog: slab vs
-dense progress), seed 7, at the headline's entry count, and bench.py's
-two multi-raft configurations (`measure_multiraft`: multiraft-1024x3, G =
-1024 groups of 3 with reads and leases, and multiraft-telemetry, G = 256
-bare against telemetry on, here in turns with the ratio's spread).
+dense progress), the sharded rung (32768-sharded: n=32768, peer_chunk
+1024, each fresh state placed on row_mesh(n) over the local cards: one
+H100 holds the whole state; several cards stop with NotImplementedError,
+the multi-device row tick not being ported), seed 7, at the headline's
+entry count, and bench.py's two multi-raft configurations
+(`measure_multiraft`: multiraft-1024x3, G = 1024 groups of 3 with reads
+and leases, and multiraft-telemetry, G = 256 bare against telemetry on,
+here in turns with the ratio's spread), whose fleets shard their groups
+over group_mesh(G) when the machine has several cards.
 Prints the card's `nvidia-smi` name and power limit, then one JSON line
 with bench.py's keys.
 
@@ -57,7 +62,7 @@ import time
 
 import torch
 
-from swarmkit_tpu_torch import multiraft
+from swarmkit_tpu_torch import multiraft, parallel
 from swarmkit_tpu_torch.device import resolve_device
 from swarmkit_tpu_torch.metrics.registry import MetricsRegistry
 from swarmkit_tpu_torch.raft.sim import kernel
@@ -69,6 +74,9 @@ from swarmkit_tpu_torch.raft.sim.run import KernelObs
 from swarmkit_tpu_torch.telemetry import TelemetryObs
 
 BASELINE_RATE = 1_000_000 / 60.0   # the north star: 1M entries in 60 s
+# bench.py's sharded headline rung (bench.py:722): rows over row_mesh(n),
+# banded peer reductions
+SHARDED_RUNG = ("32768-sharded", 32768, {"shard": True, "peer_chunk": 1024})
 ELECT_CHUNK, MAX_ELECT_TICKS = 256, 2000
 
 
@@ -95,14 +103,15 @@ def _clone(st: SimState) -> SimState:
                        for f in dataclasses.fields(SimState)})
 
 
-def _telemetry_probe(cfg: SimConfig, dev) -> dict:
+def _telemetry_probe(cfg: SimConfig, dev, place=lambda st: st) -> dict:
     """bench.py's telemetry probe: the measured shape with the telemetry
-    plane on, from a fresh state, for max(4 x election_tick, 64) ticks
-    proposing min(64, max_props) entries a tick, scraped into a private
-    registry; returns TelemetryObs.publish's summary.  It runs apart from
-    the timed loop, so the histograms never cost the measured number."""
+    plane on, from a fresh state placed as the measured one (`place`),
+    for max(4 x election_tick, 64) ticks proposing min(64, max_props)
+    entries a tick, scraped into a private registry; returns
+    TelemetryObs.publish's summary.  It runs apart from the timed loop, so
+    the histograms never cost the measured number."""
     tcfg = dataclasses.replace(cfg, collect_telemetry=True)
-    st, _ = run_ticks(init_state(tcfg, device=dev), tcfg,
+    st, _ = run_ticks(place(init_state(tcfg, device=dev)), tcfg,
                       max(4 * cfg.election_tick, 64),
                       prop_count=min(64, tcfg.max_props), device=dev)
     _sync(dev)
@@ -120,34 +129,64 @@ def telemetry_json(m: dict):
             "commit_latency_ticks_p99": commit.get("p99")}
 
 
+def bench_cfg(n: int, seed: int, election_tick: int,
+              peer_chunk: int | None = None, active_rows: int | None = None,
+              latency: int = 0, latency_jitter: int = 0, inflight: int = 1,
+              log_len: int = 8192, window: int = 2048, read_batch: int = 0,
+              read_leases: bool = True, fsync_lag_ticks: int = 0,
+              ack_gating: bool = False) -> SimConfig:
+    """bench.py::measure's SimConfig: window, apply batch and proposals
+    2048, keep 500, static members, collect_stats; the levers at the
+    SimConfig defaults unless pinned, and the storage model only when
+    fsync_lag_ticks is set."""
+    levers = {k: v for k, v in (("peer_chunk", peer_chunk),
+                                ("active_rows", active_rows))
+              if v is not None}
+    if fsync_lag_ticks:
+        levers.update(fsync_lag_ticks=fsync_lag_ticks, ack_gating=ack_gating)
+    return SimConfig(n=n, log_len=log_len, window=window, apply_batch=2048,
+                     max_props=2048, keep=500, seed=seed,
+                     election_tick=election_tick, latency=latency,
+                     latency_jitter=latency_jitter, inflight=inflight,
+                     static_members=True, collect_stats=True,
+                     read_batch=read_batch, read_leases=read_leases, **levers)
+
+
 def measure(n: int, entries: int, seed: int, election_tick: int, dev,
             chunk: int = 64, peer_chunk: int | None = None,
             active_rows: int | None = None, latency: int = 0,
             latency_jitter: int = 0, inflight: int = 1,
             log_len: int = 8192, window: int = 2048, read_batch: int = 0,
             read_leases: bool = True, fsync_lag_ticks: int = 0,
-            ack_gating: bool = False, **run_kw) -> dict:
+            ack_gating: bool = False, shard: bool = False,
+            **run_kw) -> dict:
     """bench.py::measure on the port: elect, warm, re-elect, then time the
     chunked replication of ~`entries` committed entries.  latency,
     latency_jitter and inflight pick the wire, read_batch/read_leases the
     read path (reads served in the timed pass are counted), and
-    fsync_lag_ticks/ack_gating the storage model, as in bench.py.  Driver
+    fsync_lag_ticks/ack_gating the storage model, as in bench.py.  With
+    `shard` every fresh state is placed by parallel.shard_rows on
+    row_mesh(n) over the local devices of dev's type (bench.py's
+    32768-sharded rung): on one card that is the whole state on the card
+    (`mesh_devices` 1); over several, the tick stops with
+    NotImplementedError (the multi-device row tick is not ported).  Driver
     calls are timed by a KernelObs, which publishes the timed run's
     counters (`kernel_stats`); the telemetry probe follows.  Each call is
     a run of its own, so its KernelObs publishes into a registry of its
     own (see KernelObs on wrapping counters)."""
     obs = KernelObs(MetricsRegistry())
-    levers = {k: v for k, v in (("peer_chunk", peer_chunk),
-                                ("active_rows", active_rows))
-              if v is not None}
-    if fsync_lag_ticks:
-        levers.update(fsync_lag_ticks=fsync_lag_ticks, ack_gating=ack_gating)
-    cfg = SimConfig(n=n, log_len=log_len, window=window, apply_batch=2048,
-                    max_props=2048, keep=500, seed=seed,
-                    election_tick=election_tick, latency=latency,
+    cfg = bench_cfg(n, seed, election_tick, peer_chunk=peer_chunk,
+                    active_rows=active_rows, latency=latency,
                     latency_jitter=latency_jitter, inflight=inflight,
-                    static_members=True, collect_stats=True,
-                    read_batch=read_batch, read_leases=read_leases, **levers)
+                    log_len=log_len, window=window, read_batch=read_batch,
+                    read_leases=read_leases,
+                    fsync_lag_ticks=fsync_lag_ticks, ack_gating=ack_gating)
+    mesh = parallel.row_mesh(n, parallel.local_devices(dev) if shard
+                             else [dev])
+
+    def place(st):
+        return parallel.shard_rows(st, mesh) if shard else st
+
     ticks_needed = max(1, -(-entries // cfg.max_props))
     n_chunks = -(-ticks_needed // chunk)
 
@@ -160,7 +199,7 @@ def measure(n: int, entries: int, seed: int, election_tick: int, dev,
         return st
 
     def elect():
-        st = init_state(cfg, device=dev)
+        st = place(init_state(cfg, device=dev))
         t0 = time.perf_counter()
         ticks = 0
         while ticks < MAX_ELECT_TICKS:
@@ -194,13 +233,14 @@ def measure(n: int, entries: int, seed: int, election_tick: int, dev,
            "rate": committed / dt, "election_ticks": ticks,
            "t_elect": t_elect, "t_elect_post": t_elect_post,
            "t_warm": t_warm, "timed_ticks": n_chunks * chunk,
-           "counts": counts, "kernel_stats": obs.publish(final)}
+           "counts": counts, "kernel_stats": obs.publish(final),
+           "mesh_devices": mesh.size}
     if read_batch:
         out["reads"] = int(reads_served(final)) - base_reads
         out["read_rate"] = out["reads"] / dt
         out["reads_blocked"] = int(reads_blocked(final))
     with obs.timed("telemetry_probe"):
-        out["telemetry"] = _telemetry_probe(cfg, dev)
+        out["telemetry"] = _telemetry_probe(cfg, dev, place)
     return out
 
 
@@ -275,6 +315,25 @@ def multiraft_cfg(n: int, seed: int,
                      collect_stats=True)
 
 
+def fleet(cfg: SimConfig, groups: int, dev):
+    """bench.py's fleet: init_groups on dev, its groups sharded over
+    group_mesh(G) of the local devices of dev's type when there are
+    several (a parallel.Sharded fleet), as bench.py::measure_multiraft
+    does on a machine with several devices."""
+    gstate = multiraft.init_groups(cfg, groups, device=dev)
+    mesh = parallel.group_mesh(groups, parallel.local_devices(dev))
+    if mesh.size == 1:
+        return gstate
+    return parallel.shard_rows(gstate, mesh, axis=parallel.GROUP_AXIS,
+                               leading=groups)
+
+
+def _sync_fleet(gstate, dev) -> None:
+    for d in ({s.term.device for s in gstate.shards}
+              if isinstance(gstate, parallel.Sharded) else {dev}):
+        _sync(d)
+
+
 def elect_groups(gstate: SimState, cfg: SimConfig, dev, groups: int):
     """bench.py's fleet election: 32-tick run_group_ticks chunks (at most
     16) until 99% of the groups have a leader, reading the count once a
@@ -303,7 +362,7 @@ def _timed_groups(gstate, cfg, dev, n_chunks: int, chunk: int):
         gstate, _ = multiraft.run_group_ticks(gstate, cfg, chunk,
                                               prop_count=cfg.max_props,
                                               device=dev)
-        _sync(dev)
+        _sync_fleet(gstate, dev)
     dt = time.perf_counter() - t0
     return (gstate, int(multiraft.aggregate_committed(gstate)) - base,
             int(multiraft.aggregate_reads_served(gstate)) - base_reads, dt)
@@ -321,12 +380,11 @@ def measure_multiraft(groups: int, n: int, entries: int, seed: int, dev,
     """bench.py::measure_multiraft on the port: elect the [G, N] fleet
     (staggered timeouts), a warm pass, then the timed chunks of
     fused-propose ticks; aggregate committed entries/s and lease-served
-    reads/s summed over groups.  bench.py shards the groups over a device
-    mesh when it sees several devices; group sharding is not ported (one
-    card, ROADMAP), so the fleet is unsharded."""
+    reads/s summed over groups.  As in bench.py the groups shard over a
+    device mesh when the machine has several cards (`fleet`)."""
     cfg = multiraft_cfg(n, seed, collect_telemetry)
     gstate, elect_ticks, t_elect = elect_groups(
-        multiraft.init_groups(cfg, groups, device=dev), cfg, dev, groups)
+        fleet(cfg, groups, dev), cfg, dev, groups)
     n_chunks = _multiraft_chunks(groups, cfg, entries, chunk)
     t0 = time.perf_counter()
     warm, _, _, _ = _timed_groups(gstate, cfg, dev, n_chunks, chunk)
@@ -343,7 +401,8 @@ def measure_multiraft(groups: int, n: int, entries: int, seed: int, dev,
             "groups_with_leader": summary["groups_with_leader"],
             "elect_ticks": elect_ticks, "t_elect": t_elect,
             "t_compile": t_warm, "timed_ticks": n_chunks * chunk,
-            "counts": counts}
+            "counts": counts, "mesh_devices": len(gstate)
+            if isinstance(gstate, parallel.Sharded) else 1}
 
 
 def multiraft_telemetry_ab(groups: int, n: int, entries: int, dev,
@@ -357,9 +416,7 @@ def multiraft_telemetry_ab(groups: int, n: int, entries: int, dev,
     fleets = {}
     for tel in (False, True):
         cfg = multiraft_cfg(n, 7, tel)
-        st, _, _ = elect_groups(multiraft.init_groups(cfg, groups,
-                                                      device=dev),
-                                cfg, dev, groups)
+        st, _, _ = elect_groups(fleet(cfg, groups, dev), cfg, dev, groups)
         fleets[tel] = [cfg, st, 0, 0.0]
     n_chunks = _multiraft_chunks(groups, fleets[False][0], entries, chunk)
     for f in fleets.values():                   # the warm pass
@@ -511,6 +568,21 @@ def _secondary(args, dev, log, result: dict) -> dict:
                                 "sparse_over_dense": sparse / dense}
     for name in ("256-fsyncgate", "1024-densepeer", "4096-sparseprog"):
         log(f"config {name}: {extra[name]}")
+    name, cn, kw = SHARDED_RUNG
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    m = measured(cn, name, **kw)
+    extra[name] = m["rate"]
+    extra[name + "_detail"] = {
+        "mesh_devices": m["mesh_devices"],
+        "election_ticks": m["election_ticks"], "election_s": m["t_elect"],
+        "election_s_post_compile": m["t_elect_post"],
+        "ms_per_tick": m["dt"] / m["timed_ticks"] * 1e3,
+        "peak_bytes": torch.cuda.max_memory_allocated(dev)
+        if dev.type == "cuda" else None}
+    log(f"config {name}: {m['rate']:,.1f} entries/s; "
+        f"{extra[name + '_detail']}")
+    del m
     _multiraft(args, dev, log, result, extra)
     return extra
 

@@ -1,7 +1,7 @@
 """Where a headline tick's time goes on the CUDA card.
 
     python -m swarmkit_tpu_torch.tools.profile_tick [--n N] [--ticks 16]
-        [--dense] [--config headline|mailbox|readmix] [--log-len L]
+        [--dense] [--config headline|mailbox|readmix|rung] [--log-len L]
         [--planes]
 
 Elects a leader at the bench headline configuration (n=4096 unless --n
@@ -10,8 +10,10 @@ SimConfig defaults, as bench.py runs them, or both pinned dense with
 --dense), with --config mailbox at bench.py's
 1024-mailbox-lat2-jitter1-inflight4 (n=1024, seed 7, election_tick 20,
 latency 2, jitter 1, inflight 4), or with --config readmix at bench.py's
-256-readmix-99to1 (n=256, seed 7, election_tick 16, read_batch 792);
---log-len changes the ring, --planes turns the three device observability
+256-readmix-99to1 (n=256, seed 7, election_tick 16, read_batch 792),
+or with --config rung at bench.py's 32768-sharded (n=32768, seed 7,
+election_tick 30, peer_chunk 1024: the whole state on the card, about
+60 GiB at its peak); --log-len changes the ring, --planes turns the three device observability
 planes on (the flight recorder, telemetry, trace tags).  It warms up with
 proposing ticks, then runs --ticks ticks of run_ticks(prop_count=max_props)
 three ways:
@@ -59,7 +61,9 @@ READMIX = dict(n=256, log_len=8192, window=2048, apply_batch=2048,
                max_props=2048, keep=500, election_tick=16, seed=7,
                read_batch=99 * 2048 // 256, static_members=True,
                collect_stats=True)
-CONFIGS = {"headline": HEADLINE, "mailbox": MAILBOX, "readmix": READMIX}
+RUNG = dict(HEADLINE, n=32768, election_tick=30, seed=7, peer_chunk=1024)
+CONFIGS = {"headline": HEADLINE, "mailbox": MAILBOX, "readmix": READMIX,
+           "rung": RUNG}
 PLANES = dict(record_events=True, collect_telemetry=True, trace_tags=True)
 
 

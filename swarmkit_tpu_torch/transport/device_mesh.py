@@ -11,13 +11,18 @@ streams; this implementation moves them through a device mailbox:
 - ``Send`` serializes the message (raft/wire.py) and packs it into a
   bounded per-edge slot of a [senders, receivers, K, W] int32 mailbox (the
   message's bytes as int32 bits).
-- Delivery is one exchange on the wire's device (`exchange`): it takes the
-  mailbox, its lengths and its keep mask, and returns the receiver-major
-  views with masked lengths zeroed.  The JAX package runs it as one jitted
-  program over a row mesh, where the sender->receiver transpose lowers to
-  an all-to-all; on one card it is the transpose itself, so no mesh is
-  needed.  Drop / partition / crash faults are the keep mask, applied on
-  the device.  Each flush reads the result back once.
+- Delivery is one exchange over the wire's row mesh (parallel.row_mesh:
+  every local card of the wire's device type, or the devices of `mesh=`):
+  it takes the mailbox, its lengths and its keep mask, and returns the
+  receiver-major views with masked lengths zeroed.  On one entry that is
+  the transpose of the first two axes (`exchange`).  On D > 1 entries the
+  mailbox lies split by sender rows, one block of rows an entry, and the
+  exchange is an all-to-all (`all_to_all`), as the JAX package's jitted
+  program over its row mesh lowers to: block (i, j) of entry i's rows
+  (the receivers of entry j) is copied to entry j, D^2 copies, and each
+  entry transposes the sender blocks it holds.  Drop / partition / crash
+  faults are the keep mask, applied on the device.  Each flush reads the
+  result back once (once an entry).
 - Delivered payloads are decoded back into Message objects and stepped into
   the receiving node, mirroring ProcessRaftMessage (raft.go:1397).
 
@@ -38,6 +43,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from swarmkit_tpu_torch import parallel
 from swarmkit_tpu_torch.device import resolve_device
 from swarmkit_tpu_torch.metrics import catalog as obs_catalog
 from swarmkit_tpu_torch.metrics import registry as obs_registry
@@ -73,6 +79,32 @@ def exchange(words: torch.Tensor, lens: torch.Tensor, keep: torch.Tensor):
     return words.transpose(0, 1), lens.transpose(0, 1)
 
 
+def _block(x: torch.Tensor, j: int, rows: int, dev) -> torch.Tensor:
+    """Block j of a sender entry's [rows, R, ...] mailbox rows (receivers
+    [j * rows, (j + 1) * rows)), copied to receiver entry j's device."""
+    return x[:, j * rows:(j + 1) * rows].to(dev)
+
+
+def all_to_all(words: list, lens: list, keep: list) -> tuple:
+    """`exchange` over a row mesh of D entries: entry i holds sender rows
+    [i * r, (i + 1) * r) of the mailbox (words [r, R, K, W], lens and keep
+    [r, R, K], on its device).  Masked lengths are zeroed on the senders,
+    each block (i, j) goes from entry i to entry j, and entry j returns
+    its receivers' rows [r, R, K, W] / [r, R, K], receiver-major, on its
+    own device: the transpose, one row block an entry."""
+    rows = words[0].shape[0]
+    lens = [torch.where(k, ln, torch.zeros_like(ln))
+            for ln, k in zip(lens, keep)]
+    out_w, out_l = [], []
+    for j, dest in enumerate(words):
+        dev = dest.device
+        out_w.append(torch.cat([_block(w, j, rows, dev) for w in words])
+                     .transpose(0, 1))
+        out_l.append(torch.cat([_block(ln, j, rows, dev) for ln in lens])
+                     .transpose(0, 1))
+    return out_w, out_l
+
+
 class DeviceMeshNet(Network):
     """Shared device mailbox wire for a cluster of DeviceMeshTransports.
 
@@ -80,16 +112,27 @@ class DeviceMeshNet(Network):
     API, so test harnesses drive partitions/drops identically); raft
     messages go through the device exchange instead of per-peer queues.
     `device` defaults to the current CUDA card and raises without one;
-    pass ``device="cpu"`` to run the exchange on the CPU.
+    pass ``device="cpu"`` to run the exchange on the CPU.  `mesh` is the
+    row mesh the mailbox lies on (default: parallel.row_mesh(rows) over
+    the local devices of `device`'s type; a 1-D mesh whose size divides
+    `rows`, which may name one device more than once).
     """
 
     wire_name = "device"
 
     def __init__(self, seed: int = 0, rows: int = 8, device=None,
+                 mesh: Optional[parallel.Mesh] = None,
                  obs: Optional[obs_registry.MetricsRegistry] = None) -> None:
         super().__init__(seed=seed)
         self.rows = rows
         self.device = resolve_device(device)
+        if mesh is None:
+            mesh = parallel.row_mesh(rows,
+                                     parallel.local_devices(self.device))
+        if mesh.devices.ndim != 1 or rows % mesh.size:
+            raise ValueError(f"the wire's mesh must be 1-D and divide its "
+                             f"{rows} rows, not {mesh.shape}")
+        self.mesh = mesh
         self._row_of: dict[str, int] = {}
         # (frm_row, to_row) -> list of (raw, msg, transport, to_raft_id,
         #                               frm_addr, to_addr, ready_at)
@@ -221,17 +264,25 @@ class DeviceMeshNet(Network):
 
     def run_exchange(self, words: np.ndarray, lens: np.ndarray,
                      keep: np.ndarray) -> tuple:
-        """The host mailbox through `exchange` on the wire's device, read
-        back once: the receiver-major (words, lens) as numpy arrays."""
-        dev = self.device
-        d_words, d_lens = exchange(torch.from_numpy(words).to(dev),
-                                   torch.from_numpy(lens).to(dev),
-                                   torch.from_numpy(keep).to(dev))
-        cuda = dev.type == "cuda"
-        out = [t.to("cpu", non_blocking=cuda) for t in (d_words, d_lens)]
-        if cuda:
+        """The host mailbox through the exchange on the wire's mesh (split
+        by sender rows over its entries when it has several), read back
+        once: the receiver-major (words, lens) as numpy arrays."""
+        devices = [torch.device(d) for d in self.mesh.device_list()]
+        host = (torch.from_numpy(words), torch.from_numpy(lens),
+                torch.from_numpy(keep))
+        if len(devices) == 1:
+            outs = [exchange(*(t.to(devices[0]) for t in host))]
+        else:
+            r = self.rows // len(devices)
+            w, ln, k = ([t[i * r:(i + 1) * r].to(dev)
+                         for i, dev in enumerate(devices)] for t in host)
+            outs = list(zip(*all_to_all(w, ln, k)))
+        back = [[t.to("cpu", non_blocking=t.is_cuda) for t in out]
+                for out in outs]
+        for dev in {d for d in devices if d.type == "cuda"}:
             torch.cuda.synchronize(dev)
-        return out[0].numpy(), out[1].numpy()
+        return (np.concatenate([b[0].numpy() for b in back]),
+                np.concatenate([b[1].numpy() for b in back]))
 
     async def _flush(self) -> None:
         staged, self._staged = self._staged, {}

@@ -4,7 +4,9 @@ A small run (n=64, a few thousand entries, 8-tick chunks, no secondary
 configurations) prints bench.py's JSON line with every key, the kernel
 counters KernelObs published and the telemetry probe's commit latency
 included, and passes its own safety check; without a card and without
---device cpu it raises instead of running on the CPU.
+--device cpu it raises instead of running on the CPU.  The sharded rung's
+flow (shard=True) runs at n=64 on a one-entry mesh and stops over several
+entries; measure_multiraft shards its fleet over several.
 """
 
 from __future__ import annotations
@@ -130,3 +132,58 @@ def test_multiraft_telemetry_pair_on_the_cpu():
     summ = summarize_groups(ab["final_telemetry"], ab["cfg"])
     assert len(summ) == 4 and all(s["commit"]["total"] > 0 for s in summ)
     assert ab["final_bare"].tel_commit_hist is None
+
+
+def test_sharded_rung_flow_on_a_one_entry_mesh():
+    """bench.py's 32768-sharded flow at n=64 with shard=True: every fresh
+    state is placed on row_mesh(n) over the local devices, one entry here
+    (the whole state on the device, as on one H100), and the run is the
+    unsharded run, bit for bit."""
+    from swarmkit_tpu_torch.tools.bench import SHARDED_RUNG
+
+    name, n, kw = SHARDED_RUNG
+    assert (name, n, kw) == ("32768-sharded", 32768,
+                             {"shard": True, "peer_chunk": 1024})
+    cpu = torch.device("cpu")
+    m = bench.measure(64, 4000, 7, bench.election_tick_for(64), cpu,
+                      chunk=8, shard=True, peer_chunk=16)
+    plain = bench.measure(64, 4000, 7, bench.election_tick_for(64), cpu,
+                          chunk=8, peer_chunk=16)
+    assert m["mesh_devices"] == 1 and m["cfg"].peer_chunk == 16
+    assert m["committed"] == plain["committed"] > 0
+    assert m["election_ticks"] == plain["election_ticks"]
+    assert torch.equal(m["final"].commit, plain["final"].commit)
+    assert bench._safety(m)[0]
+
+
+def test_sharded_rung_over_several_devices_stops(monkeypatch):
+    """Over several devices the rung's row mesh has D > 1 entries, and the
+    tick of one cluster over a row mesh stops: never a quiet run on one
+    device."""
+    from swarmkit_tpu_torch import parallel
+
+    monkeypatch.setattr(parallel, "local_devices",
+                        lambda device=None: [torch.device("cpu")] * 2)
+    with pytest.raises(NotImplementedError, match="multi-device row tick"):
+        bench.measure(64, 4000, 7, bench.election_tick_for(64),
+                      torch.device("cpu"), chunk=8, shard=True,
+                      peer_chunk=16)
+
+
+def test_measure_multiraft_shards_its_groups(monkeypatch):
+    """With several local devices (four CPU entries here) the fleet's
+    groups shard over group_mesh(G), as bench.py's do, and the flow
+    commits exactly what the unsharded one does."""
+    from swarmkit_tpu_torch import parallel
+
+    cpu = torch.device("cpu")
+    plain = bench.measure_multiraft(8, 3, 2000, 7, cpu, chunk=8)
+    monkeypatch.setattr(parallel, "local_devices",
+                        lambda device=None: [cpu] * 4)
+    m = bench.measure_multiraft(8, 3, 2000, 7, cpu, chunk=8)
+    assert m["mesh_devices"] == 4 and plain["mesh_devices"] == 1
+    assert isinstance(m["final"], parallel.Sharded)
+    assert (m["committed"], m["reads"], m["elect_ticks"],
+            m["groups_with_leader"]) == (
+        plain["committed"], plain["reads"], plain["elect_ticks"],
+        plain["groups_with_leader"])

@@ -986,3 +986,86 @@ def test_device_wire_flush_on_the_card_matches_the_cpu():
         n = int(got[1][t, f, k])
         assert n == (len(raw) if keep[f, t, k] else 0)
         assert got[0][t, f, k].tobytes()[:n] == raw[:n]
+
+
+def _card_mesh_devices():
+    n = torch.cuda.device_count()
+    return ([torch.device("cuda", i) for i in range(n)] if n > 1
+            else [torch.device("cuda", 0)] * 4)
+
+
+@pytest.mark.cuda
+def test_sharded_explore_on_the_card_matches_unsharded():
+    """explore over a schedule mesh of the card (cuda:0 named four times,
+    or every card) against its unsharded card run, and the CPU: the same
+    masks and final fields, one band-copy launch a tick a shard."""
+    _need_card()
+    from swarmkit_tpu_torch import dst, parallel
+
+    cfg = sim.SimConfig(n=5, log_len=64, window=8, apply_batch=16,
+                        max_props=8, keep=4, election_tick=10, seed=0,
+                        read_batch=2)
+    devices = _card_mesh_devices()
+    mesh = parallel.schedule_mesh(32, devices)
+    res = {}
+    for label, d, kw in (("card", "cuda", dict(shard=False)),
+                         ("sharded", "cuda", dict(mesh=mesh)),
+                         ("cpu", "cpu", dict(shard=False))):
+        sched, names = dst.make_batch(cfg, 40, 32, 0, device=d)
+        cuda_ops.reset_launches()
+        res[label] = dst.explore(sim.init_state(cfg, device=d), cfg, sched,
+                                 profiles=names, device=d, **kw)
+        torch.cuda.synchronize()
+        res[label + "_launches"] = cuda_ops.LAUNCHES["append_band_copy"]
+    assert res["sharded_launches"] == 40 * mesh.size
+    for label in ("card", "cpu"):
+        assert np.array_equal(res[label].bits_by_tick,
+                              res["sharded"].bits_by_tick)
+        want = sim.state_to_numpy(res[label].final_state)
+        got = sim.state_to_numpy(res["sharded"].final_state)
+        for name in want:
+            assert np.array_equal(got[name], want[name]), name
+
+
+@pytest.mark.cuda
+def test_sharded_fleet_on_the_card_matches_unsharded():
+    """A G=64 fleet of 3 over a group mesh of the card: the trace and
+    every field of the unsharded card run."""
+    _need_card()
+    from swarmkit_tpu_torch import multiraft, parallel
+    from swarmkit_tpu_torch.tools import bench
+
+    cfg = bench.multiraft_cfg(3, 7)
+    mesh = parallel.group_mesh(64, _card_mesh_devices())
+    runs = []
+    for shard in (False, True):
+        g0 = multiraft.init_groups(cfg, 64, device="cuda")
+        if shard:
+            g0 = parallel.shard_rows(g0, mesh, axis=parallel.GROUP_AXIS,
+                                     leading=64)
+        out, trace = multiraft.run_group_ticks(g0, cfg, 48, prop_count=32,
+                                               device="cuda")
+        runs.append((sim.state_to_numpy(parallel.gather(out)),
+                     trace.cpu().numpy()))
+    (want, tw), (got, tg) = runs
+    assert np.array_equal(tg, tw) and int(tg[-1, 1]) > 0
+    for name in want:
+        assert np.array_equal(got[name], want[name]), name
+
+
+@pytest.mark.cuda
+def test_all_to_all_on_the_card_is_the_transpose():
+    """The device wire's exchange over four mesh entries of the card."""
+    _need_card()
+    from swarmkit_tpu_torch import parallel
+    from swarmkit_tpu_torch.transport import DeviceMeshNet
+
+    rng = np.random.default_rng(5)
+    words = rng.integers(-2**31, 2**31, (8, 8, 4, 64)).astype(np.int32)
+    lens = rng.integers(1, 256, (8, 8, 4)).astype(np.int32)
+    keep = rng.random((8, 8, 4)) < 0.9
+    net = DeviceMeshNet(rows=8, device="cuda",
+                        mesh=parallel.row_mesh(8, _card_mesh_devices()))
+    got_w, got_l = net.run_exchange(words, lens, keep)
+    assert np.array_equal(got_w, words.transpose(1, 0, 2, 3))
+    assert np.array_equal(got_l, np.where(keep, lens, 0).transpose(1, 0, 2))

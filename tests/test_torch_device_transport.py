@@ -9,10 +9,11 @@ is encoded by the port's codec, packed into the port's int32 mailbox,
 exchanged by the port's `exchange` and decoded into the port's Message
 (MsgType and EntryType are IntEnums in both packages, so they compare
 equal).  The seventh JAX scenario, the check that the exchange lowers to
-a cross-device all-to-all in XLA's HLO, has no analog on one card: the
-port's exchange is the sender<->receiver transpose on one device, and
-that is what this file tests instead (every slot lands at its receiver's
-view, masked lengths zeroed), with no collective to look for.
+a cross-device all-to-all in XLA's HLO, has no HLO to look at here: on
+one entry the port's exchange is the sender<->receiver transpose, which
+this file tests (every slot lands at its receiver's view, masked lengths
+zeroed); the all-to-all over a row mesh of several entries, built from
+D^2 blocks, is tests/test_torch_parallel.py's.
 
 The codec is held to msgpack byte for byte both ways on seeded messages
 (entries, snapshots, rejects, context), and imports and round-trips with

@@ -10,8 +10,8 @@ the batched host `propose` / `submit_reads` against `jax.vmap`, and
 the single-group program (its non-view aten ops are `step`'s, op for op),
 the stagger and broadcast of `init_groups`, the router's key hash across
 processes, grouped telemetry off and on, `MultiRaftObs`, and `KernelObs` /
-`sync_point` on a grouped state.  Group placement over a mesh is not
-ported (one card, unsharded).
+`sync_point` on a grouped state.  Group placement over a mesh (a fleet
+sharded over several devices) is tests/test_torch_parallel.py's.
 """
 
 from __future__ import annotations
