@@ -187,8 +187,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    one leader per group and term, checksum agreement inside each group.
    The path's band-copy launches are counted from 0: one a tick.
 14b. bench.py's multiraft-telemetry: G=256 bare and with telemetry
-   (telemetry_prop_ring=64), each elected and warmed, then 8 pairs of
-   timed passes in turns: the telemetry/bare ratio's median and spread
+   (telemetry_prop_ring=64), each elected and warmed, then 4 pairs of
+   timed passes in turns (bench.py runs 8; cut here to make room for
+   phase 24): the telemetry/bare ratio's median and spread
    (bench.py's 0.8 tripwire as a note) and per-group commit p50/p99 from
    summarize_groups for a few groups.
 14c. the serving plane on the card and on the CPU at G=8 on both wires,
@@ -315,7 +316,26 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    syncs, slab and fallback ticks, peak memory after the election and
    after the steady ticks, one leader, checksums agreeing; and the band
    copy of one more tick on its [32768, 8192] rings against plain, timed
-   against its bound.
+   against its bound; last, a fresh run of the rung whose every field is
+   digested after each election tick and each of 64 steady ticks (phase
+   24's reference).
+24. the row tick (one cluster's rows over a row mesh that names cuda:0
+   four times, or every card): phase 3's case (1) (n=256 dense, drops, a
+   leader crash) and case (3) (the mailbox wire, PreVote, membership,
+   the levers, a storm) each against phase 3's card run (every field;
+   for case (3) also a digest of every field after every call and tick,
+   the same step counts, both progress branches); peak memory of the
+   rung's flow over the mesh at
+   n=4096 and 8192 (their elections), fitted as in phase 23 (over the
+   70 GiB cap the rung runs at the largest probe width and says why);
+   bench.py's 32768-sharded rung over the mesh: its election and 64
+   steady ticks held tick by tick to phase 23's digests, each call timed
+   apart from the digests: entries/s, election ticks and seconds, host
+   and CUDA-event ms a tick, cross-entry copies and bytes a tick, kernel
+   launches and kernel ms a tick (2 profiled ticks) and step host syncs
+   a tick, peak memory, each beside the card's name and power limit; one
+   leader, checksums agreeing; the band copy held to plain on shard 0's
+   chunks of one more tick, timed against its bound.
 
 Each path's band-copy launches are counted from 0 (the kernels' record
 carries them), and each phase-17 group's sched_place launches likewise.
@@ -485,7 +505,9 @@ def phase_kernel_vs_plain(torch, cuda_ops) -> int:
     return worst
 
 
-def phase_card_vs_cpu(torch, sim, cuda_ops, card: str = "cuda") -> None:
+def phase_card_vs_cpu(torch, sim, cuda_ops, card: str = "cuda") -> dict:
+    """The five runs; returns the card's side of the first and third
+    (phase 24 holds its row mesh to them)."""
     cfg = sim.SimConfig(**{**HEADLINE, **DENSE, "n": 256})
     kw = dict(prop_count=cfg.max_props, drop_rate=0.05, crash_every=40,
               down_for=8)
@@ -505,6 +527,7 @@ def phase_card_vs_cpu(torch, sim, cuda_ops, card: str = "cuda") -> None:
             f"{time.perf_counter() - t0:.2f} s")
         results[dev] = (ticks, trace.cpu(), sim.state_to_numpy(st))
     (tg, trg, sg), (tc, trc, sc) = results[card], results["cpu"]
+    case1 = {"ticks": tg, "trace": trg, "final": sg}
     check(tg == tc, f"election ticks differ: card {tg}, cpu {tc}")
     check(torch.equal(trg, trc), "run_ticks trace rows differ")
     check(sorted(sg) == sorted(sc), "state field sets differ")
@@ -556,9 +579,10 @@ def phase_card_vs_cpu(torch, sim, cuda_ops, card: str = "cuda") -> None:
     check(int(trc[:, 1].max()) > 0, "nothing committed at n=256")
     log(f"  all {len(sg)} fields (active_ttl included) and {T} trace rows "
         f"equal; the card took both branches")
-    phase_mailbox_card_vs_cpu(torch, sim, card)
+    case3 = phase_mailbox_card_vs_cpu(torch, sim, card)
     phase_levers_card_vs_cpu(torch, sim, card)
     phase_planes_card_vs_cpu(torch, sim, card)
+    return {"case1": case1, "case3": case3}
 
 
 def _member_flipped(st, target: int, removed: bool, rows) -> bool:
@@ -576,12 +600,8 @@ def _compare(sim, states, card: str, tag: str) -> int:
     return len(want)
 
 
-def phase_mailbox_card_vs_cpu(torch, sim, card: str) -> None:
-    """The mailbox wire with PreVote and dynamic membership at n=256, card
-    and CPU in lockstep, every field compared after every call: 2% drops,
-    a conf remove of a follower at tick 80 and its re-add at tick 110
-    through propose_conf, and a storm (every non-self edge dropped) at
-    ticks 123-152 so the dense fallback runs."""
+def _mailbox_case(sim, torch):
+    """Phase 3's third case: its config, ticks and drop schedule."""
     cfg = sim.SimConfig(**{**HEADLINE, **MAILBOX, "n": 256, "pre_vote": True,
                            "static_members": False, "peer_chunk": 64,
                            "active_rows": 16})
@@ -589,6 +609,19 @@ def phase_mailbox_card_vs_cpu(torch, sim, card: str) -> None:
     g = torch.Generator().manual_seed(5)
     drop = torch.rand((T, n, n), generator=g) < 0.02
     drop[123:153] |= ~torch.eye(n, dtype=torch.bool)
+    return cfg, T, drop
+
+
+def phase_mailbox_card_vs_cpu(torch, sim, card: str) -> dict:
+    """The mailbox wire with PreVote and dynamic membership at n=256, card
+    and CPU in lockstep, every field compared after every call: 2% drops,
+    a conf remove of a follower at tick 80 and its re-add at tick 110
+    through propose_conf, and a storm (every non-self edge dropped) at
+    ticks 123-152 so the dense fallback runs.  Returns the card run's
+    conf target, a digest of every field after each call and tick, its
+    final fields and its step counts."""
+    cfg, T, drop = _mailbox_case(sim, torch)
+    n = cfg.n
     log(f"  mailbox (latency 2, jitter 1, inflight 4), PreVote, dynamic "
         f"membership, peer_chunk=64, active_rows=16: {T} ticks in lockstep, "
         f"conf remove at tick 80, re-add at 110, storm at ticks 123-152:")
@@ -596,6 +629,7 @@ def phase_mailbox_card_vs_cpu(torch, sim, card: str) -> None:
     counts = {d: {k: 0 for k in sim.kernel.COUNTS} for d in states}
     spent = {d: 0.0 for d in states}
     target = None
+    digs = []
 
     for t in range(T):
         if t in (80, 110):
@@ -607,6 +641,7 @@ def phase_mailbox_card_vs_cpu(torch, sim, card: str) -> None:
                 states[d] = sim.propose_conf(states[d], cfg, target, t == 80,
                                              device=d)
             _compare(sim, states, card, f"propose_conf at tick {t}")
+            digs.append(state_digests(torch, sim, states[card], n))
         for d in states:
             sim.kernel.reset_counts()
             t0 = time.perf_counter()
@@ -617,6 +652,7 @@ def phase_mailbox_card_vs_cpu(torch, sim, card: str) -> None:
             for k, v in sim.kernel.COUNTS.items():
                 counts[d][k] += v
         fields = _compare(sim, states, card, f"tick {t}")
+        digs.append(state_digests(torch, sim, states[card], n))
         if t == 109:
             flipped = _member_flipped(states["cpu"], target, True,
                                       set(range(n)) - {target})
@@ -637,6 +673,9 @@ def phase_mailbox_card_vs_cpu(torch, sim, card: str) -> None:
     check(int(states["cpu"].commit.max()) > 0, "nothing committed")
     log(f"  all {fields} fields equal after every call and tick; row "
         f"{target} left every other row's view and came back to all")
+    return {"target": target, "digests": torch.stack(digs).cpu(),
+            "final": sim.state_to_numpy(states[card]),
+            "counts": counts[card]}
 
 
 def phase_levers_card_vs_cpu(torch, sim, card: str) -> None:
@@ -1971,6 +2010,7 @@ def phase_oracle(torch, dst, dst13: dict, card: str = "cuda") -> dict:
 
 MULTIRAFT_GROUPS = 1024      # bench.py's multiraft-1024x3
 MULTIRAFT_TEL_GROUPS = 256   # bench.py's multiraft-telemetry
+MULTIRAFT_TEL_PAIRS = 4      # timed pairs in turns (bench.py: 8)
 
 
 def _group_safety(st) -> tuple[bool, bool]:
@@ -2132,15 +2172,17 @@ def phase_multiraft(torch, sim, cuda_ops, card: str = "cuda",
 def phase_multiraft_telemetry(torch, sim, card: str = "cuda",
                               groups: int = MULTIRAFT_TEL_GROUPS) -> dict:
     """bench.py's multiraft-telemetry: G=256 groups of 3 bare and with
-    telemetry (telemetry_prop_ring=64), elected and warmed, then 8 pairs of
-    timed passes in turns; the telemetry/bare ratio (median) and its
-    spread, and per-group p50/p99 from summarize_groups."""
+    telemetry (telemetry_prop_ring=64), elected and warmed, then
+    MULTIRAFT_TEL_PAIRS pairs of timed passes in turns (bench.py: 8);
+    the telemetry/bare ratio (median) and its spread, and per-group
+    p50/p99 from summarize_groups."""
     from swarmkit_tpu_torch.telemetry import summarize_groups
     from swarmkit_tpu_torch.tools import bench
 
     G = groups
     t0 = time.perf_counter()
-    ab = bench.multiraft_telemetry_ab(G, 3, 1_000_000, torch.device(card))
+    ab = bench.multiraft_telemetry_ab(G, 3, 1_000_000, torch.device(card),
+                                      pairs=MULTIRAFT_TEL_PAIRS)
     secs = time.perf_counter() - t0
     summ = summarize_groups(ab["final_telemetry"], ab["cfg"])
     check(all(s["enabled"] and s["commit"]["total"] > 0 for s in summ),
@@ -2621,12 +2663,21 @@ def events_ms(torch, fn, reps: int = 3, warm: bool = True) -> float:
 def _profiled_launches(torch, fn) -> int:
     """The kernel launches of fn(), under torch.profiler tracing the card
     only (tracing the host's ops too costs seconds at ~50,000 launches)."""
+    return _profiled_kernels(torch, fn)[0]
+
+
+def _profiled_kernels(torch, fn) -> tuple:
+    """(kernel launches, kernel ms) of fn(), the card traced alone."""
+    from swarmkit_tpu_torch.tools.profile_tick import _device_us
+
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    return sum(e.count for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA)
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    return (sum(e.count for e in kernels),
+            sum(_device_us(e) for e in kernels) / 1e3)
 
 
 def phase_scheduler(torch, cuda_ops, card: str = "cuda") -> dict:
@@ -4010,38 +4061,69 @@ def _sharded_wire(torch, devices, dev) -> dict:
     return dict(shards=mesh.size)
 
 
+def _cards(devices) -> list:
+    """The distinct cards of a mesh's entries (None: the current card)."""
+    cards = sorted({d.index for d in devices or ()
+                    if d.type == "cuda" and d.index is not None})
+    return cards or [None]
+
+
+def _sync_cards(torch, devices=None) -> None:
+    for c in _cards(devices):
+        torch.cuda.synchronize(c)
+
+
+def _reset_peaks(torch, devices=None) -> None:
+    for c in _cards(devices):
+        torch.cuda.reset_peak_memory_stats(c)
+
+
+def _peak(torch, devices=None) -> int:
+    """The highest card's peak device memory since the last reset."""
+    return max(torch.cuda.max_memory_allocated(c) for c in _cards(devices))
+
+
+def _held(torch, devices=None) -> int:
+    """The device memory the fullest card holds now."""
+    return max(torch.cuda.memory_allocated(c) for c in _cards(devices))
+
+
 def _rung_run(torch, sim, cuda_ops, parallel, cfg, dev, steady: int,
-              label: str) -> dict:
+              label: str, devices=None) -> dict:
     """bench.py's rung flow at cfg.n: the state placed on row_mesh(n)
-    over the local cards, bench.py's chunked election, then `steady`
-    64-tick chunks of run_ticks(prop_count=max_props): host and device ms
-    per tick, peaks after the election and after the steady ticks."""
-    torch.cuda.synchronize()
+    over the local cards (or over `devices`, every entry a shard),
+    bench.py's chunked election, then `steady` 64-tick chunks of
+    run_ticks(prop_count=max_props): host and device ms per tick, peaks
+    after the election and after the steady ticks."""
+    _sync_cards(torch, devices)
     torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    mesh = parallel.row_mesh(cfg.n, parallel.local_devices(dev))
-    check(mesh.size == 1, f"{label}: a row mesh of {mesh.size} cards (the "
-          f"multi-device row tick is not ported)")
-    base = torch.cuda.memory_allocated()
+    _reset_peaks(torch, devices)
+    mesh = parallel.row_mesh(cfg.n, devices if devices is not None
+                             else parallel.local_devices(dev))
+    if devices is not None:
+        check(mesh.size == len(devices),
+              f"{label}: a row mesh of {mesh.size} of {len(devices)} entries")
+    base = _held(torch, devices)
     st = parallel.shard_rows(sim.init_state(cfg, device=dev), mesh)
-    peak_init = torch.cuda.max_memory_allocated()
+    peak_init = _peak(torch, devices)
     sim.kernel.reset_counts()
     t0 = time.perf_counter()
     ticks = 0
     while ticks < 2000 and not bool(sim.has_leader(st)):
         st, t = sim.run_until_leader(st, cfg, max_ticks=256, device=dev)
         ticks += t
-    torch.cuda.synchronize()
+    _sync_cards(torch, devices)
     t_elect = time.perf_counter() - t0
     check(bool(sim.has_leader(st)), f"{label}: no leader in 2000 ticks")
     e_counts = dict(sim.kernel.COUNTS)
-    peak_elect = torch.cuda.max_memory_allocated()
+    peak_elect = _peak(torch, devices)
     out = dict(n=cfg.n, election_ticks=ticks, election_s=t_elect,
                election_counts=e_counts, base_bytes=base,
                peak_init_bytes=peak_init, peak_election_bytes=peak_elect)
     if steady:
         sim.kernel.reset_counts()
         cuda_ops.reset_launches()
+        parallel.reset_exchange()
         host, dev_ms, committed = [], [], 0
         for _ in range(steady):
             st, h, e, c = _timed_ticks(torch, sim, cfg, st, 64, device=dev)
@@ -4051,8 +4133,9 @@ def _rung_run(torch, sim, cuda_ops, parallel, cfg, dev, steady: int,
         out.update(host_ms=host, device_ms=dev_ms, committed=committed,
                    entries_per_s=committed / (sum(host) * 64 / 1e3),
                    steady_counts=dict(sim.kernel.COUNTS),
+                   exchange=dict(parallel.EXCHANGE),
                    band_copy_launches=cuda_ops.LAUNCHES["append_band_copy"])
-    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    out["peak_bytes"] = _peak(torch, devices)
     out["state"] = st
     return out
 
@@ -4088,13 +4171,7 @@ def phase_rung(torch, sim, cuda_ops, card: str = "cuda", n: int = RUNG,
             f"{r['peak_election_bytes'] / 2**30:.3f} after the election; "
             f"{r['base_bytes'] / 2**30:.3f} held before)")
     L = cfg_at(n).log_len
-    (n1, p1), (n2, p2) = ((r["n"], r["peak_bytes"] - r["base_bytes"])
-                          for r in runs)
-    # p = a N^2 + b N L through both probes
-    det = n1 * n1 * n2 * L - n2 * n2 * n1 * L
-    a = (p1 * n2 * L - p2 * n1 * L) / det
-    b = (n1 * n1 * p2 - n2 * n2 * p1) / det
-    predicted = a * n * n + b * n * L
+    a, b, predicted = _peak_fit(runs, n, L)
     log(f"  the run's own peak memory fit a N^2 + b N L: a = {a:.3f} B, "
         f"b = {b:.3f} B; predicted at n={n}: {predicted / 2**30:.2f} GiB")
     check(predicted + torch.cuda.memory_allocated()
@@ -4145,7 +4222,404 @@ def phase_rung(torch, sim, cuda_ops, card: str = "cuda", n: int = RUNG,
         f"{bc['library_ms']:.4f}, bound {bc['bound_ms']:.4f}")
     r.update(probes=runs, predicted_bytes=predicted, band_copy=bc,
              leaders=leaders)
+    # phase 24's reference: a fresh run of the rung, a digest of every field
+    # after each election tick and each of ROW_STEADY steady ticks (so the
+    # one-card state and the sharded one are never alive at once)
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    st = parallel.shard_rows(sim.init_state(cfg, device=dev),
+                             parallel.row_mesh(n, parallel.local_devices(
+                                 dev)))
+    st, ref = _digest_run(torch, sim, cfg, st, ROW_STEADY, dev)
+    del st
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    r["digests"] = ref
+    log(f"  digests of all {ref['digests'].shape[1]} fields after each of "
+        f"{ref['election_ticks']} election and {ROW_STEADY} steady ticks "
+        f"of a fresh run (phase 24's reference) in "
+        f"{time.perf_counter() - t0:.1f} s")
     return r
+
+
+def _peak_fit(runs: list, n: int, L: int) -> tuple:
+    """(a, b, predicted bytes at n) of peak = a N^2 + b N L through the
+    two probes' own peaks (their peak less what was held before)."""
+    (n1, p1), (n2, p2) = ((r["n"], r["peak_bytes"] - r["base_bytes"])
+                          for r in runs)
+    det = n1 * n1 * n2 * L - n2 * n2 * n1 * L
+    a = (p1 * n2 * L - p2 * n1 * L) / det
+    b = (n1 * n1 * p2 - n2 * n2 * p1) / det
+    return a, b, a * n * n + b * n * L
+
+
+def _weights(torch, k: int, start: int, salt: int, dev):
+    """k int32 hash weights of the indexes start .. start + k - 1."""
+    h = (torch.arange(start, start + k, dtype=torch.int64, device=dev)
+         + salt) * 0x5851F42D4C957F2D
+    return ((h ^ (h >> 29)) >> 17).to(torch.int32)
+
+
+def _leaf_digest(torch, x, r0: int):
+    """int32 digest of a tensor whose row i is the cluster's row r0 + i:
+    the sum over rows of a row weight times the row's weighted element
+    sum (int32 arithmetic wraps, so the shards' digests add up to the
+    whole tensor's)."""
+    rows = x.shape[0] if x.dim() else 1
+    flat = x.reshape(rows, -1)
+    if flat.dtype != torch.int32:
+        flat = flat.to(torch.int32)
+    wc = _weights(torch, flat.shape[1], 0, 0x9E37, x.device)
+    w = torch.int32
+    row_sums = (flat * wc).sum(1, dtype=w)
+    wr = _weights(torch, rows, r0, 0x85EB, x.device)
+    return (row_sums * wr).sum(dtype=w)
+
+
+def state_digests(torch, sim, st, n: int):
+    """An int32 digest of every present SimState field (FIELD_NAMES
+    order), one [F] tensor on the first entry; a row-sharded state's
+    digests equal its gathered state's (the cluster's own leaves are
+    gathered, a row field's shards add up)."""
+    from swarmkit_tpu_torch import parallel
+
+    sharded = isinstance(st, parallel.Sharded)
+    shards = st.shards if sharded else [st]
+    d, dev = len(shards), shards[0].term.device
+    nr = n // d
+    names = [f for f in sim.state.FIELD_NAMES
+             if getattr(shards[0], f) is not None]
+    cluster = {f for f in names if parallel._cluster_leaf(
+        f, getattr(shards[0], f), n,
+        bool(sharded and getattr(st.specs, f)), d)}
+    whole = parallel.gather(parallel.only(st, cluster)) if sharded else st
+    out = []
+    for f in names:
+        if f in cluster:
+            out.append(_leaf_digest(torch, getattr(whole, f), 0).to(dev))
+        else:
+            out.append(sum(_leaf_digest(torch, getattr(sh, f), i * nr)
+                           .to(dev) for i, sh in enumerate(shards)))
+    return torch.stack(out)
+
+
+def _digest_run(torch, sim, cfg, st, steady: int, dev, cuda_ops=None,
+                devices=None) -> tuple:
+    """The election one tick a call (run_until_leader(max_ticks=1)), then
+    `steady` proposing ticks one run_ticks call each, with a digest of
+    every field after each tick: (state, {"election_ticks",
+    "election_s": the calls' own seconds, each ended by a synchronize,
+    "digests": [ticks, F] int32 on the host, and for the steady calls
+    "host_ms" / "event_ms" a tick (host clock and CUDA events around each
+    call, ended by a synchronize; the digests outside), "committed", and
+    the step counts, cross-entry copies and band-copy launches (with
+    `cuda_ops`) over them}.  Every card of `devices` is synchronized."""
+    from swarmkit_tpu_torch import parallel
+
+    digs, ticks, t_elect = [], 0, 0.0
+    sim.kernel.reset_counts()
+    while ticks < 2000 and not bool(sim.has_leader(st)):
+        _sync_cards(torch, devices)
+        t0 = time.perf_counter()
+        st, t = sim.run_until_leader(st, cfg, max_ticks=1, device=dev)
+        _sync_cards(torch, devices)
+        t_elect += time.perf_counter() - t0
+        ticks += t
+        digs.append(state_digests(torch, sim, st, cfg.n))
+    check(bool(sim.has_leader(st)), f"n={cfg.n}: no leader in 2000 ticks")
+    e_counts = dict(sim.kernel.COUNTS)
+    peak_elect = _peak(torch, devices)
+    sim.kernel.reset_counts()
+    parallel.reset_exchange()
+    if cuda_ops is not None:
+        cuda_ops.reset_launches()
+    host, event, base = 0.0, 0.0, int(sim.committed_entries(st))
+    for _ in range(steady):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        _sync_cards(torch, devices)
+        t0 = time.perf_counter()
+        start.record()
+        st, _ = sim.run_ticks(st, cfg, 1, prop_count=cfg.max_props,
+                              device=dev)
+        end.record()
+        _sync_cards(torch, devices)
+        host += time.perf_counter() - t0
+        event += start.elapsed_time(end)
+        digs.append(state_digests(torch, sim, st, cfg.n))
+    out = {"election_ticks": ticks, "election_s": t_elect,
+           "election_counts": e_counts, "peak_election_bytes": peak_elect,
+           "digests": torch.stack(digs).cpu()}
+    if steady:
+        out.update(host_ms=host * 1e3 / steady, event_ms=event / steady,
+                   committed=int(sim.committed_entries(st)) - base,
+                   steady_counts=dict(sim.kernel.COUNTS),
+                   exchange=dict(parallel.EXCHANGE))
+        if cuda_ops is not None:
+            out["band_copy_launches"] = cuda_ops.LAUNCHES["append_band_copy"]
+    return st, out
+
+
+ROW_STEADY = 64      # the rung's steady ticks held tick by tick to phase 23's
+ROW_PROFILED = 2     # ticks under the profiler: kernel launches a tick
+
+
+def _first_diff(want, got) -> str:
+    bad = (want != got).nonzero()
+    return "none" if not len(bad) else f"tick {int(bad[0][0])} field " \
+        f"#{int(bad[0][1])}"
+
+
+def _row_case_faults(torch, sim, parallel, devices, dev, one: dict) -> dict:
+    """Phase 3's first case (the headline dense at n=256: an election,
+    then PHASE3_STEADY ticks with 5% drops and a leader crash every 40
+    ticks) over the row mesh, against phase 3's card run `one`: the
+    election ticks, the trace rows and every field equal."""
+    cfg = sim.SimConfig(**{**HEADLINE, **DENSE, "n": 256})
+    kw = dict(prop_count=cfg.max_props, drop_rate=0.05, crash_every=40,
+              down_for=8)
+    st = parallel.shard_rows(sim.init_state(cfg, device=dev),
+                             parallel.row_mesh(cfg.n, devices))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st, ticks = sim.run_until_leader(st, cfg, max_ticks=500, device=dev)
+    st, trace = sim.run_ticks(st, cfg, PHASE3_STEADY, device=dev, **kw)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    got, want = sim.state_to_numpy(parallel.gather(st)), one["final"]
+    check(ticks == one["ticks"], f"row mesh: election ticks {ticks}, one "
+          f"card {one['ticks']}")
+    check(torch.equal(trace.cpu(), one["trace"]),
+          "row mesh: run_ticks trace rows differ")
+    check(sorted(got) == sorted(want), "row mesh: field sets differ")
+    for name in want:
+        check((got[name] == want[name]).all(),
+              f"row mesh: field {name} differs from the one-card run")
+    log(f"  case (1), n=256 dense, 5% drops, a leader crash every 40 ticks: "
+        f"election {ticks} ticks + {PHASE3_STEADY} ticks over "
+        f"{len(devices)} entries in {secs:.2f} s; all {len(want)} fields "
+        f"and {len(trace)} trace rows equal to phase 3's card run")
+    return {"fields": len(want), "sharded_s": secs, "election_ticks": ticks}
+
+
+def _row_case_mailbox(torch, sim, parallel, devices, dev, one: dict) -> dict:
+    """Phase 3's third case (the mailbox wire, PreVote, dynamic members,
+    peer_chunk=64, active_rows=16 at n=256: 155 ticks, a follower removed
+    at tick 80 and re-added at 110, a storm at 123-152) over the row mesh,
+    against phase 3's card run `one`: a digest of every field after every
+    call and tick, every field at the end, the same step counts, and both
+    progress branches taken."""
+    cfg, T, drop = _mailbox_case(sim, torch)
+    n, target = cfg.n, one["target"]
+    st = parallel.shard_rows(sim.init_state(cfg, device=dev),
+                             parallel.row_mesh(n, devices))
+    counts = {c: 0 for c in sim.kernel.COUNTS}
+    digs, spent = [], 0.0
+    for t in range(T):
+        if t in (80, 110):
+            st = sim.propose_conf(st, cfg, target, t == 80, device=dev)
+            digs.append(state_digests(torch, sim, st, n))
+        sim.kernel.reset_counts()
+        t0 = time.perf_counter()
+        st = sim.step(st, cfg, drop=drop[t].to(dev),
+                      prop_count=cfg.max_props,
+                      payload_fn=sim.run._payload_at, device=dev)
+        spent += time.perf_counter() - t0
+        for c, v in sim.kernel.COUNTS.items():
+            counts[c] += v
+        digs.append(state_digests(torch, sim, st, n))
+    got = torch.stack(digs).cpu()
+    check(torch.equal(got, one["digests"]), f"row mesh: field digests "
+          f"differ ({_first_diff(one['digests'], got)})")
+    final = sim.state_to_numpy(parallel.gather(st))
+    check(sorted(final) == sorted(one["final"]),
+          "row mesh: field sets differ")
+    for name in final:
+        check((final[name] == one["final"][name]).all(),
+              f"row mesh: field {name} differs at the end")
+    check(counts == one["counts"], f"branch counts differ: {counts} vs "
+          f"{one['counts']}")
+    check(counts["slab_ticks"] > 0 and counts["dense_fallback_ticks"] > 0,
+          f"the row mesh did not take both progress branches: {counts}")
+    log(f"  case (3), n=256 mailbox + PreVote + membership: {T} ticks over "
+        f"{len(devices)} entries in {spent:.2f} s; the digests of all "
+        f"{len(final)} fields after every call and tick and every field at "
+        f"the end equal to phase 3's card run; slab ticks "
+        f"{counts['slab_ticks']}, dense-fallback ticks "
+        f"{counts['dense_fallback_ticks']}, step host syncs "
+        f"{counts['host_syncs']}")
+    return {"fields": len(final), "sharded_s": spent, "counts": counts}
+
+
+def phase_row_tick(torch, sim, cuda_ops, rung23: dict, cases3: dict,
+                   card: str = "cuda", n: int = RUNG,
+                   probes=RUNG_PROBES) -> dict:
+    """Phase 24: the multi-device row tick.  One cluster's rows over a row
+    mesh (cuda:0 named SHARD_ENTRIES times, or every card): phase 3's
+    cases (1) and (3) against its card runs (`cases3`); peak memory at the
+    probe widths (election and 64 steady ticks) fitted as a N^2 + b N L;
+    bench.py's 32768-sharded rung (at the largest probe width if the fit
+    says the cap would not hold, said so) election and ROW_STEADY steady
+    ticks held tick by tick to phase 23's field digests (the steady ones
+    timed apart from the digests); the band copy held to plain on one
+    shard's chunks."""
+    from swarmkit_tpu_torch import parallel
+    from swarmkit_tpu_torch.tools import bench
+
+    if card == "cuda":
+        devices = shard_devices(torch)
+        dev = torch.device("cuda", torch.cuda.current_device())
+        line = card_line()
+    else:
+        dev = torch.device(card)
+        devices = [dev] * SHARD_ENTRIES
+        line = card
+    d = len(devices)
+    out = {"entries": [str(x) for x in devices], "card": line}
+    out["case1"] = _row_case_faults(torch, sim, parallel, devices, dev,
+                                    cases3["case1"])
+    out["case3"] = _row_case_mailbox(torch, sim, parallel, devices, dev,
+                                     cases3["case3"])
+
+    name, rung_n, kw = bench.SHARDED_RUNG
+
+    def cfg_at(width):
+        return bench.bench_cfg(width, 7, bench.election_tick_for(width),
+                               peer_chunk=kw["peer_chunk"])
+    runs = []
+    for width in probes:
+        # the peak comes in the election (phase 23): no steady ticks
+        r = _rung_run(torch, sim, cuda_ops, parallel, cfg_at(width), dev, 0,
+                      f"n={width} over {d} entries", devices=devices)
+        del r["state"]
+        runs.append(r)
+        log(f"  probe n={width} over {d} entries: election "
+            f"{r['election_ticks']} ticks in {r['election_s']:.2f} s, peak "
+            f"{r['peak_bytes'] / 2**30:.3f} GiB ({r['base_bytes'] / 2**30:.3f}"
+            f" held before) [{line}]")
+    a, b, predicted = _peak_fit(runs, n, cfg_at(n).log_len)
+    held = _held(torch, devices)
+    width, why = n, None
+    if predicted + held >= RUNG_MEMORY_CAP_GIB * 2**30:
+        width = max(w for w, r in zip(probes, runs)
+                    if r["peak_bytes"] < RUNG_MEMORY_CAP_GIB * 2**30)
+        why = (f"the fit predicts {predicted / 2**30:.2f} GiB at n={n} over "
+               f"{d} entries, above the {RUNG_MEMORY_CAP_GIB} GiB cap: the "
+               f"rung runs at n={width}, the largest probe width")
+        log(f"  {why}")
+    log(f"  peak fit a N^2 + b N L over {d} entries: a = {a:.3f} B, b = "
+        f"{b:.3f} B; predicted at n={n}: {predicted / 2**30:.2f} GiB "
+        f"[{line}]")
+    cfg = cfg_at(width)
+    if width == n:
+        ref = rung23["digests"]
+    else:
+        st = sim.init_state(cfg, device=dev)
+        st, ref = _digest_run(torch, sim, cfg, st, ROW_STEADY, dev)
+        del st
+    _sync_cards(torch, devices)
+    torch.cuda.empty_cache()
+    _reset_peaks(torch, devices)
+    base = _held(torch, devices)
+    st = parallel.shard_rows(sim.init_state(cfg, device=dev),
+                             parallel.row_mesh(width, devices))
+    peak_init = _peak(torch, devices)
+    t0 = time.perf_counter()
+    st, got = _digest_run(torch, sim, cfg, st, ROW_STEADY, dev, cuda_ops,
+                          devices)
+    t_digest_run = time.perf_counter() - t0
+    check(got["election_ticks"] == ref["election_ticks"],
+          f"row-sharded rung: election {got['election_ticks']} ticks, one "
+          f"card {ref['election_ticks']}")
+    check(torch.equal(got["digests"], ref["digests"]),
+          f"row-sharded rung: field digests differ from the one-card run "
+          f"({_first_diff(ref['digests'], got['digests'])})")
+    ticks_held, fields = got["digests"].shape
+    host_ms, event_ms = got["host_ms"], got["event_ms"]
+    committed, counts = got["committed"], got["steady_counts"]
+    exch, bc_launches = got["exchange"], got["band_copy_launches"]
+    peak = _peak(torch, devices)
+    box = [st]
+    del st
+    # kernel launches and kernel time a tick, the card alone profiled
+
+    def profiled():
+        box[0], _ = sim.run_ticks(box[0], cfg, ROW_PROFILED,
+                                  prop_count=cfg.max_props, device=dev)
+    launches, kernel_ms = (x / ROW_PROFILED
+                           for x in _profiled_kernels(torch, profiled))
+    leaders = int(sim.leader_mask(box[0]).sum())
+    check(leaders == 1, f"row-sharded rung: {leaders} leaders")
+    check(committed > 0, "row-sharded rung: nothing committed")
+    check(_checksums_agree(sim, box[0]),
+          "row-sharded rung: checksum divergence")
+    check(bc_launches > 0, "row-sharded rung: no band-copy launch")
+    check(exch["copies"] > 0, "row-sharded rung: no cross-entry copy")
+    # the band copy on one shard's chunks: the first shard's calls of one
+    # more tick (each shard writes its chunks before the next one runs)
+    with _BandCopies(cuda_ops, keep=cfg.band_chunks) as rec:
+        box[0], _ = sim.run_ticks(box[0], cfg, 1, prop_count=cfg.max_props,
+                                  device=dev)
+    _sync_cards(torch, devices)
+    check(len(rec.calls) == cfg.band_chunks,
+          f"{len(rec.calls)} band-copy calls recorded")
+    box.clear()
+    bc = _time_band_copies(torch, cuda_ops, rec.calls)
+    bc["chunks"] = [list(c[5].shape) for c in rec.calls]
+    bc["ring"] = list(rec.calls[0][0].shape)
+    del rec
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    check(bc["err"] == 0, f"kernel != plain on a shard's chunks "
+          f"({bc['err']})")
+    t = ROW_STEADY
+    rate = committed / (host_ms * t / 1e3)
+    ec = got["election_counts"]
+    log(f"  {name} over {d} entries (n={width}, {width // d} rows an "
+        f"entry), held to phase 23's one-card run: election "
+        f"{ref['election_ticks']} ticks and {ROW_STEADY} steady ticks, "
+        f"all {fields} field digests equal after each of the "
+        f"{ticks_held} ticks ({t_digest_run:.1f} s with the digests)")
+    for figure in (
+            f"election {got['election_ticks']} ticks in "
+            f"{got['election_s']:.2f} s (slab {ec['slab_ticks']}, dense "
+            f"fallback {ec['dense_fallback_ticks']})",
+            f"{t} steady ticks (one run_ticks call each, timed apart from "
+            f"the digests): {rate:,.1f} entries/s; ms/tick host "
+            f"{host_ms:.3f}, CUDA events {event_ms:.3f}, kernels "
+            f"{kernel_ms:.3f} (profiled)",
+            f"cross-entry copies {exch['copies'] / t:.1f}/tick, "
+            f"{exch['bytes'] / t / 2**20:.3f} MiB/tick, collectives "
+            f"{exch['collectives'] / t:.1f}/tick",
+            f"kernel launches {launches:.1f}/tick (profiled, "
+            f"{ROW_PROFILED} ticks); append_band_copy {bc_launches / t:.2f}"
+            f"/tick; step host syncs {counts['host_syncs'] / t:.2f}/tick; "
+            f"slab {counts['slab_ticks']} / fallback "
+            f"{counts['dense_fallback_ticks']}",
+            f"peak device memory {peak_init / 2**30:.3f} GiB after "
+            f"init_state, {got['peak_election_bytes'] / 2**30:.3f} after "
+            f"the election, {peak / 2**30:.3f} after the steady ticks "
+            f"({base / 2**30:.3f} held before; fit {predicted / 2**30:.2f})",
+            f"band copy on shard 0's chunks {bc['chunks']} of {bc['ring']} "
+            f"rings: kernel {bc['ms']:.4f} ms, plain {bc['plain_ms']:.4f}, "
+            f"torch.where x2 {bc['library_ms']:.4f}, bound "
+            f"{bc['bound_ms']:.4f}"):
+        log(f"  [{line}] {figure}")
+    out.update(n=width, cut=why, probes=runs, predicted_bytes=predicted,
+               election_ticks=got["election_ticks"],
+               election_s=got["election_s"], election_counts=ec,
+               ticks_held=ticks_held, fields=fields, host_ms=host_ms,
+               device_ms=event_ms, committed=committed, entries_per_s=rate,
+               copies_per_tick=exch["copies"] / t,
+               bytes_per_tick=exch["bytes"] / t,
+               collectives_per_tick=exch["collectives"] / t,
+               launches_per_tick=launches, kernel_ms=kernel_ms,
+               band_copy_launches=bc_launches,
+               host_syncs_per_tick=counts["host_syncs"] / t,
+               steady_counts=counts, peak_init_bytes=peak_init,
+               peak_election_bytes=got["peak_election_bytes"],
+               peak_bytes=peak, base_bytes=base, band_copy=bc)
+    return out
 
 
 def phase_sharded(torch, sim, cuda_ops, mc16: dict, card: str = "cuda",
@@ -4217,7 +4691,7 @@ def main() -> int:
     err2 = phase_kernel_vs_plain(torch, cuda_ops)
 
     stage("phase 3: the port on the card vs on the CPU (n=256)")
-    phase_card_vs_cpu(torch, sim, cuda_ops)
+    cases3 = phase_card_vs_cpu(torch, sim, cuda_ops)
 
     stage("phase 4: the main path at full width (n=4096, the bench's levers)")
     head = phase_headline(torch, sim, cuda_ops)
@@ -4328,6 +4802,15 @@ def main() -> int:
     mesh23["secs"] = time.perf_counter() - t23
     mc16["n3h8"].pop("summary")
     log(f"  phase 23 in {mesh23['secs']:.1f} s")
+    stage(f"phase 24: the row tick: one cluster's rows over "
+          f"{len(shard_devices(torch))} entries (phase 3's cases (1) and (3), "
+          f"bench.py's n={RUNG} rung held to phase 23's)")
+    t24 = time.perf_counter()
+    row24 = phase_row_tick(torch, sim, cuda_ops, mesh23["rung"], cases3)
+    del cases3
+    row24["secs"] = time.perf_counter() - t24
+    del mesh23["rung"]["digests"]
+    log(f"  phase 24 in {row24['secs']:.1f} s")
 
     elapsed = time.perf_counter() - started
     log(f"all phases passed in {elapsed:.1f} s")
@@ -4346,7 +4829,8 @@ def main() -> int:
                                  "differential": diff19,
                                  "fault_sweep": fault20,
                                  "executor_rest": exec21,
-                                 "device_wire": wire22, "meshes": mesh23},
+                                 "device_wire": wire22, "meshes": mesh23,
+                                 "row_tick": row24},
                                 default=str))
     records = [{
         "name": "append_band_copy", "route": "cuda",
@@ -4398,6 +4882,11 @@ def main() -> int:
         "rung_plain_ms": mesh23["rung"]["band_copy"]["plain_ms"],
         "rung_bound_ms": mesh23["rung"]["band_copy"]["bound_ms"],
         "rung_library_ms": mesh23["rung"]["band_copy"]["library_ms"],
+        "row_tick_launches": row24["band_copy_launches"],
+        "row_tick_ms": row24["band_copy"]["ms"],
+        "row_tick_plain_ms": row24["band_copy"]["plain_ms"],
+        "row_tick_bound_ms": row24["band_copy"]["bound_ms"],
+        "row_tick_library_ms": row24["band_copy"]["library_ms"],
         "max_abs_err": max(err2, k["err"], err9, rmix["err"], planes["err"],
                            dst13["sweep_256"]["err"],
                            mraft["band_copy"]["err"],
@@ -4407,7 +4896,8 @@ def main() -> int:
                            fault20["band_copy"]["err"],
                            mesh23["dst"]["err"], mesh23["fleet"]["err"],
                            mesh23["mc"]["err"],
-                           mesh23["rung"]["band_copy"]["err"]),
+                           mesh23["rung"]["band_copy"]["err"],
+                           row24["band_copy"]["err"]),
         "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
         "bound_by": "bytes", "library_ms": k["library_ms"]}]
     for name, line, bound_by in (("matmul", 76, "operations"),

@@ -216,10 +216,10 @@ def effective_faults(role: torch.Tensor, drop_t: torch.Tensor,
 # ---------------------------------------------------------------------------
 # The pre-step verbs.  Each is pure in (state, schedule slice), row-local,
 # runs on one cluster's state or a batched one, and emits its flightrec
-# signature when the state carries an event ring (one cluster only: the
-# recorder does not run under a batch axis).  COMPOSITION ORDER (explore
-# and repro apply them in this fixed sequence so two active attacks never
-# silently mask each other):
+# signature when the state carries an event ring (a batched state's rings
+# take each cluster's events, as JAX's vmap gives them).  COMPOSITION
+# ORDER (explore and repro apply them in this fixed sequence so two active
+# attacks never silently mask each other):
 #   term_inflate -> rejoin_campaign -> vote_equivocate -> transfer_abuse
 #   -> append_flood -> disk_stall -> snap_corrupt -> lost_tail
 #   -> torn_write
@@ -227,7 +227,8 @@ def effective_faults(role: torch.Tensor, drop_t: torch.Tensor,
 
 def _emit_attack(state, mask, code: int, a0, a1):
     """Append an attack-signature event on masked rows (a no-op when the
-    state carries no ring, as a batched state never does)."""
+    state carries no ring); on a batched state each argument is [B, N] or
+    a per-cluster [B, 1]."""
     if state.ev_buf is None:
         return state
     ev_buf, ev_pos = fc.ring_append(state.ev_buf, state.ev_pos, mask,
@@ -298,8 +299,9 @@ def apply_append_flood(state, cfg: SimConfig, flood_t: torch.Tensor,
                         device=state.term.device)
     if out.ev_buf is None:
         return out
-    return _emit_attack(out, sig, fc.ATTACK_FLOOD, cnt.expand(cfg.n),
-                        state.last - state.commit)
+    return _emit_attack(out, sig, fc.ATTACK_FLOOD,
+                        cnt[:, None] if _batched(state.role)
+                        else cnt.expand(cfg.n), state.last - state.commit)
 
 
 def apply_transfer_abuse(state, cfg: SimConfig, abuse_t: torch.Tensor,
@@ -332,7 +334,8 @@ def apply_transfer_abuse(state, cfg: SimConfig, abuse_t: torch.Tensor,
         elapsed=torch.where(changed, 0, state.elapsed))
     if out.ev_buf is None:
         return out
-    return _emit_attack(out, req, fc.ATTACK_TRANSFER, tgt.expand(n), cool)
+    return _emit_attack(out, req, fc.ATTACK_TRANSFER,
+                        tgt if _batched(state.role) else tgt.expand(n), cool)
 
 
 def _recover_fields(state, g, new_last):

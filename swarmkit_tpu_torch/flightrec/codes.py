@@ -123,10 +123,29 @@ def ring_append(ev_buf: torch.Tensor, ev_pos: torch.Tensor,
     untagged ring).  Rows where mask is False keep their slot and cursor.
     Returns (ev_buf, new ev_pos).
 
-    The tick appends through ring_append_many; nothing in the package calls
-    this one yet.  In the JAX package it is how the dst verbs write their
-    ATTACK_*/RECOVER_* events, so it stays for their port; the tests hold
-    ring_append_many to it."""
+    B clusters' rings, ev_buf [B, N, cap, W] with ev_pos [B, N], mask
+    [B, N] and the tick [B], append as one ring of B*N rows; each argument
+    or tag broadcasts against [B, N] (a per-cluster value as [B, 1]).
+
+    The dst verbs (dst/schedule.py) write their ATTACK_*/RECOVER_* events
+    through it, one cluster's state or a batched one; the tick appends
+    through ring_append_many, which the tests hold to it."""
+    if ev_buf.dim() == 4:
+        b, n = ev_buf.shape[:2]
+
+        def flat(x):
+            if not isinstance(x, torch.Tensor):
+                return x
+            if x.dtype != torch.bool:
+                x = x.to(I32)
+            return x.expand(b, n).reshape(-1)
+
+        tick_rows = torch.as_tensor(tick, device=ev_buf.device).to(I32) \
+            .reshape(-1, 1).expand(b, n).reshape(-1)
+        _, pos = ring_append(
+            ev_buf.view((b * n,) + ev_buf.shape[2:]), ev_pos.reshape(-1),
+            flat(mask), tick_rows, code, flat(arg0), flat(arg1), flat(tag))
+        return ev_buf, pos.view(b, n)
     n, cap, width = ev_buf.shape
     dev = ev_buf.device
     node = torch.arange(n, device=dev)

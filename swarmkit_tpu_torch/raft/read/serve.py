@@ -22,7 +22,10 @@ reduction).
 Under the tick's batch axis (``bx`` on, raft/sim/batch.py: B clusters,
 every register [B, N], the tick [B, 1]) each phase stays inside its
 cluster: the submit goal is each cluster's own ``max(commit)`` and the
-follower forward reads its own cluster's leader row.
+follower forward reads its own cluster's leader row.  On a row shard
+(``bx.rx``) the registers are the shard's [N/D] rows: the goal is the
+maximum over every shard, and the forward reads the leader's row from
+the shard that holds it.
 """
 
 from __future__ import annotations
@@ -73,6 +76,8 @@ def submit(cfg: SimConfig, regs: ReadRegs, alive: torch.Tensor,
     refill = alive & (regs.pend == 0)
     # the goal is a value reduction: the cluster's own acked-write frontier
     frontier = commit.amax(-1, keepdim=True) if bx.on else commit.amax()
+    if bx.rx is not None:
+        frontier = bx.rx.allreduce(frontier, "max")
     return regs._replace(
         pend=torch.where(refill, cfg.read_batch, regs.pend),
         goal=torch.where(refill, frontier, regs.goal),
@@ -84,10 +89,11 @@ def stamp(cfg: SimConfig, regs: ReadRegs, *, alive: torch.Tensor,
           commit: torch.Tensor, commit_term_ok: torch.Tensor,
           q_ok: torch.Tensor, transferee: torch.Tensor, now: torch.Tensor,
           drop: torch.Tensor,
-          bx: Bx = NOBATCH) -> tuple[ReadRegs, torch.Tensor]:
+          bx: Bx = NOBATCH, drop_t=None) -> tuple[ReadRegs, torch.Tensor]:
     """R1: renew leases, then stamp pending batches.  Returns (regs,
-    confirm), confirm[i] = row i vouched for its leadership this tick."""
-    n = regs.pend.shape[-1]
+    confirm), confirm[i] = row i vouched for its leadership this tick.
+    A row shard passes `drop_t`, its rows of the transposed drop matrix."""
+    n = regs.pend.shape[-1] if bx.rx is None else bx.rx.n
     is_leader = (role == LEADER) & alive
     lease_until = lease.renew(cfg, regs.lease_until, role, q_ok, transferee,
                               now)
@@ -99,14 +105,19 @@ def stamp(cfg: SimConfig, regs: ReadRegs, *, alive: torch.Tensor,
     # follower read: forward to the known leader (clipped, so a NONE lead
     # reads row 0 and is gated off by has_lead), stamp with that row's
     # commit under its gates, when both directions of the edge are clean
-    node = torch.arange(n, device=lead.device)
     li = torch.clamp(lead, 0, n - 1).to(torch.int64)
+    if bx.rx is None:
+        node = torch.arange(n, device=lead.device)
+        rt_clean = ~bx.at(drop, node, li) & ~bx.at(drop, li, node)
+    else:
+        node = bx.rx.node()
+        rt_clean = ~drop.gather(1, li[:, None])[:, 0] \
+            & ~drop_t.gather(1, li[:, None])[:, 0]
     has_lead = (lead != NONE) & (lead != node)
     # the leader row's registers, read inside each cluster
-    rt_clean = ~bx.at(drop, node, li) & ~bx.at(drop, li, node)
     stamp_f = unstamped & alive & ~is_leader & has_lead \
-        & (term == bx.take(term, li)) & bx.take(confirm, li) & rt_clean
-    idx = torch.where(stamp_f, bx.take(commit, li), idx)
+        & (term == bx.gtake(term, li)) & bx.gtake(confirm, li) & rt_clean
+    idx = torch.where(stamp_f, bx.gtake(commit, li), idx)
     return regs._replace(idx=idx, lease_until=lease_until), confirm
 
 

@@ -4,6 +4,16 @@ leading axis of every SimState field.
 `Bx` is the one place that knows how that axis is laid out; the tick
 (raft/sim/kernel.py) and the read path (raft/read/serve.py) index through
 it, so the unbatched program is the same op for op with or without it.
+
+It also carries the row exchange of a row-sharded tick (`rx`,
+parallel.Rx): one cluster's rows split over the entries of a row mesh,
+each shard holding rows [r0, r1) of every row-indexed field with all N
+columns.  Then the helpers that read across rows meet the other shards:
+`row` all-gathers the [N] vector it broadcasts, `T` is the all-to-all
+transpose, `diag` the shard's rows of the diagonal, `csum` a sum over
+shards, `cmax` / `cany` the reductions over the row axis, and `gtake` /
+`gat` read other rows by global row id.  Without an exchange (`rx` None,
+every unsharded and every batched tick) each is today's op.
 """
 
 from __future__ import annotations
@@ -11,6 +21,10 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+
+from swarmkit_tpu_torch.parallel import current_rx
+
+_AMBIENT = object()
 
 
 class Bx:
@@ -34,9 +48,29 @@ class Bx:
     each cluster's own active rows: `take` gathers them, `put_rows`
     writes them back."""
 
-    def __init__(self, batch: Optional[int] = None):
+    def __init__(self, batch: Optional[int] = None, rx=_AMBIENT):
         self.on = batch is not None
         self.B = batch
+        # the row exchange: the calling shard's (parallel.current_rx) unless
+        # given; a batched state never shards its rows
+        self.rx = current_rx() if rx is _AMBIENT else rx
+        if self.rx is not None and self.on:
+            raise NotImplementedError("a batched state over a row mesh")
+        # the shard that keeps the host's counts (every tick has one)
+        self.lead = self.rx is None or self.rx.lead
+        # the tick's all-gathers by input tensor (its [N] vectors are never
+        # written in place, and a kept input cannot lend its id to another)
+        self._whole: dict = {}
+
+    def full(self, x):
+        """An [N] vector whole: this shard's [N/D] rows all-gathered (once
+        a tensor for the life of this Bx, one tick's)."""
+        if self.rx is None:
+            return x
+        hit = self._whole.get(id(x))
+        if hit is None:
+            hit = self._whole[id(x)] = (x, self.rx.allgather(x))
+        return hit[1]
 
     def d(self, dim):
         """Reduction axis (int or tuple) `dim` of the unbatched tensor."""
@@ -56,7 +90,7 @@ class Bx:
 
     def row(self, x):
         """[.., N] -> [.., 1, N]."""
-        return x[:, None, :] if self.on else x[None, :]
+        return x[:, None, :] if self.on else self.full(x)[None, :]
 
     def slot(self, x):
         """[.., N, N] -> [.., N, N, 1]: an edge value per mailbox slot."""
@@ -68,16 +102,50 @@ class Bx:
 
     def row_k(self, x):
         """[.., N] -> [.., 1, N, 1]."""
-        return x[:, None, :, None] if self.on else x[None, :, None]
+        return x[:, None, :, None] if self.on \
+            else self.full(x)[None, :, None]
 
     def T(self, x):
         """Transpose of the last two axes."""
+        if self.rx is not None:
+            return self.rx.transpose(x)
         return x.transpose(-1, -2) if self.on else x.T
 
     def diag(self, x):
-        """Diagonal of the last two axes."""
+        """Diagonal of the last two axes (a shard's rows of it: the
+        diagonal at offset r0 of its [N/D, N] rows)."""
+        if self.rx is not None:
+            return torch.diagonal(x, offset=self.rx.r0)
         return torch.diagonal(x, dim1=-2, dim2=-1) if self.on \
             else torch.diagonal(x)
+
+    def cmax(self, x, dim=0):
+        """x.amax over the row axis (and any other axes in `dim`): the
+        [N] per-column maximum, a shard's rows of it reduced over shards."""
+        m = x.amax(dim=self.d(dim))
+        return m if self.rx is None else self.rx.reduce_scatter(m, "max")
+
+    def cany(self, x):
+        """x.any over the row axis, per column (as cmax)."""
+        m = x.any(self.d(0))
+        return m if self.rx is None else self.rx.reduce_scatter(m, "or")
+
+    def gtake(self, x, ids):
+        """take() by global row ids: rows of another shard are fetched
+        ([N] vectors by an all-gather, matrices and rings by a gather of
+        the requested rows)."""
+        if self.rx is None:
+            return self.take(x, ids)
+        if x.dim() == 1:
+            return self.full(x)[ids]
+        return self.rx.take(x, ids)
+
+    def gat(self, x, i, j):
+        """at() with global row ids `i` (an element of another shard's
+        row is fetched from it)."""
+        if self.rx is None:
+            return self.at(x, i, j)
+        return self.rx.take(x, i, j)
 
     def rows(self, x):
         """[.., N, C] -> the ring rows [N, C], or [B*N, C] batched: a view,
@@ -163,14 +231,24 @@ class Bx:
 
     def csum(self, x, dtype=None):
         """A value reduction over a cluster's rows: the whole tensor when
-        unbatched, each cluster's [N] (or [N, ...]) when batched."""
+        unbatched (summed over the shards of a row-sharded tick), each
+        cluster's [N] (or [N, ...]) when batched."""
         if not self.on:
-            return x.sum(dtype=dtype)
+            s = x.sum(dtype=dtype)
+            return s if self.rx is None else self.rx.allreduce(s, "sum")
         return x.reshape(self.B, -1).sum(1, dtype=dtype)
+
+    def csums(self, xs, dtype=None):
+        """csum of each of xs, stacked on the last axis: one sum over the
+        shards for all of them on a row-sharded tick."""
+        if self.rx is None or self.on:
+            return self.stack([self.csum(x, dtype) for x in xs])
+        return self.rx.allreduce(
+            torch.stack([x.sum(dtype=dtype) for x in xs]), "sum")
 
     def stack(self, xs):
         """Per-cluster scalars stacked into a vector on the last axis."""
         return torch.stack(xs, dim=-1) if self.on else torch.stack(xs)
 
 
-NOBATCH = Bx()
+NOBATCH = Bx(rx=None)

@@ -66,7 +66,9 @@ import numpy as np
 import torch
 
 from swarmkit_tpu_torch.flightrec import codes as fc
-from swarmkit_tpu_torch.parallel import cuda_ops
+from swarmkit_tpu_torch.parallel import (
+    cuda_ops, current_rx, row_sharded, run_rows,
+)
 from swarmkit_tpu_torch.raft import read as rd
 from swarmkit_tpu_torch.raft.sim import u32
 from swarmkit_tpu_torch.raft.sim.batch import NOBATCH, Bx
@@ -131,9 +133,15 @@ def _codes_on(dev, codes: tuple) -> torch.Tensor:
     return _CODES[key]
 
 
-def _read_back(xs: list) -> list:
-    """Scalar tensors to host ints in one device->host read (one sync)."""
-    COUNTS["host_syncs"] += 1
+def _read_back(xs: list, bx: Bx = NOBATCH, ops=None) -> list:
+    """Scalar tensors to host ints in one device->host read (one sync).
+    On a row-sharded tick each scalar is a shard's part of a cluster-wide
+    reduction, combined over the shards by `ops` ("min", "max", "or",
+    "and", one per scalar) in one read for the whole mesh, counted once."""
+    if bx.lead:
+        COUNTS["host_syncs"] += 1
+    if bx.rx is not None:
+        return bx.rx.read(xs, ops)
     return torch.stack([x.to(torch.int64) for x in xs]).tolist()
 
 
@@ -313,8 +321,19 @@ class _Rows:
     def __init__(self, cfg: SimConfig, node: torch.Tensor, eye: torch.Tensor,
                  drop: torch.Tensor, drop_t: torch.Tensor,
                  member: torch.Tensor, now: torch.Tensor,
-                 idx: Optional[torch.Tensor] = None, bx: Bx = NOBATCH):
+                 idx: Optional[torch.Tensor] = None, bx: Bx = NOBATCH,
+                 cols: Optional[torch.Tensor] = None,
+                 real: Optional[torch.Tensor] = None):
+        # node: the global ids of the rows the tick holds (all n, or a
+        # row shard's); cols: the ids of all n columns (node itself when
+        # every row is held); real: on a row shard's slab, which of its
+        # rows are the unsharded slab's (the others only pad it: they
+        # reduce at the identity under the role masks, as the unsharded
+        # slab's padding rows do, and write nothing back)
         self.cfg, self.n, self.node, self.now = cfg, cfg.n, node, now
+        self.real = real
+        self.cols = node if cols is None else cols
+        self.nr = node.shape[0]
         self.bx = bx
         self.dense = idx is None
         self.banded = cfg.peer_tiled and self.dense
@@ -323,11 +342,11 @@ class _Rows:
         if self.dense:
             self.ids, self.eye, self.drop, self.drop_t = node, eye, drop, drop_t
         else:
-            self.ids = idx.to(I32)
+            self.ids = idx.to(I32) if bx.rx is None else node[idx]
             if bx.on:
                 self.eye = self.idc() == node
             else:
-                self.eye = self.ids[:, None] == node[None, :]
+                self.eye = self.ids[:, None] == self.cols[None, :]
             # drop_t[idx] is drop[:, idx].T, gathered as contiguous rows
             self.drop, self.drop_t = bx.take(drop, idx), bx.take(drop_t, idx)
         self.set_member(member)
@@ -358,7 +377,14 @@ class _Rows:
         for the slab's rows); computed once per segment instance."""
         if self._lat is None:
             cfg, now, node, bx = self.cfg, self.now, self.node, self.bx
-            if self.dense:
+            if self.dense and bx.rx is not None:
+                # a shard's rows of the matrix and of its transpose, each
+                # computed where it lies (the latency is a hash of the edge)
+                self._lat = (latency_at(cfg, now, node[:, None],
+                                        self.cols[None, :]),
+                             latency_at(cfg, now, self.cols[None, :],
+                                        node[:, None]))
+            elif self.dense:
                 lat = latency_at(cfg, bx.t(now, 2), node[:, None],
                                  node[None, :])
                 if bx.on:
@@ -367,8 +393,8 @@ class _Rows:
             else:
                 now2 = bx.t(now, 2)
                 self._lat = (latency_at(cfg, now2, self.idc(),
-                                        node[None, :]),
-                             latency_at(cfg, now2, node[None, :],
+                                        self.cols[None, :]),
+                             latency_at(cfg, now2, self.cols[None, :],
                                         self.idc()))
         return self._lat
 
@@ -381,15 +407,22 @@ class _Rows:
         """A segment's matrix output as the full [N, N(, K)] tensor: the
         slab's rows are written into `full` in place (the dense output
         already is the full tensor)."""
-        return rows if self.dense else self.bx.put_rows(full, self.idx, rows)
+        if self.dense:
+            return rows
+        if self.real is not None:
+            rows = torch.where(self.real.view((-1,) + (1,) * (rows.dim() - 1)),
+                               rows, self.bx.take(full, self.idx))
+        return self.bx.put_rows(full, self.idx, rows)
 
     def sfull(self, vals: torch.Tensor, fill) -> torch.Tensor:
         """A per-row [R] result at [N]: `fill` lands on the rows outside the
         slab, whose consumers are role-gated off."""
         if self.dense:
             return vals
+        if self.real is not None:
+            vals = torch.where(self.real, vals, fill)
         lead = (self.bx.B,) if self.bx.on else ()
-        base = torch.full(lead + (self.n,), fill, dtype=vals.dtype,
+        base = torch.full(lead + (self.nr,), fill, dtype=vals.dtype,
                           device=vals.device)
         return self.bx.put_rows(base, self.idx, vals)
 
@@ -400,6 +433,44 @@ class _Rows:
             return sel
         return torch.where(gate, self.bx.take(self.ids, sel.to(torch.int64)),
                            0)
+
+    def first_row(self, mask: torch.Tensor, gate: torch.Tensor):
+        """Per column, the lowest row whose `mask` is true (0 where `gate`,
+        the column's any(), is False) on a row-sharded tick: (this shard's
+        columns of it, the whole [N] vector of global row ids).  The
+        unsharded tick takes _first_true + row_of instead."""
+        part = torch.where(mask, self.idc(), BIG).amin(0)
+        whole = self.bx.rx.allreduce(part, "min")
+        whole = torch.where(whole < BIG, whole, 0)
+        rx = self.bx.rx
+        return torch.where(gate, whole[rx.r0:rx.r1], 0), whole
+
+    def _pos(self, ids: torch.Tensor):
+        """(segment positions, held) of global row ids on a shard."""
+        loc = ids.to(torch.int64) - self.bx.rx.r0
+        held = (loc >= 0) & (loc < self.nr)
+        loc = loc.clamp(0, self.nr - 1)
+        if self.dense:
+            return loc, held
+        tab = torch.full((self.nr,), -1, dtype=torch.int64,
+                         device=ids.device)
+        tab[self.idx] = torch.arange(self.idx.shape[0], device=ids.device)
+        pos = tab[loc]
+        return pos.clamp(min=0), held & (pos >= 0)
+
+    def cpick(self, x: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+        """x[row ids[j], j] for this shard's columns j, where x is a
+        segment's [R, N] matrix (or [R] vector: x[ids[j]]) and `ids` the
+        whole [N] row-id vector of first_row: the shard holding each row
+        answers, the others add nothing."""
+        pos, held = self._pos(ids)
+        if x.dim() == 1:
+            v = x[pos]
+        else:
+            v = x.gather(0, pos[None, :])[0]
+        v = torch.where(held, v, torch.zeros_like(v))
+        return self.bx.rx.reduce_scatter(
+            v, "or" if v.dtype == torch.bool else "sum")
 
     def eye_cols(self, j0: int, w: int) -> torch.Tensor:
         """Columns [j0, j0 + w) of the segment's rows of the identity."""
@@ -483,20 +554,43 @@ def step(state: SimState, cfg: SimConfig,
     bits of its own, and the recorder's FALLBACK_TICK event still comes
     from each cluster's own fit and band width.
     """
+    if row_sharded(state):
+        return run_rows(state, cfg.n, lambda st, rx: step(
+            st, cfg, alive=None if alive is None else rx.local(alive),
+            drop=None if drop is None else rx.local(drop),
+            prop_count=rx.on(prop_count), payload_fn=payload_fn,
+            prop_tag=rx.on(prop_tag), device=device))
     dev = check_device(state, device)
     phase = _Phases()
     n, L, W = cfg.n, cfg.log_len, cfg.window
     bx = Bx(batch_size(state))
+    rx = bx.rx
     lead_shape = (bx.B,) if bx.on else ()
-    node_l = torch.arange(n, device=dev)
-    node = node_l.to(I32)
-    eye = torch.eye(n, dtype=torch.bool, device=dev)
+    if rx is None:
+        # the row ids double as the column ids and as row positions
+        node_l = torch.arange(n, device=dev)
+        node = node_l.to(I32)
+        eye = torch.eye(n, dtype=torch.bool, device=dev)
+        nr, pos_l, node_c, node_lc = n, node_l, node, node_l
+    else:
+        # a row shard: its rows' global ids, their positions in its
+        # tensors, and the ids of all n columns
+        nr = rx.nr
+        node_l = rx.node()
+        node = node_l.to(I32)
+        eye = rx.eye()
+        pos_l = torch.arange(nr, device=dev)
+        node_lc = torch.arange(n, device=dev)
+        node_c = node_lc.to(I32)
     if alive is None:
-        alive = torch.ones(lead_shape + (n,), dtype=torch.bool, device=dev)
+        alive = torch.ones(lead_shape + (nr,), dtype=torch.bool, device=dev)
     drop_given = drop is not None
     if drop is None:
-        drop = torch.zeros(lead_shape + (n, n), dtype=torch.bool, device=dev)
-    drop_t = bx.T(drop)
+        drop = torch.zeros(lead_shape + (nr, n), dtype=torch.bool,
+                           device=dev)
+    # the transpose: an all-to-all on a row shard, which a quiet wire
+    # skips (the zero matrix is its own transpose; neither is written)
+    drop_t = bx.T(drop) if rx is None or drop_given else drop
 
     term, vote, role, lead = state.term, state.vote, state.role, state.lead
     elapsed, hb_elapsed = state.elapsed, state.hb_elapsed
@@ -537,7 +631,7 @@ def step(state: SimState, cfg: SimConfig,
     mail = cfg.mailboxes
     member = state.member
     if static_m:
-        self_mem = torch.ones((n,), dtype=torch.bool, device=dev)
+        self_mem = torch.ones((nr,), dtype=torch.bool, device=dev)
         quorum = n // 2 + 1
     else:
         self_mem = bx.diag(member)
@@ -603,20 +697,37 @@ def step(state: SimState, cfg: SimConfig,
     # the slab runs only if every cluster's active rows fit, else the
     # dense rows run for all: where JAX's vmap selects per cluster between
     # two bit-identical lowerings, the port picks one for the batch.
+    # On a row shard the slab holds that shard's rows of the unsharded
+    # slab (the cluster's active rows, then its lowest other rows up to
+    # active_rows), padded to min(active_rows, N/D) rows by the shard's
+    # lowest others; the fit is the cluster's, the same on every shard, so
+    # every shard takes the same branch.
     sparse_on = cfg.active_rows_on
-    dense_rows = _Rows(cfg, node, eye, drop, drop_t, member, now, bx=bx)
+    dense_rows = _Rows(cfg, node, eye, drop, drop_t, member, now, bx=bx,
+                       cols=node_c)
     if sparse_on:
         sp_act = (role != FOLLOWER) | (state.active_ttl > 0) \
             | (alive & self_mem & (elapsed >= timeout)) | (state.tn_at > 0)
+        sp_real = None
         # a host decision (read back below)
         if bx.on:
             sp_fits = (sp_act.sum(-1, dtype=I32) <= cfg.active_rows).all()
-        else:
+        elif rx is None:
             sp_fits = sp_act.sum(dtype=I32) <= cfg.active_rows
+        else:
+            act_all = rx.allgather(sp_act)
+            n_act = act_all.sum(dtype=I32)
+            sp_fits = n_act <= cfg.active_rows
+            # the unsharded slab: the active rows, then the lowest others
+            rank = torch.cumsum((~act_all).to(I32), 0) - 1
+            sp_act = (act_all | (rank < cfg.active_rows - n_act))[
+                rx.r0:rx.r1]
         sp_rows = torch.argsort((~sp_act).to(I32), dim=-1,
                                 stable=True)[..., :cfg.active_rows]
+        if rx is not None:
+            sp_real = sp_act[sp_rows]
         slab_rows = _Rows(cfg, node, eye, drop, drop_t, member, now,
-                          sp_rows, bx)
+                          sp_rows, bx, cols=node_c, real=sp_real)
 
     def _progress_a(sl: _Rows, term=term, vote=vote, role=role, lead=lead,
                     elapsed=elapsed, contact=contact, timeout=timeout,
@@ -721,7 +832,7 @@ def step(state: SimState, cfg: SimConfig,
             # transfer)
             leased = (lead != NONE) & (contact < cfg.election_tick)
         else:
-            leased = torch.zeros(lead_shape + (n,), dtype=torch.bool,
+            leased = torch.zeros(lead_shape + (nr,), dtype=torch.bool,
                                  device=dev)
         if mail:
             # Device-mailbox wire: one in-flight message per class per
@@ -814,7 +925,7 @@ def step(state: SimState, cfg: SimConfig,
 
         # receiver-side term catch-up
         req_term = torch.where(req, bx.col(g(term)), -1)
-        mt = req_term.amax(bx.d(0))
+        mt = bx.cmax(req_term)
         newer = mt > term
         term = torch.where(newer, mt, term)
         role = torch.where(newer, FOLLOWER, role)
@@ -836,8 +947,12 @@ def step(state: SimState, cfg: SimConfig,
             can_vote = can_vote & ~bx.row(state.fsync_stall)
         cur = req & (req_term == bx.row(term))   # requests at the rx term
         grantable = cur & can_vote & log_ok
-        any_grant = grantable.any(bx.d(0))
-        chosen_cand = sl.row_of(_first_true(grantable, bx.d(0)), any_grant)
+        any_grant = bx.cany(grantable)
+        if rx is None:
+            chosen_cand = sl.row_of(_first_true(grantable, bx.d(0)),
+                                    any_grant)
+        else:
+            chosen_cand = sl.first_row(grantable, any_grant)[0]
         grant_mat = grantable & (sl.idc() == bx.row(chosen_cand))
         vote = torch.where(any_grant, chosen_cand, vote)
         if vguard:
@@ -971,8 +1086,7 @@ def step(state: SimState, cfg: SimConfig,
             valid_hb = due_hb & (bx.col_k(g(role)) == LEADER) \
                 & (hb_term_box == term_k) & bx.row_k(alive)
             hb_at_box = torch.where(due_hb, 0, hb_at_box)
-            mt_hb = torch.where(valid_hb, hb_term_box,
-                                -1).amax(dim=bx.d((0, 2)))
+            mt_hb = bx.cmax(torch.where(valid_hb, hb_term_box, -1), (0, 2))
             newer_hb = mt_hb > term
             term = torch.where(newer_hb, mt_hb, term)
             role = torch.where(newer_hb, FOLLOWER, role)
@@ -983,15 +1097,17 @@ def step(state: SimState, cfg: SimConfig,
                                   timeout)
             cur_hb = valid_hb & (hb_term_box == bx.row_k(term))
             cur_hb_e = cur_hb.any(bx.d(2))
-            got_hb = cur_hb_e.any(bx.d(0))
-            src_hb = sl.row_of(_first_true(cur_hb_e, bx.d(0)), got_hb)
+            got_hb = bx.cany(cur_hb_e)
+            if rx is None:
+                src_hb = sl.row_of(_first_true(cur_hb_e, bx.d(0)), got_hb)
+            else:
+                src_hb = sl.first_row(cur_hb_e, got_hb)[0]
             role = torch.where(got_hb & (role == CANDIDATE), FOLLOWER, role)
             lead = torch.where(got_hb, src_hb, lead)
             elapsed = torch.where(got_hb, 0, elapsed)
             contact = torch.where(got_hb, 0, contact)
             # commit_to(min(m.commit, last)) per message, as a max
-            hbc = torch.where(cur_hb, hb_commit_box,
-                              -1).amax(dim=bx.d((0, 2)))
+            hbc = bx.cmax(torch.where(cur_hb, hb_commit_box, -1), (0, 2))
             commit = torch.where(
                 got_hb, torch.maximum(commit, torch.minimum(hbc, last)),
                 commit)
@@ -1039,7 +1155,7 @@ def step(state: SimState, cfg: SimConfig,
             send_app = send_base & can_ring
             send_snap = send_base & ~can_ring
         msg_term = torch.where(send_app | send_snap, bx.col(g(term)), -1)
-        mt2 = msg_term.amax(bx.d(0))
+        mt2 = bx.cmax(msg_term)
         newer2 = mt2 > term
         term = torch.where(newer2, mt2, term)
         role = torch.where(newer2, FOLLOWER, role)
@@ -1053,15 +1169,26 @@ def step(state: SimState, cfg: SimConfig,
         # segment position (it indexes the [R, N] send matrices), src the
         # row id.
         eligible = (send_app | send_snap) & (msg_term == bx.row(term))
-        has_lmsg = eligible.any(bx.d(0))
-        src_sel = _first_true(eligible, bx.d(0))
-        src = sl.row_of(src_sel, has_lmsg)       # 0 where has_lmsg is False
+        has_lmsg = bx.cany(eligible)
+        if rx is None:
+            src_sel = _first_true(eligible, bx.d(0))
+            src = sl.row_of(src_sel, has_lmsg)   # 0 where has_lmsg is False
+        else:
+            src, src_all = sl.first_row(eligible, has_lmsg)
         role = torch.where(has_lmsg & (role == CANDIDATE), FOLLOWER, role)
         lead = torch.where(has_lmsg, src, lead)
         elapsed = torch.where(has_lmsg, 0, elapsed)
         contact = torch.where(has_lmsg, 0, contact)
         is_leader = (role == LEADER) & alive
-        sel_l = src_sel.to(torch.int64)
+        if rx is None:
+            sel_l = src_sel.to(torch.int64)
+
+            def at_src(x):
+                return bx.at(x, sel_l, node_l)
+        else:
+            # the sender's row of each [R, N] send matrix, from its shard
+            def at_src(x):
+                return sl.cpick(x, src_all)
         if vguard:
             out.update(vg_vote=vg_vote, vg_term=vg_term)
         return dict(
@@ -1073,9 +1200,9 @@ def step(state: SimState, cfg: SimConfig,
             tn_at=tn_at, tn_term=tn_term, tn_from=tn_from, tx_cand=tx_cand,
             win=win, noop_term=noop_term, is_leader=is_leader,
             has_lmsg=has_lmsg, src=src,
-            got_app=has_lmsg & bx.at(send_app, sel_l, node_l),
-            got_snap=has_lmsg & bx.at(send_snap, sel_l, node_l),
-            p=bx.at(prev_mat, sel_l, node_l),
+            got_app=has_lmsg & at_src(send_app),
+            got_snap=has_lmsg & at_src(send_snap),
+            p=at_src(prev_mat),
             match=match, next_=next_, granted=granted, rejected=rejected,
             recent_active=recent_active)
 
@@ -1095,7 +1222,8 @@ def step(state: SimState, cfg: SimConfig,
         tries = [slab_rows, dense_rows]
     else:
         # no band probe to share: read the fit alone, before the segment
-        tries = [slab_rows if _read_back([sp_fits])[0] else dense_rows]
+        tries = [slab_rows if _read_back([sp_fits], bx, ["and"])[0]
+                 else dense_rows]
     for sl in tries:
         oa = _progress_a(sl)
         term, vote, role = oa["term"], oa["vote"], oa["role"]
@@ -1119,16 +1247,16 @@ def step(state: SimState, cfg: SimConfig,
             # reference: a just-elected leader replicates its no-op the same
             # tick); non-winners rewrite their own slot unchanged
             noop_slot = _slot(cfg, torch.where(win, last, last + 1))
-            bx.put_at(log_term, node_l, noop_slot, torch.where(
-                win, noop_term, bx.at(log_term, node_l, noop_slot)))
-            bx.put_at(log_data, node_l, noop_slot, torch.where(
-                win, 0, bx.at(log_data, node_l, noop_slot)))
+            bx.put_at(log_term, pos_l, noop_slot, torch.where(
+                win, noop_term, bx.at(log_term, pos_l, noop_slot)))
+            bx.put_at(log_data, pos_l, noop_slot, torch.where(
+                win, 0, bx.at(log_data, pos_l, noop_slot)))
 
         # -- append receive.  Every ring read below precedes the ring write.
-        last_src, snap_src = bx.take(last, src_l), bx.take(snap_idx, src_l)
-        p_ring_term = bx.at(log_term, src_l, _slot(cfg, p))
+        last_src, snap_src = bx.gtake(last, src_l), bx.gtake(snap_idx, src_l)
+        p_ring_term = bx.gat(log_term, src_l, _slot(cfg, p))
         p_term_sent = torch.where(
-            p == snap_src, bx.take(snap_term, src_l),
+            p == snap_src, bx.gtake(snap_term, src_l),
             torch.where((p > snap_src) & (p <= last_src), p_ring_term, 0))
         # window clamp for ring safety (never wrap over unapplied entries)
         ring_cap = snap_idx + L - p
@@ -1164,7 +1292,7 @@ def step(state: SimState, cfg: SimConfig,
             have_term = torch.where(win & (snap_pt == last), noop_term,
                                     have_term)
         already = (snap_src <= last) \
-            & (have_term == bx.take(snap_term, src_l))
+            & (have_term == bx.gtake(snap_term, src_l))
         advance = got_snap & (snap_src > commit)
         do_restore = advance & ~already
         snap_refuse = None
@@ -1183,21 +1311,27 @@ def step(state: SimState, cfg: SimConfig,
         # proposals, a fresh winner's noop) analytically.
         widx = bx.col(p) + 1 + torch.arange(W, dtype=I32, device=dev)[None]
         wslot = _slot(cfg, widx)
-        wsrc_t = bx.at(log_term, bx.col(src_l), wslot)
-        wsrc_d = bx.at(log_data, bx.col(src_l), wslot)
+        if rx is None:
+            wsrc_t = bx.at(log_term, bx.col(src_l), wslot)
+            wsrc_d = bx.at(log_data, bx.col(src_l), wslot)
+        else:
+            # the senders' windows, each cut where its row lies from the
+            # window's first slot
+            wsrc_t, wsrc_d = rx.take_window((log_term, log_data), src_l,
+                                            wslot[:, 0], W)
         wown_t = log_term.gather(bx.d(1), wslot)
         if fused_prop:
-            k_src = widx - bx.col(bx.take(prop_last0, src_l)) - 1
-            pend_s = bx.col(bx.take(prop_ok, src_l)) & (k_src >= 0) \
+            k_src = widx - bx.col(bx.gtake(prop_last0, src_l)) - 1
+            pend_s = bx.col(bx.gtake(prop_ok, src_l)) & (k_src >= 0) \
                 & (k_src < prop_cnt2)
-            wsrc_t = torch.where(pend_s, bx.col(bx.take(state.term, src_l)),
+            wsrc_t = torch.where(pend_s, bx.col(bx.gtake(state.term, src_l)),
                                  wsrc_t)
             wsrc_d = torch.where(pend_s, payloads(k_src), wsrc_d)
             k_own = widx - bx.col(prop_last0) - 1
             pend_o = bx.col(prop_ok) & (k_own >= 0) & (k_own < prop_cnt2)
             wown_t = torch.where(pend_o, bx.col(state.term), wown_t)
-        noop_s = bx.col(bx.take(win, src_l)) & (widx == bx.col(last_src))
-        wsrc_t = torch.where(noop_s, bx.col(bx.take(noop_term, src_l)),
+        noop_s = bx.col(bx.gtake(win, src_l)) & (widx == bx.col(last_src))
+        wsrc_t = torch.where(noop_s, bx.col(bx.gtake(noop_term, src_l)),
                              wsrc_t)
         wsrc_d = torch.where(noop_s, 0, wsrc_d)
         wown_t = torch.where(bx.col(win) & (widx == bx.col(last)),
@@ -1219,9 +1353,12 @@ def step(state: SimState, cfg: SimConfig,
         probe = [torch.where(got_app, p, BIG).amin(),
                  torch.where(got_app, hi, 0).amax(),
                  do_restore.any(), win.any()]
+        # how a row-sharded tick combines each scalar over the shards
+        probe_ops = ["min", "max", "or", "or"]
         if fused_prop:
             probe += [torch.where(prop_ok, prop_last0, BIG).amin(),
                       torch.where(prop_ok, prop_anchor, 0).amax()]
+            probe_ops += ["min", "max"]
         if not static_m:
             # The end-of-tick conf-gate scans' band, bounded from here: a
             # row's end-of-tick (applied, last] lies inside (pre-tick
@@ -1236,13 +1373,15 @@ def step(state: SimState, cfg: SimConfig,
             gate_at = len(probe)
             probe += [torch.where(gate_work, applied, BIG).amin(),
                       torch.where(gate_work, gate_hi, 0).amax()]
+            probe_ops += ["min", "max"]
         if not sl.dense:
             probe.append(sp_fits)
-        host = _read_back(probe)
+            probe_ops.append("and")
+        host = _read_back(probe, bx, probe_ops)
         if sl.dense or host[-1]:
             break
     phase("phase_C_ring_write")
-    if sparse_on:
+    if sparse_on and bx.lead:
         COUNTS["dense_fallback_ticks" if sl.dense else "slab_ticks"] += 1
     match = sl.merge(state.match, oa["match"])
     next_ = sl.merge(state.next_, oa["next_"])
@@ -1324,8 +1463,8 @@ def step(state: SimState, cfg: SimConfig,
             prop_write(log_term, log_data,
                        _idx_at_slots(cfg, prop_anchor, bx))
         # find_conflict over the whole row, against the sender's row
-        lead_term_row = bx.take(log_term, src_l)
-        lead_data_row = bx.take(log_data, src_l)
+        lead_term_row = bx.gtake(log_term, src_l)
+        lead_data_row = bx.gtake(log_data, src_l)
         lead_idx = _idx_at_slots(cfg, last_src, bx)
         in_win = bx.col(got_app) & (lead_idx > bx.col(p)) \
             & (lead_idx <= bx.col(hi))
@@ -1346,16 +1485,16 @@ def step(state: SimState, cfg: SimConfig,
                                            torch.maximum(last, lastnewi)),
                        last)
     commit = torch.where(accept, torch.maximum(
-        commit, torch.minimum(bx.take(commit0, src_l), lastnewi)), commit)
+        commit, torch.minimum(bx.gtake(commit0, src_l), lastnewi)), commit)
 
     # snapshot receive: cursor/meta effects (the ring wipe happened above)
     commit = torch.where(advance & already, snap_src, commit)
     last = torch.where(do_restore, snap_src, last)
     commit = torch.where(do_restore, snap_src, commit)
     applied = torch.where(do_restore, snap_src, applied)
-    apply_chk = torch.where(do_restore, bx.take(snap_chk, src_l), apply_chk)
-    snap_term = torch.where(do_restore, bx.take(snap_term, src_l), snap_term)
-    snap_chk = torch.where(do_restore, bx.take(snap_chk, src_l), snap_chk)
+    apply_chk = torch.where(do_restore, bx.gtake(snap_chk, src_l), apply_chk)
+    snap_term = torch.where(do_restore, bx.gtake(snap_term, src_l), snap_term)
+    snap_chk = torch.where(do_restore, bx.gtake(snap_chk, src_l), snap_chk)
     snap_idx = torch.where(do_restore, snap_src, snap_idx)
     if storage_on:
         if not gated:
@@ -1371,7 +1510,7 @@ def step(state: SimState, cfg: SimConfig,
     if not static_m:
         # the snapshot carries the sender's configuration; the second
         # segment counts in the views as they stand after it
-        member = torch.where(bx.col(do_restore), bx.take(member, src_l),
+        member = torch.where(bx.col(do_restore), bx.gtake(member, src_l),
                              member)
         sl.set_member(member)
 
@@ -1537,19 +1676,23 @@ def step(state: SimState, cfg: SimConfig,
         tgt_r = g(tgt)
         caught = g(has_tx) \
             & (bx.pick(match, tgt_r) == g(last))
-        want_tn = caught & (bx.take(tn_at, tgt_r) == 0) \
+        want_tn = caught & (bx.gtake(tn_at, tgt_r) == 0) \
             & ~bx.pick(sl.drop, tgt_r)
-        send_tn = bx.col(want_tn) & (bx.col(tgt_r) == node_l[None, :])
-        any_tn = send_tn.any(bx.d(0))
-        tn_sel = _first_true(send_tn, bx.d(0))
-        tn_src = sl.row_of(tn_sel, any_tn)       # lowest leader
+        send_tn = bx.col(want_tn) & (bx.col(tgt_r) == node_lc[None, :])
+        any_tn = bx.cany(send_tn)
+        if rx is None:
+            tn_sel = _first_true(send_tn, bx.d(0))
+            tn_src = sl.row_of(tn_sel, any_tn)   # lowest leader
+        else:
+            tn_src, tn_all = sl.first_row(send_tn, any_tn)
         if mail:
             tn_lat = bx.pick(lat, tgt_r)
-            tn_at = torch.where(any_tn, now1 + 1 + bx.take(tn_lat, tn_sel.to(
-                torch.int64)), tn_at)
+            tn_lat = bx.take(tn_lat, tn_sel.to(torch.int64)) if rx is None \
+                else sl.cpick(tn_lat, tn_all)
+            tn_at = torch.where(any_tn, now1 + 1 + tn_lat, tn_at)
         else:
             tn_at = torch.where(any_tn, now1 + 1, tn_at)
-        tn_term = torch.where(any_tn, bx.take(term, tn_src.to(torch.int64)),
+        tn_term = torch.where(any_tn, bx.gtake(term, tn_src.to(torch.int64)),
                               tn_term)
         tn_from = torch.where(any_tn, tn_src, tn_from)
         if cfg.transfer_cooldown_ticks > 0:
@@ -1570,6 +1713,8 @@ def step(state: SimState, cfg: SimConfig,
             ok = (cnt >= q_row) & (hi_b >= mid) & (mid > lo)
             lo = torch.where(ok, mid, lo)
             hi_b = torch.where(ok, hi_b, mid - 1)
+        if sl.real is not None:
+            lo = torch.where(sl.real, lo, g(commit))
         mci = lo if sl.dense else bx.put_rows(commit, sl.idx, lo,
                                               inplace=False)
         if reads_on:
@@ -1620,7 +1765,8 @@ def step(state: SimState, cfg: SimConfig,
         read_regs, _ = rd.stamp(
             cfg, read_regs, alive=alive, role=role, lead=lead, term=term,
             commit=commit, commit_term_ok=rd_cterm_ok, q_ok=rd_q_ok,
-            transferee=transferee, now=now1, drop=drop, bx=bx)
+            transferee=transferee, now=now1, drop=drop, bx=bx,
+            drop_t=drop_t)
 
     # ---- Phase E: apply + checksum ---------------------------------------
     # Conf entries activate here, at each row's own apply point; the batch
@@ -1664,7 +1810,7 @@ def step(state: SimState, cfg: SimConfig,
         cdata = bx.pick(log_data, cslot)
         ctgt = torch.clamp(cdata & CONF_TARGET_MASK, 0, n - 1)
         c_rm = (cdata & CONF_REMOVE) != 0
-        tgt_onehot = node[None, :] == bx.col(ctgt)
+        tgt_onehot = node_c[None, :] == bx.col(ctgt)
         was_member = bx.pick(member, ctgt.to(torch.int64))
         newly_added = has_conf & ~c_rm & ~was_member
         member = torch.where(bx.col(has_conf) & tgt_onehot, ~bx.col(c_rm),
@@ -1773,10 +1919,9 @@ def step(state: SimState, cfg: SimConfig,
     stats = state.stats
     if cfg.collect_stats and stats is not None:
         # value reductions: each cluster's own event counts
-        inc = bx.stack([
-            bx.csum(campaign | tn_ok), bx.csum(win),
-            bx.csum((commit - state.commit).to(torch.int64)),
-            bx.csum((applied - state.applied).to(torch.int64))])
+        inc = bx.csums([campaign | tn_ok, win,
+                        (commit - state.commit).to(torch.int64),
+                        (applied - state.applied).to(torch.int64)])
         stats = u32.to_bits(stats.to(torch.int64) + inc)  # int32 wraparound
 
     # ---- the device observability planes, in the JAX package's order ------
@@ -1823,7 +1968,12 @@ def step(state: SimState, cfg: SimConfig,
         # the drop degree is out- plus in-degree, band by band under peer
         # tiling (no temporary wider than a band), zero without a matrix
         if not drop_given:
-            drop_deg = torch.zeros(lead_shape + (n,), dtype=I32, device=dev)
+            drop_deg = torch.zeros(lead_shape + (nr,), dtype=I32, device=dev)
+        elif rx is not None:
+            # out-degree over the shard's rows, in-degree over every
+            # shard's (a reduce-scatter of the column counts)
+            drop_deg = _count(drop, 1) \
+                + rx.reduce_scatter(_count(drop, 0), "sum")
         elif cfg.peer_tiled:
             drop_deg = _pcount(cfg, lambda j0, w: bx.cols(drop, j0, w), True,
                                dim=bx.d(1), bx=bx)
@@ -1881,11 +2031,13 @@ def step(state: SimState, cfg: SimConfig,
         # (the histogram folds and the series sums are value reductions:
         # per cluster under a batch axis)
         edges = ts.bucket_edges(dev)
+        # a row shard's histogram counts are summed over the shards
+        psum = None if rx is None else (lambda x: rx.allreduce(x, "sum"))
         bidx, bcnt = state.tel_prop_idx, state.tel_prop_cnt
         btick, ring = state.tel_prop_tick, state.tel_prop_idx.shape[-1]
         estart = torch.where(campaign | tn_ok, now1, state.tel_elect_start)
         elect_hist = ts.hist_fold(state.tel_elect_hist, win & (estart >= 0),
-                                  now1 - estart, edges=edges)
+                                  now1 - estart, edges=edges, psum=psum)
         estart = torch.where(win, NONE, estart)
         c_lo = torch.maximum(bidx, bx.col(state.commit) + 1)
         c_hi = torch.minimum(bidx + bcnt - 1, bx.col(commit))
@@ -1893,7 +2045,8 @@ def step(state: SimState, cfg: SimConfig,
         cfold = bx.col(can_commit) & (bidx != NONE) & (btick >= 0) \
             & (now2 - btick < ring) & (cw > 0)
         commit_hist = ts.hist_fold(state.tel_commit_hist, cfold,
-                                   now2 - btick, weight=cw, edges=edges)
+                                   now2 - btick, weight=cw, edges=edges,
+                                   psum=psum)
         # the step-down wipe (is_leader: the settled post-A/B role)
         bidx = torch.where(bx.col(is_leader), bidx, NONE)
         rsub, read_hist = state.tel_read_submit, state.tel_read_hist
@@ -1901,7 +2054,8 @@ def step(state: SimState, cfg: SimConfig,
             # the submit stamp mirrors R0's refill on the pre-tick registers
             rsub = torch.where(alive & (state.read_pend == 0), now1, rsub)
             read_hist = ts.hist_fold(read_hist, (rd_served | rd_blocked)
-                                     & (rsub >= 0), now1 - rsub, edges=edges)
+                                     & (rsub >= 0), now1 - rsub, edges=edges,
+                                     psum=psum)
             blocked_now = bx.csum(torch.where(rd_blocked, rd_blk_cnt, 0),
                                   dtype=I32)
         else:
@@ -1961,7 +2115,13 @@ def propose_dense(state: SimState, cfg: SimConfig,
     `count` is an int, or a device tensor (the dst append_flood verb's
     gate): 0-d, or per cluster [B] on a batched state (see `step`), whose
     `alive` is [B, N] and whose payload_fn gets the tick shaped [B, 1, 1].
-    A device count is not read back."""
+    A device count is not read back.  A row-sharded state appends on every
+    shard, its band read once for the mesh."""
+    if row_sharded(state):
+        return run_rows(state, cfg.n, lambda st, rx: propose_dense(
+            st, cfg, payload_fn, rx.on(count),
+            alive=None if alive is None else rx.local(alive), tag=tag,
+            device=device))
     check_device(state, device)
     bx = Bx(batch_size(state))
     if isinstance(count, torch.Tensor):
@@ -1986,7 +2146,8 @@ def propose_dense(state: SimState, cfg: SimConfig,
     lt, ld = state.log_term, state.log_data
     if cfg.tiled:
         lo_p, hi_p = _read_back([torch.where(ok, state.last, BIG).amin(),
-                                 torch.where(ok, anchor, 0).amax()])
+                                 torch.where(ok, anchor, 0).amax()], bx,
+                                ["min", "max"])
         c0p, nch_p = _band_origin(cfg, lo_p, hi_p)
         if nch_p <= cfg.band_chunks:
             C = cfg.log_chunk
@@ -2000,7 +2161,8 @@ def propose_dense(state: SimState, cfg: SimConfig,
     if cfg.collect_telemetry and state.tel_prop_idx is not None:
         _stamp_batch(state, cfg, ok, state.last + 1, cnt1, tag, bx)
     new_last = state.last + torch.where(ok, cnt1, 0).to(I32)
-    eye = torch.eye(cfg.n, dtype=torch.bool, device=lt.device)
+    eye = torch.eye(cfg.n, dtype=torch.bool, device=lt.device) \
+        if bx.rx is None else bx.rx.eye()
     match = torch.where(bx.col(ok) & eye, bx.col(new_last), state.match)
     return dataclasses.replace(state, last=new_last, match=match)
 
@@ -2026,7 +2188,13 @@ def propose(state: SimState, cfg: SimConfig, payloads, count, alive=None,
     On a batched state each cluster takes its own batch, as the JAX
     package's jax.vmap(propose) gives it: payloads [B, max_props] and
     counts [B] (array-likes, or device tensors, which are not read back),
-    with `alive` [B, N]."""
+    with `alive` [B, N].  On a row-sharded state every shard's rows take
+    the batch."""
+    if row_sharded(state):
+        return run_rows(state, cfg.n, lambda st, rx: propose(
+            st, cfg, payloads, rx.on(count),
+            alive=None if alive is None else rx.local(alive), tag=tag,
+            device=device))
     dev = check_device(state, device)
     bx = Bx(batch_size(state))
     if bx.on or isinstance(count, torch.Tensor):
@@ -2040,7 +2208,8 @@ def propose(state: SimState, cfg: SimConfig, payloads, count, alive=None,
         torch.from_numpy(np.asarray(payloads, dtype=np.int64))
     pl = pl.to(device=dev, dtype=torch.int64).reshape(
         (bx.B, -1) if bx.on else (-1,))
-    pl = bx.row(u32.to_bits(pl & PAYLOAD_MASK))            # [.., 1, P]
+    pl = u32.to_bits(pl & PAYLOAD_MASK)
+    pl = pl[:, None, :] if bx.on else pl[None, :]            # [.., 1, P]
     ok = _leader_ok(state, cfg, alive, bx)
     k = torch.arange(cfg.max_props, dtype=I32, device=dev)
     valid = (k < cnt2) & bx.col(ok)                          # [.., N, P]
@@ -2051,7 +2220,8 @@ def propose(state: SimState, cfg: SimConfig, payloads, count, alive=None,
     if cfg.collect_telemetry and state.tel_prop_idx is not None:
         _stamp_batch(state, cfg, ok, state.last + 1, cnt1, tag, bx)
     new_last = state.last + torch.where(ok, cnt1, 0).to(I32)
-    eye = torch.eye(cfg.n, dtype=torch.bool, device=dev)
+    eye = torch.eye(cfg.n, dtype=torch.bool, device=dev) \
+        if bx.rx is None else bx.rx.eye()
     match = torch.where(bx.col(ok) & eye, bx.col(new_last), state.match)
     return dataclasses.replace(state, last=new_last, match=match)
 
@@ -2064,24 +2234,31 @@ def propose_conf(state: SimState, cfg: SimConfig, target, remove,
     (pending_conf), or for a target outside [0, n), the entry degrades to
     an empty normal entry.  Writes the state's rings in place; raises on a
     static_members config."""
-    _one_cluster(state, "propose_conf")
     if cfg.static_members:
         raise ValueError("propose_conf on a static_members config: "
                          "membership changes need static_members=False")
+    if row_sharded(state):
+        return run_rows(state, cfg.n, lambda st, rx: propose_conf(
+            st, cfg, target, remove,
+            alive=None if alive is None else rx.local(alive),
+            device=device))
+    _one_cluster(state, "propose_conf")
     dev = check_device(state, device)
     n, target, remove = cfg.n, int(target), bool(remove)
-    ok = _leader_ok(state, cfg, alive)
+    bx = Bx()
+    ok = _leader_ok(state, cfg, alive, bx)
     appended_conf = ok & ~state.pending_conf & (0 <= target < n)
     bits = u32.to_bits(torch.tensor(conf_payload(target, remove)
                                     if 0 <= target < n else 0))
     payload = torch.where(appended_conf, bits.to(dev), 0)
-    rows = torch.arange(n, device=dev)
+    rows = torch.arange(state.term.shape[0], device=dev)   # positions
     slot = _slot(cfg, state.last + 1)
     lt, ld = state.log_term, state.log_data
     lt[rows, slot] = torch.where(ok, state.term, lt[rows, slot])
     ld[rows, slot] = torch.where(ok, payload, ld[rows, slot])
     new_last = state.last + ok.to(I32)
-    eye = torch.eye(n, dtype=torch.bool, device=dev)
+    eye = torch.eye(n, dtype=torch.bool, device=dev) if bx.rx is None \
+        else bx.rx.eye()
     match = torch.where(ok[:, None] & eye, new_last[:, None], state.match)
     return dataclasses.replace(
         state, last=new_last, match=match,
@@ -2094,15 +2271,31 @@ def transfer_leadership(state: SimState, cfg: SimConfig, leader: int,
     """Host-side transfer request: records `target` on the leader's row and
     resets its election timer; the tick fires TIMEOUT_NOW once the target's
     log caught up.  A repeat request for the same in-flight target is a
-    no-op; a different target replaces the previous transfer."""
+    no-op; a different target replaces the previous transfer.  On a
+    row-sharded state the shard holding the leader's row decides, and
+    every shard learns it."""
+    if row_sharded(state):
+        return run_rows(state, cfg.n, lambda st, rx: transfer_leadership(
+            st, cfg, leader, target))
     _one_cluster(state, "transfer_leadership")
     leader, target = int(leader), int(target)
-    is_l = (state.role[leader] == LEADER) & (target != leader) \
-        & state.member[leader, target]
+    rx = current_rx()
+    at = leader
+    if rx is not None:
+        # the leader's row on the shard that holds it (row 0 elsewhere,
+        # whose answer is dropped below)
+        held = rx.r0 <= leader < rx.r1
+        at = leader - rx.r0 if held else 0
+    is_l = (state.role[at] == LEADER) & (target != leader) \
+        & state.member[at, target]
     if cfg.transfer_cooldown_ticks > 0 and state.tx_cool is not None:
-        is_l = is_l & (state.tx_cool[leader] == 0)
-    changed = is_l & (state.transferee[leader] != target)
+        is_l = is_l & (state.tx_cool[at] == 0)
+    changed = is_l & (state.transferee[at] != target)
+    if rx is not None:
+        changed = rx.allreduce(changed & held, "or")
     row = torch.arange(cfg.n, device=state.term.device) == leader
+    if rx is not None:
+        row = row[rx.r0:rx.r1]
     return dataclasses.replace(
         state,
         transferee=torch.where(row & changed, target, state.transferee),

@@ -10,6 +10,16 @@ A state with a leading batch axis (B clusters, kernel.step) runs through
 `committed_entries` and the trace rows are then per cluster (value
 reductions inside each cluster, as JAX's vmap gives them).
 
+A row-sharded state (parallel.shard_rows over row_mesh(n, devices) or
+host_row_mesh, D > 1 entries) runs through every loop here as one
+cluster: each shard steps its rows in lock step (parallel.run_rows), the
+faults are drawn over the whole cluster and split by rows, and the trace
+rows, `run_until_leader`'s leader test (one read a tick for the mesh) and
+`submit_reads`' goal reduce over the shards.  `leader_mask`,
+`has_leader`, `committed_entries`, `quorum_applied_checksum`,
+`reads_served` and `reads_blocked` take such a state too and return the
+cluster's values on the mesh's first entry.
+
 `KernelObs` is the host side of the kernel's counters (stats, reads,
 durability): `timed` around a run-loop call and `publish` after one, which
 reads the device counters back (that is its job, and no run loop calls it
@@ -27,9 +37,13 @@ from swarmkit_tpu_torch.raft.sim import u32
 from swarmkit_tpu_torch.metrics import catalog as obs_catalog
 from swarmkit_tpu_torch.metrics import registry as obs_registry
 from swarmkit_tpu_torch.metrics import scrape as obs_scrape
-from swarmkit_tpu_torch.parallel import gather
+from swarmkit_tpu_torch.parallel import (
+    current_rx, gather, only, row_sharded, run_rows,
+)
 from swarmkit_tpu_torch.raft.sim.batch import Bx
-from swarmkit_tpu_torch.raft.sim.kernel import _first_true, step, tag_lane
+from swarmkit_tpu_torch.raft.sim.kernel import (
+    BIG, _first_true, step, tag_lane,
+)
 from swarmkit_tpu_torch.raft.sim.state import (
     LEADER, NONE, SimConfig, SimState, batch_size, check_device, drop_matrix,
 )
@@ -42,17 +56,38 @@ def _batched(state: SimState) -> bool:
     return batch_size(state) is not None
 
 
+def _shard_values(state, fn) -> list:
+    """fn(shard, r0) of every shard of a row-sharded state, on the mesh's
+    first entry (r0: the shard's first row)."""
+    nr = state.shards[0].term.shape[0]
+    dev = state.devices[0]
+    return [fn(s, i * nr).to(dev) for i, s in enumerate(state.shards)]
+
+
 def leader_mask(state: SimState) -> torch.Tensor:
+    if row_sharded(state):
+        return torch.cat(_shard_values(state, lambda s, r0: (
+            s.role == LEADER) & torch.diagonal(s.member, offset=r0)))
     if _batched(state):
         return (state.role == LEADER) \
             & torch.diagonal(state.member, dim1=-2, dim2=-1)
+    rx = current_rx()
+    if rx is not None:
+        # a row shard's rows, inside a row-sharded call
+        return (state.role == LEADER) \
+            & torch.diagonal(state.member, offset=rx.r0)
     return (state.role == LEADER) & torch.diagonal(state.member)
 
 
 def has_leader(state: SimState) -> torch.Tensor:
     """Some row leads ([B] per cluster on a batched state)."""
+    if row_sharded(state):
+        return leader_mask(state).any()
     if _batched(state):
         return leader_mask(state).any(-1)
+    rx = current_rx()
+    if rx is not None:
+        return rx.allreduce(leader_mask(state).any(), "or")
     return leader_mask(state).any()
 
 
@@ -70,6 +105,12 @@ def _trace_row(st: SimState) -> torch.Tensor:
     if _batched(st):
         return torch.stack([leader_mask(st).sum(-1, dtype=I32),
                             st.commit.amax(-1), st.term.amax(-1)], dim=-1)
+    rx = current_rx()
+    if rx is not None:
+        return torch.stack([
+            rx.allreduce(leader_mask(st).sum(dtype=I32), "sum"),
+            rx.allreduce(st.commit.amax(), "max"),
+            rx.allreduce(st.term.amax(), "max")])
     return torch.stack([leader_mask(st).sum(dtype=I32), st.commit.amax(),
                         st.term.amax()])
 
@@ -104,23 +145,41 @@ def run_ticks(state: SimState, cfg: SimConfig, n_ticks: int,
     Returns (final_state, trace) where trace is [n_ticks, 3] int32 rows
     [n_leaders, max_commit, max_term].  Consumes the state (see step).
     """
+    if row_sharded(state):
+        return run_rows(state, cfg.n, lambda st, rx: run_ticks(
+            st, cfg, n_ticks, prop_count=rx.on(prop_count),
+            drop_rate=drop_rate, crash_every=crash_every, down_for=down_for,
+            prop_tag=prop_tag, device=device))
     dev = check_device(state, device)
     n = cfg.n
-    rows = torch.arange(n, dtype=I32, device=dev)
+    rx = current_rx()
+    # the global ids of the rows this call holds (a row shard's)
+    rows = torch.arange(n, dtype=I32, device=dev) if rx is None \
+        else rx.node(I32)
     downed = torch.tensor(-1, dtype=I32, device=dev)
     down_left = torch.tensor(0, dtype=I32, device=dev)
     st, trace = state, []
     for _ in range(n_ticks):
         tick = st.tick
-        alive = torch.ones((n,), dtype=torch.bool, device=dev)
+        alive = torch.ones((rows.shape[0],), dtype=torch.bool, device=dev)
         if crash_every:
             lm = leader_mask(st)
-            crash = (tick % crash_every == 0) & (tick > 0) & lm.any()
-            downed = torch.where(crash, _first_true(lm, 0), downed)
+            if rx is None:
+                crash = (tick % crash_every == 0) & (tick > 0) & lm.any()
+                first = _first_true(lm, 0)
+            else:
+                # the cluster's lowest leader, over every shard
+                crash = (tick % crash_every == 0) & (tick > 0) \
+                    & rx.allreduce(lm.any(), "or")
+                first = rx.allreduce(torch.where(lm, rows, BIG).amin(),
+                                     "min")
+            downed = torch.where(crash, first, downed)
             down_left = torch.where(crash, down_for,
                                     torch.clamp(down_left - 1, min=0))
             alive = alive & ~((rows == downed) & (down_left > 0))
-        drop = drop_matrix(cfg, tick, drop_rate) if drop_rate else None
+        drop = drop_matrix(cfg, tick, drop_rate,
+                           rows=None if rx is None else rows) \
+            if drop_rate else None
         st = _tick(st, cfg, alive, drop, prop_count, dev, prop_tag)
         trace.append(_trace_row(st))
     return st, _stack_trace(trace, dev)
@@ -136,8 +195,13 @@ def run_schedule(state: SimState, cfg: SimConfig, drop: torch.Tensor,
     state takes [B, T, N, N] and [B, T, N] schedules, one per cluster.
 
     Returns (final_state, trace) with run_ticks' trace rows ([B, T, 3] on
-    a batched state).  Consumes the state (see step).
+    a batched state).  Consumes the state (see step).  A row-sharded state
+    takes the whole cluster's [T, N, N] and [T, N] schedules.
     """
+    if row_sharded(state):
+        return run_rows(state, cfg.n, lambda st, rx: run_schedule(
+            st, cfg, rx.local(drop, 1), rx.local(alive, 1),
+            prop_count=rx.on(prop_count), device=device))
     dev = check_device(state, device)
     st, trace = state, []
     if _batched(state):
@@ -157,10 +221,20 @@ def run_schedule(state: SimState, cfg: SimConfig, drop: torch.Tensor,
 def run_until_leader(state: SimState, cfg: SimConfig, max_ticks: int = 1000,
                      device=None):
     """Tick until some node is leader (or max_ticks pass).  Returns
-    (state, ticks_taken).  Consumes the state (see step)."""
+    (state, ticks_taken).  Consumes the state (see step).  A row-sharded
+    state reads its leader test once a tick for the whole mesh."""
+    if row_sharded(state):
+        return run_rows(state, cfg.n, lambda st, rx: run_until_leader(
+            st, cfg, max_ticks=max_ticks, device=device))
     dev = check_device(state, device)
+    rx = current_rx()
     st, t = state, 0
-    while t < max_ticks and not bool(has_leader(st)):
+    while t < max_ticks:
+        if rx is None:
+            if bool(has_leader(st)):
+                break
+        elif rx.read([leader_mask(st).any()], ["or"])[0]:
+            break
         st = step(st, cfg, device=dev)
         t += 1
     return st, t
@@ -180,16 +254,24 @@ def submit_reads(state: SimState, cfg: SimConfig, count: int, rows=None,
     or a device tensor, which is not read back) and each cluster's goal is
     its own max(commit), as the JAX package's jax.vmap(submit_reads)
     gives them; `rows` then selects the same rows in every cluster, and
-    `tag` is one int for every cluster or one tag per cluster ([B])."""
+    `tag` is one int for every cluster or one tag per cluster ([B]).  On
+    a row-sharded state `rows` are global row ids and the goal is the
+    maximum over every shard."""
+    if row_sharded(state):
+        return run_rows(state, cfg.n, lambda st, rx: submit_reads(
+            st, cfg, count, rows=rows, tag=tag, device=device))
     dev = check_device(state, device)
     if state.read_pend is None:
         raise ValueError("read path is off (SimConfig.read_batch == 0); "
                          "no read registers to submit into")
     batched = _batched(state)
+    rx = current_rx()
     sel = torch.ones((cfg.n,), dtype=torch.bool, device=dev)
     if rows is not None:
         sel = torch.zeros_like(sel)
         sel[torch.as_tensor(rows, dtype=torch.int64, device=dev)] = True
+    if rx is not None:
+        sel = sel[rx.r0:rx.r1]
     open_ = sel & (state.read_pend == 0)
     # the goal: each cluster's acked-write frontier (a value reduction)
     if batched:
@@ -198,6 +280,8 @@ def submit_reads(state: SimState, cfg: SimConfig, count: int, rows=None,
         goal = state.commit.amax(-1, keepdim=True)
     else:
         count, goal = int(count), state.commit.amax()
+        if rx is not None:
+            goal = rx.allreduce(goal, "max")
     tag_fields = {}
     if cfg.trace_tags and state.read_tag is not None:
         tag_fields["read_tag"] = torch.where(
@@ -269,7 +353,11 @@ class KernelObs:
         """Returns the cumulative counters as a dict (empty when the state
         carries none), each the device's value mod 2**32.  A grouped
         state's [G, 4] stats fold over groups, a sharded one's over every
-        shard's groups."""
+        shard's groups; a row-sharded one's fields are gathered, the
+        cluster's counters whole."""
+        if row_sharded(state):
+            state = only(state, ("tick", "stats", "read_srv", "read_block",
+                                 "sync_mark", "dur_commit", "last"))
         state = gather(state)
         if self.clock_sync is not None:
             tick = sync_point(self.clock_sync, state)
@@ -310,8 +398,18 @@ def sync_point(clock, state: SimState) -> int:
     return tick
 
 
+def _sharded_sum(state, name: str) -> torch.Tensor:
+    return torch.stack(_shard_values(
+        state, lambda s, r0: getattr(s, name).sum(dtype=I32))).sum(
+        dtype=I32)
+
+
 def reads_served(state: SimState) -> torch.Tensor:
     """Total read ops served across rows (0 when the read path is off)."""
+    if row_sharded(state) and state.shards[0].read_srv is not None:
+        return _sharded_sum(state, "read_srv")
+    if row_sharded(state):
+        return reads_served(state.shards[0])
     if state.read_srv is None:
         return torch.zeros((), dtype=I32, device=state.term.device)
     return state.read_srv.sum(dtype=I32)
@@ -319,6 +417,10 @@ def reads_served(state: SimState) -> torch.Tensor:
 
 def reads_blocked(state: SimState) -> torch.Tensor:
     """Total read ops refused (deposal or lease expiry) across rows."""
+    if row_sharded(state) and state.shards[0].read_block is not None:
+        return _sharded_sum(state, "read_block")
+    if row_sharded(state):
+        return reads_blocked(state.shards[0])
     if state.read_block is None:
         return torch.zeros((), dtype=I32, device=state.term.device)
     return state.read_block.sum(dtype=I32)
@@ -327,8 +429,14 @@ def reads_blocked(state: SimState) -> torch.Tensor:
 def committed_entries(state: SimState) -> torch.Tensor:
     """Total entries committed through consensus (max commit across rows;
     a value reduction, [B] per cluster on a batched state)."""
+    if row_sharded(state):
+        return torch.stack(_shard_values(
+            state, lambda s, r0: s.commit.amax())).amax()
     if _batched(state):
         return state.commit.amax(-1)
+    rx = current_rx()
+    if rx is not None:
+        return rx.allreduce(state.commit.amax(), "max")
     return state.commit.amax()
 
 
@@ -336,4 +444,7 @@ def quorum_applied_checksum(state: SimState):
     """(applied, checksum) pairs — equal applied must imply equal checksum
     (state-machine safety).  Row-wise, so [B, N] each on a batched state:
     compare within a cluster."""
+    if row_sharded(state):
+        return (torch.cat(_shard_values(state, lambda s, r0: s.applied)),
+                torch.cat(_shard_values(state, lambda s, r0: s.apply_chk)))
     return state.applied, state.apply_chk

@@ -35,7 +35,7 @@ from swarmkit_tpu_torch.flightrec.codes import (  # noqa: F401
     EVENT_WIDTH, EVENT_WIDTH_TAGGED,
 )
 from swarmkit_tpu_torch.parallel import (
-    GROUP_AXIS, ROW_TICK_TODO, SCHEDULE_AXIS, Sharded,
+    GROUP_AXIS, SCHEDULE_AXIS, Sharded, current_rx,
 )
 from swarmkit_tpu_torch.raft.sim import u32
 from swarmkit_tpu_torch.telemetry.series import (  # noqa: F401
@@ -68,21 +68,27 @@ def conf_payload(target: int, remove: bool) -> int:
 
 def check_device(state: "SimState", device=None) -> torch.device:
     """Resolve `device` and require the state to live there.  A state
-    sharded over several devices (parallel.shard_rows) is refused: the
-    batch paths step it shard by shard themselves, and one cluster's row
-    axis does not shard."""
+    sharded on the schedule or group axis is refused (the batch paths step
+    it shard by shard themselves); a row-sharded one (one cluster's rows
+    over a row mesh, which the tick's entry points run in lock step) must
+    lie on devices of the call's type.  Inside a row-sharded call it
+    returns the shard's own entry."""
     if isinstance(state, Sharded):
         if state.axis in (SCHEDULE_AXIS, GROUP_AXIS):
             raise NotImplementedError(
                 f"a state sharded on {state.axis!r} over {len(state)} "
                 f"devices: step each shard (multiraft.step_groups and "
                 f"run_group_ticks take a group-sharded fleet)")
-        raise NotImplementedError(ROW_TICK_TODO)
+        dev = resolve_device(device)
+        for shard in state.shards:
+            check_device(shard, dev)
+        return dev
     dev = resolve_device(device)
     if state.term.device.type != dev.type:
         raise ValueError(f"state lives on {state.term.device}, but the call "
                          f"runs on {dev}; move it with state_from_numpy")
-    return dev
+    rx = current_rx()
+    return dev if rx is None else rx.device
 
 
 @dataclass(frozen=True)
@@ -528,15 +534,18 @@ def latency_matrix(cfg: SimConfig, tick, device=None) -> torch.Tensor:
 
 
 def drop_matrix(cfg: SimConfig, tick, rate: float,
-                device=None) -> torch.Tensor:
+                device=None, rows=None) -> torch.Tensor:
     """Per-edge Bernoulli message-drop mask for this tick: drop[i, j] = True
     drops messages i -> j.  The float32 compare matches the JAX package's
-    bit for bit (uint32 -> float32 rounds to nearest, /2**32 is exact)."""
+    bit for bit (uint32 -> float32 rounds to nearest, /2**32 is exact).
+    `rows` (int32 global row ids) gives only those rows of the matrix, a
+    row shard's: the same bits as slicing the whole one."""
     dev = tick.device if isinstance(tick, torch.Tensor) \
         else resolve_device(device)
     i = u32.unsigned(torch.arange(cfg.n, dtype=I32, device=dev))
+    ir = i if rows is None else u32.unsigned(rows)
     t = u32.unsigned(torch.as_tensor(tick, dtype=I32, device=dev))
-    h = u32.hash32(u32.mul(i[:, None], 0x01000193)
+    h = u32.hash32(u32.mul(ir[:, None], 0x01000193)
                    ^ u32.mul(i[None, :], 0x9E3779B1)
                    ^ u32.mul(t, 0x85EBCA77)
                    ^ ((cfg.seed ^ 0xD1FF) & u32.MASK))

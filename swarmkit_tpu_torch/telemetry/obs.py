@@ -18,6 +18,8 @@ from swarmkit_tpu_torch.metrics import catalog, scrape
 from swarmkit_tpu_torch.metrics.registry import (MetricsRegistry,
                                                  default_registry)
 
+from swarmkit_tpu_torch.parallel import gather, only, row_sharded
+
 from . import series as tseries
 
 
@@ -82,8 +84,18 @@ def decode_series(state, cfg) -> dict:
             for idx, name in tseries.SERIES_NAMES.items()}
 
 
+def _whole(state):
+    """A row-sharded state's summary fields gathered (the cluster's own
+    leaves whole); any other state as it is."""
+    if row_sharded(state):
+        return gather(only(state, _SUMMARY_FIELDS))
+    return state
+
+
 def summarize_state(state, cfg) -> dict:
-    """JSON-able snapshot of the telemetry plane in `state`."""
+    """JSON-able snapshot of the telemetry plane in `state` (one cluster's,
+    a row-sharded one's too)."""
+    state = _whole(state)
     if getattr(state, "tel_commit_hist", None) is None:
         return {"enabled": False}
     out = {"enabled": True,
@@ -141,6 +153,7 @@ class TelemetryObs:
 
     def publish(self, state, cfg) -> dict:
         """Scrape `state` into the registry; returns summarize_state()."""
+        state = _whole(state)
         summary = summarize_state(state, cfg)
         if not summary["enabled"]:
             return summary

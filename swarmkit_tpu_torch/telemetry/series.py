@@ -89,7 +89,7 @@ def bucket_of(lat: torch.Tensor, edges=None) -> torch.Tensor:
 
 
 def hist_fold(hist: torch.Tensor, mask: torch.Tensor, lat: torch.Tensor,
-              weight=None, edges=None) -> torch.Tensor:
+              weight=None, edges=None, psum=None) -> torch.Tensor:
     """Fold masked latencies into a [NUM_BUCKETS] int32 counter vector; each
     masked element adds `weight` samples (1 when None).  Masked-out
     elements add 0 to their bucket, whatever garbage latency they hold.
@@ -98,7 +98,8 @@ def hist_fold(hist: torch.Tensor, mask: torch.Tensor, lat: torch.Tensor,
     row (an [R, NUM_BUCKETS] partial, so a row's elements are all that
     meet on one counter), then a sum over rows: int32 sums wrap the same
     in any order, so the bits equal the JAX package's exceed-count
-    differencing."""
+    differencing.  `psum` sums a row shard's [NUM_BUCKETS] counts over
+    the shards of a row-sharded tick (kernel.step)."""
     w = mask.to(I32) if weight is None \
         else torch.where(mask, weight.to(I32), 0)
     b = bucket_of(lat, edges)
@@ -113,7 +114,8 @@ def hist_fold(hist: torch.Tensor, mask: torch.Tensor, lat: torch.Tensor,
     part = torch.zeros((rows, NUM_BUCKETS), dtype=I32, device=hist.device)
     part.scatter_add_(1, b.reshape(rows, -1).to(torch.int64),
                       w.reshape(rows, -1))
-    return hist + part.sum(0, dtype=I32)
+    counts = part.sum(0, dtype=I32)
+    return hist + (counts if psum is None else psum(counts))
 
 
 def ring_write(series: torch.Tensor, stride: int, now: torch.Tensor,

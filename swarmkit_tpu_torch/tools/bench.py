@@ -25,9 +25,9 @@ enough for the fsync pipeline) and the two lowering A/B pairs
 (1024-densepeer: banded vs dense peer counts; 4096-sparseprog: slab vs
 dense progress), the sharded rung (32768-sharded: n=32768, peer_chunk
 1024, each fresh state placed on row_mesh(n) over the local cards: one
-H100 holds the whole state; several cards stop with NotImplementedError,
-the multi-device row tick not being ported), seed 7, at the headline's
-entry count, and bench.py's two multi-raft configurations
+H100 holds the whole state, several cards each hold their rows and run
+the row tick in lock step), seed 7, at the headline's entry count, and
+bench.py's two multi-raft configurations
 (`measure_multiraft`: multiraft-1024x3, G = 1024 groups of 3 with reads
 and leases, and multiraft-telemetry, G = 256 bare against telemetry on,
 here in turns with the ratio's spread), whose fleets shard their groups
@@ -97,7 +97,10 @@ def _sync(dev: torch.device) -> None:
 
 
 def _clone(st: SimState) -> SimState:
-    """A copy that a run may consume (step writes rings in place)."""
+    """A copy that a run may consume (step writes rings in place); a
+    row-sharded state's shards each copied on their own entry."""
+    if isinstance(st, parallel.Sharded):
+        return dataclasses.replace(st, shards=[_clone(s) for s in st.shards])
     return SimState(**{f.name: None if getattr(st, f.name) is None
                        else getattr(st, f.name).clone()
                        for f in dataclasses.fields(SimState)})
@@ -168,9 +171,10 @@ def measure(n: int, entries: int, seed: int, election_tick: int, dev,
     `shard` every fresh state is placed by parallel.shard_rows on
     row_mesh(n) over the local devices of dev's type (bench.py's
     32768-sharded rung): on one card that is the whole state on the card
-    (`mesh_devices` 1); over several, the tick stops with
-    NotImplementedError (the multi-device row tick is not ported).  Driver
-    calls are timed by a KernelObs, which publishes the timed run's
+    (`mesh_devices` 1); over several, each holds its rows and the row
+    tick runs on all of them in lock step (`final` is then a
+    parallel.Sharded state).  The run loops' calls are timed by a
+    KernelObs, which publishes the timed run's
     counters (`kernel_stats`); the telemetry probe follows.  Each call is
     a run of its own, so its KernelObs publishes into a registry of its
     own (see KernelObs on wrapping counters)."""
@@ -248,6 +252,9 @@ def _safety(m: dict) -> tuple[bool, int]:
     """(equal applied => equal checksum on every pair of rows, rows whose
     commit is within one proposal batch of the tip)."""
     final, cfg = m["final"], m["cfg"]
+    if parallel.row_sharded(final):
+        final = parallel.gather(parallel.only(
+            final, ("commit", "applied", "apply_chk")))
     commit = final.commit.cpu()
     seen: dict = {}
     ok = all(seen.setdefault(a, c) == c for a, c in

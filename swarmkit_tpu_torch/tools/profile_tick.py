@@ -2,7 +2,7 @@
 
     python -m swarmkit_tpu_torch.tools.profile_tick [--n N] [--ticks 16]
         [--dense] [--config headline|mailbox|readmix|rung] [--log-len L]
-        [--planes]
+        [--planes] [--entries D]
 
 Elects a leader at the bench headline configuration (n=4096 unless --n
 says otherwise; banded peer counts and role-sparse progress at their
@@ -14,7 +14,10 @@ latency 2, jitter 1, inflight 4), or with --config readmix at bench.py's
 or with --config rung at bench.py's 32768-sharded (n=32768, seed 7,
 election_tick 30, peer_chunk 1024: the whole state on the card, about
 60 GiB at its peak); --log-len changes the ring, --planes turns the three device observability
-planes on (the flight recorder, telemetry, trace tags).  It warms up with
+planes on (the flight recorder, telemetry, trace tags), and --entries D
+shards the cluster's rows over a row mesh of D entries (every card when
+there are several, else the card named D times: the multi-device row
+tick).  It warms up with
 proposing ticks, then runs --ticks ticks of run_ticks(prop_count=max_props)
 three ways:
 
@@ -43,6 +46,7 @@ import time
 
 import torch
 
+from swarmkit_tpu_torch import parallel
 from swarmkit_tpu_torch.parallel import cuda_ops
 from swarmkit_tpu_torch.raft import sim
 from swarmkit_tpu_torch.raft.sim import kernel
@@ -97,6 +101,9 @@ def main() -> None:
     ap.add_argument("--planes", action="store_true",
                     help="turn on the flight recorder, telemetry and trace "
                          "tags")
+    ap.add_argument("--entries", type=int, default=1,
+                    help="shard the rows over a row mesh of this many "
+                         "entries")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_tick: needs a CUDA card")
@@ -110,8 +117,13 @@ def main() -> None:
                            "log_len": args.log_len or base["log_len"],
                            **(DENSE if args.dense else {}),
                            **(PLANES if args.planes else {})})
-    st, ticks = sim.run_until_leader(sim.init_state(cfg), cfg,
-                                     max_ticks=2000)
+    st = sim.init_state(cfg)
+    if args.entries > 1:
+        cards = parallel.local_devices()
+        devices = cards if len(cards) > 1 else cards * args.entries
+        st = parallel.shard_rows(st, parallel.row_mesh(
+            cfg.n, devices[:args.entries]))
+    st, ticks = sim.run_until_leader(st, cfg, max_ticks=2000)
     if not bool(sim.has_leader(st)):
         raise SystemExit("profile_tick: no leader")
     st, _ = sim.run_ticks(st, cfg, args.warm, prop_count=cfg.max_props)
@@ -195,6 +207,7 @@ def main() -> None:
               f"{e.count / args.ticks:7.1f}  {e.key[:100]}")
     print(json.dumps({
         "card": card, "config": args.config, "n": cfg.n,
+        "entries": args.entries,
         "log_len": cfg.log_len, "ticks": args.ticks,
         "committed_per_tick": committed, "reads_per_tick": reads,
         "levers": {"peer_chunk": cfg.peer_chunk,

@@ -157,17 +157,29 @@ def test_sharded_rung_flow_on_a_one_entry_mesh():
 
 
 def test_sharded_rung_over_several_devices_stops(monkeypatch):
-    """Over several devices the rung's row mesh has D > 1 entries, and the
-    tick of one cluster over a row mesh stops: never a quiet run on one
-    device."""
+    """Over several devices (two CPU entries here) the rung's row mesh has
+    D > 1 entries and the flow runs the row tick on both: it commits
+    exactly what the unsharded flow does, elects in as many ticks, ends
+    with the same commit row and counters, and its final state stays
+    sharded."""
     from swarmkit_tpu_torch import parallel
 
+    cpu = torch.device("cpu")
+    plain = bench.measure(64, 4000, 7, bench.election_tick_for(64), cpu,
+                          chunk=8, peer_chunk=16)
     monkeypatch.setattr(parallel, "local_devices",
-                        lambda device=None: [torch.device("cpu")] * 2)
-    with pytest.raises(NotImplementedError, match="multi-device row tick"):
-        bench.measure(64, 4000, 7, bench.election_tick_for(64),
-                      torch.device("cpu"), chunk=8, shard=True,
-                      peer_chunk=16)
+                        lambda device=None: [cpu] * 2)
+    m = bench.measure(64, 4000, 7, bench.election_tick_for(64), cpu,
+                      chunk=8, shard=True, peer_chunk=16)
+    assert m["mesh_devices"] == 2 and isinstance(m["final"],
+                                                 parallel.Sharded)
+    assert m["committed"] == plain["committed"] > 0
+    assert m["election_ticks"] == plain["election_ticks"]
+    assert m["kernel_stats"] == plain["kernel_stats"]
+    assert m["counts"] == plain["counts"]
+    assert torch.equal(parallel.gather(m["final"]).commit,
+                       plain["final"].commit)
+    assert bench._safety(m) == bench._safety(plain) and bench._safety(m)[0]
 
 
 def test_measure_multiraft_shards_its_groups(monkeypatch):

@@ -1054,6 +1054,50 @@ def test_sharded_fleet_on_the_card_matches_unsharded():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("lever", [{}, {"log_len": 1024, "log_chunk": 128,
+                                    "peer_chunk": 8, "latency": 2,
+                                    "latency_jitter": 1, "inflight": 3,
+                                    "election_tick": 16, "read_batch": 4}])
+def test_row_tick_on_the_card_matches_unsharded(lever):
+    """One cluster's rows over a row mesh of the card (cuda:0 named four
+    times, or every card): faults, a fused propose and host calls, every
+    field and trace row equal to the unsharded card run and the CPU's,
+    append_band_copy launched by every shard."""
+    _need_card()
+    from swarmkit_tpu_torch import parallel
+
+    cfg = sim.SimConfig(**{**dict(n=64, log_len=128, window=16,
+                                  apply_batch=32, max_props=16, keep=8,
+                                  seed=11), **lever})
+    devices = _card_mesh_devices()
+    runs = {}
+    for label, dev in (("card", "cuda"), ("sharded", "cuda"),
+                       ("cpu", "cpu")):
+        st = sim.init_state(cfg, device=dev)
+        if label == "sharded":
+            st = parallel.shard_rows(st, parallel.row_mesh(64, devices))
+        cuda_ops.reset_launches()
+        st, t = sim.run_until_leader(st, cfg, max_ticks=400, device=dev)
+        st, trace = sim.run_ticks(st, cfg, 30, prop_count=4, drop_rate=0.1,
+                                  crash_every=10, down_for=3, device=dev)
+        st = sim.propose_dense(st, cfg, sim.run._payload_at, 3, device=dev)
+        st, trace2 = sim.run_ticks(st, cfg, 10, prop_count=4, device=dev)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        runs[label] = (t, torch.cat([trace, trace2]).cpu(),
+                       sim.state_to_numpy(parallel.gather(st)),
+                       cuda_ops.LAUNCHES["append_band_copy"])
+    want = runs["cpu"]
+    assert int(want[1][:, 1].max()) > 0
+    for label in ("card", "sharded"):
+        t, trace, got, _ = runs[label]
+        assert t == want[0] and torch.equal(trace, want[1]), label
+        for name in want[2]:
+            assert np.array_equal(got[name], want[2][name]), (label, name)
+    assert runs["sharded"][3] >= runs["card"][3] > 0
+
+
+@pytest.mark.cuda
 def test_all_to_all_on_the_card_is_the_transpose():
     """The device wire's exchange over four mesh entries of the card."""
     _need_card()

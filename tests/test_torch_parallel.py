@@ -21,8 +21,9 @@ workers through a file under pytest's temporary root.
 
 The wire: the 4-entry all-to-all equals the transpose and is built from
 D^2 blocks a tensor; raft nodes replicate over a 4-entry wire.  A
-row-sharded state over several entries is refused by the tick.  All
-values are integers, so every comparison is exact.
+row-sharded state over two entries runs through the tick as the
+unsharded one (tests/test_torch_row_tick.py holds every entry point to
+JAX).  All values are integers, so every comparison is exact.
 """
 
 from __future__ import annotations
@@ -513,14 +514,29 @@ async def test_three_nodes_replicate_over_a_four_entry_wire():
 
 
 def test_row_sharded_state_is_refused_by_the_tick():
+    """The tick takes a row-sharded state (one cluster's rows over two
+    entries): run_until_leader, run_ticks and step each give the
+    unsharded run's state (every field) and trace, and the result stays
+    sharded; a one-entry mesh is the unsharded state itself."""
     cfg = tstate.SimConfig(**dict(FLEET, n=16))
+    plain = tstate.init_state(cfg, device=CPU)
     sh = tpar.shard_rows(tstate.init_state(cfg, device=CPU),
                          tpar.row_mesh(16, cpus(2)))
-    for call in (lambda: trun.run_ticks(sh, cfg, 2, device=CPU),
-                 lambda: trun.run_until_leader(sh, cfg, 2, device=CPU),
-                 lambda: trun.step(sh, cfg, device=CPU)):
-        with pytest.raises(NotImplementedError, match="multi-device row"):
-            call()
+    calls = (lambda st: trun.run_until_leader(st, cfg, 40, device=CPU),
+             lambda st: trun.run_ticks(st, cfg, 6, prop_count=2,
+                                       device=CPU),
+             lambda st: (trun.step(st, cfg, device=CPU), None))
+    for call in calls:
+        plain, want = call(plain)
+        sh, got = call(sh)
+        assert isinstance(sh, tpar.Sharded) and len(sh) == 2
+        assert_fields("row-sharded", tstate.state_to_numpy(plain),
+                      tpar.gather(sh))
+        if isinstance(want, torch.Tensor):
+            assert torch.equal(got, want)
+        else:
+            assert got == want
+    assert int(trun.committed_entries(sh)) > 0
     one = tpar.shard_rows(tstate.init_state(cfg, device=CPU),
                           tpar.row_mesh(16, cpus(1)))
     st_, trace = trun.run_ticks(one, cfg, 2, device=CPU)
