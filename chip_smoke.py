@@ -266,7 +266,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    (banded = dense) and at active_rows=8 (sparse = dense), and two plans
    card = CPU on viol, first_tick and bits_by_tick; run_attack_sweep over
    the four attacks and run_storage_sweep over the four storage faults at
-   seed 7, n=5, 8 schedules: every row ok (caught with the defense off,
+   seed 7, n=5, 8 schedules of at most FAULT_TICKS ticks: every row ok (caught with the defense off,
    shrunk, replayed exactly, the oracle in lockstep, clean with the
    defense on; or contained with recovery events), every card artifact
    replayed on the CPU with its recorded viol and first tick.  Per row:
@@ -2947,6 +2947,10 @@ FAULT_SEED, FAULT_SCHEDULES, FAULT_N = 7, 8, 5
 PRECHECK_CPU_PLANS = ("drop", "crash")
 # the attack row whose explore band-copy call phase 20 times
 FAULT_TIMED = "append_flood"
+# the attack and storage rows' depth: their scenarios' 120-140 ticks cut
+# to 80, as phase 13's demos (every row still catches or contains its
+# fault; 60 loses two rows)
+FAULT_TICKS = 80
 
 
 def _per_tick_ms(info: dict, key: str) -> float:
@@ -3088,8 +3092,8 @@ def phase_fault_sweep(torch, sim, cuda_ops, outdir: str,
     = dense at active_rows=8), two plans card = CPU on viol, first_tick
     and bits_by_tick; the four attack and four storage pipelines at seed
     7, n=5, 8 schedules, each row ok and each card artifact replayed on
-    the CPU with its recorded viol and first tick.  Each lowering and
-    each row counts its band-copy launches from 0 (one a tick driven) and
+    the CPU with its recorded viol and first tick (each scenario cut to
+    FAULT_TICKS ticks).  Each lowering and each row counts its band-copy launches from 0 (one a tick driven) and
     holds every band-copy call it made against the plain version; the
     append_flood row's explore call that writes the most slots is timed
     as in phase 5."""
@@ -3137,17 +3141,22 @@ def phase_fault_sweep(torch, sim, cuda_ops, outdir: str,
             f"first_tick {int(b.first_tick[0])} and bits_by_tick")
 
     rows_of = FAULT_SCHEDULES * FAULT_N
-    for kind, names, sweep in (
-            ("attack", list(fs.ATTACK_SCENARIOS), fs.run_attack_sweep),
-            ("storage", list(fs.STORAGE_SCENARIOS), fs.run_storage_sweep)):
-        for name in names:
+    for kind, table, sweep in (
+            ("attack", fs.ATTACK_SCENARIOS, fs.run_attack_sweep),
+            ("storage", fs.STORAGE_SCENARIOS, fs.run_storage_sweep)):
+        for name, sc in table.items():
             stats = {}
-            rows, launched, calls = _fault_run(
-                torch, sim, cuda_ops, f"{kind} {name}",
-                lambda: sweep([name], seed=FAULT_SEED,
-                              schedules=FAULT_SCHEDULES, n=FAULT_N,
-                              out_dir=outdir, wires=(), verbose=False,
-                              device=dev, stats=stats))
+            full = sc["ticks"]
+            sc["ticks"] = min(full, FAULT_TICKS)
+            try:
+                rows, launched, calls = _fault_run(
+                    torch, sim, cuda_ops, f"{kind} {name}",
+                    lambda: sweep([name], seed=FAULT_SEED,
+                                  schedules=FAULT_SCHEDULES, n=FAULT_N,
+                                  out_dir=outdir, wires=(), verbose=False,
+                                  device=dev, stats=stats))
+            finally:
+                sc["ticks"] = full
             launches_all += launched
             r, st = rows[0], stats[name]
             check(r["ok"], f"{kind} {name}: {r['error']}")
@@ -3174,7 +3183,8 @@ def phase_fault_sweep(torch, sim, cuda_ops, outdir: str,
             out["rows"][name] = dict(
                 {k: v for k, v in st.items() if k != "artifact"},
                 kind=kind, band_copy_launches=launched)
-            log(f"  {kind} {name}: ok in {st['secs']:.2f} s; {what}; "
+            log(f"  {kind} {name} ({min(full, FAULT_TICKS)} ticks): ok in "
+                f"{st['secs']:.2f} s; {what}; "
                 f"append_band_copy launches {launched}, one a tick, "
                 f"each of {len(calls)} calls = plain")
     out["secs"] = time.perf_counter() - t_phase
@@ -3308,7 +3318,7 @@ def phase_executor(torch, cuda_ops) -> dict:
           f"sumsq launched {launches['sumsq']} times, not {TASK_STEPS}")
     check(desc.resources.generic == {"gpu-chip": 1}, "describe on the card")
     out = dict(prepare_s=prep_s, run_s=run_s, tflop_per_s=flop / run_s / 1e12,
-               launches=launches, a=ctl._args[0])
+               launches=launches, result=ctl.result, a=ctl._args[0])
     # twice: the first run in a fresh executor thread also sets up cuBLAS
     out["xla_chain_run_s"] = []
     for _ in range(2):
@@ -4643,6 +4653,217 @@ def phase_sharded(torch, sim, cuda_ops, mc16: dict, card: str = "cuda",
     return out
 
 
+# ---- phase 25: the control plane on the card ---------------------------
+
+CP_REPLICAS = 30_000       # Docker's published scale, not cut
+CP_STARTUP = (100, 10)     # swarm-bench's defaults: replicas, agents
+CP_PROGRAM_REPLICAS = 2
+
+
+def _sched_place_timed(torch, cuda_ops, calls: list):
+    """cuda_ops.place_greedy wrapped to record each call's columns and
+    device ms between CUDA events (read after the run); the launch and
+    its count are the wrapper's own."""
+    inner = cuda_ops.place_greedy
+
+    def timed(cols, n_branches, has_service, n_tasks):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = inner(cols, n_branches, has_service, n_tasks)
+        end.record()
+        calls.append((cols, n_branches, has_service, n_tasks, start, end))
+        return out
+    return inner, timed
+
+
+def phase_control_plane(torch, cuda_ops, task7: dict, card: str = "cuda"
+                        ) -> dict:
+    """(a) Docker's 30,000 replicas through the store: the world of
+    sched_world.describe_world as store records, group A's service through
+    ControlApi.create_service, the orchestrator, the allocator and the
+    scheduler's store loop (its kernel on the card) until the store is
+    quiet; the placement checked and held to one direct schedule().
+    (b) swarm-bench's task-startup flow with 10 TestExecutor agents, then
+    one agent on the port's TpuExecutor running 2 tpu://pallas_matmul
+    replicas to COMPLETE.  (c) The orchestration script of
+    tests/test_torch_orchestration.py with the store loop on the card and
+    on the CPU, equal after every step."""
+    from swarmkit_tpu_torch.agent.tpu import TpuExecutor
+    from swarmkit_tpu_torch.manager.scheduler import kernel as skernel
+    from swarmkit_tpu_torch.metrics import catalog
+    from swarmkit_tpu_torch.tools import control_plane as cp
+    from swarmkit_tpu_torch.tools import sched_world as W
+
+    card_name = card_line()
+    pkg = cp.package()
+    out = {}
+
+    # (a) ------------------------------------------------------------------
+    desc = W.describe_world(seed=0)
+    calls: list = []
+    inner, timed = _sched_place_timed(torch, cuda_ops, calls)
+    sw = cp.Stopwatch()
+    sw.wrap(skernel, "encode_group")
+    sw.wrap(skernel, "group_columns")
+    cuda_ops.place_greedy = timed
+    cuda_ops.reset_launches()
+    try:
+        run = asyncio.run(cp.place_through_store(
+            pkg, desc, CP_REPLICAS, {"device": card}, stopwatch=sw,
+            timeout=600))
+    finally:
+        cuda_ops.place_greedy = inner
+        sw.restore()
+    sw_enc = dict(sw.seconds)
+    launches = cuda_ops.LAUNCHES["sched_place"]
+    torch.cuda.synchronize()
+    kernel_ms = [s.elapsed_time(e) for *_, s, e in calls]
+    groups = catalog.get(run["obs"], "swarm_sched_kernel_groups_total") \
+        .snapshot()
+    store, svc = run["store"], run["service"]
+    ticked = sum(1 for n in run["ticks"] if n)   # ticks with work to place
+    check(launches == len(calls) == ticked and launches > 0,
+          f"control plane: sched_place launched {launches} times for "
+          f"{ticked} ticks of one group")
+    check(groups == {"path=kernel": float(launches)},
+          f"control plane: a group left the kernel path ({groups})")
+    viol = cp.placement_violations(pkg, store, svc.id)
+    check(not viol, f"control plane: placement violations {viol[:5]}")
+    placed, pending = len(run["order"]), len(run["pending"])
+    check(placed + pending == CP_REPLICAS and placed > 0,
+          f"control plane: {placed} placed + {pending} pending")
+    final = {t.id: t.node_id
+             for t in store.find("task", pkg.by.ByService(svc.id))
+             if t.status.state == pkg.api.TaskState.ASSIGNED}
+    check(final == dict(run["order"]), "control plane: the store's "
+          "assignment differs from the decisions the ticks applied")
+    cuda_ops.reset_launches()
+    t0 = time.perf_counter()
+    direct = cp.direct_schedule(pkg, run, {"device": card})
+    direct_s = time.perf_counter() - t0
+    check(cuda_ops.LAUNCHES["sched_place"] == 1,
+          "control plane: the direct schedule() did not launch once")
+    check(direct == run["order"], "control plane: the store loop's "
+          "placement differs from one direct schedule() over the "
+          "starting node set")
+    # the first tick's columns: the kernel against the plain loop
+    cols, nb, hs, k = calls[0][:4]
+    want = cuda_ops.place_greedy_plain(cols.cpu(), nb, hs, k)
+    got = inner(cols, nb, hs, k).cpu()
+    err = int((got.long() - want.long()).abs().max())
+    check(err == 0, f"control plane: sched_place differs from the plain "
+          f"loop on the first tick's columns ({err})")
+    secs = run["seconds"]
+    kernel_s = sum(kernel_ms) / 1e3
+    out["a"] = dict(
+        card=card_name, replicas=CP_REPLICAS, nodes=len(desc["zone"]),
+        placed=placed, pending=pending, failed_taints=run["n_failed"],
+        setup_s=run["setup_s"], quiet_s=run["quiet_s"],
+        tasks_placed_per_s=placed / run["quiet_s"],
+        orchestrator_s=secs["_reconcile"], allocator_s=secs["_alloc_tasks"],
+        ticks=len(run["ticks"]), tick_tasks=run["ticks"],
+        tick_s=secs["tick"], place_s=secs["_place"],
+        encode_s=sw_enc["encode_group"] + sw_enc["group_columns"],
+        kernel_ms_per_tick=kernel_ms, apply_s=secs["_apply"],
+        explain_s=secs["_explain_unplaced"],
+        group_decode_s=secs["_place"] - sw_enc["encode_group"]
+        - sw_enc["group_columns"] - kernel_s,
+        launches=launches, direct_s=direct_s, err=err)
+    a = out["a"]
+    log(json.dumps({"phase": "25a", **{k: v for k, v in a.items()}},
+                   default=str))
+    log(f"  {CP_REPLICAS} replicas over {a['nodes']} nodes: placed "
+        f"{placed}, pending {pending}, quiet {a['quiet_s']:.2f} s after "
+        f"create_service ({a['tasks_placed_per_s']:.0f} tasks placed a "
+        f"second); orchestrator {a['orchestrator_s']:.2f} s, allocator "
+        f"{a['allocator_s']:.2f} s, {a['ticks']} ticks {a['tick_s']:.2f} s "
+        f"(place {a['place_s']:.2f} s: encode {a['encode_s']:.3f} s, kernel "
+        f"{kernel_ms} ms, grouping + decode {a['group_decode_s']:.3f} s; "
+        f"apply "
+        f"{a['apply_s']:.2f} s; explain {a['explain_s']:.2f} s); "
+        f"sched_place launches {launches}; = direct schedule() "
+        f"({direct_s:.2f} s); the first tick's kernel = plain loop")
+    del run, store, final, direct, calls
+
+    # (b) ------------------------------------------------------------------
+    replicas, workers = CP_STARTUP
+    ex = TpuExecutor(hostname="card-0", device=card)
+    args = [f"n={TASK_N}", f"steps={TASK_STEPS}", "seed=0"]
+
+    async def program(p):
+        res = await cp.run_program(p, ex, "tpu://pallas_matmul", args,
+                                   replicas=CP_PROGRAM_REPLICAS,
+                                   timeout=300)
+        return res, catalog.get(
+            p.obs, "swarm_sched_kernel_groups_total").snapshot()
+
+    cuda_ops.reset_launches()
+    b = asyncio.run(cp.task_startup(pkg, replicas, workers,
+                                    sched_kw={"device": card}, extra=ex,
+                                    then=program))
+    launches = {k: cuda_ops.LAUNCHES[k]
+                for k in ("matmul_wgmma", "sumsq", "sched_place")}
+    prog, groups = b.pop("then")
+    flop = TASK_STEPS * 2 * TASK_N ** 3
+    check(b["fsm_ordered"], "control plane: a bench task's states reached "
+          "the store out of FSM order")
+    check(groups.get("path=kernel", 0) == launches["sched_place"] > 0
+          and "path=host" not in groups, f"control plane: sched_place "
+          f"launches {launches['sched_place']} for the groups {groups}")
+    check(launches["matmul_wgmma"] == CP_PROGRAM_REPLICAS * TASK_STEPS
+          and launches["sumsq"] == CP_PROGRAM_REPLICAS * TASK_STEPS,
+          f"control plane: the program tasks launched {launches}")
+    order = [s.name for s in sorted(pkg.api.TaskState)]
+    tasks = []
+    for slot, t in sorted(prog.items()):
+        idx = [order.index(x) for x in t["states"]]
+        check(t["state"] == "COMPLETE", f"control plane: program task "
+              f"{slot} ended {t['state']}: {t['err']}")
+        check(idx == sorted(idx), f"control plane: program task {slot}'s "
+              f"states {t['states']} are out of FSM order")
+        check(t["result"] == task7["result"], f"control plane: program "
+              f"task {slot}'s result {t['result']!r} != phase 7's "
+              f"{task7['result']!r}")
+        tasks.append(dict(slot=slot, node=t["node"], run_s=t["run_s"],
+                          tflop_per_s=flop / t["run_s"] / 1e12,
+                          result=t["result"], states=t["states"]))
+    out["b"] = dict(card=card_name, **b, program=tasks,
+                    phase7_run_s=task7["run_s"],
+                    phase7_tflop_per_s=task7["tflop_per_s"],
+                    launches=launches, groups=groups)
+    log(json.dumps({"phase": "25b", **out["b"]}, default=str))
+    log(f"  swarm-bench flow ({replicas} replicas, {workers} agents): all "
+        f"RUNNING in {b['time_to_all_running_s']:.3f} s "
+        f"({b['tasks_per_s']:.1f} tasks/s; p50 {b['p50_s']:.3f}, p90 "
+        f"{b['p90_s']:.3f}, p99 {b['p99_s']:.3f} s); "
+        + "; ".join(f"pallas_matmul slot {t['slot']}: run {t['run_s']:.3f} s "
+                    f"({t['tflop_per_s']:.1f} TFLOP/s), result = phase 7's"
+                    for t in tasks)
+        + f" (phase 7: {task7['run_s']:.3f} s, "
+        f"{task7['tflop_per_s']:.1f} TFLOP/s); launches {launches}")
+
+    # (c) ------------------------------------------------------------------
+    cuda_ops.reset_launches()
+    t0 = time.perf_counter()
+    on_card = asyncio.run(cp.run_script(pkg, {"device": card}))
+    card_s = time.perf_counter() - t0
+    launches = cuda_ops.LAUNCHES["sched_place"]
+    on_cpu = asyncio.run(cp.run_script(pkg, {"device": "cpu"}))
+    diffs = cp.same_steps(on_cpu, on_card)
+    check(not diffs, f"control plane: the script on the card differs from "
+          f"the CPU: {diffs[:3]}")
+    check(launches > 0, "control plane: the script never launched "
+          "sched_place")
+    out["c"] = dict(card=card_name, steps=[s for s, _ in on_card],
+                    launches=launches, card_s=card_s)
+    log(json.dumps({"phase": "25c", **out["c"]}))
+    log(f"  the orchestration script: card = CPU after each of its "
+        f"{len(on_card)} steps ({launches} sched_place launches, "
+        f"{card_s:.2f} s on the card)")
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -4811,6 +5032,14 @@ def main() -> int:
     row24["secs"] = time.perf_counter() - t24
     del mesh23["rung"]["digests"]
     log(f"  phase 24 in {row24['secs']:.1f} s")
+    stage(f"phase 25: the control plane on the card ({CP_REPLICAS} replicas "
+          f"through the store; swarm-bench's flow and "
+          f"{CP_PROGRAM_REPLICAS} tpu://pallas_matmul tasks under the "
+          f"port's Agent; the orchestration script card = CPU)")
+    t25 = time.perf_counter()
+    cp25 = phase_control_plane(torch, cuda_ops, task)
+    cp25["secs"] = time.perf_counter() - t25
+    log(f"  phase 25 in {cp25['secs']:.1f} s")
 
     elapsed = time.perf_counter() - started
     log(f"all phases passed in {elapsed:.1f} s")
@@ -4830,7 +5059,7 @@ def main() -> int:
                                  "fault_sweep": fault20,
                                  "executor_rest": exec21,
                                  "device_wire": wire22, "meshes": mesh23,
-                                 "row_tick": row24},
+                                 "row_tick": row24, "control_plane": cp25},
                                 default=str))
     records = [{
         "name": "append_band_copy", "route": "cuda",
@@ -4908,6 +5137,9 @@ def main() -> int:
             "source": f"swarmkit_tpu_torch/csrc/{name}.cu",
             "replaces": f"swarmkit_tpu/parallel/pallas_ops.py:{line}",
             "launches": task["launches"][name],
+            "control_plane_launches":
+                cp25["b"]["launches"]["matmul_wgmma" if name == "matmul"
+                                      else name],
             "max_abs_err": max(err6[name], t["err"]), "ms": t["kernel"],
             "plain_ms": t["plain"], "bound_ms": t["bound"],
             "bound_by": bound_by, "library_ms": t["library"]})
@@ -4921,7 +5153,15 @@ def main() -> int:
         # no Pallas ancestor: the JAX package's jitted greedy fori_loop
         "replaces": "swarmkit_tpu/manager/scheduler/kernel.py:183",
         "launches": sum(sched17[g]["launches"] for g in groups),
-        "max_abs_err": max(sched17[g]["err"] for g in groups),
+        # phase 25: the store loop's ticks at Docker's scale, the
+        # swarm-bench flow's ticks, and the orchestration script's
+        "control_plane_launches": cp25["a"]["launches"],
+        "control_plane_kernel_ms": cp25["a"]["kernel_ms_per_tick"],
+        "control_plane_startup_launches":
+            cp25["b"]["launches"]["sched_place"],
+        "control_plane_script_launches": cp25["c"]["launches"],
+        "max_abs_err": max(max(sched17[g]["err"] for g in groups),
+                           cp25["a"]["err"]),
         "ms": a17["ms"], "tasks": a17["tasks"],
         # the plain loop on the card over the first plain_tasks tasks,
         # and the kernel on the same prefix

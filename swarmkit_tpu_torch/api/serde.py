@@ -57,62 +57,134 @@ def _hints(cls: type) -> dict[str, Any]:
     return h
 
 
+# How _enc treats a value, by its type (the order of the checks is the
+# JAX package's: an IntEnum is an int and stays itself; a plain Enum
+# becomes its value).  The per-type answers and the per-class field lists
+# and decoders are cached: the store copies every object it reads and
+# writes through to_dict/from_dict, so this is the control plane's hot
+# loop.
+_AS_IS, _ENUM, _BYTES, _DATACLASS, _SEQ, _MAP = range(6)
+_KIND: dict[type, int] = {type(None): _AS_IS}
+_FIELDS: dict[type, tuple] = {}
+_DECODERS: dict[Any, Any] = {}
+_PLANS: dict[type, tuple] = {}
+
+
+def _kind(t: type) -> int:
+    k = _KIND.get(t)
+    if k is None:
+        if issubclass(t, (int, float, str, bool)):
+            k = _AS_IS
+        elif issubclass(t, enum.Enum):
+            k = _ENUM
+        elif issubclass(t, bytes):
+            k = _BYTES
+        elif dataclasses.is_dataclass(t):
+            k = _DATACLASS
+        elif issubclass(t, (list, tuple)):
+            k = _SEQ
+        elif issubclass(t, dict):
+            k = _MAP
+        else:
+            raise TypeError(f"cannot serialize {t!r}")
+        _KIND[t] = k
+    return k
+
+
+def _field_names(cls: type) -> tuple:
+    names = _FIELDS.get(cls)
+    if names is None:
+        names = _FIELDS[cls] = tuple(f.name for f in dataclasses.fields(cls))
+    return names
+
+
 def _enc(value: Any) -> Any:
-    if value is None or isinstance(value, (int, float, str, bool)):
+    t = type(value)
+    k = _KIND.get(t)
+    if k is None:
+        k = _kind(t)
+    if k == _AS_IS:
         return value
-    if isinstance(value, enum.Enum):
-        return value.value
-    if isinstance(value, bytes):
-        return {"__b64__": base64.b64encode(value).decode("ascii")}
-    if dataclasses.is_dataclass(value):
+    if k == _DATACLASS:
         out = {}
-        for f in dataclasses.fields(value):
-            v = getattr(value, f.name)
+        for name in _field_names(t):
+            v = getattr(value, name)
             if v is None:
                 continue
-            out[f.name] = _enc(v)
+            out[name] = _enc(v)
         return out
-    if isinstance(value, (list, tuple)):
+    if k == _SEQ:
         return [_enc(v) for v in value]
-    if isinstance(value, dict):
-        return {str(k): _enc(v) for k, v in value.items()}
-    raise TypeError(f"cannot serialize {type(value)!r}")
+    if k == _MAP:
+        return {str(key): _enc(v) for key, v in value.items()}
+    if k == _ENUM:
+        return value.value
+    return {"__b64__": base64.b64encode(value).decode("ascii")}
 
 
 def _dec(tp: Any, data: Any) -> Any:
-    if data is None:
-        return None
+    return _decoder(tp)(data)
+
+
+def _decoder(tp: Any):
+    """The function that decodes data of type hint `tp`, built once."""
+    try:
+        return _DECODERS[tp]
+    except KeyError:
+        pass
+    except TypeError:          # an unhashable hint: build it every time
+        return _build_decoder(tp)
+    f = _DECODERS[tp] = _build_decoder(tp)
+    return f
+
+
+def _build_decoder(tp: Any):
     origin = get_origin(tp)
     if origin is Union:  # Optional[X]
         args = [a for a in get_args(tp) if a is not type(None)]
-        return _dec(args[0], data)
+        inner = _decoder(args[0])
+        return lambda data: None if data is None else inner(data)
     if origin in (list, tuple):
-        (item_tp,) = get_args(tp) or (Any,)
-        return [_dec(item_tp, v) for v in data]
+        args = get_args(tp) or (Any,)
+        if len(args) != 1:
+            def dec_fixed_tuple(data):
+                if data is None:
+                    return None
+                (item_tp,) = args   # the generic decoder's ValueError
+            return dec_fixed_tuple
+        item = _decoder(args[0])
+        return lambda data: None if data is None else [item(v) for v in data]
     if origin is dict:
         args = get_args(tp)
-        item_tp = args[1] if len(args) == 2 else Any
-        return {k: _dec(item_tp, v) for k, v in data.items()}
+        value = _decoder(args[1] if len(args) == 2 else Any)
+        return lambda data: None if data is None else {
+            k: value(v) for k, v in data.items()}
     if isinstance(tp, type):
         if tp is bytes:
-            if isinstance(data, dict) and "__b64__" in data:
-                return base64.b64decode(data["__b64__"])
-            return bytes(data)
-        if issubclass(tp, enum.Enum):
-            return tp(data)
+            def dec_bytes(data):
+                if data is None:
+                    return None
+                if isinstance(data, dict) and "__b64__" in data:
+                    return base64.b64decode(data["__b64__"])
+                return bytes(data)
+            return dec_bytes
+        if issubclass(tp, enum.Enum) or tp in (int, float, str, bool):
+            return lambda data: None if data is None else tp(data)
         if dataclasses.is_dataclass(tp):
-            return _from_dict(tp, data)
-        if tp in (int, float, str, bool):
-            return tp(data)
-    return data
+            return lambda data: None if data is None else _from_dict(tp, data)
+    return lambda data: data
 
 
 def _from_dict(cls: type, data: dict) -> Any:
-    hints = _hints(cls)
+    plan = _PLANS.get(cls)
+    if plan is None:
+        hints = _hints(cls)
+        plan = _PLANS[cls] = tuple((f.name, _decoder(hints[f.name]))
+                                   for f in dataclasses.fields(cls))
     kwargs = {}
-    for f in dataclasses.fields(cls):
-        if f.name in data:
-            kwargs[f.name] = _dec(hints[f.name], data[f.name])
+    for name, dec in plan:
+        if name in data:
+            kwargs[name] = dec(data[name])
     return cls(**kwargs)
 
 

@@ -1,10 +1,9 @@
-"""Task and node states, and the descriptions the executor and the
-scheduler read.
+"""Core enums and shared message types.
 
-The port's own copy of the parts of the JAX package's api/types.py that
-the task executor and the scheduler touch, as ``Message`` dataclasses
-with the same names, fields and values, so the JAX package's objects also
-work where these are expected (duck typing).
+Reference: api/types.proto (TaskState at :~500 — lamport-ordered enum with
+gaps of 64 so states can be inserted), api/objects.proto Meta/Version.
+
+The port's own copy of the JAX package's api/types.py.
 """
 
 from __future__ import annotations
@@ -61,6 +60,26 @@ class NodeAvailability(enum.IntEnum):
     DRAIN = 2
 
 
+class MembershipState(enum.IntEnum):
+    PENDING = 0
+    ACCEPTED = 1
+
+
+@dataclass
+class Version(Message):
+    """Raft index of the last modification; optimistic-concurrency token
+    (reference: api/objects.proto Meta.version)."""
+
+    index: int = 0
+
+
+@dataclass
+class Meta(Message):
+    version: Version = field(default_factory=Version)
+    created_at: float = 0.0
+    updated_at: float = 0.0
+
+
 @dataclass
 class Annotations(Message):
     name: str = ""
@@ -77,6 +96,33 @@ class TaskStatus(Message):
 
 
 @dataclass
+class Peer(Message):
+    node_id: str = ""
+    addr: str = ""
+
+
+@dataclass
+class WeightedPeer(Message):
+    peer: Peer = field(default_factory=Peer)
+    weight: int = 1
+
+
+@dataclass
+class RaftMemberStatus(Message):
+    leader: bool = False
+    reachability: int = 0  # 0 unknown, 1 unreachable, 2 reachable
+    message: str = ""
+
+
+@dataclass
+class RaftMember(Message):
+    raft_id: int = 0
+    node_id: str = ""
+    addr: str = ""
+    status: RaftMemberStatus = field(default_factory=RaftMemberStatus)
+
+
+@dataclass
 class Platform(Message):
     architecture: str = ""
     os: str = ""
@@ -90,20 +136,63 @@ class EngineDescription(Message):
 
 
 @dataclass
+class NodeDescription(Message):
+    hostname: str = ""
+    platform: Platform = field(default_factory=Platform)
+    resources: Optional["NodeResources"] = None
+    engine: EngineDescription = field(default_factory=EngineDescription)
+    tls_info: Optional["NodeTLSInfo"] = None
+    fips: bool = False
+
+
+@dataclass
 class NodeResources(Message):
     nano_cpus: int = 0
     memory_bytes: int = 0
     generic: dict[str, int] = field(default_factory=dict)
-    # a SET of claimable string ids per kind (e.g. gpu-chip -> ["0"])
+    # Named generic resources (reference: api/genericresource
+    # NamedGenericResource): a SET of claimable string ids per kind (e.g.
+    # tpu-chip -> ["0","1",...]); discrete `generic` counts and named sets
+    # may coexist under different kinds
     generic_named: dict[str, list[str]] = field(default_factory=dict)
 
 
 @dataclass
-class NodeDescription(Message):
-    hostname: str = ""
-    platform: Platform = field(default_factory=Platform)
-    resources: Optional[NodeResources] = None
-    engine: EngineDescription = field(default_factory=EngineDescription)
+class NodeTLSInfo(Message):
+    trust_root: bytes = b""
+    cert_issuer_subject: bytes = b""
+    cert_issuer_public_key: bytes = b""
+
+
+@dataclass
+class Certificate(Message):
+    role: NodeRole = NodeRole.WORKER
+    csr: bytes = b""
+    status_state: int = 0  # IssuanceState: 0 unknown,1 renew,2 pending,3 issued,4 failed,5 rotate
+    certificate: bytes = b""
+    cn: str = ""
+
+
+class IssuanceState(enum.IntEnum):
+    UNKNOWN = 0
+    RENEW = 1
+    PENDING = 2
+    ISSUED = 3
+    FAILED = 4
+    ROTATE = 5
+
+
+@dataclass
+class Endpoint(Message):
+    spec: Optional["EndpointSpecRef"] = None
+    ports: list["PortConfig"] = field(default_factory=list)
+    virtual_ips: list["EndpointVIP"] = field(default_factory=list)
+
+
+@dataclass
+class EndpointVIP(Message):
+    network_id: str = ""
+    addr: str = ""
 
 
 @dataclass
@@ -116,7 +205,8 @@ class PortConfig(Message):
 
 
 @dataclass
-class Endpoint(Message):
+class EndpointSpecRef(Message):
+    mode: str = "vip"
     ports: list[PortConfig] = field(default_factory=list)
 
 
@@ -125,9 +215,25 @@ class NetworkAttachment(Message):
     network_id: str = ""
     addresses: list[str] = field(default_factory=list)
     aliases: list[str] = field(default_factory=list)
-    # resolved network driver name, carried into the task so the
-    # scheduler's PluginFilter needs no lookup; "" = default driver
+    # resolved network driver name (reference: NetworkAttachment.Network
+    # .DriverState carried into the task so the scheduler's PluginFilter
+    # needs no store lookup); "" = default driver
     driver: str = ""
+
+
+@dataclass
+class IPAMConfig(Message):
+    family: str = "ipv4"
+    subnet: str = ""
+    ip_range: str = ""
+    gateway: str = ""
+    reserved: dict[str, str] = field(default_factory=dict)
+
+
+@dataclass
+class IPAMOptions(Message):
+    driver: str = "default"
+    configs: list[IPAMConfig] = field(default_factory=list)
 
 
 @dataclass

@@ -1,2 +1,4 @@
-"""Manager-side modules of the port: the log broker types the agent
-needs, placement constraints and the scheduler's group placement."""
+"""Manager-side modules of the port: the control API, the replicated
+orchestrator, the scheduler with its store loop and group placement, the
+dispatcher, placement constraints and the log broker types the agent
+needs."""

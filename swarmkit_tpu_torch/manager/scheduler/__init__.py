@@ -1,5 +1,5 @@
-"""The scheduler's group placement (the port's own copy of the JAX
-package's manager/scheduler, without the store loop)."""
+"""The scheduler: its store loop and group placement (the port's own
+copy of the JAX package's manager/scheduler)."""
 
 from swarmkit_tpu_torch.manager.scheduler.scheduler import Scheduler
 from swarmkit_tpu_torch.manager.scheduler.nodeinfo import NodeInfo

@@ -10,7 +10,8 @@ KernelObs), the telemetry plane (telemetry/obs.py), the flight recorder
 (flightrec/record.py), the trace export (flightrec/clock.py, export.py),
 the DST sweep (dst/explore.py, dst/repro.py), the multi-raft serving
 plane (multiraft/obs.py), the SLO engine (slo/engine.py), the
-scheduler with its group-placement kernel (manager/scheduler/) and the
+scheduler with its group-placement kernel (manager/scheduler/), the
+dispatcher (manager/dispatcher/), the store (store/memory.py) and the
 raft transports (raft/transport.py, transport/device_mesh.py).
 """
 
@@ -264,6 +265,21 @@ CATALOG: dict[str, MetricSpec] = {
         "(assigned / preassigned / unassigned).", ("result",)),
     "swarm_scheduler_pending_tasks": MetricSpec(
         "gauge", "Tasks currently awaiting placement.", ()),
+
+    # ---- dispatcher / store (manager/dispatcher/, store/memory.py) -------
+    "swarm_dispatcher_sessions_total": MetricSpec(
+        "counter", "Agent sessions opened against this dispatcher.", ()),
+    "swarm_dispatcher_heartbeats_total": MetricSpec(
+        "counter", "Heartbeats processed, by result (ok / invalid).",
+        ("result",)),
+    "swarm_dispatcher_heartbeat_rtt_seconds": MetricSpec(
+        "histogram", "Server-side heartbeat handling time (store round "
+        "trip included).", ()),
+    "swarm_dispatcher_task_updates_total": MetricSpec(
+        "counter", "Task status updates accepted from agents.", ()),
+    "swarm_store_commits_total": MetricSpec(
+        "counter", "Store transactions committed, by kind "
+        "(read / write / batch).", ("kind",)),
 
     # ---- group-placement kernel (manager/scheduler/kernel.py) ------------
     # Names and label sets are pinned to kernel.METRIC_NAMES by a test.

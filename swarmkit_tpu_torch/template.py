@@ -1,9 +1,7 @@
 """Go-template-style expansion in container specs.
 
 The PyTorch port's own copy of the JAX package's template.py, unchanged
-in behaviour, without `expand_container_spec`: the port's ContainerSpec
-has no hostname or mounts, and only secret/config payloads are expanded
-here (agent/dependency.py).
+in behaviour.
 
 Reference: template/ (513 LoC) — expands ``{{.Service.Name}}``,
 ``{{.Task.Slot}}``, ``{{.Node.Hostname}}`` … in env vars, hostname and
@@ -77,3 +75,26 @@ def expand_secret_spec(secret, task, node=None):
             f"templated payload of {name} is not valid UTF-8")
     out.spec.data = expand(text, ctx).encode("utf-8")
     return out
+
+
+def expand_container_spec(task, node=None):
+    """Return a task copy with its container spec expanded
+    (reference: template/expand.go ExpandContainerSpec)."""
+    if task.spec.container is None:
+        return task
+    ctx = task_context(task, node)
+    t = task.copy()
+    c = t.spec.container
+    c.env = [expand(e, ctx) for e in c.env]
+    if c.hostname:
+        c.hostname = expand(c.hostname, ctx)
+    for m in c.mounts:
+        # reference template/expand.go:expandMounts — per-task volume
+        # sources like "data-{{.Task.Slot}}" and label values expand here
+        if m.source:
+            m.source = expand(m.source, ctx)
+        if m.target:
+            m.target = expand(m.target, ctx)
+        m.volume_labels = {k: expand(v, ctx)
+                           for k, v in m.volume_labels.items()}
+    return t

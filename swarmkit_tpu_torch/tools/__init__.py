@@ -1,1 +1,2 @@
-"""Command-line tools that measure the port on the CUDA card."""
+"""Tools that drive and measure the port: command-line sweeps, the
+scheduler's Docker-scale world and the control plane's pipeline."""

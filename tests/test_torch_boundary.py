@@ -61,7 +61,22 @@ def test_port_imports_without_jax():
             "swarmkit_tpu_torch.agent.dependency",
             "swarmkit_tpu_torch.agent.logs",
             "swarmkit_tpu_torch.template",
-            "swarmkit_tpu_torch.watch.queue"} <= set(mods)
+            "swarmkit_tpu_torch.watch.queue",
+            "swarmkit_tpu_torch.utils.identity",
+            "swarmkit_tpu_torch.utils.metrics",
+            "swarmkit_tpu_torch.api.raft_msgs",
+            "swarmkit_tpu_torch.api.dispatcher_msgs",
+            "swarmkit_tpu_torch.store",
+            "swarmkit_tpu_torch.store.memory",
+            "swarmkit_tpu_torch.manager.allocator",
+            "swarmkit_tpu_torch.manager.controlapi",
+            "swarmkit_tpu_torch.manager.drivers",
+            "swarmkit_tpu_torch.manager.orchestrator.replicated",
+            "swarmkit_tpu_torch.manager.dispatcher.dispatcher",
+            "swarmkit_tpu_torch.agent.agent",
+            "swarmkit_tpu_torch.agent.worker",
+            "swarmkit_tpu_torch.agent.testutils",
+            "swarmkit_tpu_torch.tools.control_plane"} <= set(mods)
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
             "sys.modules['swarmkit_tpu'] = None\n"
@@ -85,6 +100,22 @@ def test_no_port_source_names_the_jax_package():
         text = f.read_text()
         assert "swarmkit_tpu." not in text, f
         assert not jax_import.search(text), f
+
+
+def test_port_imports_no_module_named_by_its_caller():
+    """Every dynamic import in the port and chip_smoke names one of the
+    port's modules as a literal: no package root comes from a caller."""
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    call = re.compile(r"\b(import_module|__import__)\s*\(")
+    literal = re.compile(r"\(\s*\"swarmkit_tpu_torch(\.\w+)*\"\s*\)")
+    seen = 0
+    for f in files:
+        text = f.read_text()
+        for m in call.finditer(text):
+            seen += 1
+            assert literal.match(text, m.end() - 1), \
+                f"{f}: {text[m.start():m.start() + 80]!r}"
+    assert seen > 0      # chip_smoke's lookups of the port's modules
 
 
 def test_entry_points_raise_without_a_card(monkeypatch):

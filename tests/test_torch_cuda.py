@@ -1113,3 +1113,60 @@ def test_all_to_all_on_the_card_is_the_transpose():
     got_w, got_l = net.run_exchange(words, lens, keep)
     assert np.array_equal(got_w, words.transpose(1, 0, 2, 3))
     assert np.array_equal(got_l, np.where(keep, lens, 0).transpose(1, 0, 2))
+
+
+@pytest.mark.cuda
+def test_store_loop_on_the_card_matches_the_cpu():
+    """The orchestration script of tests/test_torch_orchestration.py with
+    the scheduler's store loop on the card and on the CPU: the normalized
+    stores are equal after every step, and the card ran sched_place."""
+    _need_card()
+    from swarmkit_tpu_torch.tools import control_plane as cp
+
+    pkg = cp.package()
+    cuda_ops.reset_launches()
+    card = asyncio.run(cp.run_script(pkg, {"device": "cuda"}))
+    launches = cuda_ops.LAUNCHES["sched_place"]
+    cpu = asyncio.run(cp.run_script(pkg, {"device": "cpu"}))
+    assert cp.same_steps(cpu, card) == []
+    assert launches > 0
+
+
+@pytest.mark.cuda
+def test_pallas_matmul_service_under_the_ports_agent_on_the_card():
+    """A service of two tpu://pallas_matmul replicas on the card's node,
+    through the port's whole leader pipeline and its Agent, to COMPLETE:
+    each result equals the same program driven directly on the card
+    (both run the same kernels on the same seeded operand)."""
+    _need_card()
+    from swarmkit_tpu_torch.tools import control_plane as cp
+
+    args = ["n=512", "steps=3", "seed=1"]
+    pkg = cp.package()
+    ex = TpuExecutor(hostname="card-0", device="cuda")
+
+    async def direct():
+        task = Task(id="t", spec=TaskSpec(container=ContainerSpec(
+            image="tpu://pallas_matmul", args=args)),
+            status=TaskStatus(state=TaskState.ASSIGNED),
+            desired_state=TaskState.RUNNING)
+        ctl = await TpuExecutor(device="cuda").controller(task)
+        for _ in range(10):
+            st = await do_task_state(task, ctl, now=0.0)
+            if st is None:
+                break
+            task.status = st
+        return ctl.result
+
+    want = asyncio.run(direct())
+    cuda_ops.reset_launches()
+    out = asyncio.run(cp.task_startup(
+        pkg, replicas=4, workers=2, extra=ex,
+        then=lambda p: cp.run_program(p, ex, "tpu://pallas_matmul", args,
+                                      timeout=300)))
+    assert cuda_ops.LAUNCHES["matmul_wgmma"] == 2 * 3
+    assert cuda_ops.LAUNCHES["sumsq"] == 2 * 3
+    assert cuda_ops.LAUNCHES["sched_place"] > 0
+    for t in out["then"].values():
+        assert t["state"] == "COMPLETE", t
+        assert t["result"] == want
