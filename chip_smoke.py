@@ -17,7 +17,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    [4096, 1024] chunks of [4096, 8192] rings at several offsets and mask
    densities, plus an unaligned chunk (the scalar path); exact equality.
 3. card vs CPU: the port's run at n=256 (L=8192, log_chunk=1024, the
-   headline chunk width) on the card and on the CPU, twice.  Dense peers
+   headline chunk width) on the card here and on the CPU in a second
+   process (this script with --phase3-cpu), which runs beside phases
+   4-18 and is compared after them: each run checks its own state, then
+   the card's traces, every field at the end and, in the three scripted
+   runs, a digest of every field after every call and tick are held to
+   the CPU's (the first difference named by call and field).  Dense peers
    and progress through an election and 40 ticks with 5% drops and a
    leader crash; then peer_chunk=64 and active_rows=16 through
    run_schedule, 90 ticks with 2% drops and a 30-tick storm in which
@@ -26,14 +31,14 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    every trace row equal, the kernel launched, and the card took both
    progress branches (the counts are printed).  Third, the mailbox wire
    (latency 2, jitter 1, inflight 4) with PreVote, dynamic membership,
-   peer_chunk=64 and active_rows=16: 155 ticks, card and CPU in lockstep
-   with every field compared after every call, a follower removed through
+   peer_chunk=64 and active_rows=16: 155 ticks, every field compared
+   after every call, a follower removed through
    propose_conf at tick 80 and re-added at 110, a storm at 123-152; both
    progress branches on the card, the flips on every row.  Fourth, the
    read path, the vote guard, transfer cooldown and the gated storage
    model on that wire (PreVote, static members, election_tick 16,
-   read_batch 8, fsync every 2 ticks): card and CPU in lockstep from the
-   first leader E, with stalled disks, a lagging row whose snapshot images
+   read_batch 8, fsync every 2 ticks): from the first leader E, with
+   stalled disks, a lagging row whose snapshot images
    come flagged corrupt, a transfer whose target goes down with its
    TIMEOUT_NOW on the wire and a second request refused by the cooldown,
    and a storm; every field after every call, both branches on the card.
@@ -97,7 +102,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    L=8192, window/apply/props 2048, keep 500, seed 7, election_tick 20,
    latency 2, jitter 1, inflight 4, heartbeat_tick 1, static members, the
    levers at their defaults: tiled log, one-pass counts, the [16, N]
-   progress slab): chunked election, 2 x 64 ticks of run_ticks, then 8
+   progress slab): chunked election, 2 x 64 ticks of run_ticks, then 4
    profiled ticks and 16 more counting the ticks whose leader had ring
    room for a batch.  Prints election ticks/seconds, ms/tick (host clock
    and CUDA events), entries/s, kernel launches and kernel ms per tick,
@@ -110,14 +115,14 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    remove a follower through propose_conf until every other row's view
    drops it, re-add it until every row's view holds it again (within 200
    ticks each); prints the ticks each took and the step host syncs.
-   Phase 3 also runs this wire at n=256, card against CPU in lockstep.
+   Phase 3 also runs this wire at n=256, card against CPU call by call.
 10. the read path at full width: bench.py's 256-readmix-99to1 (n=256,
    L=8192, window/apply/props 2048, keep 500, seed 7, election_tick 16,
    read_batch 792, static members, the levers at their defaults): chunked
    election, 2 x 64 timed ticks; prints entries/s, reads/s, their ratio,
    reads blocked, ms/tick (host clock and CUDA events) and step host syncs;
    then the same shape at read_batch=0 in turns with it (32-tick chunks,
-   then 8 profiled ticks each: kernel launches and ms per tick), and the
+   then 4 profiled ticks each: kernel launches and ms per tick), and the
    band copy against plain on one more tick's calls.  Checks reads/s >= 10
    x entries/s, read_srv_idx >= read_srv_goal on every row, one leader,
    checksum agreement, <= 1 step host sync per steady tick, kernel = plain.
@@ -133,16 +138,16 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    and checksum agreement on both.
 12. the device observability planes at the headline's full width and
    levers (n=4096, the default 128-deep event ring), in turns with the
-   same shape planes-off: each elected, then 8 profiled ticks of each in
+   same shape planes-off: each elected, then 4 profiled ticks of each in
    turns (kernel launches and ms per tick; the planes-off count against
    the headline's 1393.25; every window's band-copy launches, full-pass
    and dense-fallback ticks; the kernel records in which a config's two
    windows differ, and whether the host called the same aten ops in
-   both), then 8 off/on pairs of 32-tick chunks in turns, each planes-on chunk
+   both), then 4 off/on pairs of 32-tick chunks in turns, each planes-on chunk
    tagged by a tracer span (span_trace_tag) and followed by a ClockSync
    sample.  Prints entries/s, host ms/tick (the median on/off pair ratio
    and its spread), launches, step host syncs (checked 1.00 per steady
-   tick on both), each config's band-copy launches over its 256 timed
+   tick on both), each config's band-copy launches over its 128 timed
    ticks (checked a mix of banded and full-pass ticks), commit and
    election p50/p99 (summarize_state checked equal to
    percentile_edge_device), events recorded, overwritten and tagged on all
@@ -180,16 +185,16 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    static members, seed 7, collect_stats): the fleet's election in 32-tick
    chunks until 99% of the groups lead, 2 x 64 steady fused-propose ticks
    (aggregate entries/s and reads/s, ms/tick on the host clock and between
-   CUDA events, step host syncs: checked 0 a tick), 8 unprofiled and 8
+   CUDA events, step host syncs: checked 0 a tick), 4 unprofiled and 4
    profiled ticks (kernel launches, kernel ms, the device's busy share),
    the band copy of one grouped tick on its [3072, 512] rings against
    plain (exact) and timed as in phase 5, and the safety checks: at most
    one leader per group and term, checksum agreement inside each group.
    The path's band-copy launches are counted from 0: one a tick.
 14b. bench.py's multiraft-telemetry: G=256 bare and with telemetry
-   (telemetry_prop_ring=64), each elected and warmed, then 4 pairs of
+   (telemetry_prop_ring=64), each elected and warmed, then 2 pairs of
    timed passes in turns (bench.py runs 8; cut here to make room for
-   phase 24): the telemetry/bare ratio's median and spread
+   phases 24 and 26): the telemetry/bare ratio's median and spread
    (bench.py's 0.8 tripwire as a note) and per-group commit p50/p99 from
    summarize_groups for a few groups.
 14c. the serving plane on the card and on the CPU at G=8 on both wires,
@@ -210,7 +215,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    (masks and every final field), schedules/s, step host syncs a tick (1
    under the tiled log and the slab, the batch's one read-back; 0 else),
    slab and fallback ticks, band-copy launches, kernel launches and ms a
-   tick over 8 profiled ticks, and the band copy of one more sweep tick
+   tick over 4 profiled ticks, and the band copy of one more sweep tick
    against plain (timed on the tiled log's [1280, 128] chunks).
 16. the exhaustive model checker (mc/): mc_sweep's n3h8 scope on the card
    must give the pinned ladder exactly (3,455,140 branches, 1,335,494
@@ -234,12 +239,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    kernels (the tree kernel, the same comparing every key field by field,
    and the rescan kernel it replaced) equal to the plain loop on the CPU
    over every task, and the host Pipeline (use_kernel=False) on the first
-   256 tasks equal to the kernel's first 256.  Prints the schedule,
+   128 tasks equal to the kernel's first 128.  Prints the schedule,
    encode_group, encode + place and grouping + decode seconds; each
    kernel's device ms between CUDA events, timed in turns on the same
    columns (3 launches after a warm one, twice each), and us a task; the
    bound; the host Pipeline's us a task; the plain
-   loop on the card over a 1,024-task prefix (ms, and for group A its
+   loop on the card over a 512-task prefix (ms, and for group A its
    launches; a yardstick never on the path) beside the kernel on the same
    prefix; placed and unplaced counts; the chain alone (no spread, every
    task placed round robin) at 32 and 1,000 nodes for each kernel; and
@@ -262,7 +267,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    plain on a sync128-faults tick's [128, 128] call, exact, and timed as
    in phase 5.
 20. fault_sweep's device half on the card: run_device_precheck on the
-   five fault plans at seed 2009343 (n=16, 60 ticks) at peer_chunk=8
+   five fault plans at seed 2009343 (n=16, 45 ticks) at peer_chunk=8
    (banded = dense) and at active_rows=8 (sparse = dense), and two plans
    card = CPU on viol, first_tick and bits_by_tick; run_attack_sweep over
    the four attacks and run_storage_sweep over the four storage faults at
@@ -317,7 +322,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    after the steady ticks, one leader, checksums agreeing; and the band
    copy of one more tick on its [32768, 8192] rings against plain, timed
    against its bound; last, a fresh run of the rung whose every field is
-   digested after each election tick and each of 64 steady ticks (phase
+   digested after each election tick and each of 16 steady ticks (phase
    24's reference).
 24. the row tick (one cluster's rows over a row mesh that names cuda:0
    four times, or every card): phase 3's case (1) (n=256 dense, drops, a
@@ -328,7 +333,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    rung's flow over the mesh at
    n=4096 and 8192 (their elections), fitted as in phase 23 (over the
    70 GiB cap the rung runs at the largest probe width and says why);
-   bench.py's 32768-sharded rung over the mesh: its election and 64
+   bench.py's 32768-sharded rung over the mesh: its election and 16
    steady ticks held tick by tick to phase 23's digests, each call timed
    apart from the digests: entries/s, election ticks and seconds, host
    and CUDA-event ms a tick, cross-entry copies and bytes a tick, kernel
@@ -336,6 +341,22 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    a tick, peak memory, each beside the card's name and power limit; one
    leader, checksums agreeing; the band copy held to plain on shard 0's
    chunks of one more tick, timed against its bound.
+25. the control plane's leader pipeline on one store (tools/
+   control_plane.py): Docker's 30,000 replicas through the store,
+   swarm-bench's flow and 2 tpu://pallas_matmul tasks under the port's
+   Agent, the orchestration script card = CPU.
+26. the raft node shell and the Manager (cmd/swarm_bench.py's Quorum):
+   (a) BASELINE.json config 2, 5 managers and 1,000 sequential
+   ProposeValue appends on the in-process wire and on DeviceMeshNet(rows=8)
+   on the card, each append applied on all 5 stores; (b) bench.py's
+   cpl-batch64 pair (3 managers, 300 sequential appends, 600 at 64 in
+   flight); (c) swarm-bench's 100 replicas on 10 agents through 3 managers
+   on the device wire, then 2 tpu://pallas_matmul n=8192 tasks on a
+   TpuExecutor worker, bit-equal to phase 7's, with sched_place,
+   matmul_wgmma and sumsq counted from 0; (d) the leader killed, the ticks
+   and seconds to a new one, a write, the old one restarted from its
+   state_dir until its store equals the leader's; (e) Docker's 1,000-node
+   world in a quorum's store and a global service, one task a READY node.
 
 Each path's band-copy launches are counted from 0 (the kernels' record
 carries them), and each phase-17 group's sched_place launches likewise.
@@ -348,12 +369,16 @@ from __future__ import annotations
 
 import asyncio
 import dataclasses
+import gc
 import json
 import math
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
+import types
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device-memory rate (data sheet)
 BF16_FLOP_PER_S = 989e12    # H100 SXM dense bf16 tensor-core rate
@@ -361,7 +386,8 @@ F32_FLOP_PER_S = 67e12      # H100 SXM f32 rate outside the tensor cores
 TASK_N, TASK_STEPS = 8192, 16   # the executor task at full width
 # ticks in each torch.profiler window: the profiler's own processing costs
 # seconds per window at ~1400 launches a tick, so the windows stay short
-PROFILED_TICKS = 8
+# (8 until the raft quorum's phase 26 needed the room)
+PROFILED_TICKS = 4
 PHASE3_STEADY = 40    # phase 3's first run: ticks after the election
 # bench.py::measure's headline configuration; peer_chunk and active_rows
 # stay at their SimConfig defaults (1024 and 16), as bench.py runs them
@@ -505,43 +531,41 @@ def phase_kernel_vs_plain(torch, cuda_ops) -> int:
     return worst
 
 
-def phase_card_vs_cpu(torch, sim, cuda_ops, card: str = "cuda") -> dict:
-    """The five runs; returns the card's side of the first and third
-    (phase 24 holds its row mesh to them)."""
+def phase_card_vs_cpu(torch, sim, cuda_ops, dev: str = "cuda") -> dict:
+    """Phase 3's five runs at n=256 on one device: the card's in this
+    process, the CPU's in a second one (`PHASE3_CPU_FLAG`), held to each
+    other by compare_card_cpu once both have run.  Each run checks on its
+    own state what it can alone; its record carries what the comparison
+    reads: the traces and every field at the end, and for the three
+    scripted runs a digest of every field after every call and tick.
+    Phase 24 holds its row mesh to the card's first and third."""
+    on_card = dev != "cpu"
+    out = {}
     cfg = sim.SimConfig(**{**HEADLINE, **DENSE, "n": 256})
     kw = dict(prop_count=cfg.max_props, drop_rate=0.05, crash_every=40,
               down_for=8)
-    log("  dense peers and progress, run_until_leader + run_ticks:")
-    results = {}
-    for dev in (card, "cpu"):
-        cuda_ops.reset_launches()
-        t0 = time.perf_counter()
-        st, ticks = sim.run_until_leader(sim.init_state(cfg, device=dev),
-                                         cfg, max_ticks=500, device=dev)
-        check(bool(sim.has_leader(st)), f"n=256 on {dev}: no leader")
-        st, trace = sim.run_ticks(st, cfg, PHASE3_STEADY, device=dev, **kw)
-        if dev == card:
-            torch.cuda.synchronize()
-            launches = cuda_ops.LAUNCHES["append_band_copy"]
-        log(f"  {dev}: election {ticks} ticks, then {PHASE3_STEADY} ticks, "
-            f"{time.perf_counter() - t0:.2f} s")
-        results[dev] = (ticks, trace.cpu(), sim.state_to_numpy(st))
-    (tg, trg, sg), (tc, trc, sc) = results[card], results["cpu"]
-    case1 = {"ticks": tg, "trace": trg, "final": sg}
-    check(tg == tc, f"election ticks differ: card {tg}, cpu {tc}")
-    check(torch.equal(trg, trc), "run_ticks trace rows differ")
-    check(sorted(sg) == sorted(sc), "state field sets differ")
-    for name in sg:
-        check((sg[name] == sc[name]).all(), f"field {name} differs")
-    check(int(trc[:, 1].max()) > 0, "nothing committed at n=256")
-    log(f"  all {len(sg)} fields and {len(trc)} trace rows equal; "
-        f"kernel launches on the card: {launches}")
-    check(launches > 0, "the card run never launched append_band_copy")
+    cuda_ops.reset_launches()
+    t0 = time.perf_counter()
+    st, ticks = sim.run_until_leader(sim.init_state(cfg, device=dev), cfg,
+                                     max_ticks=500, device=dev)
+    check(bool(sim.has_leader(st)), f"n=256 on {dev}: no leader")
+    st, trace = sim.run_ticks(st, cfg, PHASE3_STEADY, device=dev, **kw)
+    trace = trace.cpu()
+    secs = time.perf_counter() - t0
+    launches = cuda_ops.LAUNCHES["append_band_copy"]
+    check(int(trace[:, 1].max()) > 0, f"nothing committed at n=256 on {dev}")
+    check(launches > 0 or not on_card,
+          "the card run never launched append_band_copy")
+    log(f"  dense peers and progress, run_until_leader + run_ticks on {dev}:"
+        f" election {ticks} ticks, then {PHASE3_STEADY} ticks, {secs:.2f} s;"
+        f" append_band_copy launches {launches}")
+    out["case1"] = {"ticks": ticks, "trace": trace,
+                    "final": sim.state_to_numpy(st)}
 
     # the bench's lowerings at n=256: two peer bands of 64 per count and a
     # 16-row progress slab, through run_schedule with a storm window in
     # which every non-self edge drops, so the slab overflows and the dense
-    # fallback runs on the card
+    # fallback runs
     cfg = sim.SimConfig(**{**HEADLINE, "n": 256, "peer_chunk": 64,
                            "active_rows": 16})
     T, n = 90, cfg.n
@@ -549,40 +573,125 @@ def phase_card_vs_cpu(torch, sim, cuda_ops, card: str = "cuda") -> dict:
     drop = torch.rand((T, n, n), generator=g) < 0.02
     drop[40:70] |= ~torch.eye(n, dtype=torch.bool)
     alive = torch.ones((T, n), dtype=torch.bool)
-    log(f"  peer_chunk=64, active_rows=16, run_schedule of {T} ticks with "
-        f"a storm at ticks 40-69:")
-    results = {}
-    for dev in (card, "cpu"):
-        cuda_ops.reset_launches()
-        sim.kernel.reset_counts()
-        t0 = time.perf_counter()
-        st, trace = sim.run_schedule(
-            sim.init_state(cfg, device=dev), cfg, drop.to(dev),
-            alive.to(dev), prop_count=cfg.max_props, device=dev)
-        trace = trace.cpu()
-        counts = dict(sim.kernel.COUNTS)
-        log(f"  {dev}: {T} ticks in {time.perf_counter() - t0:.2f} s; slab "
-            f"ticks {counts['slab_ticks']}, dense-fallback ticks "
-            f"{counts['dense_fallback_ticks']}, step host syncs "
-            f"{counts['host_syncs']}, band-copy launches "
-            f"{cuda_ops.LAUNCHES['append_band_copy']}")
-        results[dev] = (trace, sim.state_to_numpy(st), counts)
-    (trg, sg, cg), (trc, sc, cc) = results[card], results["cpu"]
-    check(torch.equal(trg, trc), "run_schedule trace rows differ")
-    check(sorted(sg) == sorted(sc) and "active_ttl" in sg,
-          "state field sets differ (or no active_ttl)")
-    for name in sg:
-        check((sg[name] == sc[name]).all(), f"field {name} differs")
-    check(cg == cc, f"branch counts differ: card {cg}, cpu {cc}")
-    check(cg["slab_ticks"] > 0 and cg["dense_fallback_ticks"] > 0,
-          f"the card did not take both progress branches: {cg}")
-    check(int(trc[:, 1].max()) > 0, "nothing committed at n=256")
-    log(f"  all {len(sg)} fields (active_ttl included) and {T} trace rows "
-        f"equal; the card took both branches")
-    case3 = phase_mailbox_card_vs_cpu(torch, sim, card)
-    phase_levers_card_vs_cpu(torch, sim, card)
-    phase_planes_card_vs_cpu(torch, sim, card)
-    return {"case1": case1, "case3": case3}
+    cuda_ops.reset_launches()
+    sim.kernel.reset_counts()
+    t0 = time.perf_counter()
+    st, trace = sim.run_schedule(
+        sim.init_state(cfg, device=dev), cfg, drop.to(dev), alive.to(dev),
+        prop_count=cfg.max_props, device=dev)
+    trace = trace.cpu()
+    counts = dict(sim.kernel.COUNTS)
+    final = sim.state_to_numpy(st)
+    log(f"  peer_chunk=64, active_rows=16, run_schedule of {T} ticks with a "
+        f"storm at ticks 40-69 on {dev}: {time.perf_counter() - t0:.2f} s; "
+        f"slab ticks {counts['slab_ticks']}, dense-fallback ticks "
+        f"{counts['dense_fallback_ticks']}, step host syncs "
+        f"{counts['host_syncs']}, band-copy launches "
+        f"{cuda_ops.LAUNCHES['append_band_copy']}")
+    check("active_ttl" in final, f"{dev}: no active_ttl field")
+    check(counts["slab_ticks"] > 0 and counts["dense_fallback_ticks"] > 0,
+          f"{dev} did not take both progress branches: {counts}")
+    check(int(trace[:, 1].max()) > 0, f"nothing committed at n=256 on {dev}")
+    out["case2"] = {"trace": trace, "final": final, "counts": counts}
+    out["case3"] = phase_mailbox_run(torch, sim, dev)
+    out["case4"] = phase_levers_run(torch, sim, dev)
+    out["case5"] = phase_planes_run(torch, sim, dev)
+    return out
+
+
+def _equal_fields(got: dict, want: dict, label: str) -> int:
+    """Every field of `got` equal to `want`'s; the count."""
+    check(sorted(got) == sorted(want), f"{label}: field sets differ")
+    for name in want:
+        check((got[name] == want[name]).all(), f"{label}: field {name} "
+              f"differs between card and CPU")
+    return len(want)
+
+
+def compare_card_cpu(torch, card: dict, cpu: dict) -> None:
+    """Phase 3's card runs held to its CPU runs: the election ticks, the
+    trace rows and every field at the end of the first two; for the three
+    scripted runs the digest of every field after every call and tick
+    (the first difference named by call and field), the step counts and
+    every field at the end."""
+    a, b = card["case1"], cpu["case1"]
+    check(a["ticks"] == b["ticks"], f"election ticks differ: card "
+          f"{a['ticks']}, cpu {b['ticks']}")
+    check(torch.equal(a["trace"], b["trace"]), "run_ticks trace rows differ")
+    fields = _equal_fields(a["final"], b["final"], "case (1)")
+    log(f"  case (1): the election ticks, all {fields} fields and "
+        f"{len(a['trace'])} trace rows equal")
+    a, b = card["case2"], cpu["case2"]
+    check(torch.equal(a["trace"], b["trace"]),
+          "run_schedule trace rows differ")
+    check(a["counts"] == b["counts"], f"branch counts differ: card "
+          f"{a['counts']}, cpu {b['counts']}")
+    fields = _equal_fields(a["final"], b["final"], "case (2)")
+    log(f"  case (2): all {fields} fields (active_ttl included), "
+        f"{len(a['trace'])} trace rows and the branch counts equal")
+    for key in ("case3", "case4", "case5"):
+        a, b = card[key], cpu[key]
+        check(a["tags"] == b["tags"], f"{key}: the runs made other calls")
+        bad = (a["digests"] != b["digests"]).nonzero()
+        if len(bad):
+            fail(f"{key}: after {a['tags'][int(bad[0][0])]} field "
+                 f"{a['fields'][int(bad[0][1])]} differs between card and "
+                 f"CPU")
+        check(a["counts"] == b["counts"], f"{key}: branch counts differ: "
+              f"{a['counts']} vs {b['counts']}")
+        fields = _equal_fields(a["final"], b["final"], key)
+        log(f"  case ({key[-1]}): the digests of all {fields} fields after "
+            f"each of {len(a['tags'])} calls and ticks, every field at the "
+            f"end and the branch counts equal; {a['spent']:.2f} s of steps "
+            f"on the card, {b['spent']:.2f} s on the CPU")
+
+
+PHASE3_CPU_FLAG = "--phase3-cpu"   # the second process: phase 3 on the CPU
+PHASE3_CPU_THREADS = 2             # its torch threads, beside the card's run
+PHASE3_CPU_TIMEOUT = 900.0         # seconds the first process waits for it
+
+
+def phase3_cpu_main(path: str) -> int:
+    """The second process: phase 3's runs on the CPU, their records saved
+    to `path` for compare_card_cpu."""
+    import torch
+
+    from swarmkit_tpu_torch.parallel import cuda_ops
+    from swarmkit_tpu_torch.raft import sim
+
+    torch.set_num_threads(PHASE3_CPU_THREADS)
+    torch.save(phase_card_vs_cpu(torch, sim, cuda_ops, "cpu"), path)
+    return 0
+
+
+def start_phase3_cpu(outdir: str):
+    """Start phase 3's CPU runs in a second process writing to `outdir`;
+    it is killed if this process exits before it ends."""
+    import atexit
+    import os
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(f"{outdir}/cpu3.log", "w") as out:
+        proc = subprocess.Popen(
+            [sys.executable, os.path.join(here, "chip_smoke.py"),
+             PHASE3_CPU_FLAG, f"{outdir}/cpu3.pt"],
+            cwd=here, stdout=out, stderr=subprocess.STDOUT)
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return proc
+
+
+def finish_phase3_cpu(torch, proc, outdir: str) -> dict:
+    """Wait for the second process, print its log and load its records."""
+    try:
+        rc = proc.wait(timeout=PHASE3_CPU_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        rc = proc.wait()
+    with open(f"{outdir}/cpu3.log") as f:
+        for line in f:
+            log(f"  [cpu] {line.rstrip()}")
+    check(rc == 0, f"phase 3's CPU runs exited with {rc}")
+    return torch.load(f"{outdir}/cpu3.pt", weights_only=False)
 
 
 def _member_flipped(st, target: int, removed: bool, rows) -> bool:
@@ -591,13 +700,21 @@ def _member_flipped(st, target: int, removed: bool, rows) -> bool:
     return bool((~col).all() if removed else col.all())
 
 
-def _compare(sim, states, card: str, tag: str) -> int:
-    """Every field of the card's state equal to the CPU's; the count."""
-    got, want = (sim.state_to_numpy(states[d]) for d in (card, "cpu"))
-    check(sorted(got) == sorted(want), f"{tag}: field sets differ")
-    for name in want:
-        check((got[name] == want[name]).all(), f"{tag}: field {name} differs")
-    return len(want)
+def _digest(torch, sim, rec: dict, st, tag: str) -> None:
+    """Append to `rec` a digest of every field of `st`, after `tag`."""
+    rec["tags"].append(tag)
+    rec["digests"].append(state_digests(torch, sim, st, st.term.shape[0]))
+
+
+def _record(torch, sim, rec: dict, st, **extra) -> dict:
+    """`rec` closed: its digests stacked on the host, the fields they
+    name, every field at the end, and `extra`."""
+    rec["digests"] = torch.stack(rec["digests"]).cpu()
+    rec["fields"] = [f for f in sim.state.FIELD_NAMES
+                     if getattr(st, f) is not None]
+    rec["final"] = sim.state_to_numpy(st)
+    rec.update(extra)
+    return rec
 
 
 def _mailbox_case(sim, torch):
@@ -612,86 +729,71 @@ def _mailbox_case(sim, torch):
     return cfg, T, drop
 
 
-def phase_mailbox_card_vs_cpu(torch, sim, card: str) -> dict:
-    """The mailbox wire with PreVote and dynamic membership at n=256, card
-    and CPU in lockstep, every field compared after every call: 2% drops,
-    a conf remove of a follower at tick 80 and its re-add at tick 110
-    through propose_conf, and a storm (every non-self edge dropped) at
-    ticks 123-152 so the dense fallback runs.  Returns the card run's
-    conf target, a digest of every field after each call and tick, its
-    final fields and its step counts."""
+def phase_mailbox_run(torch, sim, dev: str) -> dict:
+    """The mailbox wire with PreVote and dynamic membership at n=256 on
+    `dev`, a digest of every field after every call: 2% drops, a conf
+    remove of a follower at tick 80 and its re-add at tick 110 through
+    propose_conf, and a storm (every non-self edge dropped) at ticks
+    123-152 so the dense fallback runs.  Returns the run's record with
+    its conf target and step counts."""
     cfg, T, drop = _mailbox_case(sim, torch)
     n = cfg.n
-    log(f"  mailbox (latency 2, jitter 1, inflight 4), PreVote, dynamic "
-        f"membership, peer_chunk=64, active_rows=16: {T} ticks in lockstep, "
-        f"conf remove at tick 80, re-add at 110, storm at ticks 123-152:")
-    states = {d: sim.init_state(cfg, device=d) for d in (card, "cpu")}
-    counts = {d: {k: 0 for k in sim.kernel.COUNTS} for d in states}
-    spent = {d: 0.0 for d in states}
-    target = None
-    digs = []
-
+    st = sim.init_state(cfg, device=dev)
+    counts = {k: 0 for k in sim.kernel.COUNTS}
+    rec = {"tags": [], "digests": []}
+    spent, target = 0.0, None
     for t in range(T):
         if t in (80, 110):
             if target is None:
-                roles = states["cpu"].role.tolist()
+                roles = st.role.tolist()
                 target = next(i for i in range(n - 1, -1, -1)
                               if roles[i] != sim.LEADER)
-            for d in states:
-                states[d] = sim.propose_conf(states[d], cfg, target, t == 80,
-                                             device=d)
-            _compare(sim, states, card, f"propose_conf at tick {t}")
-            digs.append(state_digests(torch, sim, states[card], n))
-        for d in states:
-            sim.kernel.reset_counts()
-            t0 = time.perf_counter()
-            states[d] = sim.step(states[d], cfg, drop=drop[t].to(d),
-                                 prop_count=cfg.max_props,
-                                 payload_fn=sim.run._payload_at, device=d)
-            spent[d] += time.perf_counter() - t0
-            for k, v in sim.kernel.COUNTS.items():
-                counts[d][k] += v
-        fields = _compare(sim, states, card, f"tick {t}")
-        digs.append(state_digests(torch, sim, states[card], n))
+            st = sim.propose_conf(st, cfg, target, t == 80, device=dev)
+            _digest(torch, sim, rec, st, f"propose_conf at tick {t}")
+        sim.kernel.reset_counts()
+        t0 = time.perf_counter()
+        st = sim.step(st, cfg, drop=drop[t].to(dev),
+                      prop_count=cfg.max_props,
+                      payload_fn=sim.run._payload_at, device=dev)
+        spent += time.perf_counter() - t0
+        for k, v in sim.kernel.COUNTS.items():
+            counts[k] += v
+        _digest(torch, sim, rec, st, f"tick {t}")
         if t == 109:
-            flipped = _member_flipped(states["cpu"], target, True,
-                                      set(range(n)) - {target})
-            check(flipped, f"row {target}'s removal did not land on every "
+            check(_member_flipped(st, target, True, set(range(n)) - {target}),
+                  f"{dev}: row {target}'s removal did not land on every "
                   f"other row by tick 109")
-    check(_member_flipped(states["cpu"], target, False, range(n)),
-          f"row {target}'s re-add did not land on every row")
-    cc = counts[card]
-    log(f"  {card}: {spent[card]:.2f} s, cpu: {spent['cpu']:.2f} s; slab "
-        f"ticks {cc['slab_ticks']}, dense-fallback ticks "
-        f"{cc['dense_fallback_ticks']}, step host syncs {cc['host_syncs']}; "
-        f"commit {int(states['cpu'].commit.max())}, max term "
-        f"{int(states['cpu'].term.max())}")
-    check(counts[card] == counts["cpu"],
-          f"branch counts differ: {counts[card]} vs {counts['cpu']}")
-    check(cc["slab_ticks"] > 0 and cc["dense_fallback_ticks"] > 0,
-          f"the card did not take both progress branches: {cc}")
-    check(int(states["cpu"].commit.max()) > 0, "nothing committed")
-    log(f"  all {fields} fields equal after every call and tick; row "
-        f"{target} left every other row's view and came back to all")
-    return {"target": target, "digests": torch.stack(digs).cpu(),
-            "final": sim.state_to_numpy(states[card]),
-            "counts": counts[card]}
+    check(_member_flipped(st, target, False, range(n)),
+          f"{dev}: row {target}'s re-add did not land on every row")
+    check(counts["slab_ticks"] > 0 and counts["dense_fallback_ticks"] > 0,
+          f"{dev} did not take both progress branches: {counts}")
+    check(int(st.commit.max()) > 0, f"{dev}: nothing committed")
+    log(f"  mailbox (latency 2, jitter 1, inflight 4), PreVote, dynamic "
+        f"membership, peer_chunk=64, active_rows=16 on {dev}: {T} ticks, "
+        f"conf remove at tick 80, re-add at 110, storm at ticks 123-152: "
+        f"{spent:.2f} s; slab ticks {counts['slab_ticks']}, dense-fallback "
+        f"ticks {counts['dense_fallback_ticks']}, step host syncs "
+        f"{counts['host_syncs']}; commit {int(st.commit.max())}, max term "
+        f"{int(st.term.max())}; row {target} left every other row's view "
+        f"and came back to all")
+    return _record(torch, sim, rec, st, target=target, counts=counts,
+                   spent=spent)
 
 
-def phase_levers_card_vs_cpu(torch, sim, card: str) -> None:
+def phase_levers_run(torch, sim, dev: str) -> dict:
     """This slice's levers at n=256 on the mailbox wire with PreVote, the
-    banded counts and the slab, card and CPU in lockstep, every field
-    compared after every call: reads (a closed loop of 8 per row, and a
-    submit_reads call), the vote guard, transfer cooldown and the storage
-    model with ack gating (fsync every 2 ticks).  The schedule, from the
-    tick E when a leader first stands: 2% drops; two followers' disks
-    stall at E+5..E+14; a third follower is down at E+15..E+24 and its
-    snapshot images come flagged corrupt at E+25..E+29 (refused: it
-    installs a clean one later); proposals stop at E+28 so followers catch
-    up, and a transfer at E+32 to the follower furthest along has its
-    target taken down once its TIMEOUT_NOW is on the wire, so the leader
-    stays and its cooldown refuses a second request two ticks later; a
-    storm at E+44..E+55 so the dense fallback runs; the run ends at E+60."""
+    banded counts and the slab on `dev`, a digest of every field after
+    every call: reads (a closed loop of 8 per row, and a submit_reads
+    call), the vote guard, transfer cooldown and the storage model with
+    ack gating (fsync every 2 ticks).  The schedule, from the tick E when
+    a leader first stands: 2% drops; two followers' disks stall at
+    E+5..E+14; a third follower is down at E+15..E+24 and its snapshot
+    images come flagged corrupt at E+25..E+29 (refused: it installs a
+    clean one later); proposals stop at E+28 so followers catch up, and a
+    transfer at E+32 to the follower furthest along has its target taken
+    down once its TIMEOUT_NOW is on the wire, so the leader stays and its
+    cooldown refuses a second request two ticks later; a storm at
+    E+44..E+55 so the dense fallback runs; the run ends at E+60."""
     cfg = sim.SimConfig(**{**HEADLINE, **MAILBOX, "n": 256,
                            "election_tick": 16, "pre_vote": True,
                            "peer_chunk": 64, "active_rows": 16,
@@ -701,24 +803,20 @@ def phase_levers_card_vs_cpu(torch, sim, card: str) -> None:
     n = cfg.n
     g = torch.Generator().manual_seed(7)
     eye = torch.eye(n, dtype=torch.bool)
-    log("  mailbox, PreVote, election_tick 16, peer_chunk=64, active_rows=16"
-        " with read_batch=8, vote_guard, transfer_cooldown_ticks=15, "
-        "fsync_lag_ticks=2 and ack_gating, in lockstep from the first "
-        "leader E: stalled disks, a lagging row's images flagged corrupt, "
-        "a transfer and a second inside the cooldown, a storm:")
-    states = {d: sim.init_state(cfg, device=d) for d in (card, "cpu")}
-    counts = {d: {k: 0 for k in sim.kernel.COUNTS} for d in states}
-    spent = {d: 0.0 for d in states}
+    st = sim.init_state(cfg, device=dev)
+    counts = {k: 0 for k in sim.kernel.COUNTS}
+    rec = {"tags": [], "digests": []}
+    spent = 0.0
     E = leader = target = lagging = second = second_at = None
     flags, down = {}, {}
     refused = False
     t = 0
     while E is None or t < E + 60:
-        check(E is not None or t < 200, "no leader within 200 ticks")
-        cpu = states["cpu"]
-        if E is None and bool(sim.has_leader(cpu)):
+        check(E is not None or t < 200, f"{dev}: no leader within 200 ticks")
+        top = st
+        if E is None and bool(sim.has_leader(top)):
             E = t
-            roles = cpu.role.tolist()
+            roles = top.role.tolist()
             leader = roles.index(sim.LEADER)
             f = [i for i in range(n) if roles[i] != sim.LEADER]
             lagging, second = f[-1], f[-2]
@@ -730,29 +828,24 @@ def phase_levers_card_vs_cpu(torch, sim, card: str) -> None:
             field, rows = flags[t]
             mask = torch.zeros(n, dtype=torch.bool)
             mask[rows] = True
-            for d in states:
-                states[d] = dataclasses.replace(states[d], **{
-                    field: getattr(states[d], field) | mask.to(d)})
+            st = dataclasses.replace(st, **{
+                field: getattr(st, field) | mask.to(dev)})
         if t == 30:
-            for d in states:
-                states[d] = sim.submit_reads(states[d], cfg, 5,
-                                             rows=range(8), device=d)
-            _compare(sim, states, card, "submit_reads at tick 30")
+            st = sim.submit_reads(st, cfg, 5, rows=range(8), device=dev)
+            _digest(torch, sim, rec, st, "submit_reads at tick 30")
         if E is not None and t == E + 32:
-            ahead = cpu.match[leader].clone()
+            ahead = top.match[leader].clone()
             ahead[[leader, lagging, second]] = -1
             target = int(ahead.argmax())
         if E is not None and t in (E + 32, second_at):
             to = target if t == E + 32 else second
-            for d in states:
-                states[d] = sim.transfer_leadership(states[d], cfg, leader,
-                                                    to)
-            _compare(sim, states, card, f"transfer_leadership at tick {t}")
+            st = sim.transfer_leadership(st, cfg, leader, to)
+            _digest(torch, sim, rec, st, f"transfer_leadership at tick {t}")
             if t == second_at:
-                cpu = states["cpu"]
-                check(int(cpu.transferee[leader]) != second
-                      and int(cpu.tx_cool[leader]) > 0,
-                      f"tick {t}: the cooling leader took a second transfer")
+                check(int(st.transferee[leader]) != second
+                      and int(st.tx_cool[leader]) > 0,
+                      f"{dev}, tick {t}: the cooling leader took a second "
+                      f"transfer")
                 refused = True
         drop = torch.rand((n, n), generator=g) < 0.02
         if E is not None and E + 44 <= t < E + 56:
@@ -762,61 +855,61 @@ def phase_levers_card_vs_cpu(torch, sim, card: str) -> None:
         props = dict(prop_count=cfg.max_props, payload_fn=sim.run._payload_at)
         if E is not None and t >= E + 28:
             props = {}
-        for d in states:
-            sim.kernel.reset_counts()
-            t0 = time.perf_counter()
-            states[d] = sim.step(states[d], cfg, alive=alive.to(d),
-                                 drop=drop.to(d), device=d, **props)
-            spent[d] += time.perf_counter() - t0
-            for k, v in sim.kernel.COUNTS.items():
-                counts[d][k] += v
-        fields = _compare(sim, states, card, f"tick {t}")
+        sim.kernel.reset_counts()
+        t0 = time.perf_counter()
+        st = sim.step(st, cfg, alive=alive.to(dev), drop=drop.to(dev),
+                      device=dev, **props)
+        spent += time.perf_counter() - t0
+        for k, v in sim.kernel.COUNTS.items():
+            counts[k] += v
+        _digest(torch, sim, rec, st, f"tick {t}")
         if E is not None and t >= E + 32 and second_at is None \
-                and int(states["cpu"].tn_at[target]) > 0:
+                and int(st.tn_at[target]) > 0:
             # the TIMEOUT_NOW is on the wire: take its target down before
             # it lands, then ask for a second transfer two ticks later
             down.update({u: [target] for u in range(t + 1, t + 9)})
             second_at = t + 2
         t += 1
-    cpu = states["cpu"]
-    cc = counts[card]
-    log(f"  {t} ticks, E={E}; {card}: {spent[card]:.2f} s, cpu: "
-        f"{spent['cpu']:.2f} s; slab ticks {cc['slab_ticks']}, "
-        f"dense-fallback ticks {cc['dense_fallback_ticks']}, step host "
-        f"syncs {cc['host_syncs']}; commit {int(cpu.commit.max())}, reads "
-        f"served {int(sim.reads_served(cpu))}, blocked "
-        f"{int(sim.reads_blocked(cpu))}, sync_mark max "
-        f"{int(cpu.sync_mark.max())}, row {lagging}'s snap_idx "
-        f"{int(cpu.snap_idx[lagging])}")
-    check(counts[card] == counts["cpu"],
-          f"branch counts differ: {counts[card]} vs {counts['cpu']}")
-    check(cc["slab_ticks"] > 0 and cc["dense_fallback_ticks"] > 0,
-          f"the card did not take both progress branches: {cc}")
-    check(refused, "the second transfer was never asked for")
-    check(int(cpu.snap_idx[lagging]) > 0, f"row {lagging} never restored")
-    check(int(sim.reads_served(cpu)) > 0 and bool(
-        (cpu.read_srv_idx >= cpu.read_srv_goal).all()),
-        "no reads served, or a served read missed its goal")
-    check(int(cpu.ack_frontier.max()) <= int(cpu.last.max())
-          and bool((cpu.sync_mark >= cpu.snap_idx).all()),
-          "a durability reduction failed")
-    log(f"  all {fields} fields equal after every call and tick; the "
-        f"second transfer was refused inside the cooldown")
+    log(f"  mailbox, PreVote, election_tick 16, peer_chunk=64, active_rows="
+        f"16 with read_batch=8, vote_guard, transfer_cooldown_ticks=15, "
+        f"fsync_lag_ticks=2 and ack_gating on {dev}, from the first leader "
+        f"E: stalled disks, a lagging row's images flagged corrupt, a "
+        f"transfer and a second inside the cooldown, a storm: {t} ticks, "
+        f"E={E}, {spent:.2f} s; slab ticks {counts['slab_ticks']}, "
+        f"dense-fallback ticks {counts['dense_fallback_ticks']}, step host "
+        f"syncs {counts['host_syncs']}; commit {int(st.commit.max())}, reads "
+        f"served {int(sim.reads_served(st))}, blocked "
+        f"{int(sim.reads_blocked(st))}, sync_mark max "
+        f"{int(st.sync_mark.max())}, row {lagging}'s snap_idx "
+        f"{int(st.snap_idx[lagging])}; the second transfer refused inside "
+        f"the cooldown")
+    check(counts["slab_ticks"] > 0 and counts["dense_fallback_ticks"] > 0,
+          f"{dev} did not take both progress branches: {counts}")
+    check(refused, f"{dev}: the second transfer was never asked for")
+    check(int(st.snap_idx[lagging]) > 0,
+          f"{dev}: row {lagging} never restored")
+    check(int(sim.reads_served(st)) > 0 and bool(
+        (st.read_srv_idx >= st.read_srv_goal).all()),
+        f"{dev}: no reads served, or a served read missed its goal")
+    check(int(st.ack_frontier.max()) <= int(st.last.max())
+          and bool((st.sync_mark >= st.snap_idx).all()),
+          f"{dev}: a durability reduction failed")
+    return _record(torch, sim, rec, st, counts=counts, spent=spent)
 
 
-def phase_planes_card_vs_cpu(torch, sim, card: str) -> None:
+def phase_planes_run(torch, sim, dev: str) -> dict:
     """The three device observability planes (flight recorder, telemetry,
     trace tags) at n=256 on the mailbox wire with PreVote, dynamic
     membership, election_tick 16, read_batch 8, the gated storage model
-    (fsync every 2 ticks), peer_chunk=64 and active_rows=16, card and CPU
-    in lockstep, every field compared after every call (the event ring,
-    its cursor and fault-edge registers, every tel_* buffer and the read
-    tag included).  Tags on every call: the fused propose's
-    step(prop_tag=), a host propose every 7th tick, submit_reads every
-    9th.  From the tick E when a leader first stands: 2% drops, two rows'
-    disks stalled at E+5..E+10, a row down at E+8..E+19 that comes back to
-    a compacted leader (a snapshot restore), a storm at E+35..E+47 so the
-    dense fallback runs; the run ends at E+52."""
+    (fsync every 2 ticks), peer_chunk=64 and active_rows=16 on `dev`, a
+    digest of every field after every call (the event ring, its cursor
+    and fault-edge registers, every tel_* buffer and the read tag
+    included).  Tags on every call: the fused propose's step(prop_tag=),
+    a host propose every 7th tick, submit_reads every 9th.  From the tick
+    E when a leader first stands: 2% drops, two rows' disks stalled at
+    E+5..E+10, a row down at E+8..E+19 that comes back to a compacted
+    leader (a snapshot restore), a storm at E+35..E+47 so the dense
+    fallback runs; the run ends at E+52."""
     import numpy as np
 
     from swarmkit_tpu_torch.flightrec import decode_state
@@ -829,81 +922,72 @@ def phase_planes_card_vs_cpu(torch, sim, card: str) -> None:
     g = torch.Generator().manual_seed(9)
     eye = torch.eye(n, dtype=torch.bool)
     payloads = np.arange(1, cfg.max_props + 1, dtype=np.uint32) * 2654435761
-    log(f"  the device planes (flight recorder, telemetry, trace tags) on "
-        f"the mailbox wire, PreVote, dynamic members, read_batch=8, gated "
-        f"fsync every 2 ticks, peer_chunk=64, active_rows=16, in lockstep "
-        f"from the first leader E: tagged proposes and reads, stalled disks, "
-        f"a restore, a storm:")
-    states = {d: sim.init_state(cfg, device=d) for d in (card, "cpu")}
-    counts = {d: {k: 0 for k in sim.kernel.COUNTS} for d in states}
-    spent = {d: 0.0 for d in states}
+    st = sim.init_state(cfg, device=dev)
+    counts = {k: 0 for k in sim.kernel.COUNTS}
+    rec = {"tags": [], "digests": []}
+    spent = 0.0
     E, t = None, 0
     while E is None or t < E + 52:
-        check(E is not None or t < 200, "no leader within 200 ticks")
-        if E is None and bool(sim.has_leader(states["cpu"])):
+        check(E is not None or t < 200, f"{dev}: no leader within 200 ticks")
+        if E is None and bool(sim.has_leader(st)):
             E = t
         at = -1 if E is None else t - E     # ticks since the first leader
         tag = 0x4000 + t
         if t % 9 == 4:
-            for d in states:
-                states[d] = sim.submit_reads(states[d], cfg, 3,
-                                             rows=range(0, n, 5), tag=tag,
-                                             device=d)
-            _compare(sim, states, card, f"submit_reads at tick {t}")
+            st = sim.submit_reads(st, cfg, 3, rows=range(0, n, 5), tag=tag,
+                                  device=dev)
+            _digest(torch, sim, rec, st, f"submit_reads at tick {t}")
         if 5 <= at < 11:
-            for d in states:
-                states[d] = dataclasses.replace(states[d], fsync_stall=(
-                    torch.arange(n) < 2).to(d))
+            st = dataclasses.replace(st, fsync_stall=(
+                torch.arange(n) < 2).to(dev))
         drop = torch.rand((n, n), generator=g) < 0.02
         if 35 <= at < 48:
             drop |= ~eye
         alive = torch.ones(n, dtype=torch.bool)
         alive[n - 1] = not 8 <= at < 20
         host_prop = t % 7 == 3
-        for d in states:
-            if host_prop:
-                states[d] = sim.propose(states[d], cfg, payloads,
-                                        cfg.max_props, alive=alive.to(d),
-                                        tag=tag, device=d)
         if host_prop:
-            _compare(sim, states, card, f"propose at tick {t}")
+            st = sim.propose(st, cfg, payloads, cfg.max_props,
+                             alive=alive.to(dev), tag=tag, device=dev)
+            _digest(torch, sim, rec, st, f"propose at tick {t}")
         props = {} if host_prop else dict(
             prop_count=cfg.max_props, payload_fn=sim.run._payload_at,
             prop_tag=tag)
-        for d in states:
-            sim.kernel.reset_counts()
-            t0 = time.perf_counter()
-            states[d] = sim.step(states[d], cfg, alive=alive.to(d),
-                                 drop=drop.to(d), device=d, **props)
-            spent[d] += time.perf_counter() - t0
-            for k, v in sim.kernel.COUNTS.items():
-                counts[d][k] += v
-        fields = _compare(sim, states, card, f"tick {t}")
+        sim.kernel.reset_counts()
+        t0 = time.perf_counter()
+        st = sim.step(st, cfg, alive=alive.to(dev), drop=drop.to(dev),
+                      device=dev, **props)
+        spent += time.perf_counter() - t0
+        for k, v in sim.kernel.COUNTS.items():
+            counts[k] += v
+        _digest(torch, sim, rec, st, f"tick {t}")
         t += 1
-    cpu, cc = states["cpu"], counts[card]
-    events, dropped = decode_state(cpu)
+    events, dropped = decode_state(st)
     names = {e.name for e in events}
     tagged = {e.name for e in events if e.tag}
-    log(f"  {t} ticks, E={E}; {card}: {spent[card]:.2f} s, cpu: "
-        f"{spent['cpu']:.2f} s; slab ticks {cc['slab_ticks']}, "
-        f"dense-fallback ticks {cc['dense_fallback_ticks']}, step host syncs "
-        f"{cc['host_syncs']}; commit {int(cpu.commit.max())}, row {n - 1}'s "
-        f"snap_idx {int(cpu.snap_idx[n - 1])}, {len(events)} events in the "
-        f"rings "
-        f"({int(dropped.sum())} overwritten), codes {sorted(names)}, tagged "
-        f"{sorted(tagged)}; commit histogram {cpu.tel_commit_hist.tolist()}")
-    check(counts[card] == counts["cpu"],
-          f"branch counts differ: {counts[card]} vs {counts['cpu']}")
-    check(cc["slab_ticks"] > 0 and cc["dense_fallback_ticks"] > 0,
-          f"the card did not take both progress branches: {cc}")
+    log(f"  the device planes (flight recorder, telemetry, trace tags) on "
+        f"the mailbox wire, PreVote, dynamic members, read_batch=8, gated "
+        f"fsync every 2 ticks, peer_chunk=64, active_rows=16 on {dev}, from "
+        f"the first leader E: tagged proposes and reads, stalled disks, a "
+        f"restore, a storm: {t} ticks, E={E}, {spent:.2f} s; slab ticks "
+        f"{counts['slab_ticks']}, dense-fallback ticks "
+        f"{counts['dense_fallback_ticks']}, step host syncs "
+        f"{counts['host_syncs']}; commit {int(st.commit.max())}, row "
+        f"{n - 1}'s snap_idx {int(st.snap_idx[n - 1])}, {len(events)} "
+        f"events in the rings ({int(dropped.sum())} overwritten), codes "
+        f"{sorted(names)}, tagged {sorted(tagged)}; commit histogram "
+        f"{st.tel_commit_hist.tolist()}")
+    check(counts["slab_ticks"] > 0 and counts["dense_fallback_ticks"] > 0,
+          f"{dev} did not take both progress branches: {counts}")
     check({"SNAPSHOT_RESTORE", "FALLBACK_TICK", "FSYNC_ADVANCE",
            "COMMIT_ADVANCE", "READ_SERVED"} <= names,
-          f"events missing from the rings: {sorted(names)}")
+          f"{dev}: events missing from the rings: {sorted(names)}")
     check(tagged == {"COMMIT_ADVANCE", "READ_SERVED"},
-          f"tagged events: {sorted(tagged)}")
-    check(int(cpu.tel_commit_hist.sum()) > 0
-          and int(cpu.tel_read_hist.sum()) > 0, "empty latency histograms")
-    log(f"  all {fields} fields equal after every call and tick")
+          f"{dev}: tagged events: {sorted(tagged)}")
+    check(int(st.tel_commit_hist.sum()) > 0
+          and int(st.tel_read_hist.sum()) > 0,
+          f"{dev}: empty latency histograms")
+    return _record(torch, sim, rec, st, counts=counts, spent=spent)
 
 
 def _checksums_agree(sim, st) -> bool:
@@ -1334,7 +1418,7 @@ def phase_readmix(torch, sim, cuda_ops) -> dict:
     """bench.py's 256-readmix-99to1 at its published width: the chunked
     election, 2 x 64 timed ticks, then the read path's cost in turns with
     the same shape at read_batch=0 (host and CUDA-event ms over 32-tick
-    chunks, kernel launches and ms over 8 profiled ticks), and the band
+    chunks, kernel launches and ms over 4 profiled ticks), and the band
     copy against its plain version on one more tick's calls."""
     cfg = sim.SimConfig(**READMIX)
     off = sim.SimConfig(**{**READMIX, "read_batch": 0})
@@ -1539,15 +1623,15 @@ def phase_planes_headline(torch, sim, cuda_ops) -> dict:
     """The three device observability planes at the headline's full width
     and levers (n=4096, banded counts of 1024, the [16, N] slab, the
     default 128-deep event ring), in turns with the same shape planes-off.
-    Each is elected, then profiled for 8 ticks of each in turns (off, on,
+    Each is elected, then profiled for 4 ticks of each in turns (off, on,
     on, off): kernel launches and ms per tick, with each window's band-copy
     launches, full-pass and fallback ticks; the two windows of a config
     are compared by the aten ops the host called and by the kernel records
-    the profiler kept.  Then 8 off/on pairs of 32-tick run_ticks chunks in
+    the profiler kept.  Then 4 off/on pairs of 32-tick run_ticks chunks in
     turns (host ms/tick: the median pair ratio and its spread); every
     planes-on chunk runs inside a tracer span whose span_trace_tag tags its
     proposes, with a ClockSync sample after it.  The band-copy launches of
-    each config's 256 timed ticks are counted apart.  Then the p50/p99 from
+    each config's 128 timed ticks are counted apart.  Then the p50/p99 from
     summarize_state against percentile_edge_device, the event rings of all
     rows decoded, KernelObs and TelemetryObs published into a registry and
     rendered, a capture of rows 0-255 exported as a Chrome trace (checked
@@ -1602,7 +1686,7 @@ def phase_planes_headline(torch, sim, cuda_ops) -> dict:
                or "none"))
     tracer, clock = mtrace.Tracer(), flightrec.ClockSync()
     sim.sync_point(clock, states["on"])
-    order = ("off", "on", "on", "off") * 4     # 8 pairs, one of each
+    order = ("off", "on", "on", "off") * 2     # 4 pairs, one of each
     for i, name in enumerate(order):
         cuda_ops.reset_launches()
         sim.kernel.reset_counts()
@@ -2010,7 +2094,7 @@ def phase_oracle(torch, dst, dst13: dict, card: str = "cuda") -> dict:
 
 MULTIRAFT_GROUPS = 1024      # bench.py's multiraft-1024x3
 MULTIRAFT_TEL_GROUPS = 256   # bench.py's multiraft-telemetry
-MULTIRAFT_TEL_PAIRS = 4      # timed pairs in turns (bench.py: 8)
+MULTIRAFT_TEL_PAIRS = 2      # timed pairs in turns (bench.py: 8)
 
 
 def _group_safety(st) -> tuple[bool, bool]:
@@ -2067,7 +2151,7 @@ def phase_multiraft(torch, sim, cuda_ops, card: str = "cuda",
     L=512, window 128, apply_batch 64, max_props 32, keep 64,
     election_tick 10, read_batch 32, leases, static members, seed 7,
     collect_stats): the fleet's chunked election, 2 x 64 steady
-    fused-propose ticks (host clock and CUDA events), 8 unprofiled and 8
+    fused-propose ticks (host clock and CUDA events), 4 unprofiled and 4
     profiled ticks (launches, kernel ms, busy share), the band copy
     against plain on one grouped tick's [3072, 512] inputs, and the safety
     checks per group."""
@@ -2118,7 +2202,7 @@ def phase_multiraft(torch, sim, cuda_ops, card: str = "cuda",
     tick_ms = steady["host_s"] * 1e3 / 128
     check(steady["entries"] > 0 and steady["reads"] > 0,
           "the fleet committed or served nothing in 128 steady ticks")
-    # the device busy share: 8 unprofiled ticks against 8 profiled ones
+    # the device busy share: unprofiled ticks against profiled ones
     st, event_ms = _group_window(torch, cfg, st, PROFILED_TICKS, False, dev)
     st, launches, kernel_ms = _group_window(torch, cfg, st, PROFILED_TICKS,
                                             True, dev)
@@ -2156,7 +2240,8 @@ def phase_multiraft(torch, sim, cuda_ops, card: str = "cuda",
         f"{read_rate:,.1f} reads/s, {tick_ms:.3f} ms/tick on the host "
         f"clock ({steady['event_ms'] / 128:.3f} between CUDA events), step "
         f"host syncs {syncs:.2f}/tick, append_band_copy launches "
-        f"{launched} in {elect_ticks + 128} ticks; 8 profiled ticks: "
+        f"{launched} in {elect_ticks + 128} ticks; {PROFILED_TICKS} "
+        f"profiled ticks: "
         f"{launches:.2f} kernel launches/tick, {kernel_ms:.3f} ms of "
         f"kernels/tick against {event_ms:.3f} ms/tick unprofiled: busy "
         f"share {kernel_ms / event_ms:.3f}; one leader per group and term, "
@@ -2316,8 +2401,8 @@ LEVER_SUBSET = 16    # schedules run on the CPU beside the card
 
 
 def _sweep_window(torch, sim, dexp, cfg, sched, dev) -> tuple:
-    """20 sweep ticks, then 8 profiled ones: (state, kernel launches a
-    tick, kernel ms a tick)."""
+    """20 sweep ticks, then PROFILED_TICKS profiled ones: (state, kernel
+    launches a tick, kernel ms a tick)."""
     from swarmkit_tpu_torch.tools.profile_tick import _device_us
 
     st = sim.broadcast_state(sim.init_state(cfg, device=dev),
@@ -2343,7 +2428,7 @@ def phase_levers_batched(torch, sim, cuda_ops, card: str = "cuda") -> dict:
     against the CPU on the first 16 schedules (masks and every final
     field), schedules/s, step host syncs and band-copy launches of each
     sweep (counted from 0), slab and fallback ticks, kernel launches a
-    tick over 8 profiled ticks, and the band copy of one more sweep tick
+    tick over 4 profiled ticks, and the band copy of one more sweep tick
     against plain (timed on the tiled log's [256*5, 128] chunks)."""
     import importlib
 
@@ -2445,7 +2530,7 @@ def phase_levers_batched(torch, sim, cuda_ops, card: str = "cuda") -> dict:
             f"{c_on['dense_fallback_ticks']} ticks; append_band_copy "
             f"launches {l_on} on, {l_off} off"
             + (f" ({banded} banded ticks, {DST_TICKS - banded} full-pass)"
-               if on.tiled else "") + "; 8 profiled ticks: "
+               if on.tiled else "") + f"; {PROFILED_TICKS} profiled ticks: "
             f"{launches:.2f} kernel launches/tick, {kernel_ms:.3f} ms of "
             f"kernels/tick; band copy of {len(calls)} sweep-tick calls on "
             f"{shapes}: max|kernel - plain| = {err}")
@@ -2614,8 +2699,8 @@ def phase_mc(torch, sim, cuda_ops, outdir: str, card: str = "cuda") -> dict:
 
 # ---- phase 17: the scheduler's group placement at Docker's scale -------
 
-SCHED_HOST_PREFIX = 256      # tasks the host Pipeline places per group
-SCHED_PLAIN_PREFIX = 1024    # tasks of the plain loop on the card
+SCHED_HOST_PREFIX = 128      # tasks the host Pipeline places per group
+SCHED_PLAIN_PREFIX = 512     # tasks of the plain loop on the card
 # the group whose plain-loop launches are counted: tracing ~50,000
 # launches costs the profiler ~10 s a group
 SCHED_PROFILED_GROUP = "A"
@@ -2945,6 +3030,10 @@ DIFF_SEEDS = 1
 # fault_sweep's pinned seeds and sizes (the JAX tool's defaults)
 FAULT_SEED, FAULT_SCHEDULES, FAULT_N = 7, 8, 5
 PRECHECK_CPU_PLANS = ("drop", "crash")
+# the precheck's depth: the JAX tool's 60 ticks cut to 45 (the plans'
+# fault window is ticks [10, 40), so 5 ticks after the heal; banded =
+# dense, sparse = dense and card = CPU hold over them alike)
+PRECHECK_TICKS = 45
 # the attack row whose explore band-copy call phase 20 times
 FAULT_TIMED = "append_flood"
 # the attack and storage rows' depth: their scenarios' 120-140 ticks cut
@@ -3113,7 +3202,7 @@ def phase_fault_sweep(torch, sim, cuda_ops, outdir: str,
             torch, sim, cuda_ops, f"precheck {lowering}",
             lambda: fs.run_device_precheck(
                 fs.PLANS, [seed], peer_chunk=8, active_rows=ar,
-                verbose=False, device=dev,
+                ticks=PRECHECK_TICKS, verbose=False, device=dev,
                 stats=on_card if ar is None else None))
         launches_all += launched
         want = "== dense-progress" if ar else "== dense-peer"
@@ -3124,14 +3213,15 @@ def phase_fault_sweep(torch, sim, cuda_ops, outdir: str,
         out["precheck"][lowering] = dict(
             secs=sum(r["secs"] for r in rows), band_copy_launches=launched,
             notes={r["plan"]: r["notes"] for r in rows})
-        log(f"  precheck {rows[0]['wire']} at seed {seed} (n=16, 60 "
-            f"ticks): " + "; ".join(f"{r['plan']} {r['notes']} "
+        log(f"  precheck {rows[0]['wire']} at seed {seed} (n=16, "
+            f"{PRECHECK_TICKS} ticks): " + "; ".join(f"{r['plan']} {r['notes']} "
                                     f"({r['secs']} s)" for r in rows)
             + f"; append_band_copy launches {launched}, one a tick, each "
             f"call = plain")
     on_cpu = {}
     fs.run_device_precheck(PRECHECK_CPU_PLANS, [seed], peer_chunk=8,
-                           verbose=False, device="cpu", stats=on_cpu)
+                           ticks=PRECHECK_TICKS, verbose=False,
+                           device="cpu", stats=on_cpu)
     for plan in PRECHECK_CPU_PLANS:
         a, b = on_card[(plan, seed)], on_cpu[(plan, seed)]
         check(all(np.array_equal(getattr(a, k), getattr(b, k))
@@ -4370,7 +4460,7 @@ def _digest_run(torch, sim, cfg, st, steady: int, dev, cuda_ops=None,
     return st, out
 
 
-ROW_STEADY = 64      # the rung's steady ticks held tick by tick to phase 23's
+ROW_STEADY = 16      # the rung's steady ticks held tick by tick to phase 23's
 ROW_PROFILED = 2     # ticks under the profiler: kernel launches a tick
 
 
@@ -4661,9 +4751,9 @@ CP_PROGRAM_REPLICAS = 2
 
 
 def _sched_place_timed(torch, cuda_ops, calls: list):
-    """cuda_ops.place_greedy wrapped to record each call's columns and
-    device ms between CUDA events (read after the run); the launch and
-    its count are the wrapper's own."""
+    """cuda_ops.place_greedy wrapped to record each call's columns, its
+    output and device ms between CUDA events (read after the run); the
+    launch and its count are the wrapper's own."""
     inner = cuda_ops.place_greedy
 
     def timed(cols, n_branches, has_service, n_tasks):
@@ -4672,7 +4762,8 @@ def _sched_place_timed(torch, cuda_ops, calls: list):
         start.record()
         out = inner(cols, n_branches, has_service, n_tasks)
         end.record()
-        calls.append((cols, n_branches, has_service, n_tasks, start, end))
+        calls.append((cols, n_branches, has_service, n_tasks, out, start,
+                      end))
         return out
     return inner, timed
 
@@ -4864,6 +4955,498 @@ def phase_control_plane(torch, cuda_ops, task7: dict, card: str = "cuda"
     return out
 
 
+# ---- phase 26: the raft node shell and the Manager on the card ---------
+
+Q_MANAGERS, Q_APPENDS = 5, 1000      # BASELINE.json config 2
+CPL_MANAGERS = 3                     # bench.py's cpl-batch64 pair
+CPL_SEQ, CPL_BATCHED, CPL_BATCH = 300, 600, 64
+Q_STARTUP_MANAGERS = 3               # swarm-bench's flow on a quorum
+Q_TIMEOUT = 120.0                    # seconds any one wait may take
+
+
+def replica_view(store) -> dict:
+    """Every object of `store` by kind and id, as its serde dict, without
+    the meta timestamps, which each replica stamps with its own clock
+    when it applies an entry."""
+    out = {}
+    for kind in ("node", "service", "task", "network", "cluster", "secret",
+                 "config", "resource", "extension"):
+        objs = {}
+        for o in store.find(kind):
+            d = o.to_dict()
+            d["meta"] = {**d["meta"], "created_at": None, "updated_at": None}
+            objs[o.id] = d
+        if objs:
+            out[kind] = objs
+    return out
+
+
+async def _until(pred, what: str, timeout: float = Q_TIMEOUT,
+                 every: float = 0.005) -> float:
+    """Wait (polling every `every` seconds) until pred(); the seconds it
+    took.  Raises TimeoutError naming `what` after `timeout` seconds."""
+    t0 = time.perf_counter()
+    while not pred():
+        if time.perf_counter() - t0 > timeout:
+            raise TimeoutError(f"{what}: not within {timeout} s")
+        await asyncio.sleep(every)
+    return time.perf_counter() - t0
+
+
+async def _all_applied(q, what: str) -> None:
+    """Every running manager of `q` applied the leader's commit index."""
+    lead = q.leader()
+    idx = lead.raft._raw.raft.log.committed
+    await _until(lambda: all(m.raft._applied >= idx for m in q.mgrs
+                             if m._running), what)
+
+
+def _leader_parts(lead) -> dict:
+    """The leader's control loops by class name."""
+    return {type(c).__name__: c for c in lead._leader_components}
+
+
+def _proposal_stopwatch(q):
+    """A Stopwatch over each manager's raft loop: its whole Ready pass,
+    and inside it the WAL save (frames and fsync), the sends and the
+    apply of committed entries, labelled leader or follower; on the
+    device wire also the exchange.  The managers share one thread, so the
+    seconds add up across them."""
+    from swarmkit_tpu_torch.tools import control_plane as cp
+
+    sw = cp.Stopwatch()
+    lead = q.leader()
+    for m in q.mgrs:
+        role = "leader" if m is lead else "follower"
+        sw.wrap(m.raft, "_process_ready", f"{role}_ready")
+        sw.wrap(m.raft.storage, "save", f"{role}_wal_save")
+        sw.wrap(m.raft.transport, "send", f"{role}_send")
+        sw.wrap(m.raft, "_process_committed", f"{role}_apply")
+    if hasattr(q.net, "run_exchange"):
+        sw.wrap(q.net, "run_exchange", "exchange")
+    return sw
+
+
+async def _appends_case(sb, transport: str, card) -> dict:
+    """(a) Q_MANAGERS managers on `transport`, Q_APPENDS sequential
+    appends; every one committed and applied on every store; the split
+    of a proposal's wall time over the raft loops' parts."""
+    q = sb.Quorum(Q_MANAGERS, transport, device=card)
+    await q.start()
+    try:
+        await _all_applied(q, f"{transport}: the quorum's joins")
+        check(len(q.mgrs[0].raft.cluster.members) == Q_MANAGERS,
+              f"{transport}: {len(q.mgrs[0].raft.cluster.members)} members")
+        sw = _proposal_stopwatch(q)
+        t0 = time.perf_counter()
+        try:
+            r = await q.appends(Q_APPENDS)
+        finally:
+            sw.restore()
+        wall = time.perf_counter() - t0
+        # ms a proposal in each part; "loop_rest" is the wall time outside
+        # every Ready pass: the ticks' waits, the store's transaction and
+        # encode, the event loop
+        split = {k: v / Q_APPENDS * 1e3 for k, v in sw.seconds.items()}
+        split["wall"] = wall / Q_APPENDS * 1e3
+        split["loop_rest"] = split["wall"] - split["leader_ready"] \
+            - split["follower_ready"]
+        r["split_ms"] = split
+        r["calls"] = dict(sw.calls)
+        await _all_applied(q, f"{transport}: the appends")
+        want = {f"bench-cfg-{i}" for i in range(Q_APPENDS)}
+        for m in q.mgrs:
+            got = {c.id for c in m.store.find("config")}
+            check(got == want, f"{transport}: {m.node_id} holds "
+                  f"{len(got & want)} of {Q_APPENDS} appends")
+        r["commit_index"] = q.mgrs[0].raft._raw.raft.log.committed
+        r["flushes"] = getattr(q.net, "device_flushes", None)
+        r["messages"] = getattr(q.net, "device_messages", None)
+        return r
+    finally:
+        await q.stop()
+
+
+async def _cpl_case(sb, card) -> dict:
+    """(b) bench.py's cpl-batch64 pair: CPL_SEQ sequential appends on one
+    quorum, CPL_BATCHED at CPL_BATCH in flight on another; every append
+    committed on every store."""
+    out = {}
+    for name, n, batch in (("sequential", CPL_SEQ, 1),
+                           ("batched", CPL_BATCHED, CPL_BATCH)):
+        q = sb.Quorum(CPL_MANAGERS, device=card)
+        await q.start()
+        try:
+            r = await q.appends(n, batch=batch)
+            await _all_applied(q, f"cpl {name}")
+            for m in q.mgrs:
+                got = len(m.store.find("config"))
+                check(got == n, f"cpl {name}: {m.node_id} holds {got} of "
+                      f"{n} appends")
+            out[name] = r
+        finally:
+            await q.stop()
+    check(out["batched"]["entries_per_proposal"] > 1,
+          f"cpl: 64 appends in flight packed "
+          f"{out['batched']['entries_per_proposal']} a proposal")
+    out["ratio"] = (out["batched"]["proposals_per_s"]
+                    / out["sequential"]["proposals_per_s"])
+    return out
+
+
+def _held_to_plain(torch, cuda_ops, calls: list) -> tuple[int, list]:
+    """Each recorded sched_place call's output held to the plain loop on
+    its own columns: the largest difference over all calls, and each
+    call's device ms."""
+    torch.cuda.synchronize()
+    err = 0
+    for cols, nb, hs, k, got, *_ in calls:
+        want = cuda_ops.place_greedy_plain(cols.cpu(), nb, hs, k)
+        err = max(err, int((got.cpu().long() - want.long()).abs().max()))
+    return err, [s.elapsed_time(e) for *_, s, e in calls]
+
+
+async def _trace_tasks(watcher, rows: list) -> None:
+    """Append (seconds, kind, action, state, raft index) for each event of
+    `watcher` as this loop wakes for it, until the watcher is closed."""
+    async for ev in watcher:
+        o = ev.object
+        state = o.status.state.name if ev.kind == "task" else ""
+        rows.append((time.perf_counter(), ev.kind, ev.action, state,
+                     o.meta.version.index))
+
+
+def _startup_split(rows: list) -> dict:
+    """The start-up flow's task events by the state they carry: the
+    seconds after the service's create event of the first and the last
+    event, and how many raft commits carried them."""
+    t0 = next(t for t, kind, action, *_ in rows
+              if kind == "service" and action == "create")
+    out: dict = {}
+    for t, kind, action, state, index in rows:
+        if kind != "task":
+            continue
+        first, last, commits = out.get(state, (t - t0, t - t0, set()))
+        commits.add(index)
+        out[state] = (first, t - t0, commits)
+    return {state: dict(first_s=first, last_s=last, commits=len(commits))
+            for state, (first, last, commits) in out.items()}
+
+
+async def _startup_failover(sb, torch, cuda_ops, task7: dict, card
+                            ) -> dict:
+    """(c) swarm-bench's start-up flow through a quorum of
+    Q_STARTUP_MANAGERS on the device wire, then CP_PROGRAM_REPLICAS
+    tpu://pallas_matmul tasks on a TpuExecutor worker, every sched_place
+    call of the leader's store loop held to the plain loop; (d) the leader
+    killed, a new one elected and written through, the old one restarted
+    from its state_dir until its store equals the leader's."""
+    from swarmkit_tpu_torch.agent.tpu import TpuExecutor
+    from swarmkit_tpu_torch.metrics import catalog
+    from swarmkit_tpu_torch.store.memory import match
+    from swarmkit_tpu_torch.tools import control_plane as cp
+
+    pkg = cp.package()
+    api = pkg.api
+    out = {}
+    q = sb.Quorum(Q_STARTUP_MANAGERS, "device", device=card)
+    await q.start()
+    try:
+        await _all_applied(q, "startup: the quorum's joins")
+        replicas, workers = CP_STARTUP
+        calls: list = []
+        inner, timed = _sched_place_timed(torch, cuda_ops, calls)
+        cuda_ops.place_greedy = timed
+        lead = q.leader()
+        rows: list = []
+        watcher = lead.store.watch(match(kind="task"),
+                                   match(kind="service", action="create"))
+        tracer = asyncio.ensure_future(_trace_tasks(watcher, rows))
+        try:
+            cuda_ops.reset_launches()
+            r = await q.startup(replicas, workers)
+            watcher.close()
+            await tracer
+            svc = next(s for s in lead.store.find("service")
+                       if s.spec.annotations.name == "bench")
+            tasks = lead.store.find("task", pkg.by.ByService(svc.id))
+            check(len(tasks) == replicas and all(
+                t.status.state == api.TaskState.RUNNING for t in tasks),
+                f"startup: {len(tasks)} tasks, not all RUNNING")
+            ex = TpuExecutor(hostname="card-0", device=card)
+            agent = await q.add_agent("card-0", ex)
+            await agent.ready()
+            parts = _leader_parts(lead)
+            p = types.SimpleNamespace(
+                pkg=pkg, store=lead.store, control=lead.control_api,
+                scheduler=parts["Scheduler"], allocator=parts["Allocator"],
+                orchestrator=parts["ReplicatedOrchestrator"])
+            prog = await cp.run_program(
+                p, ex, "tpu://pallas_matmul",
+                [f"n={TASK_N}", f"steps={TASK_STEPS}", "seed=0"],
+                replicas=CP_PROGRAM_REPLICAS, timeout=300)
+            launches = {k: cuda_ops.LAUNCHES[k]
+                        for k in ("sched_place", "matmul_wgmma", "sumsq")}
+        finally:
+            cuda_ops.place_greedy = inner
+            watcher.close()
+            tracer.cancel()
+        split = _startup_split(rows)
+        check(split.get("RUNNING", {}).get("last_s", -1) >= 0,
+              f"startup: the trace saw no task reach RUNNING ({split})")
+        check(len(calls) == launches["sched_place"], f"startup: "
+              f"{len(calls)} recorded sched_place calls for "
+              f"{launches['sched_place']} launches")
+        err, kernel_ms = _held_to_plain(torch, cuda_ops, calls)
+        check(err == 0, f"startup: sched_place differs from the plain loop "
+              f"on the store loop's columns ({err})")
+        shapes = [[int(cols.shape[-1]), int(k)]
+                  for cols, _, _, k, *_ in calls]
+        del calls
+        groups = catalog.get(lead.obs,
+                             "swarm_sched_kernel_groups_total").snapshot()
+        check(groups.get("path=kernel", 0) == launches["sched_place"] > 0
+              and "path=host" not in groups, f"startup: sched_place "
+              f"launches {launches['sched_place']} for the groups {groups}")
+        check(launches["matmul_wgmma"] == CP_PROGRAM_REPLICAS * TASK_STEPS
+              and launches["sumsq"] == CP_PROGRAM_REPLICAS * TASK_STEPS,
+              f"startup: the program tasks launched {launches}")
+        order = [s.name for s in sorted(api.TaskState)]
+        flop = TASK_STEPS * 2 * TASK_N ** 3
+        progs = []
+        for slot, t in sorted(prog.items()):
+            idx = [order.index(x) for x in t["states"]]
+            check(t["state"] == "COMPLETE" and idx == sorted(idx),
+                  f"startup: program task {slot}: {t['state']} "
+                  f"{t['states']} {t['err']}")
+            check(t["result"] == task7["result"], f"startup: program task "
+                  f"{slot}'s result {t['result']!r} != phase 7's "
+                  f"{task7['result']!r}")
+            progs.append(dict(slot=slot, run_s=t["run_s"],
+                              tflop_per_s=flop / t["run_s"] / 1e12,
+                              result=t["result"]))
+        out["c"] = dict(r, program=progs, launches=launches, groups=groups,
+                        split=split, place_err=err,
+                        place_kernel_ms=kernel_ms,
+                        place_shapes=shapes, flushes=q.net.device_flushes)
+
+        # (d) ---------------------------------------------------------------
+        old = q.leader()
+        i = q.mgrs.index(old)
+        survivors = [m for m in q.mgrs if m is not old]
+        raw = survivors[0].raft._raw
+        ticks = [0]
+        tick = raw.tick
+
+        def counted():
+            ticks[0] += 1
+            tick()
+        raw.tick = counted
+        await _all_applied(q, "failover: before the kill")
+        await old.stop()
+        elect_s = await _until(lambda: any(
+            m.is_leader() and m._is_leader for m in survivors),
+            "failover: a new leader")
+        elect_ticks = ticks[0]
+        raw.tick = tick
+        new = q.leader()
+        check(new is not old and new in survivors, "failover: no new leader")
+        t0 = time.perf_counter()
+        await new.store.update(lambda tx: tx.create(api.Config(
+            id="after-failover", spec=api.ConfigSpec(
+                annotations=api.Annotations(name="after-failover"),
+                data=b"x"))))
+        write_s = time.perf_counter() - t0
+        back = q.new_manager(i)
+        t0 = time.perf_counter()
+        await back.start()
+        q.mgrs[i] = back
+        check(back.raft.raft_id == old.raft.raft_id,
+              "failover: the restarted manager has another raft id")
+        await _all_applied(q, "failover: the restarted manager's catch-up")
+        await _until(lambda: replica_view(back.store)
+                     == replica_view(new.store),
+                     "failover: the restarted store equal to the leader's")
+        rejoin_s = time.perf_counter() - t0
+        check(back.store.get("config", "after-failover") is not None,
+              "failover: the restarted store lacks the post-failover write")
+        out["d"] = dict(killed=old.node_id, leader=new.node_id,
+                        elect_s=elect_s, elect_ticks=elect_ticks,
+                        write_s=write_s, rejoin_s=rejoin_s,
+                        objects=sum(len(v) for v in
+                                    replica_view(back.store).values()))
+    finally:
+        await q.stop()
+    return out
+
+
+async def _global_case(sb, card) -> dict:
+    """(e) Docker's 1,000-node world written into the store of a quorum of
+    Q_STARTUP_MANAGERS on the device wire, then a global service: one
+    task on every READY node, ASSIGNED, on every replica."""
+    from swarmkit_tpu_torch.tools import control_plane as cp
+    from swarmkit_tpu_torch.tools import sched_world as W
+
+    pkg = cp.package()
+    api = pkg.api
+    q = sb.Quorum(Q_STARTUP_MANAGERS, "device", device=card)
+    await q.start()
+    try:
+        await _all_applied(q, "global: the quorum's joins")
+        lead = q.leader()
+        desc = W.describe_world(seed=0)
+        t0 = time.perf_counter()
+        await cp.world_into_store(pkg, lead.store, desc)
+        world_s = time.perf_counter() - t0
+        eligible = {f"node-{j:04d}" for j in range(len(desc["zone"]))
+                    if not desc["down"][j]}
+        spec = api.ServiceSpec(
+            annotations=api.Annotations(name="node-agent"),
+            task=api.TaskSpec(container=api.ContainerSpec(image="agent")),
+            mode=api.Mode.GLOBAL, global_=api.GlobalService())
+        t0 = time.perf_counter()
+        gsvc = await lead.control_api.create_service(spec)
+
+        def placed():
+            return {t.node_id for t in lead.store.find(
+                "task", pkg.by.ByService(gsvc.id))
+                if t.status.state == api.TaskState.ASSIGNED}
+        quiet_s = await _until(lambda: placed() == eligible,
+                               "global: one ASSIGNED task a READY node",
+                               timeout=300, every=0.1)
+        gtasks = lead.store.find("task", pkg.by.ByService(gsvc.id))
+        check(len(gtasks) == len(eligible), f"global: {len(gtasks)} tasks "
+              f"for {len(eligible)} READY nodes")
+        await _all_applied(q, "global: the replicas")
+        for m in q.mgrs:
+            check(len(m.store.find("task", pkg.by.ByService(gsvc.id)))
+                  == len(eligible), f"global: {m.node_id}'s replica")
+        return dict(nodes=len(desc["zone"]), eligible=len(eligible),
+                    tasks=len(gtasks), world_s=world_s, quiet_s=quiet_s,
+                    flushes=q.net.device_flushes)
+    finally:
+        await q.stop()
+
+
+class GcPauses:
+    """The cyclic collector's collections and pause seconds by generation
+    while the `with` block runs (gc.callbacks): a long pause stalls every
+    manager on the one event loop."""
+
+    def __init__(self) -> None:
+        self.collections = [0, 0, 0]
+        self.pause_s = [0.0, 0.0, 0.0]
+        self.max_pause_s = 0.0
+        self._t0 = 0.0
+
+    def __call__(self, phase: str, info: dict) -> None:
+        if phase == "start":
+            self._t0 = time.perf_counter()
+            return
+        dt = time.perf_counter() - self._t0
+        self.collections[info["generation"]] += 1
+        self.pause_s[info["generation"]] += dt
+        self.max_pause_s = max(self.max_pause_s, dt)
+
+    def __enter__(self) -> "GcPauses":
+        gc.callbacks.append(self)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        gc.callbacks.remove(self)
+
+    def summary(self) -> dict:
+        return dict(collections=self.collections, pause_s=self.pause_s,
+                    max_pause_s=self.max_pause_s)
+
+
+def phase_quorum(torch, cuda_ops, task7: dict, card: str = "cuda") -> dict:
+    """(a) BASELINE.json config 2: Q_MANAGERS port Managers, Q_APPENDS
+    sequential ProposeValue appends, on the in-process wire and on the
+    device wire (DeviceMeshNet(rows=8) on the card): proposals/s, p50/p99
+    ms, every append committed and applied on every store.  (b) bench.py's
+    cpl-batch64 pair (3 managers; 300 sequential appends, 600 at 64 in
+    flight): proposals/s each, their ratio, entries a proposal.  (c)
+    swarm-bench's start-up flow (100 replicas, 10 TestExecutor agents)
+    through a 3-manager quorum on the device wire, then 2
+    tpu://pallas_matmul tasks on a TpuExecutor worker, results bit-equal
+    to phase 7's; the launches of sched_place, matmul_wgmma and sumsq.
+    (d) the leader killed: ticks and seconds to a new leader, a write, the
+    old one restarted from its state_dir until its store equals the
+    leader's.  (e) Docker's 1,000-node world in the quorum's store and a
+    global service: one task a READY node (the JAX package's single
+    transaction refuses more than 200), seconds to quiet.  Each case
+    reports the collector's pauses in it, and the phase the objects the
+    collector tracks when it starts."""
+    from swarmkit_tpu_torch.cmd import swarm_bench as sb
+
+    card_name = card_line()
+    out = {"gc_objects": len(gc.get_objects())}
+    log(f"  the cyclic collector tracks {out['gc_objects']} objects")
+    for transport in ("inproc", "device"):
+        with GcPauses() as pauses:
+            r = asyncio.run(_appends_case(sb, transport, card))
+        r["gc"] = pauses.summary()
+        out[f"a_{transport}"] = r
+        log(json.dumps({"phase": f"26a-{transport}", "card": card_name,
+                        **r}))
+        log(f"  {Q_MANAGERS} managers on the {transport} wire: "
+            f"{Q_APPENDS} appends at {r['proposals_per_s']} proposals/s "
+            f"(p50 {r['propose_p50_ms']} ms, p99 {r['propose_p99_ms']} ms), "
+            f"committed and applied on all {Q_MANAGERS} stores; ms a "
+            f"proposal: " + ", ".join(f"{k} {v:.3f}" for k, v
+                                      in r["split_ms"].items()))
+    with GcPauses() as pauses:
+        b = asyncio.run(_cpl_case(sb, card))
+    b["gc"] = pauses.summary()
+    out["b"] = b
+    log(json.dumps({"phase": "26b", "card": card_name, **b}))
+    log(f"  cpl-batch64: sequential {b['sequential']['proposals_per_s']} "
+        f"proposals/s, batched {b['batched']['proposals_per_s']} "
+        f"({b['batched']['entries_per_proposal']} entries a proposal); "
+        f"ratio {b['ratio']:.2f}")
+    with GcPauses() as pauses:
+        out.update(asyncio.run(_startup_failover(sb, torch, cuda_ops, task7,
+                                                 card)))
+    out["c"]["gc"] = pauses.summary()
+    with GcPauses() as pauses:
+        out["e"] = asyncio.run(_global_case(sb, card))
+    out["e"]["gc"] = pauses.summary()
+    c, d, e = out["c"], out["d"], out["e"]
+    for k in "cde":
+        log(json.dumps({"phase": f"26{k}", "card": card_name, **out[k]},
+                       default=str))
+    running = c["split"]["RUNNING"]
+    log(f"  swarm-bench through {Q_STARTUP_MANAGERS} managers on the device "
+        f"wire: {c['replicas']} RUNNING in {c['time_to_all_running_s']} s "
+        f"(p50 {c['p50_s']}, p90 {c['p90_s']}, p99 {c['p99_s']} s, over "
+        f"{running['commits']} RUNNING commit(s)); the task events by "
+        f"state (first s, last s, commits): "
+        + ", ".join(f"{st} {v['first_s']:.3f}/{v['last_s']:.3f}/"
+                    f"{v['commits']}" for st, v in c["split"].items())
+        + f"; sched_place {len(c['place_shapes'])} calls, each equal "
+        f"to the plain loop ({c['place_shapes']} nodes/tasks); "
+        + "; ".join(f"pallas_matmul slot {t['slot']} {t['run_s']:.3f} s, "
+                    f"result = phase 7's" for t in c["program"])
+        + f"; launches {c['launches']}")
+    log(f"  failover: {d['killed']} killed, {d['leader']} elected in "
+        f"{d['elect_ticks']} ticks ({d['elect_s']:.3f} s), a write in "
+        f"{d['write_s']:.3f} s, {d['killed']} back from its state_dir "
+        f"and equal to the leader's {d['objects']} objects in "
+        f"{d['rejoin_s']:.2f} s")
+    log(f"  global service over {e['nodes']} nodes: {e['tasks']} tasks on "
+        f"the {e['eligible']} READY nodes, quiet {e['quiet_s']:.2f} s after "
+        f"create_service (the world written in {e['world_s']:.2f} s)")
+    parts = (("(a) in-process", out["a_inproc"]), ("(a) device",
+             out["a_device"]), ("(b)", b), ("(c)-(d)", c), ("(e)", e))
+    log("  the cyclic collector's pauses, collections and seconds by "
+        "generation, the longest: " + "; ".join(
+            f"{name} {r['gc']['collections']} "
+            f"{[round(x, 3) for x in r['gc']['pause_s']]} "
+            f"{r['gc']['max_pause_s']:.3f} s" for name, r in parts))
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -4911,8 +5494,11 @@ def main() -> int:
     stage("phase 2: append_band_copy kernel vs plain")
     err2 = phase_kernel_vs_plain(torch, cuda_ops)
 
-    stage("phase 3: the port on the card vs on the CPU (n=256)")
+    stage("phase 3: the port on the card (n=256); its CPU runs go in a "
+          "second process beside phases 4-18, and are compared after them")
     cases3 = phase_card_vs_cpu(torch, sim, cuda_ops)
+    cpu3_dir = tempfile.mkdtemp(prefix="chip_smoke_cpu3_")
+    cpu3 = start_phase3_cpu(cpu3_dir)
 
     stage("phase 4: the main path at full width (n=4096, the bench's levers)")
     head = phase_headline(torch, sim, cuda_ops)
@@ -4955,9 +5541,6 @@ def main() -> int:
         "width (n=4096), in turns with planes off")
     planes = phase_planes_headline(torch, sim, cuda_ops)
     stage("phase 13: the DST sweep on the batched tick (n=5, reads 2)")
-    import shutil
-    import tempfile
-
     from swarmkit_tpu_torch import dst
     outdir = tempfile.mkdtemp(prefix="chip_smoke_dst_")
     try:
@@ -4993,6 +5576,13 @@ def main() -> int:
     stage("phase 18: the multi-raft tools on the card (multiraft_sweep at "
           "G=64, swarm_top's demo)")
     tools18 = phase_tools(torch, cuda_ops)
+    stage("phase 3, its CPU half: the second process's runs, then the "
+          "card's held to them")
+    try:
+        compare_card_cpu(torch, cases3,
+                         finish_phase3_cpu(torch, cpu3, cpu3_dir))
+    finally:
+        shutil.rmtree(cpu3_dir, ignore_errors=True)
     stage(f"phase 19: differential_sweep on the card (all 11 families, "
           f"{DIFF_SEEDS} seed a family, tick = golden core)")
     diff19 = phase_differential(torch, sim, cuda_ops)
@@ -5040,6 +5630,14 @@ def main() -> int:
     cp25 = phase_control_plane(torch, cuda_ops, task)
     cp25["secs"] = time.perf_counter() - t25
     log(f"  phase 25 in {cp25['secs']:.1f} s")
+    stage(f"phase 26: the raft node shell and the Manager ({Q_MANAGERS} "
+          f"managers x {Q_APPENDS} appends on both wires, cpl-batch64, "
+          f"swarm-bench through a quorum, failover and restart, a global "
+          f"service over Docker's world)")
+    t26 = time.perf_counter()
+    q26 = phase_quorum(torch, cuda_ops, task)
+    q26["secs"] = time.perf_counter() - t26
+    log(f"  phase 26 in {q26['secs']:.1f} s")
 
     elapsed = time.perf_counter() - started
     log(f"all phases passed in {elapsed:.1f} s")
@@ -5059,7 +5657,8 @@ def main() -> int:
                                  "fault_sweep": fault20,
                                  "executor_rest": exec21,
                                  "device_wire": wire22, "meshes": mesh23,
-                                 "row_tick": row24, "control_plane": cp25},
+                                 "row_tick": row24, "control_plane": cp25,
+                                 "quorum": q26},
                                 default=str))
     records = [{
         "name": "append_band_copy", "route": "cuda",
@@ -5140,6 +5739,9 @@ def main() -> int:
             "control_plane_launches":
                 cp25["b"]["launches"]["matmul_wgmma" if name == "matmul"
                                       else name],
+            "quorum_launches":
+                q26["c"]["launches"]["matmul_wgmma" if name == "matmul"
+                                     else name],
             "max_abs_err": max(err6[name], t["err"]), "ms": t["kernel"],
             "plain_ms": t["plain"], "bound_ms": t["bound"],
             "bound_by": bound_by, "library_ms": t["library"]})
@@ -5160,8 +5762,10 @@ def main() -> int:
         "control_plane_startup_launches":
             cp25["b"]["launches"]["sched_place"],
         "control_plane_script_launches": cp25["c"]["launches"],
+        # phase 26 (c): the store loop of a raft quorum's leader
+        "quorum_launches": q26["c"]["launches"]["sched_place"],
         "max_abs_err": max(max(sched17[g]["err"] for g in groups),
-                           cp25["a"]["err"]),
+                           cp25["a"]["err"], q26["c"]["place_err"]),
         "ms": a17["ms"], "tasks": a17["tasks"],
         # the plain loop on the card over the first plain_tasks tasks,
         # and the kernel on the same prefix
@@ -5189,4 +5793,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == [PHASE3_CPU_FLAG]:
+        sys.exit(phase3_cpu_main(sys.argv[2]))
     sys.exit(main())

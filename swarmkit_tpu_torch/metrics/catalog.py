@@ -43,6 +43,33 @@ _TICK_BUCKETS = (0.0001, 0.00025, 0.0005, 0.001, 0.0025, 0.005, 0.01,
 _TEL_TICK_BUCKETS = (1.0, 2.0, 4.0, 8.0, 16.0, 32.0, 64.0, 128.0, 256.0)
 
 CATALOG: dict[str, MetricSpec] = {
+    # ---- raft node (raft/node.py) -----------------------------------------
+    "swarm_raft_elections_started_total": MetricSpec(
+        "counter", "Campaigns this node started (entered candidate or "
+        "pre-candidate state).", ("node",)),
+    "swarm_raft_elections_won_total": MetricSpec(
+        "counter", "Elections this node won (became leader).", ("node",)),
+    "swarm_raft_leader_changes_total": MetricSpec(
+        "counter", "Observed leadership changes, from any role.", ("node",)),
+    "swarm_raft_term": MetricSpec(
+        "gauge", "Current raft term.", ("node",)),
+    "swarm_raft_commit_index": MetricSpec(
+        "gauge", "Highest committed log index.", ("node",)),
+    "swarm_raft_applied_index": MetricSpec(
+        "gauge", "Highest applied log index.", ("node",)),
+    "swarm_raft_is_leader": MetricSpec(
+        "gauge", "1 while this node is the raft leader, else 0.", ("node",)),
+    "swarm_raft_proposal_latency_seconds": MetricSpec(
+        "histogram", "ProposeValue wall time: submit to quorum commit "
+        "(the reference's proposeLatencyTimer span).", ("node",)),
+    "swarm_raft_proposals_total": MetricSpec(
+        "counter", "Proposals submitted, by outcome.", ("node", "result")),
+    "swarm_raft_peer_sends_total": MetricSpec(
+        "counter", "Raft messages handed to the transport, per peer.",
+        ("node", "peer")),
+    "swarm_raft_peer_send_failures_total": MetricSpec(
+        "counter", "Per-peer delivery failures reported back to the node "
+        "(feeds Node.status()['peer_failures']).", ("node", "peer")),
     # ---- transports (raft/transport.py, transport/device_mesh.py) --------
     "swarm_transport_delivery_latency_seconds": MetricSpec(
         "histogram", "Queue-to-delivered wall time per raft message on the "
@@ -280,6 +307,21 @@ CATALOG: dict[str, MetricSpec] = {
     "swarm_store_commits_total": MetricSpec(
         "counter", "Store transactions committed, by kind "
         "(read / write / batch).", ("kind",)),
+
+    # ---- coalescing proposal pipeline (store/pipeline.py) ----------------
+    "swarm_cpl_proposals_total": MetricSpec(
+        "counter", "Packed raft proposals flushed by the coalescing "
+        "pipeline, by outcome (committed / failed).", ("outcome",)),
+    "swarm_cpl_txns_total": MetricSpec(
+        "counter", "Store transactions routed through the coalescing "
+        "pipeline, by outcome (committed / failed).", ("outcome",)),
+    "swarm_cpl_batch_entries": MetricSpec(
+        "histogram", "Transactions packed per raft proposal (the "
+        "amortization factor of the batched pipeline).", (),
+        buckets=(1, 2, 4, 8, 16, 32, 64, 128, 256)),
+    "swarm_cpl_queue_depth": MetricSpec(
+        "gauge", "Transactions queued behind the in-flight packed "
+        "proposal.", ()),
 
     # ---- group-placement kernel (manager/scheduler/kernel.py) ------------
     # Names and label sets are pinned to kernel.METRIC_NAMES by a test.

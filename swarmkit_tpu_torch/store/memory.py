@@ -9,9 +9,8 @@ Differences from the reference are deliberate TPU-era simplifications:
   leader's ``update`` awaits the raft commit exactly like the reference
   blocks on the wait channel (raft.go:1826-1857).
 
-The port's own copy of the JAX package's store/memory.py, without the
-coalescing proposal pipeline (store/pipeline.py), which comes with the
-raft node: every write here is one transaction, or a ``Batch`` of them.
+The port's own copy of the JAX package's store/memory.py, with its
+coalescing mode (``set_coalescing``, store/pipeline.py).
 """
 
 from __future__ import annotations
@@ -399,6 +398,28 @@ class MemoryStore:
         self.obs = obs or obs_registry.DEFAULT
         self._m_commits = obs_catalog.get(self.obs,
                                           "swarm_store_commits_total")
+        # Coalescing proposal pipeline (store/pipeline.py), switched on by
+        # set_coalescing(): None = the sequential one-round-trip-per-write
+        # path.
+        self._pipeline = None
+
+    # -- coalescing mode -------------------------------------------------
+    def set_coalescing(self, config) -> None:
+        """Enable the batched proposal pipeline (store/pipeline.py).
+        ``config`` is a CoalesceConfig (or True for defaults)."""
+        from swarmkit_tpu_torch.store.pipeline import CoalesceConfig, ProposalPipeline
+        if config is True:
+            config = CoalesceConfig()
+        self._pipeline = ProposalPipeline(self, config)
+
+    async def stop_coalescing(self) -> None:
+        """Drain the pipeline and fall back to the sequential path."""
+        pipeline, self._pipeline = self._pipeline, None
+        if pipeline is not None:
+            await pipeline.stop()
+
+    def coalescing(self) -> bool:
+        return self._pipeline is not None and self._proposer is not None
 
     def _timed(self, name: str):
         return metrics.timed(name, registry=self.metrics)
@@ -481,9 +502,17 @@ class MemoryStore:
         """Run a write transaction; replicate via the proposer (if any) and
         apply + publish on commit (reference memory.go:319-377).  The write
         lock is held from callback through commit so the callback's reads
-        stay valid until the txn lands."""
+        stay valid until the txn lands.
+
+        In coalescing mode (``set_coalescing``) the lock covers only the
+        synchronous callback + enqueue; the commit is awaited OUTSIDE the
+        lock so concurrent writers pack into one raft proposal.  The
+        pipeline's speculative overlay (seeded into each new txn) plays
+        the lock's stale-read-prevention role across the await."""
         async with self._write_lock:
             tx = Tx(self)
+            if self.coalescing():
+                self._pipeline.seed(tx)
             result = cb(tx)
             if not tx.changelist:
                 return result
@@ -496,16 +525,26 @@ class MemoryStore:
             size = sum(len(repr(a.target)) for a in actions)
             if size > MAX_TRANSACTION_BYTES:
                 raise ErrTxTooLarge(f"transaction weighs ~{size} bytes")
-            with self._timed(metrics.STORE_WRITE_TX_LATENCY):
-                if self._proposer is not None:
-                    await self.propose_in_flight(
-                        actions,
-                        lambda index: self._commit(tx.changelist, index))
-                else:
-                    self._local_version += 1
-                    self._commit(tx.changelist, self._local_version)
-            self._m_commits.labels(kind="write").inc()
-            return result
+
+            if self.coalescing():
+                fut = self._pipeline.submit(tx.changelist, size)
+            else:
+                with self._timed(metrics.STORE_WRITE_TX_LATENCY):
+                    if self._proposer is not None:
+                        await self.propose_in_flight(
+                            actions,
+                            lambda index: self._commit(tx.changelist, index))
+                    else:
+                        self._local_version += 1
+                        self._commit(tx.changelist, self._local_version)
+                self._m_commits.labels(kind="write").inc()
+                return result
+
+        # coalescing: await the packed commit OUTSIDE the write lock
+        with self._timed(metrics.STORE_WRITE_TX_LATENCY):
+            await fut
+        self._m_commits.labels(kind="write").inc()
+        return result
 
     def wedged(self) -> bool:
         """True when any write has been stuck in flight longer than
@@ -602,6 +641,10 @@ class Batch:
         self._pending: list[Event] = []
         self.applied = 0
         self._holds_lock = False
+        # coalescing mode: commit futures of entries already enqueued on
+        # the pipeline (each callback becomes one FIFO entry, packed with
+        # every other concurrent writer into one raft proposal)
+        self._futures: list[tuple[asyncio.Future, int]] = []
 
     async def _acquire_segment(self) -> None:
         # The write lock is held from a segment's FIRST callback until that
@@ -618,6 +661,8 @@ class Batch:
             self._store._write_lock.release()
 
     async def update(self, cb: Callable[[Tx], Any]) -> Any:
+        if self._store.coalescing():
+            return await self._update_coalescing(cb)
         await self._acquire_segment()
         try:
             tx = Tx(self._store)
@@ -652,6 +697,30 @@ class Batch:
             await self._flush()
         return result
 
+    async def _update_coalescing(self, cb: Callable[[Tx], Any]) -> Any:
+        """Coalescing-mode callback: enqueue this callback's changes as
+        pipeline entries (visible to every later txn via the speculative
+        overlay — no segment lock held across awaits) and remember the
+        commit futures for ``commit()``."""
+        store = self._store
+        async with store._write_lock:
+            tx = Tx(store)
+            store._pipeline.seed(tx)
+            result = cb(tx)
+            events = tx.changelist
+            # split oversized callbacks at the same per-txn boundary the
+            # sequential path uses
+            for i in range(0, len(events), MAX_CHANGES_PER_TRANSACTION):
+                chunk = events[i:i + MAX_CHANGES_PER_TRANSACTION]
+                size = sum(len(repr(StoreAction.make(
+                    _ACTION_KIND[ev.action], ev.object).target))
+                    for ev in chunk)
+                if size > MAX_TRANSACTION_BYTES:
+                    raise ErrTxTooLarge(f"transaction weighs ~{size} bytes")
+                self._futures.append(
+                    (store._pipeline.submit(chunk, size), len(chunk)))
+        return result
+
     async def _flush(self) -> None:
         try:
             if self._pending:
@@ -683,6 +752,23 @@ class Batch:
         self.applied += len(chunk)
 
     async def commit(self) -> int:
+        if self._futures:
+            # coalescing mode: wait for every enqueued entry; surface the
+            # first failure (callers' retry paths handle it) after all
+            # settled so no future is left un-awaited
+            futures, self._futures = self._futures, []
+            results = await asyncio.gather(
+                *(f for f, _ in futures), return_exceptions=True)
+            first_err = None
+            for (_, n), res in zip(futures, results):
+                if isinstance(res, BaseException):
+                    first_err = first_err or res
+                else:
+                    self.applied += n
+            self._store._m_commits.labels(kind="batch").inc()
+            if first_err is not None:
+                raise first_err
+            return self.applied
         try:
             while self._pending:
                 await self._flush()

@@ -76,7 +76,29 @@ def test_port_imports_without_jax():
             "swarmkit_tpu_torch.agent.agent",
             "swarmkit_tpu_torch.agent.worker",
             "swarmkit_tpu_torch.agent.testutils",
-            "swarmkit_tpu_torch.tools.control_plane"} <= set(mods)
+            "swarmkit_tpu_torch.tools.control_plane",
+            "swarmkit_tpu_torch.raft.wait",
+            "swarmkit_tpu_torch.raft.membership",
+            "swarmkit_tpu_torch.raft.rawnode",
+            "swarmkit_tpu_torch.raft.storage",
+            "swarmkit_tpu_torch.raft.node",
+            "swarmkit_tpu_torch.native",
+            "swarmkit_tpu_torch.encryption",
+            "swarmkit_tpu_torch.encryption.encryption",
+            "swarmkit_tpu_torch.store.pipeline",
+            "swarmkit_tpu_torch.manager.health",
+            "swarmkit_tpu_torch.manager.keymanager",
+            "swarmkit_tpu_torch.manager.role_manager",
+            "swarmkit_tpu_torch.manager.metrics",
+            "swarmkit_tpu_torch.manager.watchapi",
+            "swarmkit_tpu_torch.manager.resourceapi",
+            "swarmkit_tpu_torch.manager.logbroker",
+            "swarmkit_tpu_torch.manager.orchestrator.global_",
+            "swarmkit_tpu_torch.manager.orchestrator.constraintenforcer",
+            "swarmkit_tpu_torch.manager.orchestrator.taskreaper",
+            "swarmkit_tpu_torch.manager.manager",
+            "swarmkit_tpu_torch.cmd",
+            "swarmkit_tpu_torch.cmd.swarm_bench"} <= set(mods)
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
             "sys.modules['swarmkit_tpu'] = None\n"
@@ -94,12 +116,26 @@ def test_port_imports_without_jax():
 
 def test_no_port_source_names_the_jax_package():
     files = sorted(PORT.rglob("*.py")) + sorted(PORT.rglob("*.cu")) \
-        + [ROOT / "chip_smoke.py"]
+        + sorted(PORT.rglob("*.cpp")) + [ROOT / "chip_smoke.py"]
     jax_import = re.compile(r"^\s*(import|from)\s+jax\b", re.M)
     for f in files:
         text = f.read_text()
         assert "swarmkit_tpu." not in text, f
         assert not jax_import.search(text), f
+
+
+def test_wal_codec_source_is_the_ports_own():
+    """The native WAL codec builds from the port's own copy of
+    wal_codec.cpp, a regular file inside the port, into the checkout's
+    build tree: no path into the JAX package."""
+    from swarmkit_tpu_torch import native
+
+    src = pathlib.Path(native.SRC)
+    assert src == PORT / "native" / "wal_codec.cpp"
+    assert src.is_file() and not src.is_symlink()
+    assert src.resolve().is_relative_to(PORT.resolve())
+    assert pathlib.Path(native.BUILD_DIR) == ROOT / "build" / "native"
+    assert "swarmkit_tpu/" not in src.read_text()
 
 
 def test_port_imports_no_module_named_by_its_caller():
