@@ -357,6 +357,23 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    and seconds to a new one, a write, the old one restarted from its
    state_dir until its store equals the leader's; (e) Docker's 1,000-node
    world in a quorum's store and a global service, one task a READY node.
+27. the daemon over the network: a TLS cluster of swarmd processes on
+   127.0.0.1 (`python -m swarmkit_tpu_torch.cmd.swarmd`, gRPC): 3
+   managers, the 2nd and 3rd joined with the manager token `swarmctl
+   cluster-tokens` prints, then 10 test workers and one tpu worker joined
+   together with the worker token; 100 replicas through `swarmctl
+   service-create` (time to all RUNNING, p50/p90/p99); 2
+   tpu://pallas_matmul n=8192 tasks on the tpu worker, their results
+   from `swarmctl service-logs` bit-equal to phase 7's, mm_bf16_wgmma and
+   sumsq counted on the worker's --listen-debug surface (/debug/kernels)
+   and sched_place on the leader's, every sched_place call of the leader
+   held to the plain loop inside its process; the leader killed, the
+   seconds to a new one, a write, the old one restarted from its
+   state_dir until its store equals the leader's, and after clean stops
+   rafttool's dump of its WAL equal to the leader's; with the CA, a
+   wrong token refused, a worker's certificate refused on the raft
+   service, and a root rotation re-issuing every node.  Every child is
+   killed and reaped on the way out.
 
 Each path's band-copy launches are counted from 0 (the kernels' record
 carries them), and each phase-17 group's sched_place launches likewise.
@@ -374,6 +391,7 @@ import json
 import math
 import re
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -5447,6 +5465,666 @@ def phase_quorum(torch, cuda_ops, task7: dict, card: str = "cuda") -> dict:
     return out
 
 
+# ---- phase 27: a TLS cluster of swarmd processes on the card -----------
+
+# Docker's "Administer and maintain a swarm of Docker Engines": managers in
+# odd quorums of 3-7; swarm_bench.py's defaults: 100 replicas on 10 workers
+D_MANAGERS, D_TEST_WORKERS, D_REPLICAS = 3, 10, 100
+D_PROGRAM_REPLICAS = 2       # tpu://pallas_matmul tasks on the card's worker
+D_ELECTION_TICK = 3          # swarmd ticks its raft once a second
+D_TIMEOUT = 90.0             # seconds any one wait may take
+D_GPU = "gpu0"               # the --executor tpu worker's hostname
+SWARMD = "swarmkit_tpu_torch.cmd.swarmd"
+SWARMCTL = "swarmkit_tpu_torch.cmd.swarmctl"
+RAFTTOOL = "swarmkit_tpu_torch.cmd.rafttool"
+PLACE_AUDIT_ENV = "CHIP_SMOKE_PLACE_AUDIT"
+# Loaded as sitecustomize by the swarmd managers of phase 27 (their
+# PYTHONPATH starts with its folder): each sched_place call of the
+# process's scheduler is held to the plain loop on its own columns, one
+# JSON line a call in $CHIP_SMOKE_PLACE_AUDIT.  The launch and its count
+# stay the wrapper's own.  The machine's own sitecustomize, if it has
+# one, runs first.
+PLACE_AUDIT_HOOK = '''
+import importlib.machinery
+import importlib.util
+import json
+import os
+import sys
+import time
+
+_here = os.path.dirname(os.path.abspath(__file__))
+_spec = importlib.machinery.PathFinder.find_spec(
+    "sitecustomize",
+    [p for p in sys.path if os.path.abspath(p or ".") != _here])
+if _spec is not None and _spec.loader is not None:
+    _spec.loader.exec_module(importlib.util.module_from_spec(_spec))
+
+from swarmkit_tpu_torch.parallel import cuda_ops as _ops
+
+_inner = _ops.place_greedy
+_path = os.environ["%s"]
+
+
+def _audited(cols, n_branches, has_service, n_tasks):
+    torch = _ops.torch
+    if cols.is_cuda:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = _inner(cols, n_branches, has_service, n_tasks)
+        end.record()
+        end.synchronize()
+        ms = start.elapsed_time(end)
+    else:
+        t0 = time.perf_counter()
+        out = _inner(cols, n_branches, has_service, n_tasks)
+        ms = (time.perf_counter() - t0) * 1e3
+    want = _ops.place_greedy_plain(cols.cpu(), n_branches, has_service,
+                                   n_tasks)
+    got = out.cpu().long()
+    err = int((got - want.long()).abs().max()) if got.numel() else 0
+    with open(_path, "a") as f:
+        f.write(json.dumps({"nodes": int(cols.shape[-1]),
+                            "tasks": int(n_tasks), "err": err,
+                            "ms": ms}) + "\\n")
+    return out
+
+
+_ops.place_greedy = _audited
+''' % PLACE_AUDIT_ENV
+
+
+RUNNING, COMPLETE = 448, 512     # api/types.py TaskState values
+
+
+def _pem(field) -> bytes:
+    """A bytes field of a control-API answer (JSON: {"__b64__": ...})."""
+    import base64
+
+    return base64.b64decode(field["__b64__"]) if field else b""
+
+
+def _percentile(xs: list, q: float) -> float:
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, max(0, math.ceil(q * len(xs)) - 1))]
+
+
+class SwarmdCluster:
+    """swarmd processes on 127.0.0.1, each started as a user starts it
+    (``python -m swarmkit_tpu_torch.cmd.swarmd``), its state dir, control
+    and debug sockets under one short folder in /tmp (a unix socket's
+    path holds at most 107 bytes).  `close` kills and reaps every one."""
+
+    def __init__(self, device: str) -> None:
+        import os
+
+        self.device = device
+        self.base = tempfile.mkdtemp(dir="/tmp", prefix="sk27-")
+        self.hook = os.path.join(self.base, "hook")
+        os.makedirs(self.hook)
+        with open(os.path.join(self.hook, "sitecustomize.py"), "w") as f:
+            f.write(PLACE_AUDIT_HOOK)
+        self.root = os.path.dirname(os.path.abspath(__file__))
+        self.procs: dict = {}
+        self.argv: dict = {}
+        self.env: dict = {}
+        self.addr: dict = {}
+        self.ended: set = set()      # processes this phase stopped itself
+        self._ports: set = set()
+
+    def path(self, name: str, leaf: str = "") -> str:
+        import os
+
+        return os.path.join(self.base, name, leaf) if leaf else \
+            os.path.join(self.base, name)
+
+    def _port(self) -> int:
+        """A port p with p, p + 1 (the root-CA bootstrap) and p + 2 (the
+        TLS join port) free."""
+        import random
+        import socket
+
+        rng = random.Random()
+        while True:
+            p = rng.randrange(20000, 60000, 3)
+            if {p, p + 1, p + 2} & self._ports:
+                continue
+            try:
+                for q in (p, p + 1, p + 2):
+                    with socket.socket() as s:
+                        s.bind(("127.0.0.1", q))
+            except OSError:
+                continue
+            self._ports |= {p, p + 1, p + 2}
+            return p
+
+    def spawn(self, name: str, *extra: str, executor: str = "test",
+              audit: bool = False) -> None:
+        import os
+
+        if name not in self.argv:
+            self.addr[name] = f"127.0.0.1:{self._port()}"
+            os.makedirs(self.path(name))
+            self.argv[name] = [
+                sys.executable, "-m", SWARMD,
+                "--state-dir", self.path(name, "state"),
+                "--listen-control-api", self.path(name, "ctl.sock"),
+                "--listen-debug", self.path(name, "dbg.sock"),
+                "--listen-remote-api", self.addr[name],
+                "--node-id", name, "--hostname", name,
+                "--election-tick", str(D_ELECTION_TICK),
+                "--executor", executor, "--device", self.device, *extra]
+            # a crash of a daemon leaves its Python stack in its log
+            env = dict(os.environ, PYTHONFAULTHANDLER="1")
+            if audit:
+                env["PYTHONPATH"] = os.pathsep.join(
+                    [self.hook, self.root]
+                    + ([env["PYTHONPATH"]] if env.get("PYTHONPATH")
+                       else []))
+                env[PLACE_AUDIT_ENV] = self.path(name, "place.jsonl")
+            self.env[name] = env
+        for leaf in ("ctl.sock", "dbg.sock"):
+            if os.path.exists(self.path(name, leaf)):
+                os.unlink(self.path(name, leaf))
+        log_f = open(self.path(name, "swarmd.log"), "a")
+        try:
+            self.procs[name] = subprocess.Popen(
+                self.argv[name], cwd=self.root, env=self.env[name],
+                stdout=log_f, stderr=subprocess.STDOUT,
+                stdin=subprocess.DEVNULL)
+        finally:
+            log_f.close()
+        self.ended.discard(name)
+
+    def tail(self, name: str, n: int = 30) -> str:
+        try:
+            with open(self.path(name, "swarmd.log")) as f:
+                return "".join(f.readlines()[-n:])
+        except OSError:
+            return ""
+
+    def alive(self) -> None:
+        """Fail the run if a process this phase did not stop has ended."""
+        for name, p in self.procs.items():
+            if name not in self.ended and p.poll() is not None:
+                fail(f"phase 27: swarmd {name} exited with {p.returncode}"
+                     f":\n{self.tail(name)}")
+
+    def ctl(self, name: str, *args: str, ok: bool = True) -> str:
+        r = subprocess.run([sys.executable, "-m", SWARMCTL, "--socket",
+                            self.path(name, "ctl.sock"), *args],
+                           cwd=self.root, capture_output=True, text=True,
+                           timeout=120)
+        if ok:
+            check(r.returncode == 0, f"phase 27: swarmctl {args[0]} on "
+                  f"{name}: rc {r.returncode}: {r.stderr.strip()}")
+        return r.stdout if r.returncode == 0 else ""
+
+    def debug(self, name: str, path: str) -> dict:
+        """GET `path` from the node's --listen-debug surface."""
+        import socket
+
+        with socket.socket(socket.AF_UNIX) as s:
+            s.settimeout(20)
+            s.connect(self.path(name, "dbg.sock"))
+            s.sendall(f"GET {path} HTTP/1.0\r\n\r\n".encode())
+            data = b""
+            while True:
+                chunk = s.recv(1 << 16)
+                if not chunk:
+                    break
+                data += chunk
+        return json.loads(data.partition(b"\r\n\r\n")[2])
+
+    def until(self, pred, what: str, timeout: float = D_TIMEOUT,
+              every: float = 0.25, detail=None) -> float:
+        """Poll pred() (a falsy value or an OSError is a miss) until it
+        holds; the seconds it took.  On a timeout the failure names
+        `detail()` too."""
+        t0 = time.perf_counter()
+        while True:
+            self.alive()
+            try:
+                if pred():
+                    return time.perf_counter() - t0
+            except (OSError, ValueError):
+                pass
+            if time.perf_counter() - t0 > timeout:
+                fail(f"phase 27: {what}: not within {timeout} s"
+                     + (f" ({detail()})" if detail else ""))
+            time.sleep(every)
+
+    def stop(self, name: str, sig=None) -> int:
+        """Stop one process (SIGTERM, or `sig`) and reap it."""
+        return self.stop_all([name], sig)[name]
+
+    def stop_all(self, names: list, sig=None) -> dict:
+        """Signal every process of `names` (SIGTERM, or `sig`), then reap
+        each; their exit codes by name."""
+        for name in names:
+            self.ended.add(name)
+            if self.procs[name].poll() is None:
+                self.procs[name].send_signal(sig or signal.SIGTERM)
+        codes = {}
+        for name in names:
+            p = self.procs[name]
+            try:
+                codes[name] = p.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait()
+                fail(f"phase 27: swarmd {name} did not stop:\n"
+                     f"{self.tail(name)}")
+        return codes
+
+    def close(self) -> None:
+        for p in self.procs.values():
+            if p.poll() is None:
+                p.kill()
+        for p in self.procs.values():
+            p.wait()
+        shutil.rmtree(self.base, ignore_errors=True)
+
+
+def _ctl_call(c: SwarmdCluster, name: str, method: str, **params):
+    """One control-API request over the node's unix socket, through the
+    client swarmctl uses; the decoded result."""
+    from swarmkit_tpu_torch.cmd.ctl import ControlSocketClient
+
+    async def go():
+        client = ControlSocketClient(c.path(name, "ctl.sock"))
+        try:
+            return await client.call(method, **params)
+        finally:
+            await client.close()
+    return asyncio.run(go())
+
+
+def _node_states(c: SwarmdCluster, name: str) -> dict:
+    """node-ls on `name`: {node id: (role, state)}."""
+    out = {}
+    for line in c.ctl(name, "node-ls", ok=False).splitlines():
+        nid, role, state = line.split("\t")
+        out[nid] = (role, state)
+    return out
+
+
+def _tasks(c: SwarmdCluster, name: str, service: str) -> list:
+    return _ctl_call(c, name, "task.ls", service_ids=[service])
+
+
+def _on_disk_identity(c: SwarmdCluster, name: str):
+    """The node's TLS identity from its state dir."""
+    from swarmkit_tpu_torch.ca import RootCA, SecurityConfig, parse_identity
+    from swarmkit_tpu_torch.ca.keyreadwriter import KeyReadWriter
+
+    kw = KeyReadWriter(c.path(name, "state/certificates"))
+    cert, key = kw.read()
+    node_id, role, org = parse_identity(cert)
+    return SecurityConfig(RootCA(kw.read_root_ca()), node_id, role, org,
+                          cert, key)
+
+
+def _raft_refused(c: SwarmdCluster, name: str, worker: str) -> str:
+    """A worker's certificate calling the raft service of manager `name`:
+    the status code it gets back."""
+    import grpc
+
+    from swarmkit_tpu_torch.ca.tlsutil import (
+        channel_credentials, secure_channel_options,
+    )
+    from swarmkit_tpu_torch.raft.messages import Message, MsgType
+    from swarmkit_tpu_torch.raft.wire import encode_message
+
+    sec = _on_disk_identity(c, worker)
+
+    async def go():
+        channel = grpc.aio.secure_channel(
+            c.addr[name], channel_credentials(sec),
+            options=secure_channel_options())
+        try:
+            call = channel.unary_unary(
+                "/swarmkit.Raft/ProcessRaftMessage",
+                request_serializer=lambda b: b,
+                response_deserializer=lambda b: b)
+            await asyncio.wait_for(call(encode_message(Message(
+                type=MsgType.APP, to=1, frm=12345, term=99))), 20)
+            return "OK"
+        except grpc.aio.AioRpcError as e:
+            return e.code().name
+        finally:
+            await channel.close()
+    return asyncio.run(go())
+
+
+def _wals(c: SwarmdCluster, names: list) -> list:
+    """rafttool dump-wal of each stopped node of `names`, run together:
+    one dict an entry."""
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", RAFTTOOL, "--state-dir",
+         c.path(name, "state"), "dump-wal"], cwd=c.root,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for name in names]
+    out = []
+    try:
+        for name, p in zip(names, procs):
+            stdout, stderr = p.communicate(timeout=120)
+            check(p.returncode == 0, f"phase 27: rafttool dump-wal {name}: "
+                  f"{stderr.strip()[-2000:]}")
+            out.append([json.loads(line) for line in stdout.splitlines()
+                        if line])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return out
+
+
+def phase_swarmd(torch, task7: dict, card: str = "cuda") -> dict:
+    """(a) D_MANAGERS managers, the 2nd and 3rd joined with the manager
+    token `swarmctl cluster-tokens` prints, then D_TEST_WORKERS test
+    workers and one tpu worker joined together with the worker token;
+    (b) D_REPLICAS replicas on the test workers through `swarmctl
+    service-create`; (c) D_PROGRAM_REPLICAS tpu://pallas_matmul tasks on
+    the tpu worker, their results read from `swarmctl service-logs`, the
+    kernels' launches from the daemons' debug surfaces, every sched_place
+    call of the leader held to the plain loop in its process; (d) the
+    leader killed, a new one, a write, the old one restarted from its
+    state_dir until its store equals the leader's, and after clean stops
+    its WAL the leader's log entry for entry; (e) with the CA: a wrong
+    token refused, a
+    worker's certificate refused on the raft service, a root rotation
+    that re-issues every node."""
+    from swarmkit_tpu_torch.ca.certificates import (
+        HAVE_CRYPTOGRAPHY, MANAGER_ROLE_OU, is_issued_by,
+    )
+
+    out: dict = {}
+    if card != "cpu":
+        torch.cuda.empty_cache()
+        free, total = torch.cuda.mem_get_info()
+        out["card_free_gib"] = free / 2**30
+        log(f"  card memory before spawning: {free / 2**30:.1f} of "
+            f"{total / 2**30:.1f} GiB free")
+    managers = [f"m{i}" for i in range(1, D_MANAGERS + 1)]
+    workers = [f"w{i}" for i in range(D_TEST_WORKERS)]
+    c = SwarmdCluster(card)
+    try:
+        # (a) ---------------------------------------------------------------
+        # the seconds a bare import of swarmd takes, beside the first
+        # manager's start
+        timer = subprocess.Popen(
+            [sys.executable, "-c", "import time; t = time.perf_counter(); "
+             f"import {SWARMD}; print(time.perf_counter() - t)"],
+            cwd=c.root, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True)
+        try:
+            t0 = time.perf_counter()
+            c.spawn("m1", "--manager", audit=True)
+            stdout, stderr = timer.communicate(timeout=300)
+        finally:
+            if timer.poll() is None:
+                timer.kill()
+                timer.wait()
+        check(timer.returncode == 0, f"phase 27: import swarmd: {stderr}")
+        out["import_s"] = float(stdout)
+        tokens: dict = {}
+
+        def tokens_out():
+            tokens.update(json.loads(c.ctl("m1", "cluster-tokens",
+                                           ok=False) or "{}"))
+            return "manager" in tokens
+        c.until(tokens_out, "the first manager's join tokens")
+        out["first_manager_s"] = time.perf_counter() - t0
+        cl = json.loads(c.ctl("m1", "cluster-inspect"))
+        tls = bool(_pem(cl["root_ca"]["ca_cert"]))
+        check(tls == HAVE_CRYPTOGRAPHY, f"phase 27: root CA {tls}, "
+              f"cryptography {HAVE_CRYPTOGRAPHY}")
+        out["tls"] = "ca" if tls else "none (no cryptography)"
+        log(f"  TLS branch: {out['tls']}")
+        for m in managers[1:]:
+            c.spawn(m, "--manager", "--join-addr", c.addr["m1"],
+                    "--join-token", tokens["manager"], audit=True)
+        c.until(lambda: [v for v in _node_states(c, "m1").values()
+                         if v == ("manager", "ready")] == [("manager",
+                                                            "ready")] * 3,
+                "a 3-manager quorum")
+        out["quorum_s"] = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        for w in workers:
+            c.spawn(w, "--join-addr", c.addr["m1"], "--join-token",
+                    tokens["worker"])
+        c.spawn(D_GPU, "--join-addr", c.addr["m1"], "--join-token",
+                tokens["worker"], executor="tpu")
+        everyone = managers + workers + [D_GPU]
+        c.until(lambda: sorted(n for n, v in _node_states(c, "m1").items()
+                               if v[1] == "ready") == sorted(everyone),
+                f"all {len(everyone)} nodes READY")
+        out["workers_ready_s"] = time.perf_counter() - t1
+        out["ready_s"] = time.perf_counter() - t0
+        if tls:
+            for n in everyone:
+                sec = _on_disk_identity(c, n)
+                check(sec.node_id == n and (sec.role_ou == MANAGER_ROLE_OU)
+                      == (n in managers), f"phase 27: {n}'s certificate "
+                      f"names {sec.node_id} as {sec.role_ou}")
+        log(f"  a 3-manager quorum in {out['quorum_s']:.2f} s, all "
+            f"{len(everyone)} nodes READY in {out['ready_s']:.2f} s "
+            f"(workers {out['workers_ready_s']:.2f} s; importing swarmd "
+            f"takes {out['import_s']:.2f} s)")
+
+        # (b) ---------------------------------------------------------------
+        # the agents stamp a task's status with time.monotonic(), which is
+        # one clock for every process of the machine
+        created = time.monotonic()
+        t0 = time.perf_counter()
+        svc = json.loads(c.ctl(
+            "m1", "service-create", "--name", "bench", "--image", "redis",
+            "--replicas", str(D_REPLICAS), "--constraint",
+            "node.role==worker", "--constraint",
+            f"node.hostname!={D_GPU}"))
+
+        def running():
+            ts = _tasks(c, "m1", svc["id"])
+            return (len(ts) == D_REPLICAS and all(
+                t["status"]["state"] == RUNNING for t in ts)) and ts
+
+        def by_state():
+            ts = _tasks(c, "m1", svc["id"])
+            return {k: sum(t["status"]["state"] == k for t in ts)
+                    for k in {t["status"]["state"] for t in ts}}
+        c.until(running, f"{D_REPLICAS} replicas RUNNING", every=0.1,
+                detail=by_state)
+        out["startup_s"] = time.perf_counter() - t0
+        ts = _tasks(c, "m1", svc["id"])
+        lat = [t["status"]["timestamp"] - created for t in ts]
+        check(all(t["node_id"] in workers for t in ts),
+              "phase 27: a replica off the test workers")
+        per_node = sorted(sum(t["node_id"] == w for t in ts)
+                          for w in workers)
+        out["startup"] = dict(p50_s=_percentile(lat, 0.5),
+                              p90_s=_percentile(lat, 0.9),
+                              p99_s=_percentile(lat, 0.99),
+                              per_worker=per_node)
+        log(f"  {D_REPLICAS} replicas RUNNING in {out['startup_s']:.2f} s "
+            f"(p50 {out['startup']['p50_s']:.3f}, p90 "
+            f"{out['startup']['p90_s']:.3f}, p99 "
+            f"{out['startup']['p99_s']:.3f} s after swarmctl started; "
+            f"{per_node} a worker)")
+
+        # (c) ---------------------------------------------------------------
+        t0 = time.perf_counter()
+        prog = json.loads(c.ctl(
+            "m1", "service-create", "--name", "matmul", "--image",
+            "tpu://pallas_matmul", "--arg", f"n={TASK_N}", "--arg",
+            f"steps={TASK_STEPS}", "--arg", "seed=0", "--replicas",
+            str(D_PROGRAM_REPLICAS), "--constraint",
+            f"node.hostname=={D_GPU}", "--restart-condition", "none"))
+
+        def complete():
+            ts = _tasks(c, "m1", prog["id"])
+            states = [t["status"]["state"] for t in ts]
+            check(all(s <= COMPLETE for s in states), f"phase 27: a program "
+                  f"task failed: {[t['status'] for t in ts]}")
+            return len(ts) == D_PROGRAM_REPLICAS and \
+                states == [COMPLETE] * len(ts)
+        c.until(complete, "the program tasks COMPLETE", timeout=300)
+        out["program_s"] = time.perf_counter() - t0
+        logs = c.ctl("m1", "service-logs", "matmul")
+        results = [float(line.rsplit("result: ", 1)[1])
+                   for line in logs.splitlines() if "| result: " in line]
+        check(len(results) == D_PROGRAM_REPLICAS and all(
+            x == task7["result"] for x in results), f"phase 27: the "
+            f"program results {results} != phase 7's {task7['result']!r}")
+        gpu = c.debug(D_GPU, "/debug/kernels")
+        lead = c.debug("m1", "/debug/kernels")
+        with open(c.path("m1", "place.jsonl")) as f:
+            audit = [json.loads(line) for line in f]
+        launches = {"matmul_wgmma": gpu["launches"]["matmul_wgmma"],
+                    "sumsq": gpu["launches"]["sumsq"],
+                    "sched_place": lead["launches"]["sched_place"]}
+        check(launches["matmul_wgmma"] == D_PROGRAM_REPLICAS * TASK_STEPS
+              and launches["sumsq"] == D_PROGRAM_REPLICAS * TASK_STEPS,
+              f"phase 27: the tpu worker launched {gpu['launches']}")
+        check(launches["sched_place"] == len(audit) > 0, f"phase 27: the "
+              f"leader launched sched_place {launches['sched_place']} "
+              f"times, {len(audit)} calls held to the plain loop")
+        place_err = max(a["err"] for a in audit)
+        check(place_err == 0, f"phase 27: sched_place differs from the "
+              f"plain loop in the leader ({place_err})")
+        out["c"] = dict(results=results, launches=launches,
+                        gpu_device=gpu["device"], leader_device=lead["device"],
+                        place_err=place_err,
+                        place_ms=[a["ms"] for a in audit],
+                        place_shapes=[[a["nodes"], a["tasks"]]
+                                      for a in audit])
+        log(f"  {D_PROGRAM_REPLICAS} tpu://pallas_matmul tasks COMPLETE in "
+            f"{out['program_s']:.2f} s on {gpu['device']}: results "
+            f"{results}; launches {launches} (sched_place held to the plain "
+            f"loop on {len(audit)} calls, err {place_err})")
+
+        # (d) ---------------------------------------------------------------
+        check(c.debug("m1", "/debug/vars")["is_leader"],
+              "phase 27: m1 does not lead")
+        pre_kill = c.debug("m1", "/debug/store")
+        t0 = time.perf_counter()
+        c.stop("m1", signal.SIGKILL)
+        survivors = managers[1:]
+        lead_box: list = []
+
+        def new_leader():
+            lead_box[:] = [m for m in survivors
+                           if c.debug(m, "/debug/vars")["is_leader"]]
+            return lead_box
+        elect_s = c.until(new_leader, "a new leader", every=0.05)
+        new = lead_box[0]
+        other = next(m for m in survivors if m != new)
+        seen_s = elect_s + c.until(
+            lambda: c.ctl(other, "node-ls", ok=False), "node-ls on a "
+            "survivor through the new leader", every=0.05)
+        c.ctl(other, "secret-create", "after-failover", "--data", "x")
+        c.ctl(new, "node-ls")
+        t1 = time.perf_counter()
+        c.spawn("m1", "--manager", audit=True)
+        if tls:
+            # (e)'s joiner with a wrong token (the right pin, another
+            # secret) starts beside the restart
+            digest = tokens["worker"].split("-")[2]
+            c.spawn("bad0", "--join-addr", c.addr[new], "--join-token",
+                    f"SWMTKN-1-{digest}-{'0' * 32}")
+            c.ended.add("bad0")
+
+        def caught_up():
+            a = c.debug("m1", "/debug/store")
+            b = c.debug(new, "/debug/store")
+            return a["objects"] == b["objects"] and \
+                a["version"] == b["version"]
+        c.until(caught_up, "the restarted store equal to the leader's")
+        rejoin_s = time.perf_counter() - t1
+        check(not c.debug("m1", "/debug/vars")["is_leader"],
+              "phase 27: the restarted m1 leads")
+        out["d"] = dict(killed="m1", leader=new, elect_s=elect_s,
+                        elect_ticks=math.ceil(elect_s), seen_s=seen_s,
+                        rejoin_s=rejoin_s,
+                        objects=c.debug(new, "/debug/store")["objects"],
+                        objects_before_kill=pre_kill["objects"])
+        log(f"  failover: {new} leads {elect_s:.2f} s (~{math.ceil(elect_s)}"
+            f" one-second ticks) after the kill, node-ls on {other} "
+            f"answers at {seen_s:.2f} s; m1 restarted from its state_dir "
+            f"equals the leader's store in {rejoin_s:.2f} s")
+
+        # (e) ---------------------------------------------------------------
+        if tls:
+            t0 = time.perf_counter()
+            try:
+                rc = c.procs["bad0"].wait(timeout=D_TIMEOUT)
+            except subprocess.TimeoutExpired:
+                fail("phase 27: a join with a wrong token was not refused")
+            check(rc != 0 and "bad0" not in _node_states(c, new),
+                  f"phase 27: the wrong-token join: rc {rc}")
+            code = _raft_refused(c, new, "w0")
+            check(code == "PERMISSION_DENIED", f"phase 27: a worker's "
+                  f"certificate on the raft service got {code}")
+            old_root = json.loads(c.ctl(new, "cluster-inspect"))[
+                "root_ca"]["ca_cert"]
+            rot = json.loads(c.ctl(new, "cluster-rotate-ca"))
+            roots: list = []
+
+            def finalized():
+                ca = json.loads(c.ctl(new, "cluster-inspect"))["root_ca"]
+                roots[:] = [ca["ca_cert"]]
+                return ca.get("root_rotation") is None and \
+                    ca["ca_cert"] != old_root
+            c.until(finalized, "the root rotation finalized")
+
+            def reissued():
+                from swarmkit_tpu_torch.ca.keyreadwriter import (
+                    KeyReadWriter,
+                )
+
+                new_root = _pem(roots[0])
+                return all(is_issued_by(KeyReadWriter(c.path(
+                    n, "state/certificates")).read()[0], new_root)
+                    for n in everyone)
+            c.until(reissued, "every node re-issued under the new root")
+            out["e"] = dict(wrong_token_rc=rc, raft_with_worker_cert=code,
+                            new_ca_digest=rot["new_ca_digest"],
+                            rotate_s=time.perf_counter() - t0)
+            log(f"  security: a wrong token refused (rc {rc}), a worker's "
+                f"certificate on raft {code}, the root rotated and all "
+                f"{len(everyone)} nodes re-issued in "
+                f"{out['e']['rotate_s']:.2f} s")
+
+        # the restarted manager's WAL after a clean stop: the leader's log
+        # up to the store the two shared (the leader may append more, such
+        # as m1's node going down, before its own stop)
+        c.until(caught_up, "the stores equal before the clean stops")
+        shared = c.debug(new, "/debug/store")["version"]
+        rc = c.stop("m1")
+        check(rc == 0, f"phase 27: m1 stopped with {rc}:\n{c.tail('m1')}")
+        for m, rc in c.stop_all(
+                [other, new] + workers + [D_GPU]).items():
+            check(rc == 0, f"phase 27: {m} stopped with {rc}:\n"
+                  f"{c.tail(m)}")
+        back, leader = _wals(c, ["m1", new])
+        check([e["index"] for e in back] == list(range(1, len(back) + 1))
+              and len(back) >= shared and back == leader[:len(back)],
+              f"phase 27: m1's WAL holds {len(back)} entries, the "
+              f"leader's {len(leader)}, the shared store's version "
+              f"{shared}")
+        out["d"]["wal_entries"] = len(back)
+        out["d"]["leader_wal_entries"] = len(leader)
+        log(f"  after clean stops of every node, rafttool dumps {len(back)} "
+            f"entries from "
+            f"m1's WAL (the store's version {shared}), the leader's log "
+            f"entry for entry ({len(leader)} in the leader's)")
+        out["processes"] = len(c.procs)
+    finally:
+        c.close()
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -5638,6 +6316,14 @@ def main() -> int:
     q26 = phase_quorum(torch, cuda_ops, task)
     q26["secs"] = time.perf_counter() - t26
     log(f"  phase 26 in {q26['secs']:.1f} s")
+    stage(f"phase 27: a TLS cluster of swarmd processes over gRPC "
+          f"({D_MANAGERS} managers, {D_TEST_WORKERS} test workers, a tpu "
+          f"worker): {D_REPLICAS} replicas, {D_PROGRAM_REPLICAS} "
+          f"tpu://pallas_matmul tasks, failover and restart, the CA")
+    t27 = time.perf_counter()
+    d27 = phase_swarmd(torch, task)
+    d27["secs"] = time.perf_counter() - t27
+    log(f"  phase 27 in {d27['secs']:.1f} s")
 
     elapsed = time.perf_counter() - started
     log(f"all phases passed in {elapsed:.1f} s")
@@ -5658,7 +6344,7 @@ def main() -> int:
                                  "executor_rest": exec21,
                                  "device_wire": wire22, "meshes": mesh23,
                                  "row_tick": row24, "control_plane": cp25,
-                                 "quorum": q26},
+                                 "quorum": q26, "swarmd": d27},
                                 default=str))
     records = [{
         "name": "append_band_copy", "route": "cuda",
@@ -5742,6 +6428,10 @@ def main() -> int:
             "quorum_launches":
                 q26["c"]["launches"]["matmul_wgmma" if name == "matmul"
                                      else name],
+            # phase 27: counted on the tpu worker's debug surface
+            "swarmd_launches":
+                d27["c"]["launches"]["matmul_wgmma" if name == "matmul"
+                                     else name],
             "max_abs_err": max(err6[name], t["err"]), "ms": t["kernel"],
             "plain_ms": t["plain"], "bound_ms": t["bound"],
             "bound_by": bound_by, "library_ms": t["library"]})
@@ -5764,8 +6454,11 @@ def main() -> int:
         "control_plane_script_launches": cp25["c"]["launches"],
         # phase 26 (c): the store loop of a raft quorum's leader
         "quorum_launches": q26["c"]["launches"]["sched_place"],
+        # phase 27: the swarmd leader's, on its debug surface
+        "swarmd_launches": d27["c"]["launches"]["sched_place"],
         "max_abs_err": max(max(sched17[g]["err"] for g in groups),
-                           cp25["a"]["err"], q26["c"]["place_err"]),
+                           cp25["a"]["err"], q26["c"]["place_err"],
+                           d27["c"]["place_err"]),
         "ms": a17["ms"], "tasks": a17["tasks"],
         # the plain loop on the card over the first plain_tasks tasks,
         # and the kernel on the same prefix

@@ -11,12 +11,6 @@ The reference wraps this server in generated raft proxies
 (RaftProxyControlServer) so followers forward to the leader; here the
 manager exposes the same behavior via a ``leader_conn`` seam on the Manager
 (leader proxying lives there, not in this class).
-
-The port's own copy of the JAX package's manager/controlapi.py.  The
-methods bound to the certificate authority (``rotate_root_ca``,
-``rotate_unlock_key``, ``get_unlock_key``, join-token rotation and the
-autolock key in ``update_cluster``, ``generate_join_token``) raise a
-``NotImplementedError`` that names the modules that bring them.
 """
 
 from __future__ import annotations
@@ -163,19 +157,14 @@ def _validate_service_spec(spec) -> None:
         raise InvalidArgument("spec: unrecognized service mode")
 
 
-# The methods bound to the certificate authority (root rotation, the
-# manager autolock key, join tokens) come with the port's ca/ and node/.
-CA_MODULES = "the port's ca/ and node/ (not ported yet)"
-
-
-def _ca_bound(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} needs the cluster's certificate "
-                               f"authority, which comes with {CA_MODULES}")
-
-
 def _mint_manager_kek():
     """A fresh manager autolock key record (reference: generateUnlockKey)."""
-    raise _ca_bound("minting the manager autolock key")
+    import secrets as _secrets
+
+    from swarmkit_tpu_torch.api.objects import EncryptionKey
+    return EncryptionKey(
+        subsystem="manager",
+        key=("SWMKEY-1-" + _secrets.token_hex(32)).encode())
 
 
 class ControlApi:
@@ -462,17 +451,55 @@ class ControlApi:
 
     async def rotate_root_ca(self) -> dict:
         """Begin a root-CA rotation on the leader (reference: controlapi
-        UpdateCluster with a new root + ca/server.go rotation path)."""
-        raise _ca_bound("rotate_root_ca")
+        UpdateCluster with a new root + ca/server.go rotation path; the
+        integration bar is TestSuccessfulRootRotation)."""
+        ca = getattr(self, "ca_server", None)
+        if ca is None:
+            raise FailedPrecondition("no CA server on this manager (not "
+                                     "the leader, or external-CA-only)")
+        await ca.start_root_rotation()
+        cl = self.get_cluster()
+        rot = cl.root_ca.root_rotation
+        new_cert = rot.ca_cert if rot else cl.root_ca.ca_cert
+        from swarmkit_tpu_torch.ca import RootCA
+        return {"rotation_active": rot is not None,
+                "new_ca_digest": RootCA(new_cert).digest()}
 
     async def rotate_unlock_key(self) -> dict:
         """Mint a fresh manager autolock key (reference: swarmctl/swarm
-        unlock-key --rotate)."""
-        raise _ca_bound("rotate_unlock_key")
+        unlock-key --rotate); manager nodes re-encrypt their keys via the
+        autolock watch."""
+        minted = _mint_manager_kek()
+
+        def txn(tx):
+            clusters = tx.find("cluster")
+            if not clusters:
+                raise NotFound("cluster object not created yet")
+            cl = clusters[0].copy()
+            if not cl.spec.encryption_config.auto_lock_managers:
+                raise FailedPrecondition(
+                    "autolock is not enabled on this cluster")
+            cl.unlock_keys = [k for k in cl.unlock_keys
+                              if k.subsystem != "manager"] + [minted]
+            tx.update(cl)
+        await self.store.update(txn)
+        # return the key THIS call minted — a re-read could race a
+        # concurrent autolock-off or second rotation
+        return {"unlock_key": minted.key.decode(), "autolock": True}
 
     def get_unlock_key(self) -> dict:
-        """The manager autolock key (reference: GetUnlockKey ca/server.go)."""
-        raise _ca_bound("get_unlock_key")
+        """The manager autolock key (reference: GetUnlockKey ca/server.go —
+        deliberately excluded from redacted cluster objects; this is the
+        one endpoint that returns it)."""
+        clusters = self.store.find("cluster")
+        if not clusters:
+            raise NotFound("cluster object not created yet")
+        cl = clusters[0]
+        key = next((k.key for k in cl.unlock_keys
+                    if k.subsystem == "manager"), b"")
+        return {"unlock_key": key.decode() if key else "",
+                "autolock": bool(
+                    cl.spec.encryption_config.auto_lock_managers)}
 
     def get_cluster(self, cluster_id: str = "") -> Cluster:
         if cluster_id:
@@ -501,14 +528,30 @@ class ControlApi:
             self._check_version(cl, version)
             cl = cl.copy()
             cl.spec = spec.copy()
-            # join-token rotation and the manager autolock key are the
-            # CA's part of UpdateCluster
-            if rotate_worker_token or rotate_manager_token:
-                raise _ca_bound("rotating join tokens")
+            if (rotate_worker_token or rotate_manager_token) \
+                    and not cl.root_ca.ca_cert:
+                # a token without the CA digest could never be accepted by
+                # the CA server — refuse loudly instead of minting it
+                raise FailedPrecondition(
+                    "cluster has no root CA; cannot rotate join tokens")
+            if rotate_worker_token:
+                cl.root_ca.join_token_worker = generate_join_token(
+                    ca_cert=cl.root_ca.ca_cert)
+            if rotate_manager_token:
+                cl.root_ca.join_token_manager = generate_join_token(
+                    ca_cert=cl.root_ca.ca_cert)
+            # Manager autolock (reference: cluster.go UpdateCluster unlock
+            # key management + keyreadwriter RotateKEK): toggling it on
+            # mints the manager KEK; off clears it.  Every manager node
+            # applies the replicated key to its KeyReadWriter (node.py
+            # autolock watch).
             want_lock = bool(spec.encryption_config.auto_lock_managers)
             have = [k for k in cl.unlock_keys if k.subsystem == "manager"]
-            if want_lock != bool(have):
-                raise _ca_bound("toggling manager autolock")
+            if want_lock and not have:
+                cl.unlock_keys = list(cl.unlock_keys) + [_mint_manager_kek()]
+            elif not want_lock and have:
+                cl.unlock_keys = [k for k in cl.unlock_keys
+                                  if k.subsystem != "manager"]
             tx.update(cl)
             return cl
         try:
@@ -711,5 +754,11 @@ class ControlApi:
 def generate_join_token(secret: Optional[str] = None,
                         ca_cert: bytes = b"") -> str:
     """``SWMTKN-1-<ca digest>-<secret>`` (reference: ca/config.go
-    GenerateJoinToken)."""
-    raise _ca_bound("generate_join_token")
+    GenerateJoinToken).  A CA certificate is required — a digest-less
+    token would be unjoinable."""
+    if not ca_cert:
+        raise ValueError("cannot generate a join token without a root CA")
+    from swarmkit_tpu_torch.ca import RootCA
+    from swarmkit_tpu_torch.ca import generate_join_token as ca_generate
+
+    return ca_generate(RootCA(ca_cert), secret)

@@ -9,19 +9,11 @@ manager, dispatcher; plus seeding the default cluster + own node objects
 :931-983) and becomeFollower (:1088).  The dirty-state check mirrors
 manager/dirty.go IsStateDirty.
 
-The port's own copy of the JAX package's manager/manager.py, until the
-port has its CA (``ca/``) and gRPC services (``rpc.py``):
-
-- the cluster is seeded without CA material, as the JAX package seeds it
-  where ``cryptography`` is missing, and ``ca_server`` stays None: the cluster's ``root_ca`` fields stay
-  empty and no join token is minted;
-- ``security=`` (a node's TLS identity) and a network that serves gRPC
-  services (``add_service``, the metrics scrape service) raise a
-  ``NotImplementedError`` naming the module still to port;
-- the scheduler places with its kernel (``sched_place``) by default, on
-  the card unless ``device="cpu"``, as the port's ``Scheduler`` does;
-  ``sched_use_kernel=False`` asks for the host Pipeline, the JAX
-  package's default.
+The port's own copy of the JAX package's manager/manager.py.  It differs
+in one place: the scheduler places with its kernel (``sched_place``) by
+default, on the card unless ``device="cpu"``, as the port's ``Scheduler``
+does; ``sched_use_kernel=False`` asks for the host Pipeline, the JAX
+package's default.
 """
 
 from __future__ import annotations
@@ -36,6 +28,7 @@ from swarmkit_tpu_torch.api import (
     NodeRole, NodeSpec, Peer, WeightedPeer,
 )
 from swarmkit_tpu_torch.api.objects import NodeStatus
+from swarmkit_tpu_torch.ca import CAServer, RootCA, generate_join_token as ca_token
 from swarmkit_tpu_torch.manager.allocator import Allocator
 from swarmkit_tpu_torch.manager.controlapi import ControlApi
 from swarmkit_tpu_torch.manager.dispatcher import Dispatcher
@@ -77,17 +70,13 @@ class Manager:
                  sched_use_kernel: bool = True,
                  sched_commit_debounce: Optional[float] = None,
                  device=None) -> None:
-        if security is not None:
-            raise NotImplementedError(
-                "a manager with a TLS identity (security=) needs the CA, "
-                "which the port does not have yet (ca/)")
         self.node_id = node_id
         self.addr = addr
         self.clock = clock or SystemClock()
         # node-provided TLS identity; its root CA seeds the cluster's CA on
         # bootstrap (reference: manager.go uses SecurityConfig's RootCA)
         self.security = security
-        self.ca_server = None
+        self.ca_server: Optional[CAServer] = None
         from swarmkit_tpu_torch.utils.metrics import Registry
         self.metrics_registry = Registry()
         # typed observability registry: per-manager by default so multi-
@@ -202,9 +191,8 @@ class Manager:
         # the metrics scrape service rides the same listener, registered
         # before raft starts for the same reason as health above
         if hasattr(network, "add_service"):
-            raise NotImplementedError(
-                "the metrics scrape service rides the gRPC listener, which "
-                "the port does not have yet (rpc.py)")
+            from swarmkit_tpu_torch.rpc import metrics_handlers
+            network.add_service(self.addr, metrics_handlers(self.metrics_text))
         leadership = self.raft.leadership.watch()
         await self.raft.start()
         await self.metrics.start()
@@ -271,8 +259,14 @@ class Manager:
         self.metrics.set_leader(True)
         await self._seed_defaults()
 
-        # no CA signing service until the port has ca/: ca_server stays
-        # None (the JAX package starts one here from the cluster's root CA)
+        # the CA signing service, loaded from the replicated cluster object
+        # (reference: ca.Server started in becomeLeader manager.go:906)
+        cluster = self.store.find("cluster")[0]
+        if cluster.root_ca.ca_cert and cluster.root_ca.ca_key:
+            self.ca_server = CAServer(
+                self.store,
+                RootCA(cluster.root_ca.ca_cert, cluster.root_ca.ca_key),
+                org=cluster.id, clock=self.clock)
         self.control_api.ca_server = self.ca_server
 
         sched_kw = {}
@@ -298,6 +292,8 @@ class Manager:
         self._leader_components = [allocator, sched, replicated, global_,
                                    reaper, enforcer, keymanager,
                                    self.role_manager]
+        if self.ca_server is not None:
+            self._leader_components.append(self.ca_server)
         for c in self._leader_components:
             await c.start()
         await self.dispatcher.start(mark_unknown=True)
@@ -401,13 +397,28 @@ class Manager:
         self.ca_server = None
         self.control_api.ca_server = None
 
+    def _bootstrap_root_ca(self) -> Optional[RootCA]:
+        if self.security is not None and self.security.root_ca.can_sign:
+            return self.security.root_ca
+        from swarmkit_tpu_torch.ca.certificates import HAVE_CRYPTOGRAPHY
+        if not HAVE_CRYPTOGRAPHY:
+            # No x509 stack in this environment: seed the cluster object
+            # without CA material (join tokens / TLS identities disabled).
+            log.warning("cryptography unavailable; bootstrapping cluster "
+                        "without a root CA")
+            return None
+        return RootCA.create()
+
     async def _seed_defaults(self) -> None:
         """Seed the default cluster object and our own node record
         (reference: becomeLeader manager.go:931-983)."""
         seed_cluster = not self.store.find("cluster")
-        # no root CA until ca/ (the JAX package's no-cryptography seed);
-        # without a TLS identity the cluster id is the default one
-        cluster_id = "cluster-" + DEFAULT_CLUSTER_NAME
+        root_ca = self._bootstrap_root_ca() if seed_cluster else None
+
+        # bootstrap cluster id = the certificate org (reference:
+        # manager.go uses securityConfig's Organization as the cluster id)
+        cluster_id = (self.security.org if self.security is not None
+                      else "cluster-" + DEFAULT_CLUSTER_NAME)
 
         def txn(tx):
             clusters = tx.find("cluster")
@@ -416,6 +427,12 @@ class Manager:
                     id=cluster_id,
                     spec=ClusterSpec(
                         annotations=Annotations(name=DEFAULT_CLUSTER_NAME)))
+                if root_ca is not None:
+                    cluster.root_ca.ca_cert = root_ca.cert_pem
+                    cluster.root_ca.ca_key = root_ca.key_pem or b""
+                    cluster.root_ca.ca_cert_hash = root_ca.digest()
+                    cluster.root_ca.join_token_worker = ca_token(root_ca)
+                    cluster.root_ca.join_token_manager = ca_token(root_ca)
                 tx.create(cluster)
             if tx.get("node", self.node_id) is None:
                 tx.create(ApiNode(

@@ -79,6 +79,15 @@ CATALOG: dict[str, MetricSpec] = {
         "after delivery failures.", ("wire",)),
     "swarm_transport_send_failures_total": MetricSpec(
         "counter", "Message delivery failures across all peers.", ("wire",)),
+    "swarm_transport_probe_transitions_total": MetricSpec(
+        "counter", "gRPC health-prober state flips, by new state "
+        "(healthy / unhealthy).", ("peer", "state")),
+    "swarm_transport_probe_healthy": MetricSpec(
+        "gauge", "Current prober verdict per peer: 1 healthy, 0 unhealthy.",
+        ("peer",)),
+    "swarm_transport_probes_total": MetricSpec(
+        "counter", "Health probes sent, by result (ok / fail).",
+        ("peer", "result")),
     "swarm_transport_mailbox_depth": MetricSpec(
         "gauge", "Device-mesh messages staged and awaiting the next "
         "all-to-all flush.", ()),

@@ -6,11 +6,11 @@ mailbox arrays; it needs a compact, versioned, CODE-FREE encoding — a
 replay must never execute anything (the reference wire/WAL format is
 protobuf raftpb, vendor/github.com/coreos/etcd/raft/raftpb).  The JAX
 package packs positional tuples with msgpack.  The port carries its own
-encoder and decoder for the subset those tuples use (ints, bools, None,
-bytes, str, lists and tuples), byte for byte msgpack's: ``packb`` with its
-defaults and ``unpackb`` with ``raw=False``, so a message encoded by one
-package decodes in the other.  Maps, floats and extension types are not in
-the subset and raise.
+encoder and decoder for the subset those tuples and the cluster RPCs
+(rpc.py) use (ints, bools, None, floats, bytes, str, lists, tuples and
+maps), byte for byte msgpack's: ``packb`` with its defaults and
+``unpackb`` with ``raw=False``, so a message encoded by one package decodes
+in the other.  Extension types are not in the subset and raise.
 """
 
 from __future__ import annotations
@@ -78,9 +78,17 @@ def _pack(v, out: bytearray) -> None:
         _pack_sized(len(b), (0xa0, 32), ((0xd9, 1), (0xda, 2), (0xdb, 4)),
                     out)
         out += b
+    elif isinstance(v, float):
+        out.append(0xcb)
+        out += struct.pack(">d", v)
     elif isinstance(v, (list, tuple)):
         _pack_sized(len(v), (0x90, 16), ((0xdc, 2), (0xdd, 4)), out)
         for item in v:
+            _pack(item, out)
+    elif isinstance(v, dict):
+        _pack_sized(len(v), (0x80, 16), ((0xde, 2), (0xdf, 4)), out)
+        for key, item in v.items():
+            _pack(key, out)
             _pack(item, out)
     else:
         raise TypeError(f"cannot encode {type(v).__name__} on the raft wire")
@@ -115,6 +123,8 @@ class _Reader:
             return head
         if head >= 0xe0:
             return head - 0x100
+        if 0x80 <= head <= 0x8f:
+            return self.map(head & 0x0f)
         if 0x90 <= head <= 0x9f:
             return self.array(head & 0x0f)
         if 0xa0 <= head <= 0xbf:
@@ -123,29 +133,48 @@ class _Reader:
             return None
         if head in (0xc2, 0xc3):
             return head == 0xc3
+        if head == 0xca:
+            return self.unpack(">f")
+        if head == 0xcb:
+            return self.unpack(">d")
         for table in (_UINTS, _INTS):
             for h, fmt, _ in table:
                 if head == h:
                     return self.unpack(fmt)
         sized = {0xc4: (1, "bin"), 0xc5: (2, "bin"), 0xc6: (4, "bin"),
                  0xd9: (1, "str"), 0xda: (2, "str"), 0xdb: (4, "str"),
-                 0xdc: (2, "array"), 0xdd: (4, "array")}.get(head)
+                 0xdc: (2, "array"), 0xdd: (4, "array"),
+                 0xde: (2, "map"), 0xdf: (4, "map")}.get(head)
         if sized is None:
             raise ValueError(f"raft wire byte 0x{head:02x} is not in the "
                              "codec's subset")
         n = self.unpack(_LENS[sized[0]])
         if sized[1] == "array":
             return self.array(n)
+        if sized[1] == "map":
+            return self.map(n)
         b = self.take(n)
         return b if sized[1] == "bin" else b.decode("utf-8")
 
     def array(self, n: int) -> list:
         return [self.value() for _ in range(n)]
 
+    def map(self, n: int) -> dict:
+        out = {}
+        for _ in range(n):
+            key = self.value()
+            if not isinstance(key, (str, bytes)):
+                # msgpack's strict_map_key default
+                raise ValueError(f"{type(key).__name__} is not allowed "
+                                 "as a map key on the raft wire")
+            out[key] = self.value()
+        return out
+
 
 def unpackb(raw: bytes):
     """msgpack.unpackb(raw) for the codec's subset (arrays come back as
-    lists, bin as bytes, str as str); trailing bytes raise, as there."""
+    lists, bin as bytes, str as str, maps as dicts); trailing bytes raise,
+    as there."""
     r = _Reader(raw)
     v = r.value()
     if r.pos != len(r.raw):

@@ -98,7 +98,27 @@ def test_port_imports_without_jax():
             "swarmkit_tpu_torch.manager.orchestrator.taskreaper",
             "swarmkit_tpu_torch.manager.manager",
             "swarmkit_tpu_torch.cmd",
-            "swarmkit_tpu_torch.cmd.swarm_bench"} <= set(mods)
+            "swarmkit_tpu_torch.cmd.swarm_bench",
+            "swarmkit_tpu_torch.ca",
+            "swarmkit_tpu_torch.ca.auth",
+            "swarmkit_tpu_torch.ca.certificates",
+            "swarmkit_tpu_torch.ca.config",
+            "swarmkit_tpu_torch.ca.keyreadwriter",
+            "swarmkit_tpu_torch.ca.tlsutil",
+            "swarmkit_tpu_torch.ca.server",
+            "swarmkit_tpu_torch.ca.external",
+            "swarmkit_tpu_torch.node",
+            "swarmkit_tpu_torch.node.node",
+            "swarmkit_tpu_torch.node.debug",
+            "swarmkit_tpu_torch.node.connectionbroker",
+            "swarmkit_tpu_torch.node.remotes",
+            "swarmkit_tpu_torch.rpc",
+            "swarmkit_tpu_torch.raft.grpc_transport",
+            "swarmkit_tpu_torch.cmd.ctl",
+            "swarmkit_tpu_torch.cmd.swarmd",
+            "swarmkit_tpu_torch.cmd.swarmctl",
+            "swarmkit_tpu_torch.cmd.rafttool",
+            "swarmkit_tpu_torch.cmd.external_ca_example"} <= set(mods)
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
             "sys.modules['swarmkit_tpu'] = None\n"
@@ -122,6 +142,24 @@ def test_no_port_source_names_the_jax_package():
         text = f.read_text()
         assert "swarmkit_tpu." not in text, f
         assert not jax_import.search(text), f
+
+
+def test_port_imports_without_msgpack():
+    """The port speaks msgpack's bytes through its own codec
+    (raft/wire.py): with `msgpack` blocked, the modules that put it on
+    the wire import, and no port source imports it."""
+    code = ("import sys\n"
+            "sys.modules['msgpack'] = None\n"
+            "import swarmkit_tpu_torch.rpc, swarmkit_tpu_torch.raft."
+            "grpc_transport, swarmkit_tpu_torch.raft.node, "
+            "swarmkit_tpu_torch.cmd.swarmd\n"
+            "print('ok')\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    imports = re.compile(r"^\s*(import|from)\s+msgpack\b", re.M)
+    for f in sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]:
+        assert not imports.search(f.read_text()), f
 
 
 def test_wal_codec_source_is_the_ports_own():

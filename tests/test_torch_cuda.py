@@ -1170,3 +1170,25 @@ def test_pallas_matmul_service_under_the_ports_agent_on_the_card():
     for t in out["then"].values():
         assert t["state"] == "COMPLETE", t
         assert t["result"] == want
+
+
+@pytest.mark.cuda
+def test_swarmd_cluster_on_the_card():
+    """chip_smoke.py's phase 27: a TLS cluster of swarmd processes on
+    127.0.0.1 (3 managers, 10 test workers, a tpu worker), 100 replicas
+    RUNNING, two tpu://pallas_matmul n=8192 tasks on the card bit-equal
+    to the executor's own run, the kernels counted in the daemons, the
+    leader's sched_place held to the plain loop in its process, failover,
+    the restart from the state_dir and, with the CA, the refusals and a
+    root rotation.  The phase fails the run (SystemExit) on any check."""
+    _need_card()
+    import chip_smoke
+
+    task = chip_smoke.phase_executor(torch, cuda_ops)
+    out = chip_smoke.phase_swarmd(torch, task)
+    assert out["c"]["results"] == [task["result"]] * 2
+    assert out["c"]["launches"]["matmul_wgmma"] == 32
+    assert out["c"]["launches"]["sumsq"] == 32
+    assert out["c"]["launches"]["sched_place"] > 0
+    assert out["c"]["place_err"] == 0
+    assert out["d"]["wal_entries"] > 0

@@ -301,27 +301,56 @@ def test_manager_equals_jax(name, mode):
 
 
 def test_manager_refuses_what_the_port_lacks(monkeypatch, tmp_path):
-    """A TLS identity needs ca/, the gRPC scrape service rpc.py; and the
-    scheduler's card is resolved at construction."""
+    """The one thing a Manager can lack is its card: without device= and
+    without CUDA it is refused at construction (the host Pipeline needs
+    none).  A TLS identity (security=) seeds the cluster's root CA, its
+    org and join tokens from the identity, and a network that serves gRPC
+    services gets the metrics scrape service, as in the JAX package."""
     import torch
+
+    from swarmkit_tpu_torch import ca
+    from swarmkit_tpu_torch import rpc
 
     P = package("swarmkit_tpu_torch")
     net = P.Network(seed=1)
     d = str(tmp_path)
-    with pytest.raises(NotImplementedError, match="ca/"):
-        P.Manager("m1", "m1:1", net, d, security=object())
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         P.Manager("m1", "m1:1", net, d)
     host = P.Manager("m1", "m1:1", net, d, sched_use_kernel=False)
     assert host.device is None
-    net.add_service = lambda addr, handlers: None
-    m = P.Manager("m1", "m1:1", net, d, device="cpu")
+    root = ca.RootCA.create()
+    issued = root.issue_node_certificate("m1", ca.MANAGER_ROLE_OU, "org-x")
+    sec = ca.SecurityConfig(ca.RootCA(root.cert_pem, root.key_pem), "m1",
+                            ca.MANAGER_ROLE_OU, "org-x", issued.cert_pem,
+                            issued.key_pem)
+    services = []
+    net.add_service = lambda addr, handlers: services.append(
+        (addr, handlers))
+    m = P.Manager("m1", "m1:1", net, d, device="cpu", security=sec,
+                  tick_interval=0.02, election_tick=3)
 
     async def start():
-        with pytest.raises(NotImplementedError, match="rpc.py"):
-            await m.start()
-    asyncio.run(start())
+        await m.start()
+        try:
+            for _ in range(500):
+                if m.is_leader() and m.store.find("cluster") \
+                        and m.ca_server is not None:
+                    break
+                await asyncio.sleep(0.02)
+            return m.store.find("cluster")[0], m.ca_server
+        finally:
+            await m.stop()
+    cluster, ca_server = asyncio.run(start())
+    assert cluster.id == "org-x" and ca_server is not None
+    assert cluster.root_ca.ca_cert == root.cert_pem
+    assert cluster.root_ca.ca_cert_hash == root.digest()
+    for token in (cluster.root_ca.join_token_worker,
+                  cluster.root_ca.join_token_manager):
+        assert ca.parse_join_token(token).ca_digest == root.digest()
+    assert [addr for addr, _ in services] == ["m1:1"]
+    assert [h.service_name() for h in services[0][1]] == \
+        [h.service_name() for h in rpc.metrics_handlers(lambda: "")]
 
 
 # ---- the services on one store ------------------------------------------

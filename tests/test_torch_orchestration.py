@@ -209,44 +209,62 @@ def test_place_through_store_like_jax(replicas):
                                   "get_unlock_key", "generate_join_token",
                                   "rotate_worker_token", "autolock"])
 def test_ca_bound_control_api_raises_by_name(call):
-    """The ControlApi methods bound to the certificate authority raise a
-    NotImplementedError that names what they need, never a quiet default;
-    a cluster spec update without them still lands."""
-    from swarmkit_tpu_torch.manager import controlapi
+    """The ControlApi methods bound to the certificate authority answer as
+    the JAX package's do on a cluster without a root CA and a manager
+    without a CA server: the same error by type and message, or the same
+    answer (the minted autolock key compared by its form); a cluster spec
+    update without them still lands."""
+    import re
 
-    pkg = package(PORT)
-    api = pkg.api
+    def run(root):
+        controlapi = importlib.import_module(f"{root}.manager.controlapi")
+        api = importlib.import_module(f"{root}.api")
+        store_mod = importlib.import_module(f"{root}.store.memory")
 
-    async def go():
-        store = pkg.MemoryStore()
-        ctl = controlapi.ControlApi(store)
-        cl = api.Cluster(id="cl1", spec=api.ClusterSpec(
-            annotations=api.Annotations(name="default")))
-        await store.update(lambda tx: tx.create(cl))
-        spec = cl.spec.copy()
-        spec.dispatcher.heartbeat_period = 7.0
-        updated = await ctl.update_cluster("cl1", spec)
-        assert updated.spec.dispatcher.heartbeat_period == 7.0
-        locked = spec.copy()
-        locked.encryption_config.auto_lock_managers = True
-        calls = {
-            "rotate_root_ca": ctl.rotate_root_ca,
-            "rotate_unlock_key": ctl.rotate_unlock_key,
-            "get_unlock_key": ctl.get_unlock_key,
-            "generate_join_token": lambda: controlapi.generate_join_token(
-                ca_cert=b"x"),
-            "rotate_worker_token": lambda: ctl.update_cluster(
-                "cl1", spec, rotate_worker_token=True),
-            "autolock": lambda: ctl.update_cluster("cl1", locked)}
-        with pytest.raises(NotImplementedError, match="certificate "
-                           "authority.*ca/ and node/"):
-            out = calls[call]()
-            if asyncio.iscoroutine(out):
-                await out
-        assert store.get("cluster", "cl1").spec.dispatcher \
-            .heartbeat_period == 7.0
+        async def go():
+            store = store_mod.MemoryStore()
+            ctl = controlapi.ControlApi(store)
+            cl = api.Cluster(id="cl1", spec=api.ClusterSpec(
+                annotations=api.Annotations(name="default")))
+            await store.update(lambda tx: tx.create(cl))
+            spec = cl.spec.copy()
+            spec.dispatcher.heartbeat_period = 7.0
+            updated = await ctl.update_cluster("cl1", spec)
+            assert updated.spec.dispatcher.heartbeat_period == 7.0
+            locked = spec.copy()
+            locked.encryption_config.auto_lock_managers = True
+            calls = {
+                "rotate_root_ca": ctl.rotate_root_ca,
+                "rotate_unlock_key": ctl.rotate_unlock_key,
+                "get_unlock_key": ctl.get_unlock_key,
+                "generate_join_token": lambda: controlapi.generate_join_token(
+                    ca_cert=b""),
+                "rotate_worker_token": lambda: ctl.update_cluster(
+                    "cl1", spec, rotate_worker_token=True),
+                "autolock": lambda: ctl.update_cluster("cl1", locked)}
+            try:
+                out = calls[call]()
+                if asyncio.iscoroutine(out):
+                    out = await out
+            except Exception as e:
+                out = (type(e).__name__, str(e))
+            if call == "autolock":
+                keys = [k.key.decode() for k in
+                        store.get("cluster", "cl1").unlock_keys]
+                out = [re.sub(r"[0-9a-f]{64}$", "<key>", k) for k in keys]
+            assert store.get("cluster", "cl1").spec.dispatcher \
+                .heartbeat_period == 7.0
+            return out
+        return asyncio.run(go())
 
-    asyncio.run(go())
+    want, got = run(JAX), run(PORT)
+    assert got == want
+    if call == "autolock":
+        assert got == ["SWMKEY-1-<key>"]
+    elif call == "get_unlock_key":
+        assert got == {"unlock_key": "", "autolock": False}
+    else:
+        assert isinstance(got, tuple), got
 
 
 @pytest.mark.parametrize("driver", ["place_through_store", "task_startup"])
