@@ -374,6 +374,23 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    wrong token refused, a worker's certificate refused on the raft
    service, and a root rotation re-issuing every node.  Every child is
    killed and reaped on the way out.
+28. the control plane's standing tools: (a) fault_sweep's host-wire
+   sweep (inproc, devmesh, grpc x down, drop, partition, delay, crash;
+   seed 2009343), the devmesh wire's exchange on the card, every row ok
+   with its seconds, notes and device flushes, and the devmesh rows run
+   again on the CPU with equal notes; (b) soak_controlplane's churn soak
+   for half a minute on DeviceMeshNet(rows=8) with every manager's
+   scheduler on the card: each cycle kind (leader kill and restart,
+   drain, scale 4 -> 7 -> 4, re-image) at least twice, the task records
+   bounded, each sched_place call held to the plain loop, the
+   collector's pauses; (c) bench.py's controlplane-10k (10,000 simulated
+   agents over gRPC against 3 managers, 256 hot, 192 replicas, 25 s
+   heartbeats) for half a minute, in a process of its own
+   (`python -m swarmkit_tpu_torch.tools.soak_controlplane --agents`)
+   started after phase 3's CPU half and collected after phase 24: at
+   least 98% of the agents sustained, assignments, status writes, kernel
+   groups, more than one entry a proposal, and each sched_place call of
+   the child held to the plain loop in that process.
 
 Each path's band-copy launches are counted from 0 (the kernels' record
 carries them), and each phase-17 group's sched_place launches likewise.
@@ -5526,7 +5543,9 @@ def _audited(cols, n_branches, has_service, n_tasks):
     with open(_path, "a") as f:
         f.write(json.dumps({"nodes": int(cols.shape[-1]),
                             "tasks": int(n_tasks), "err": err,
-                            "ms": ms}) + "\\n")
+                            "ms": ms,
+                            "launches": _ops.LAUNCHES["sched_place"]})
+                + "\\n")
     return out
 
 
@@ -6125,6 +6144,228 @@ def phase_swarmd(torch, task7: dict, card: str = "cuda") -> dict:
     return out
 
 
+# ---- phase 28: the control plane's standing tools on the card ----------
+
+# fault_sweep's pinned seed (the JAX tool's default)
+SWEEP_SEEDS = (2009343,)
+# the churn soak's wall-clock budget (the JAX tool's default is 20 min)
+SOAK_MINUTES = 0.5
+# bench.py's controlplane-10k at full width (10,000 agents: 256 hot, 192
+# replicas, 25 s heartbeats), its window cut from bench.py's 1.0 minute
+LOAD_AGENTS, LOAD_MINUTES, LOAD_FLOOR = 10_000, 0.5, 0.98
+LOAD_TIMEOUT = 900.0       # seconds the child may take, set-up included
+SOAK_TOOL = "swarmkit_tpu_torch.tools.soak_controlplane"
+
+
+def start_load_child(card: str = "cuda") -> dict:
+    """bench.py's controlplane-10k in a process of its own, started the
+    way a user starts the tool (``python -m ...soak_controlplane
+    --agents``), its scheduler kernel on `card`; every sched_place call of
+    the child held to the plain loop in that process (PLACE_AUDIT_HOOK).
+    It is killed if this process exits before it ends."""
+    import atexit
+    import os
+
+    base = tempfile.mkdtemp(prefix="chip_smoke_load_")
+    hook = os.path.join(base, "hook")
+    os.makedirs(hook)
+    with open(os.path.join(hook, "sitecustomize.py"), "w") as f:
+        f.write(PLACE_AUDIT_HOOK)
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONFAULTHANDLER="1")
+    env["PYTHONPATH"] = os.pathsep.join(
+        [hook, root] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH")
+                        else []))
+    env[PLACE_AUDIT_ENV] = os.path.join(base, "place.jsonl")
+    argv = [sys.executable, "-m", SOAK_TOOL, "--agents", str(LOAD_AGENTS),
+            "--minutes", str(LOAD_MINUTES), "--sustain-floor",
+            str(LOAD_FLOOR), "--report-every", "30", "--device", card]
+    with open(os.path.join(base, "out.log"), "w") as out, \
+            open(os.path.join(base, "err.log"), "w") as err:
+        proc = subprocess.Popen(argv, cwd=root, env=env, stdout=out,
+                                stderr=err, stdin=subprocess.DEVNULL)
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    log(f"  started `{' '.join(argv[1:])}` (pid {proc.pid})")
+    return {"proc": proc, "base": base, "argv": argv[1:],
+            "t0": time.perf_counter()}
+
+
+def finish_load_child(child: dict) -> dict:
+    """Wait for the load child; its result line, its sched_place launches
+    and each call's audit (err against the plain loop, device ms), its
+    wall seconds and how long this process waited for it."""
+    import os
+
+    proc, base = child["proc"], child["base"]
+    t0 = time.perf_counter()
+    try:
+        rc = proc.wait(timeout=max(1.0, LOAD_TIMEOUT - (
+            t0 - child["t0"])))
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        rc = proc.wait()
+    waited = time.perf_counter() - t0
+    wall = time.perf_counter() - child["t0"]
+    with open(os.path.join(base, "out.log")) as f:
+        out = f.read().splitlines()
+    with open(os.path.join(base, "err.log")) as f:
+        err = f.read().splitlines()
+    for line in out:
+        log(f"  [load] {line}")
+    try:
+        with open(os.path.join(base, "place.jsonl")) as f:
+            audit = [json.loads(line) for line in f]
+    except FileNotFoundError:
+        audit = []
+    shutil.rmtree(base, ignore_errors=True)
+    if rc != 0:
+        for line in err[-40:]:
+            log(f"  [load stderr] {line}")
+    check(rc == 0, f"phase 28 (c): the load child exited with {rc}")
+    result = json.loads(next(l for l in reversed(out) if l.startswith("{")))
+    said = [l for l in err if l.startswith("sched_place launches: ")]
+    check(len(said) == 1, f"phase 28 (c): the child printed {said}")
+    return {"result": result, "launches": int(said[0].split(": ")[1]),
+            "audit": audit, "wall_s": wall, "waited_s": waited}
+
+
+def phase_standing_tools(torch, cuda_ops, load: dict,
+                         card: str = "cuda") -> dict:
+    """(a) fault_sweep's host-wire sweep (3 wires x 5 plans, seed
+    2009343) with the devmesh wire's exchange on the card, then the
+    devmesh rows again on the CPU: every row ok, the devmesh rows' notes
+    card = CPU.  (b) The churn soak on the device wire with every
+    manager's scheduler on the card: every cycle kind at least twice,
+    each sched_place call held to the plain loop on its own columns, the
+    collector's pauses.  (c) The controlplane-10k child's result (started
+    beside phases 19-24): bench.py's sustain floor, assignments, status
+    writes, kernel groups, packed proposals, its sched_place calls each
+    held to the plain loop in the child."""
+    from swarmkit_tpu_torch.tools import fault_sweep as fs
+    from swarmkit_tpu_torch.tools import soak_controlplane as sc
+
+    card_name = card_line()
+    out: dict = {}
+    # (a) ---------------------------------------------------------------
+    t0 = time.perf_counter()
+    stats: dict = {}
+    rows = fs.run_sweep(fs.WIRES, fs.PLANS, SWEEP_SEEDS, verbose=False,
+                        device=card, stats=stats)
+    t_card = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu_stats: dict = {}
+    cpu_rows = fs.run_sweep(("devmesh",), fs.PLANS, SWEEP_SEEDS,
+                            verbose=False, device="cpu", stats=cpu_stats)
+    t_cpu = time.perf_counter() - t0
+    for r in rows:
+        st = stats[(r["wire"], r["plan"], r["seed"])]
+        log(f"  {'ok  ' if r['ok'] else 'FAIL'} {r['wire']:8s} "
+            f"{r['plan']:10s} seed={r['seed']} ({r['secs']} s) "
+            f"{r['notes']}" + (f"; flushes {st['flushes']:.0f}, messages "
+                               f"{st['messages']:.0f}"
+                               if r["wire"] == "devmesh" else "")
+            + (f"  {r['error']}" if not r["ok"] else ""))
+    check(len(rows) == 15 and all(r["ok"] for r in rows),
+          f"phase 28 (a): {sum(r['ok'] for r in rows)}/{len(rows)} host-wire "
+          f"rows ok")
+    mesh = [r for r in rows if r["wire"] == "devmesh"]
+    for r, c in zip(mesh, cpu_rows):
+        check(c["ok"] and (r["plan"], r["notes"]) == (c["plan"], c["notes"]),
+              f"phase 28 (a): devmesh {r['plan']} on the card "
+              f"{r['notes']!r} != on the CPU {c['notes']!r} "
+              f"{c.get('error', '')}")
+    flushes = {r["plan"]: stats[("devmesh", r["plan"], r["seed"])]
+               for r in mesh}
+    cpu_flushes = {r["plan"]: cpu_stats[("devmesh", r["plan"], r["seed"])]
+                   for r in cpu_rows}
+    check(all(s["flushes"] > 0 for s in flushes.values()),
+          f"phase 28 (a): a devmesh row exchanged nothing ({flushes})")
+    out["a"] = dict(rows=rows, secs=t_card, cpu_secs=t_cpu,
+                    devmesh=flushes, devmesh_cpu=cpu_flushes,
+                    flushes=sum(s["flushes"] for s in flushes.values()),
+                    same_counts_as_cpu=flushes == cpu_flushes)
+    log(json.dumps({"phase": "28a", "card": card_name,
+                    **{k: v for k, v in out["a"].items() if k != "rows"}}))
+    log(f"  15/15 host-wire rows ok in {t_card:.2f} s; the devmesh rows' "
+        f"notes equal on the card and the CPU ({t_cpu:.2f} s); devmesh "
+        f"flushes/messages by plan: " + ", ".join(
+            f"{p} {s['flushes']:.0f}/{s['messages']:.0f}"
+            for p, s in flushes.items())
+        + f" (the CPU's {'the same' if out['a']['same_counts_as_cpu'] else cpu_flushes})")
+
+    # (b) ---------------------------------------------------------------
+    calls: list = []
+    inner, timed = _sched_place_timed(torch, cuda_ops, calls)
+    soak_stats: dict = {}
+    cuda_ops.reset_launches()
+    cuda_ops.place_greedy = timed
+    t0 = time.perf_counter()
+    try:
+        with GcPauses() as pauses:
+            rc = asyncio.run(sc.soak(SOAK_MINUTES, "device", device=card,
+                                     stats=soak_stats))
+    finally:
+        cuda_ops.place_greedy = inner
+    t_soak = time.perf_counter() - t0
+    launches = cuda_ops.LAUNCHES["sched_place"]
+    check(rc == 0, f"phase 28 (b): the soak returned {rc}")
+    check(min(soak_stats["cycles"].values()) >= 2, f"phase 28 (b): a cycle "
+          f"kind ran fewer than twice ({soak_stats['cycles']})")
+    check(len(calls) == launches > 0, f"phase 28 (b): {len(calls)} recorded "
+          f"sched_place calls for {launches} launches")
+    err, kernel_ms = _held_to_plain(torch, cuda_ops, calls)
+    check(err == 0, f"phase 28 (b): sched_place differs from the plain "
+          f"loop ({err})")
+    shapes = [[int(cols.shape[-1]), int(k)] for cols, _, _, k, *_ in calls]
+    del calls
+    out["b"] = dict(secs=t_soak, cycles=soak_stats["cycles"],
+                    max_tasks=soak_stats["max_tasks"], launches=launches,
+                    place_err=err, place_kernel_ms=kernel_ms,
+                    place_shapes=shapes, gc=pauses.summary())
+    log(json.dumps({"phase": "28b", "card": card_name, **out["b"]}))
+    log(f"  churn soak {SOAK_MINUTES} min on the device wire: "
+        f"{sum(soak_stats['cycles'].values())} cycles "
+        f"{soak_stats['cycles']}, at most {soak_stats['max_tasks']} task "
+        f"records; sched_place {launches} launches, each = the plain loop; "
+        f"the collector {pauses.collections} collections, longest pause "
+        f"{pauses.max_pause_s:.3f} s; {t_soak:.1f} s")
+
+    # (c) ---------------------------------------------------------------
+    r = load["result"]
+    for k, v in r.items():
+        log(f"  controlplane-10k {k}: {v}")
+    check("error" not in r, f"phase 28 (c): {r.get('error')}")
+    check(r["agents"] == LOAD_AGENTS
+          and r["agents_sustained"] >= LOAD_FLOOR * LOAD_AGENTS,
+          f"phase 28 (c): {r['agents_sustained']}/{r['agents']} agents "
+          f"sustained")
+    check(r["assignments"] > 0 and r["status_writes"] > 0
+          and r["kernel_groups"] > 0 and r["entries_per_proposal"] > 1,
+          f"phase 28 (c): assignments {r['assignments']}, status writes "
+          f"{r['status_writes']}, kernel groups {r['kernel_groups']}, "
+          f"entries a proposal {r['entries_per_proposal']}")
+    audit = load["audit"]
+    check(load["launches"] == len(audit) > 0, f"phase 28 (c): the child "
+          f"launched sched_place {load['launches']} times, {len(audit)} "
+          f"calls held to the plain loop")
+    place_err = max(a["err"] for a in audit)
+    check(place_err == 0, f"phase 28 (c): sched_place differs from the "
+          f"plain loop in the child ({place_err})")
+    out["c"] = dict(result=r, launches=load["launches"],
+                    place_err=place_err, place_ms=[a["ms"] for a in audit],
+                    place_shapes=[[a["nodes"], a["tasks"]] for a in audit],
+                    wall_s=load["wall_s"], waited_s=load["waited_s"])
+    log(json.dumps({"phase": "28c", "card": card_name, **out["c"]}))
+    log(f"  controlplane-10k in its own process: "
+        f"{r['agents_sustained']}/{r['agents']} sustained, "
+        f"{r['assignments_per_s']} assignments/s, {r['entries_per_proposal']} "
+        f"entries a proposal, RTT p50/p99 {r['rtt_p50_ms']}/"
+        f"{r['rtt_p99_ms']} ms; sched_place {load['launches']} launches, "
+        f"each = the plain loop; the child's wall {load['wall_s']:.1f} s, "
+        f"waited for {load['waited_s']:.1f} s after phase 24")
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -6261,16 +6502,24 @@ def main() -> int:
                          finish_phase3_cpu(torch, cpu3, cpu3_dir))
     finally:
         shutil.rmtree(cpu3_dir, ignore_errors=True)
+    stage(f"phase 28 (c), started: bench.py's controlplane-10k "
+          f"({LOAD_AGENTS} agents, {LOAD_MINUTES} min) in a process of its "
+          f"own beside phases 19-24")
+    load_child = start_load_child()
     stage(f"phase 19: differential_sweep on the card (all 11 families, "
           f"{DIFF_SEEDS} seed a family, tick = golden core)")
+    t19 = time.perf_counter()
     diff19 = phase_differential(torch, sim, cuda_ops)
+    diff19["secs"] = time.perf_counter() - t19
     stage("phase 20: fault_sweep's device half on the card (precheck, "
           "attacks, storage)")
+    t20 = time.perf_counter()
     outdir = tempfile.mkdtemp(prefix="chip_smoke_fault_")
     try:
         fault20 = phase_fault_sweep(torch, sim, cuda_ops, outdir)
     finally:
         shutil.rmtree(outdir, ignore_errors=True)
+    fault20["secs"] = time.perf_counter() - t20
 
     stage(f"phase 21: the executor's rest (tpu://pmatmul n={TASK_N} "
           f"batch={PMATMUL_BATCH}, secret parameters, describe, watch)")
@@ -6300,6 +6549,13 @@ def main() -> int:
     row24["secs"] = time.perf_counter() - t24
     del mesh23["rung"]["digests"]
     log(f"  phase 24 in {row24['secs']:.1f} s")
+    stage("phase 28 (c), collected: the controlplane-10k child")
+    load28 = finish_load_child(load_child)
+    log(f"  phases 19-24 beside the child, s: 19 {diff19['secs']:.1f}, 20 "
+        f"{fault20['secs']:.1f}, 21 {exec21['secs']:.1f}, 22 "
+        f"{wire22['secs']:.1f}, 23 {mesh23['secs']:.1f}, 24 "
+        f"{row24['secs']:.1f}; the child's wall {load28['wall_s']:.1f} s, "
+        f"waited for {load28['waited_s']:.1f} s")
     stage(f"phase 25: the control plane on the card ({CP_REPLICAS} replicas "
           f"through the store; swarm-bench's flow and "
           f"{CP_PROGRAM_REPLICAS} tpu://pallas_matmul tasks under the "
@@ -6324,6 +6580,14 @@ def main() -> int:
     d27 = phase_swarmd(torch, task)
     d27["secs"] = time.perf_counter() - t27
     log(f"  phase 27 in {d27['secs']:.1f} s")
+    stage(f"phase 28: the control plane's standing tools on the card "
+          f"(fault_sweep's {len(SWEEP_SEEDS) * 15} host-wire rows, a "
+          f"{SOAK_MINUTES}-minute churn soak, the controlplane-10k child's "
+          f"result)")
+    t28 = time.perf_counter()
+    tools28 = phase_standing_tools(torch, cuda_ops, load28)
+    tools28["secs"] = time.perf_counter() - t28
+    log(f"  phase 28 in {tools28['secs']:.1f} s")
 
     elapsed = time.perf_counter() - started
     log(f"all phases passed in {elapsed:.1f} s")
@@ -6344,7 +6608,8 @@ def main() -> int:
                                  "executor_rest": exec21,
                                  "device_wire": wire22, "meshes": mesh23,
                                  "row_tick": row24, "control_plane": cp25,
-                                 "quorum": q26, "swarmd": d27},
+                                 "quorum": q26, "swarmd": d27,
+                                 "standing_tools": tools28},
                                 default=str))
     records = [{
         "name": "append_band_copy", "route": "cuda",
@@ -6456,9 +6721,16 @@ def main() -> int:
         "quorum_launches": q26["c"]["launches"]["sched_place"],
         # phase 27: the swarmd leader's, on its debug surface
         "swarmd_launches": d27["c"]["launches"]["sched_place"],
+        # phase 28: the churn soak's store loops, the controlplane-10k
+        # child's (counted in that process), and the device exchanges of
+        # the host-wire sweep's devmesh rows (no kernel of their own)
+        "soak_launches": tools28["b"]["launches"],
+        "load_launches": tools28["c"]["launches"],
+        "sweep_devmesh_flushes": tools28["a"]["flushes"],
         "max_abs_err": max(max(sched17[g]["err"] for g in groups),
                            cp25["a"]["err"], q26["c"]["place_err"],
-                           d27["c"]["place_err"]),
+                           d27["c"]["place_err"], tools28["b"]["place_err"],
+                           tools28["c"]["place_err"]),
         "ms": a17["ms"], "tasks": a17["tasks"],
         # the plain loop on the card over the first plain_tasks tasks,
         # and the kernel on the same prefix

@@ -343,6 +343,43 @@ CATALOG: dict[str, MetricSpec] = {
     "swarm_sched_kernel_seconds": MetricSpec(
         "histogram", "Wall time of one kernel group-placement call "
         "(encode + device + decode).", (), buckets=_TICK_BUCKETS),
+
+    # ---- bench / tools (L6) ----------------------------------------------
+    "swarm_bench_entries_per_second": MetricSpec(
+        "gauge", "Steady-state committed entries/sec, by bench config.",
+        ("config",)),
+    "swarm_bench_reads_per_second": MetricSpec(
+        "gauge", "Steady-state linearizable reads served/sec, by bench "
+        "config (read-mix configs only).", ("config",)),
+    "swarm_bench_compile_seconds": MetricSpec(
+        "gauge", "XLA compile+first-call wall time, by bench config.",
+        ("config",)),
+    "swarm_bench_election_seconds": MetricSpec(
+        "gauge", "Election wall time on the cached program, by bench "
+        "config.", ("config",)),
+    "swarm_bench_commit_latency_ticks_p50": MetricSpec(
+        "gauge", "Median propose-to-commit latency in simulated ticks "
+        "from the bench telemetry probe (bucket upper edge), by bench "
+        "config.", ("config",)),
+    "swarm_bench_commit_latency_ticks_p99": MetricSpec(
+        "gauge", "p99 propose-to-commit latency in simulated ticks from "
+        "the bench telemetry probe (bucket upper edge), by bench "
+        "config.", ("config",)),
+    "swarm_bench_election_ticks": MetricSpec(
+        "gauge", "Simulated ticks until first leader election, by bench "
+        "config.", ("config",)),
+    "swarm_bench_proposals_per_second": MetricSpec(
+        "gauge", "Store proposals committed per second over the real "
+        "control plane, by bench config.", ("config",)),
+    "swarm_bench_assignments_per_second": MetricSpec(
+        "gauge", "Task assignments delivered to simulated agents per "
+        "second under control-plane load, by bench config.", ("config",)),
+    "swarm_bench_agents_sustained": MetricSpec(
+        "gauge", "Simulated agent sessions concurrently sustained by the "
+        "load harness, by bench config.", ("config",)),
+    "swarm_bench_heartbeat_rtt_p99_seconds": MetricSpec(
+        "gauge", "Client-observed heartbeat round-trip p99 under "
+        "control-plane load, by bench config.", ("config",)),
 }
 
 

@@ -31,7 +31,13 @@ bench.py's two multi-raft configurations
 (`measure_multiraft`: multiraft-1024x3, G = 1024 groups of 3 with reads
 and leases, and multiraft-telemetry, G = 256 bare against telemetry on,
 here in turns with the ratio's spread), whose fleets shard their groups
-over group_mesh(G) when the machine has several cards.
+over group_mesh(G) when the machine has several cards, then bench.py's two
+control-plane configurations: cpl-batch64 (3 managers: sequential
+ProposeValue appends against 64 in flight through the coalescing
+pipeline; BENCH_CPL_PROPOSALS, default 300) and controlplane-10k
+(tools/soak_controlplane.py's load harness: 10,000 simulated agents over
+gRPC for a minute; BENCH_CPL_AGENTS and BENCH_CPL_MINUTES), their
+managers' scheduler kernel on the same device.
 Prints the card's `nvidia-smi` name and power limit, then one JSON line
 with bench.py's keys.
 
@@ -44,7 +50,10 @@ from the timed loop: the same shape with collect_telemetry on, from a
 fresh state, for max(4 x election_tick, 64) ticks proposing
 min(64, max_props) entries a tick, published into a private registry.
 Its commit latency percentiles (ticks) give the line's
-`commit_latency_ticks_p50/p99` and `configs_telemetry`.
+`commit_latency_ticks_p50/p99` and `configs_telemetry`.  Each measured
+config also lands in bench.py's swarm_bench_* gauges of the process
+registry (config label as bench.py's), and BENCH_METRICS_OUT=<path> writes
+that registry's snapshot (and the legacy timers) there as JSON.
 
 It needs a card and raises without one, unless --device cpu is given
 (the CPU runs exist for the tests: their numbers are CPU numbers).
@@ -53,9 +62,11 @@ It needs a card and raises without one, unless --device cpu is given
 from __future__ import annotations
 
 import argparse
+import asyncio
 import dataclasses
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -64,6 +75,8 @@ import torch
 
 from swarmkit_tpu_torch import multiraft, parallel
 from swarmkit_tpu_torch.device import resolve_device
+from swarmkit_tpu_torch.metrics import catalog as obs_catalog
+from swarmkit_tpu_torch.metrics import registry as obs_registry
 from swarmkit_tpu_torch.metrics.registry import MetricsRegistry
 from swarmkit_tpu_torch.raft.sim import kernel
 from swarmkit_tpu_torch.raft.sim import (
@@ -130,6 +143,40 @@ def telemetry_json(m: dict):
     return {"election_ticks": m["election_ticks"],
             "commit_latency_ticks_p50": commit.get("p50"),
             "commit_latency_ticks_p99": commit.get("p99")}
+
+
+def bench_gauges(config: str, m: dict) -> None:
+    """bench.py's _bench_gauges: fold one measure() result into the
+    swarm_bench_* gauge families of the process registry (torch compiles
+    nothing, so the compile gauge carries the warm pass's seconds)."""
+    r = obs_registry.DEFAULT
+    obs_catalog.get(r, "swarm_bench_entries_per_second").labels(
+        config=config).set(m["rate"])
+    obs_catalog.get(r, "swarm_bench_compile_seconds").labels(
+        config=config).set(m["t_warm"])
+    obs_catalog.get(r, "swarm_bench_election_seconds").labels(
+        config=config).set(m["t_elect_post"])
+    obs_catalog.get(r, "swarm_bench_election_ticks").labels(
+        config=config).set(m["election_ticks"])
+    if "read_rate" in m:
+        obs_catalog.get(r, "swarm_bench_reads_per_second").labels(
+            config=config).set(m["read_rate"])
+    commit = (m.get("telemetry") or {}).get("commit") or {}
+    for q, gauge in (("p50", "swarm_bench_commit_latency_ticks_p50"),
+                     ("p99", "swarm_bench_commit_latency_ticks_p99")):
+        if commit.get(q) is not None:
+            obs_catalog.get(r, gauge).labels(config=config).set(commit[q])
+
+
+def dump_metrics(path: str) -> None:
+    """bench.py's _dump_metrics: the process registry's snapshot and the
+    legacy timers as JSON at `path` (BENCH_METRICS_OUT)."""
+    from swarmkit_tpu_torch.utils import metrics as legacy
+
+    with open(path, "w") as f:
+        json.dump({"metrics": obs_registry.DEFAULT.snapshot(),
+                   "timers": legacy.REGISTRY.snapshot()}, f, indent=2,
+                  sort_keys=True, default=str)
 
 
 def bench_cfg(n: int, seed: int, election_tick: int,
@@ -277,6 +324,7 @@ def readmix(n: int, entries: int, dev, chunk: int = 64) -> dict:
     entries/s and bench.py's top-level read keys."""
     m = measure(n, entries, 7, election_tick_for(n), dev, chunk=chunk,
                 read_batch=99 * 2048 // n)
+    bench_gauges(f"{n}-readmix-99to1", m)
     keys = {"read_metric": f"linearizable-reads/sec @ {n} simulated "
                            f"managers (99:1 offered read:write mix)",
             "reads_per_second": m["read_rate"],
@@ -301,6 +349,8 @@ def fsyncgate(n: int, entries: int, dev, chunk: int = 64) -> dict:
                  **depth)
     gm = measure(n, entries, 7, election_tick_for(n), dev, chunk=chunk,
                  fsync_lag_ticks=k, ack_gating=True, **depth)
+    bench_gauges(f"{n}-fsyncgate-dense", dm)
+    bench_gauges(f"{n}-fsyncgate-gated-k{k}", gm)
     g = gm["final"]
     return {"dense": dm["rate"], f"gated_k{k}": gm["rate"],
             "gated_over_dense": gm["rate"] / dm["rate"],
@@ -458,6 +508,13 @@ def _multiraft(args, dev, log, result: dict, extra: dict) -> None:
                            chunk=args.chunk_ticks)
     extra[name] = round(mm["rate"], 1)
     extra[f"{name}-reads"] = round(mm["read_rate"], 1)
+    r = obs_registry.DEFAULT
+    obs_catalog.get(r, "swarm_bench_entries_per_second").labels(
+        config=name).set(mm["rate"])
+    obs_catalog.get(r, "swarm_bench_reads_per_second").labels(
+        config=name).set(mm["read_rate"])
+    obs_catalog.get(r, "swarm_bench_compile_seconds").labels(
+        config=name).set(mm["t_compile"])
     extra[f"{name}_detail"] = {
         "groups_with_leader": mm["groups_with_leader"],
         "groups": mm["groups"], "election_ticks": mm["elect_ticks"],
@@ -476,6 +533,9 @@ def _multiraft(args, dev, log, result: dict, extra: dict) -> None:
     extra[name] = {k: ab[k] for k in (
         "dense", "telemetry", "telemetry_over_dense",
         "telemetry_over_dense_min", "telemetry_over_dense_max", "pairs")}
+    fam = obs_catalog.get(r, "swarm_bench_entries_per_second")
+    fam.labels(config=f"{name}-dense").set(ab["dense"])
+    fam.labels(config=f"{name}-on").set(ab["telemetry"])
     log(f"config {name}: bare {ab['dense']:,.0f} vs telemetry "
         f"{ab['telemetry']:,.0f} aggregate entries/s (median ratio "
         f"{ab['telemetry_over_dense']:.3f}, "
@@ -488,24 +548,95 @@ def _multiraft(args, dev, log, result: dict, extra: dict) -> None:
                                   f"{ab['dense']:,.0f} at {name}")
 
 
+def cpl_batch64(dev) -> dict:
+    """bench.py's cpl-batch64 on the port: P sequential ProposeValue
+    appends through a 3-manager quorum (cmd/swarm_bench.py's bench), then
+    max(600, 2P) at 64 in flight through the store's coalescing pipeline
+    on a fresh quorum, P from BENCH_CPL_PROPOSALS (default 300); bench.py's
+    keys (proposals/s each, entries a proposal of the batched run, their
+    ratio)."""
+    from swarmkit_tpu_torch.cmd.swarm_bench import bench as cpl_bench
+
+    props = int(os.environ.get("BENCH_CPL_PROPOSALS", "300"))
+    dm = asyncio.run(cpl_bench(0, 0, managers=3, proposals=props,
+                               device=dev))
+    bm = asyncio.run(cpl_bench(0, 0, managers=3,
+                               proposals=max(600, 2 * props), batch=64,
+                               device=dev))
+    return {"dense": dm["proposals_per_s"], "batch64": bm["proposals_per_s"],
+            "entries_per_proposal": bm["entries_per_proposal"],
+            "batched_over_dense": round(bm["proposals_per_s"]
+                                        / dm["proposals_per_s"], 3)}
+
+
+# bench.py's seven controlplane keys (the line's result["controlplane"])
+CONTROLPLANE_KEYS = ("agents", "agents_sustained", "rtt_p50_ms",
+                     "rtt_p99_ms", "heartbeats_per_s", "assignments_per_s",
+                     "entries_per_proposal")
+
+
+def _control_plane(dev, log, result: dict, extra: dict) -> None:
+    """bench.py's two control-plane configurations: cpl-batch64 with its
+    2x tripwire note, then controlplane-10k (the load harness: its
+    assignments/s, the agents it sustained, result["controlplane"]); an
+    error of the harness fails the line."""
+    from swarmkit_tpu_torch.tools.soak_controlplane import load
+
+    name = "cpl-batch64"
+    cp = extra[name] = cpl_batch64(dev)
+    fam = obs_catalog.get(obs_registry.DEFAULT,
+                          "swarm_bench_proposals_per_second")
+    fam.labels(config=f"{name}-dense").set(cp["dense"])
+    fam.labels(config=f"{name}-batch64").set(cp["batch64"])
+    log(f"config {name}: sequential {cp['dense']:,.0f} vs batch-64 "
+        f"{cp['batch64']:,.0f} proposals/s ({cp['batched_over_dense']:.2f}x, "
+        f"{cp['entries_per_proposal']:.1f} entries/proposal)")
+    if cp["batched_over_dense"] < 2.0:
+        result.setdefault("note", f"proposal-pipeline tripwire: batched "
+                                  f"rate {cp['batch64']:,.0f} < 2x "
+                                  f"sequential {cp['dense']:,.0f}")
+    name = "controlplane-10k"
+    lm = asyncio.run(load(
+        minutes=float(os.environ.get("BENCH_CPL_MINUTES", "1.0")),
+        agents=int(os.environ.get("BENCH_CPL_AGENTS", "10000")),
+        report_every=30.0, sustain_floor=0.98, device=dev))
+    if "error" in lm:
+        extra[name] = f"failed: {lm['error']}"
+        result.setdefault("error", f"{name}: {lm['error']}")
+        return
+    extra[name] = lm["assignments_per_s"]
+    extra[f"{name}-agents-sustained"] = lm["agents_sustained"]
+    result["controlplane"] = {k: lm[k] for k in CONTROLPLANE_KEYS}
+    log(f"config {name}: {lm['agents_sustained']}/{lm['agents']} agents "
+        f"sustained, {lm['assignments_per_s']:.1f} assignments/s, hb rtt "
+        f"p99 {lm['rtt_p99_ms']:.1f}ms, {lm['entries_per_proposal']:.1f} "
+        f"entries/proposal")
+
+
 def _secondary(args, dev, log, result: dict) -> dict:
     """BASELINE configs 3-5, the mailbox wire, the log-capacity, read-mix
-    and durability configs, and the two lowering A/B pairs; the read mix's
+    and durability configs, the two lowering A/B pairs, the sharded rung,
+    the multi-raft and the control-plane configurations; the read mix's
     keys go into `result`, as bench.py puts them, and each config's
     telemetry excerpt into result["configs_telemetry"] (for an A/B pair,
     its lever side's)."""
     extra: dict = {}
     tel_extra = result["configs_telemetry"] = {}
 
-    def measured(cn: int, name: str = None, **kw) -> dict:
+    def measured(cn: int, name: str = None, gauge: str = None,
+                 **kw) -> dict:
+        """One measure() at cn rows: its telemetry excerpt under `name`,
+        its swarm_bench_* gauges under `gauge` (default `name`)."""
         m = measure(cn, args.entries, 7, election_tick_for(cn), dev,
                     chunk=args.chunk_ticks, **kw)
         if name is not None and telemetry_json(m) is not None:
             tel_extra[name] = telemetry_json(m)
+        if gauge or name:
+            bench_gauges(gauge or name, m)
         return m
 
-    def run(cn: int, name: str = None, **kw) -> float:
-        return measured(cn, name, **kw)["rate"]
+    def run(cn: int, name: str = None, gauge: str = None, **kw) -> float:
+        return measured(cn, name, gauge, **kw)["rate"]
 
     for name, cn, kw in (("64-steady", 64, {}),
                          ("1024-crash-every-100", 1024,
@@ -564,13 +695,18 @@ def _secondary(args, dev, log, result: dict) -> dict:
                                   f"{fg['gated_k4']:,.0f} < 0.8x bare "
                                   f"{fg['dense']:,.0f} at 256-fsyncgate")
     pc = max(64, 1024 // 4)          # bench.py's band width at n=1024
-    dense, banded = (run(1024, peer_chunk=0),
-                     run(1024, "1024-densepeer", peer_chunk=pc))
+    dense, banded = (run(1024, gauge="1024-densepeer-dense", peer_chunk=0),
+                     run(1024, "1024-densepeer",
+                         gauge=f"1024-densepeer-banded-pc{pc}",
+                         peer_chunk=pc))
     extra["1024-densepeer"] = {"dense": dense, f"banded_pc{pc}": banded,
                                "banded_over_dense": banded / dense}
     ar = 16
-    dense, sparse = (run(4096, active_rows=0),
-                     run(4096, "4096-sparseprog", active_rows=ar))
+    dense, sparse = (run(4096, gauge="4096-sparseprog-dense",
+                         active_rows=0),
+                     run(4096, "4096-sparseprog",
+                         gauge=f"4096-sparseprog-sparse-a{ar}",
+                         active_rows=ar))
     extra["4096-sparseprog"] = {"dense": dense, f"sparse_a{ar}": sparse,
                                 "sparse_over_dense": sparse / dense}
     for name in ("256-fsyncgate", "1024-densepeer", "4096-sparseprog"):
@@ -591,6 +727,7 @@ def _secondary(args, dev, log, result: dict) -> dict:
         f"{extra[name + '_detail']}")
     del m
     _multiraft(args, dev, log, result, extra)
+    _control_plane(dev, log, result, extra)
     return extra
 
 
@@ -617,6 +754,7 @@ def main(argv=None) -> dict:
         torch.cuda.reset_peak_memory_stats(dev)
     m = measure(args.n, args.entries, args.seed, election_tick_for(args.n),
                 dev, chunk=args.chunk_ticks)
+    bench_gauges(f"headline-n{args.n}", m)
     safety_ok, near_tip = _safety(m)
     c = m["counts"]
     log(f"n={args.n}: election {m['election_ticks']} ticks in "
@@ -664,6 +802,8 @@ def main(argv=None) -> dict:
             for v in result["configs_entries_per_s"].values()):
         result.setdefault("error", "a secondary configuration failed its "
                                    "safety check")
+    if os.environ.get("BENCH_METRICS_OUT"):
+        dump_metrics(os.environ["BENCH_METRICS_OUT"])
     print(json.dumps(result), flush=True)
     return result
 

@@ -29,7 +29,9 @@ KEYS = {"metric", "value", "unit", "vs_baseline", "election_ticks",
         "dense_fallback_ticks", "warm_pass_s"}
 
 
-def test_cpu_run_prints_the_bench_line(capsys):
+def test_cpu_run_prints_the_bench_line(capsys, monkeypatch, tmp_path):
+    metrics = tmp_path / "metrics.json"
+    monkeypatch.setenv("BENCH_METRICS_OUT", str(metrics))
     out = bench.main(["--device", "cpu", "--n", "64", "--entries", "4000",
                       "--chunk-ticks", "8", "--no-configs"])
     line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
@@ -52,6 +54,17 @@ def test_cpu_run_prints_the_bench_line(capsys):
     assert 1 <= line["commit_latency_ticks_p50"] \
         <= line["commit_latency_ticks_p99"] <= 256
     assert line["configs_entries_per_s"] == "skipped (--no-configs)"
+    # bench.py's swarm_bench_* gauges of the headline, in the snapshot
+    # BENCH_METRICS_OUT names
+    snap = json.loads(metrics.read_text())
+    gauges = snap["metrics"]
+    assert gauges["swarm_bench_entries_per_second"][
+        "config=headline-n64"] == line["value"]
+    assert gauges["swarm_bench_election_ticks"][
+        "config=headline-n64"] == line["election_ticks"]
+    assert gauges["swarm_bench_commit_latency_ticks_p99"][
+        "config=headline-n64"] == line["commit_latency_ticks_p99"]
+    assert "timers" in snap
 
 
 def test_election_tick_for_matches_bench_py():
@@ -199,3 +212,60 @@ def test_measure_multiraft_shards_its_groups(monkeypatch):
             m["groups_with_leader"]) == (
         plain["committed"], plain["reads"], plain["elect_ticks"],
         plain["groups_with_leader"])
+
+
+def _bench_py_controlplane_keys() -> tuple:
+    """The seven keys of bench.py's RESULT["controlplane"]."""
+    import pathlib
+    import re
+
+    text = (pathlib.Path(__file__).resolve().parent.parent /
+            "bench.py").read_text()
+    body = text[text.index('RESULT["controlplane"] = {'):]
+    body = body[body.index("for k in ("):body.index(")}")]
+    return tuple(re.findall(r'"(\w+)"', body))
+
+
+def test_control_plane_configs_on_the_cpu(monkeypatch):
+    """bench.py's cpl-batch64 and controlplane-10k on the CPU, reduced by
+    their env knobs: bench.py's keys, its proposals/s gauges in the
+    process registry and the load harness's three gauges in its leader's
+    registry."""
+    from swarmkit_tpu_torch.manager import manager as mgr_mod
+    from swarmkit_tpu_torch.metrics import registry
+
+    monkeypatch.setenv("BENCH_CPL_PROPOSALS", "30")
+    monkeypatch.setenv("BENCH_CPL_AGENTS", "100")
+    monkeypatch.setenv("BENCH_CPL_MINUTES", "0.1")
+    made = []
+
+    class Recorded(mgr_mod.Manager):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            made.append(self)
+
+    monkeypatch.setattr(mgr_mod, "Manager", Recorded)
+    result, extra, logged = {}, {}, []
+    bench._control_plane(torch.device("cpu"), logged.append, result, extra)
+    assert "error" not in result
+    cp = extra["cpl-batch64"]
+    assert set(cp) == {"dense", "batch64", "entries_per_proposal",
+                       "batched_over_dense"}
+    assert cp["batched_over_dense"] == round(cp["batch64"] / cp["dense"], 3)
+    assert cp["entries_per_proposal"] > 1
+    fam = registry.DEFAULT.get("swarm_bench_proposals_per_second")
+    assert fam.labels(config="cpl-batch64-dense").value == cp["dense"]
+    assert fam.labels(config="cpl-batch64-batch64").value == cp["batch64"]
+    assert extra["controlplane-10k"] > 0
+    assert extra["controlplane-10k-agents-sustained"] >= 98
+    assert bench.CONTROLPLANE_KEYS == _bench_py_controlplane_keys()
+    cpl = result["controlplane"]
+    assert tuple(cpl) == bench.CONTROLPLANE_KEYS and cpl["agents"] == 100
+    assert cpl["assignments_per_s"] == extra["controlplane-10k"]
+    assert [m.startswith(f"config {n}:") for m, n in zip(
+        logged, ("cpl-batch64", "controlplane-10k"))] == [True, True]
+    led = [m.obs.get("swarm_bench_agents_sustained") for m in made]
+    led = [f for f in led if f is not None]
+    assert len(led) == 1
+    assert led[0].labels(config="grpc-100").value == \
+        cpl["agents_sustained"]

@@ -118,10 +118,15 @@ def test_port_imports_without_jax():
             "swarmkit_tpu_torch.cmd.swarmd",
             "swarmkit_tpu_torch.cmd.swarmctl",
             "swarmkit_tpu_torch.cmd.rafttool",
-            "swarmkit_tpu_torch.cmd.external_ca_example"} <= set(mods)
+            "swarmkit_tpu_torch.cmd.external_ca_example",
+            "swarmkit_tpu_torch.tools.fault_sweep",
+            "swarmkit_tpu_torch.tools.integration_harness",
+            "swarmkit_tpu_torch.tools.soak_controlplane",
+            "swarmkit_tpu_torch.tools.bench"} <= set(mods)
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
             "sys.modules['swarmkit_tpu'] = None\n"
+            "sys.modules['tests'] = None\n"
             "import importlib\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -138,10 +143,12 @@ def test_no_port_source_names_the_jax_package():
     files = sorted(PORT.rglob("*.py")) + sorted(PORT.rglob("*.cu")) \
         + sorted(PORT.rglob("*.cpp")) + [ROOT / "chip_smoke.py"]
     jax_import = re.compile(r"^\s*(import|from)\s+jax\b", re.M)
+    tests_import = re.compile(r"^\s*(import|from)\s+tests\b", re.M)
     for f in files:
         text = f.read_text()
         assert "swarmkit_tpu." not in text, f
         assert not jax_import.search(text), f
+        assert not tests_import.search(text), f
 
 
 def test_port_imports_without_msgpack():

@@ -7,7 +7,8 @@ bits); the attack and storage pipelines pass on the port, and each trip
 artifact they write replays exactly in the JAX package.  The port draws
 its attack schedules from its own streams (JAX's laws, not its draws), so
 the explore masks are held to JAX's on schedules JAX drew.  The host-wire
-sweep is out of the port's scope: its flags give skip rows or an error.
+sweep's rows are held to JAX's in tests/test_torch_fault_sweep_host.py;
+here its flags give skip rows in the device runs.
 The full four-attack and four-storage runs and all five plans in both
 lowerings are `slow`, as in tests/test_fault_sweep.py.
 """
@@ -182,29 +183,32 @@ def test_storage_sweep_all_scenarios(tmp_path):
 
 
 def test_cli_host_wires_and_unknown_names(capsys):
-    with pytest.raises(SystemExit) as err:
-        fs.main(["--device", CPU])
-    assert err.value.code == 2
-    msg = capsys.readouterr().err
-    assert "host raft Node" in msg
-    for flag in ("--peer-chunk", "--active-rows", "--attacks", "--storage"):
-        assert flag in msg
+    """With no device flag the tool runs the host-wire sweep (here one
+    inproc row), and every unknown name is refused."""
+    assert fs.main(["--wires", "inproc", "--plans", "down",
+                    "--device", CPU]) == 0
+    out = capsys.readouterr().out
+    assert "ok   inproc   down" in out and "1/1 scenarios passed" in out
     for argv, what in ((["--attacks", "nope"], "unknown attack 'nope'"),
                        (["--storage", "nope"],
                         "unknown storage fault 'nope'"),
                        (["--wires", "smoke", "--attacks", "all"],
-                        "unknown wire 'smoke'")):
+                        "unknown wire 'smoke'"),
+                       (["--wires", "smoke"], "unknown wire 'smoke'"),
+                       (["--plans", "nope"], "unknown plan 'nope'")):
         with pytest.raises(SystemExit):
             fs.main(argv + ["--device", CPU])
         assert what in capsys.readouterr().err
 
 
 def test_cli_precheck_on_the_cpu(capsys):
+    """--peer-chunk runs the precheck, then the host-wire scenarios."""
     assert fs.main(["--peer-chunk", "8", "--plans", "drop",
-                    "--device", CPU]) == 0
+                    "--wires", "inproc", "--device", CPU]) == 0
     out = capsys.readouterr().out
     assert "ok   device(pc=8) drop" in out
-    assert "1/1 device precheck scenarios passed" in out
+    assert out.index("device(pc=8) drop") < out.index("ok   inproc   drop")
+    assert "2/2 scenarios passed" in out
 
 
 def test_no_card_no_silent_cpu(monkeypatch):

@@ -177,7 +177,7 @@ def test_catalog_specs_equal_jax():
     """Every spec of the port's catalog is the JAX package's, by name,
     kind, help, labels and buckets; the telemetry ladder is series.py's."""
     want = {"swarm_kernel_", "swarm_telemetry_", "swarm_flightrec_",
-            "swarm_trace_"}
+            "swarm_trace_", "swarm_bench_"}
     for name, spec in tcatalog.CATALOG.items():
         j = jcatalog.CATALOG[name]
         assert dataclasses.astuple(spec) == dataclasses.astuple(j), name
