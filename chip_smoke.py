@@ -357,6 +357,13 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    and seconds to a new one, a write, the old one restarted from its
    state_dir until its store equals the leader's; (e) Docker's 1,000-node
    world in a quorum's store and a global service, one task a READY node.
+   After (c), each manager's metrics page (metrics_text and
+   metrics_snapshot) read back as 0.0.4 text: its registry families, its
+   timers as summaries (the leader's with the store's write latency), the
+   collector's node and task gauges equal to its store's counts; the
+   leader's swarm_sched_kernel_groups_total equal to the sched_place
+   launches, and the device wire's flushes on the process's page equal
+   to the wire's own count; bytes, families and ms a scrape.
 27. the daemon over the network: a TLS cluster of swarmd processes on
    127.0.0.1 (`python -m swarmkit_tpu_torch.cmd.swarmd`, gRPC): 3
    managers, the 2nd and 3rd joined with the manager token `swarmctl
@@ -370,10 +377,15 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    held to the plain loop inside its process; the leader killed, the
    seconds to a new one, a write, the old one restarted from its
    state_dir until its store equals the leader's, and after clean stops
-   rafttool's dump of its WAL equal to the leader's; with the CA, a
-   wrong token refused, a worker's certificate refused on the raft
-   service, and a root rotation re-issuing every node.  Every child is
-   killed and reaped on the way out.
+   rafttool's dump of its WAL equal to the leader's; before the kill,
+   each manager's swarmkit.Metrics/Scrape read over its TLS listener
+   with a manager's identity from disk (rpc.scrape_metrics) and read
+   back as 0.0.4 text, the leader's swarm_sched_kernel_groups_total
+   equal to sched_place on its /debug/kernels, and `swarmctl metrics`
+   with the timers and gauges, its node gauges counting all 14 nodes;
+   with the CA, a wrong token refused, a worker's certificate refused on
+   the raft service, and a root rotation re-issuing every node.  Every
+   child is killed and reaped on the way out.
 28. the control plane's standing tools: (a) fault_sweep's host-wire
    sweep (inproc, devmesh, grpc x down, drop, partition, delay, crash;
    seed 2009343), the devmesh wire's exchange on the card, every row ok
@@ -5168,6 +5180,121 @@ def _startup_split(rows: list) -> dict:
             for state, (first, last, commits) in out.items()}
 
 
+# the typed families every manager's page holds (raft and its store)
+PAGE_FAMILIES = ("swarm_raft_term", "swarm_raft_commit_index",
+                 "swarm_raft_applied_index", "swarm_raft_is_leader",
+                 "swarm_raft_peer_sends_total", "swarm_store_commits_total")
+GROUPS = "swarm_sched_kernel_groups_total"
+
+
+def read_page(text: str, who: str, families=PAGE_FAMILIES) -> dict:
+    """A metrics page read back as Prometheus 0.0.4 text (the run fails on
+    a format error), with `families` present."""
+    from swarmkit_tpu_torch.metrics.exposition import parse_text
+
+    try:
+        fams = parse_text(text)
+    except ValueError as e:
+        fail(f"{who}: the metrics page breaks the format: {e}")
+    missing = [f for f in families if f not in fams]
+    check(not missing, f"{who}: the page lacks {missing}")
+    return fams
+
+
+def page_value(fams: dict, family: str, labels: tuple = (),
+               suffix: str = ""):
+    """One series' value on a read-back page (None when absent)."""
+    return fams.get(family, {}).get("samples", {}).get(
+        (family + suffix, labels))
+
+
+def store_gauges(store) -> dict:
+    """The collector's node and task gauges, counted from `store`."""
+    from swarmkit_tpu_torch.api import NodeState, TaskState
+
+    out = {f"swarm_node_{s.name.lower()}": 0 for s in NodeState}
+    out.update({f"swarm_task_{s.name.lower()}": 0 for s in TaskState})
+    for n in store.find("node"):
+        out[f"swarm_node_{NodeState(n.status.state).name.lower()}"] += 1
+    for t in store.find("task"):
+        out[f"swarm_task_{TaskState(t.status.state).name.lower()}"] += 1
+    return out
+
+
+async def _quorum_pages(q, cuda_ops, base_flushes: float) -> dict:
+    """Each manager's metrics_text and metrics_snapshot, once its collector
+    has caught up with its store: the page read back, its timers as
+    summaries of their counts, its node and task gauges equal to the
+    store's counts; the leader's kernel groups equal to the sched_place
+    launches of this process; the device wire's flushes on the process's
+    page (the wire carries every manager of the process, so its counters
+    are the process registry's, not a manager's) equal to the wire's own
+    count since `base_flushes`."""
+    from swarmkit_tpu_torch.metrics import exposition
+    from swarmkit_tpu_torch.metrics import registry as obs_registry
+
+    lead = q.leader()
+    out = {}
+    for m in q.mgrs:
+        who = f"26c: {m.node_id}'s page"
+        await _until(lambda: {k: v for k, v in m.metrics.snapshot().items()
+                              if k.startswith(("swarm_node_", "swarm_task_"))}
+                     == store_gauges(m.store), f"{who}: the collector")
+        t0 = time.perf_counter()
+        text = m.metrics_text()
+        ms = (time.perf_counter() - t0) * 1e3
+        snap = m.metrics_snapshot()
+        counts = store_gauges(m.store)
+        timers = dict(m.metrics_registry._timers)
+        launches = cuda_ops.LAUNCHES["sched_place"]
+        fams = read_page(text, who)
+        check(sorted(snap) == ["metrics", "objects", "recent_events",
+                               "spans", "timers"],
+              f"{who}: the snapshot's keys {sorted(snap)}")
+        summaries = {f for f, v in fams.items() if v["type"] == "summary"}
+        check(summaries == set(timers) == set(snap["timers"]),
+              f"{who}: summaries {sorted(summaries)}, timers "
+              f"{sorted(timers)}")
+        check(all(page_value(fams, n, suffix="_count") == t.count
+                  for n, t in timers.items()), f"{who}: a timer's count")
+        check(all(fams[k]["type"] == "gauge" and page_value(fams, k) == v
+                  for k, v in counts.items()),
+              f"{who}: the node and task gauges differ from the store's "
+              f"{counts}")
+        check(snap["objects"] == m.metrics.snapshot(),
+              f"{who}: the snapshot's objects")
+        leads = page_value(fams, "swarm_raft_is_leader",
+                           (("node", m.node_id),))
+        check(leads == float(m is lead), f"{who}: is_leader {leads}")
+        r = dict(bytes=len(text), families=len(fams), ms=ms,
+                 summaries=len(summaries), series=sum(
+                     len(f["samples"]) for f in fams.values()))
+        if m is lead:
+            check("swarm_store_write_tx_latency_seconds" in summaries,
+                  f"{who}: no store write latency summary")
+            groups = page_value(fams, GROUPS, (("path", "kernel"),))
+            check(groups == launches > 0 and page_value(
+                fams, GROUPS, (("path", "host"),)) is None,
+                f"{who}: {GROUPS} {groups} for {launches} sched_place "
+                f"launches")
+            r["groups"] = groups
+        out[m.node_id] = r
+    t0 = time.perf_counter()
+    text = exposition.render_all(registry=obs_registry.DEFAULT)
+    ms = (time.perf_counter() - t0) * 1e3
+    fams = read_page(text, "26c: the process's page",
+                     ("swarm_transport_device_flushes_total",))
+    flushes = page_value(fams, "swarm_transport_device_flushes_total")
+    check(flushes is not None and flushes - base_flushes
+          == q.net.device_flushes > 0, f"26c: the process's page counts "
+          f"{flushes} - {base_flushes} device flushes, the wire "
+          f"{q.net.device_flushes}")
+    out["process"] = dict(bytes=len(text), families=len(fams), ms=ms,
+                          flushes=flushes - base_flushes)
+    out["leader"] = lead.node_id
+    return out
+
+
 async def _startup_failover(sb, torch, cuda_ops, task7: dict, card
                             ) -> dict:
     """(c) swarm-bench's start-up flow through a quorum of
@@ -5178,12 +5305,16 @@ async def _startup_failover(sb, torch, cuda_ops, task7: dict, card
     from its state_dir until its store equals the leader's."""
     from swarmkit_tpu_torch.agent.tpu import TpuExecutor
     from swarmkit_tpu_torch.metrics import catalog
+    from swarmkit_tpu_torch.metrics import registry as obs_registry
     from swarmkit_tpu_torch.store.memory import match
     from swarmkit_tpu_torch.tools import control_plane as cp
 
     pkg = cp.package()
     api = pkg.api
     out = {}
+    # the device wires of earlier phases counted into the process's page
+    base_flushes = catalog.get(obs_registry.DEFAULT,
+                               "swarm_transport_device_flushes_total").value
     q = sb.Quorum(Q_STARTUP_MANAGERS, "device", device=card)
     await q.start()
     try:
@@ -5264,6 +5395,8 @@ async def _startup_failover(sb, torch, cuda_ops, task7: dict, card
                         split=split, place_err=err,
                         place_kernel_ms=kernel_ms,
                         place_shapes=shapes, flushes=q.net.device_flushes)
+        await _all_applied(q, "startup: before the scrape")
+        out["c"]["pages"] = await _quorum_pages(q, cuda_ops, base_flushes)
 
         # (d) ---------------------------------------------------------------
         old = q.leader()
@@ -5464,6 +5597,19 @@ def phase_quorum(torch, cuda_ops, task7: dict, card: str = "cuda") -> dict:
         + "; ".join(f"pallas_matmul slot {t['slot']} {t['run_s']:.3f} s, "
                     f"result = phase 7's" for t in c["program"])
         + f"; launches {c['launches']}")
+    pages = c["pages"]
+    log(f"  [{card_name}] the managers' metrics pages (metrics_text) after "
+        f"the start-up, read back as 0.0.4 text: " + "; ".join(
+            f"{mid}{' (leader)' if mid == pages['leader'] else ''} "
+            f"{r['bytes']} bytes, {r['families']} families "
+            f"({r['summaries']} summaries), {r['ms']:.3f} ms a scrape"
+            for mid, r in pages.items() if mid not in ("leader", "process"))
+        + f"; the leader's {GROUPS}{{path=\"kernel\"}} "
+        f"{pages[pages['leader']]['groups']:g} = its sched_place launches; "
+        f"the process's page {pages['process']['bytes']} bytes, "
+        f"{pages['process']['families']} families, "
+        f"{pages['process']['ms']:.3f} ms, the wire's "
+        f"{pages['process']['flushes']:g} device flushes on it")
     log(f"  failover: {d['killed']} killed, {d['leader']} elected in "
         f"{d['elect_ticks']} ticks ({d['elect_s']:.3f} s), a write in "
         f"{d['write_s']:.3f} s, {d['killed']} back from its state_dir "
@@ -5816,6 +5962,89 @@ def _raft_refused(c: SwarmdCluster, name: str, worker: str) -> str:
     return asyncio.run(go())
 
 
+def _scrape(c: SwarmdCluster, name: str, sec) -> tuple[str, float]:
+    """swarmkit.Metrics/Scrape of manager `name` over its listener, as a
+    client reaches it (rpc.scrape_metrics): mutual TLS with the identity
+    `sec`, or plaintext on a cluster without a CA; the page and the ms the
+    call took."""
+    import grpc
+
+    from swarmkit_tpu_torch import rpc
+    from swarmkit_tpu_torch.ca.tlsutil import (
+        channel_credentials, secure_channel_options,
+    )
+
+    async def go():
+        channel = grpc.aio.secure_channel(
+            c.addr[name], channel_credentials(sec),
+            options=secure_channel_options()) if sec is not None else \
+            grpc.aio.insecure_channel(c.addr[name])
+        try:
+            t0 = time.perf_counter()
+            text = await rpc.scrape_metrics(channel, timeout=20.0)
+            return text, (time.perf_counter() - t0) * 1e3
+        finally:
+            await channel.close()
+    return asyncio.run(go())
+
+
+def _swarmd_pages(c: SwarmdCluster, managers: list, leader: str,
+                  nodes: int, tls: bool) -> dict:
+    """Each manager's page over its listener with a manager identity read
+    from disk, read back as 0.0.4 text: the registry's families, the
+    timers as summaries (the leader's with the store's write latency),
+    node gauges counting all `nodes`; the leader's kernel groups equal to
+    sched_place on its /debug/kernels (read on both sides of the scrape).
+    Then `swarmctl metrics` on the leader: its timers the page's
+    summaries, its node gauges counting all `nodes`."""
+    sec = _on_disk_identity(c, managers[-1]) if tls else None
+    out: dict = {}
+    for name in managers:
+        who = f"phase 27: {name}'s page"
+        for _ in range(3):
+            before = c.debug(name, "/debug/kernels")["launches"]
+            text, ms = _scrape(c, name, sec)
+            after = c.debug(name, "/debug/kernels")["launches"]
+            if before == after:
+                break
+        check(before == after, f"{who}: the launches moved during each "
+              f"of 3 scrapes ({before} -> {after})")
+        fams = read_page(text, who)
+        summaries = sorted(f for f, v in fams.items()
+                           if v["type"] == "summary")
+        node_gauges = {f: page_value(fams, f) for f in fams
+                       if f.startswith("swarm_node_")}
+        check(node_gauges and all(fams[f]["type"] == "gauge"
+                                  for f in node_gauges)
+              and sum(node_gauges.values()) == nodes, f"{who}: the node "
+              f"gauges {node_gauges} for {nodes} nodes")
+        check(any(f.startswith("swarm_task_") for f in fams),
+              f"{who}: no task gauges")
+        leads = page_value(fams, "swarm_raft_is_leader", (("node", name),))
+        check(leads == float(name == leader), f"{who}: is_leader {leads}")
+        groups = page_value(fams, GROUPS, (("path", "kernel"),))
+        out[name] = dict(bytes=len(text), families=len(fams), ms=ms,
+                         summaries=summaries, groups=groups,
+                         sched_place=after["sched_place"])
+        if name == leader:
+            check("swarm_store_write_tx_latency_seconds" in summaries,
+                  f"{who}: no store write latency summary ({summaries})")
+            check(groups == after["sched_place"] > 0 and page_value(
+                fams, GROUPS, (("path", "host"),)) is None,
+                f"{who}: {GROUPS} {groups} for sched_place "
+                f"{after['sched_place']} on /debug/kernels")
+    ctl = json.loads(c.ctl(leader, "metrics"))
+    node_gauges = {k: v for k, v in ctl.get("gauges", {}).items()
+                   if k.startswith("swarm_node_")}
+    check(sorted(ctl.get("timers", {})) == out[leader]["summaries"]
+          and sum(node_gauges.values()) == nodes, f"phase 27: swarmctl "
+          f"metrics: timers {sorted(ctl.get('timers', {}))} against the "
+          f"page's {out[leader]['summaries']}, node gauges {node_gauges}")
+    out["swarmctl"] = dict(timers=len(ctl["timers"]),
+                           gauges=len(ctl["gauges"]), nodes=node_gauges)
+    return out
+
+
 def _wals(c: SwarmdCluster, names: list) -> list:
     """rafttool dump-wal of each stopped node of `names`, run together:
     one dict an entry."""
@@ -6022,6 +6251,21 @@ def phase_swarmd(torch, task7: dict, card: str = "cuda") -> dict:
             f"{out['program_s']:.2f} s on {gpu['device']}: results "
             f"{results}; launches {launches} (sched_place held to the plain "
             f"loop on {len(audit)} calls, err {place_err})")
+        pages = out["pages"] = _swarmd_pages(c, managers, "m1",
+                                             len(everyone), tls)
+        log(f"  [{card_line()}] each manager's swarmkit.Metrics/Scrape over "
+            f"its {'TLS ' if tls else ''}listener, read back as 0.0.4 "
+            f"text: " + "; ".join(
+                f"{m}{' (leader)' if m == 'm1' else ''} "
+                f"{pages[m]['bytes']} bytes, {pages[m]['families']} "
+                f"families ({len(pages[m]['summaries'])} summaries), "
+                f"{pages[m]['ms']:.3f} ms a scrape" for m in managers)
+            + f"; the leader's {GROUPS}{{path=\"kernel\"}} "
+            f"{pages['m1']['groups']:g} = sched_place "
+            f"{pages['m1']['sched_place']} on its /debug/kernels; swarmctl "
+            f"metrics: {pages['swarmctl']['timers']} timers, "
+            f"{pages['swarmctl']['gauges']} gauges, node gauges "
+            f"{pages['swarmctl']['nodes']}")
 
         # (d) ---------------------------------------------------------------
         check(c.debug("m1", "/debug/vars")["is_leader"],

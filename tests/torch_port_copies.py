@@ -3,16 +3,22 @@
 ``port_copy("test_ca")`` loads tests/test_ca.py with every name of the JAX
 package (``swarmkit_tpu``) turned into the port's (``swarmkit_tpu_torch``),
 and the harness modules it imports (tests/integration_harness.py and its
-kind) likewise, so each JAX case runs unchanged on the port and meets the
-JAX test's own checks; only a copy's ``free_port`` is this module's (a
-port outside the kernel's ephemeral range, with the two after it free).
-``on_cpu(monkeypatch)`` makes the port's entry points default to the CPU
-where a JAX case calls them without a device (the port raises without a
-card; these tests run on the CPU).
+kind, tests/test_device_transport.py's ``DeviceRaftHarness``) likewise, so
+each JAX case runs unchanged on the port and meets the JAX test's own
+checks.  The root ``tools.fault_sweep`` becomes the port's
+``swarmkit_tpu_torch.tools.fault_sweep``; only a copy's ``free_port`` is
+this module's (a port outside the kernel's ephemeral range, with the two
+after it free).  ``on_cpu(monkeypatch)`` makes the port's entry points
+default to the CPU where a JAX case calls them without a device (the port
+raises without a card; these tests run on the CPU).  ``params(mod)`` and
+``run_case(mod, case, request)`` run every case of a copy, test classes'
+methods included, as parametrised cases that keep the JAX case's own marks
+and get the fixtures it asks for.
 """
 
 from __future__ import annotations
 
+import inspect
 import pathlib
 import random
 import re
@@ -21,7 +27,10 @@ import sys
 import types
 
 TESTS = pathlib.Path(__file__).resolve().parent
-HARNESSES = ("integration_harness", "node_harness", "raft_harness")
+HARNESSES = ("integration_harness", "node_harness", "raft_harness",
+             "test_device_transport")
+# root tools/ modules a JAX test imports, and the port's counterpart of each
+TOOLS = {"tools.fault_sweep": "swarmkit_tpu_torch.tools.fault_sweep"}
 
 
 def free_port() -> int:
@@ -45,6 +54,8 @@ def _port_source(text: str) -> str:
     text = re.sub(r"\bswarmkit_tpu\b", "swarmkit_tpu_torch", text)
     for h in HARNESSES:
         text = text.replace(f"tests.{h}", f"tests._port_{h}")
+    for tool, port in TOOLS.items():
+        text = re.sub(rf"(?<![\w.]){re.escape(tool)}\b", port, text)
     return text
 
 
@@ -73,9 +84,46 @@ def port_copy(name: str) -> types.ModuleType:
 
 
 def cases(mod: types.ModuleType) -> list[str]:
-    """The names of the module's test functions, in file order."""
-    return [n for n, v in vars(mod).items()
-            if n.startswith("test_") and callable(v)]
+    """The names of the module's test functions, in file order, then
+    ``Class.method`` for each test method of its ``Test*`` classes."""
+    out = [n for n, v in vars(mod).items()
+           if n.startswith("test_") and callable(v)]
+    for cname, cls in vars(mod).items():
+        if cname.startswith("Test") and inspect.isclass(cls) \
+                and cls.__module__ == mod.__name__:
+            out += [f"{cname}.{m}" for m, v in vars(cls).items()
+                    if m.startswith("test_") and callable(v)]
+    return out
+
+
+def _case_fn(mod: types.ModuleType, case: str):
+    if "." not in case:
+        return getattr(mod, case)
+    cname, meth = case.split(".")
+    return getattr(mod, cname).__dict__[meth]
+
+
+def params(mod: types.ModuleType) -> list:
+    """``cases(mod)`` as ``pytest.param``s, each id naming the JAX file
+    and the case and carrying the case's own marks (its skip stays)."""
+    import pytest
+
+    file = pathlib.Path(mod.__file__).stem
+    return [pytest.param(mod, c, id=f"{file}::{c}",
+                         marks=getattr(_case_fn(mod, c), "pytestmark", []))
+            for c in cases(mod)]
+
+
+def run_case(mod: types.ModuleType, case: str, request) -> None:
+    """Run one case of a copy: a method on a fresh instance of its class,
+    with each pytest fixture its signature names."""
+    fn = _case_fn(mod, case)
+    args = []
+    if "." in case:
+        args.append(getattr(mod, case.split(".")[0])())
+    kwargs = {n: request.getfixturevalue(n)
+              for n in inspect.signature(fn).parameters if n != "self"}
+    fn(*args, **kwargs)
 
 
 def on_cpu(monkeypatch) -> None:
