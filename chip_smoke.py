@@ -13,9 +13,16 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    with each kernel's registers, spills and static shared memory from
    `-Xptxas -v` (and any ptxas warning), and the wgmma kernel's dynamic
    shared memory.
-2. kernel vs plain: append_band_copy against its plain PyTorch version on
-   [4096, 1024] chunks of [4096, 8192] rings at several offsets and mask
-   densities, plus an unaligned chunk (the scalar path); exact equality.
+2. kernel vs plain: append_band_copy against its plain PyTorch version,
+   exactly, on each of its paths (BAND_CASES): [4096, 1024] chunks of
+   [4096, 8192] rings at mask densities 0 to 1 (chunk), a width that is
+   no multiple of 16 and a misaligned chunk (scalar), the whole rings of
+   the n3h8 pass ([3145728, 32] at 1.3%, 0 and 1), the DST sweep at
+   S=16384 ([81920, 64]), multiraft-1024x3 ([3072, 512]) and a ring whose
+   size is no multiple of 16 (flat), fault_sweep's [40, 64] and the
+   differential sweep's [128, 128] rings and one whose size is no
+   multiple of 4 (words), each call's path counted; and a chunk of a ring
+   past 2^31 elements (64-bit indices).
 3. card vs CPU: the port's run at n=256 (L=8192, log_chunk=1024, the
    headline chunk width) on the card here and on the CPU in a second
    process (this script with --phase3-cpu), which runs beside phases
@@ -62,13 +69,17 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    checksum agreement (equal applied -> equal apply_chk) and that the
    steady ticks ran on the slab.
 4b. the same shape with both lowerings pinned dense, 64 ticks at a time
-   in turns with the levers (dense, levers, levers, dense, twice) from
-   one state; prints both ms/tick and the levers/dense ratios.
+   in turns with the levers (dense, levers, levers, dense) from one
+   state; prints both ms/tick and the levers/dense ratios.
 5. the kernel on the main path's own inputs: the band-copy calls of one
-   more headline tick are recorded, then kernel, plain version and
-   torch.where (a yardstick the port never calls) are timed on them
-   (device time, replayed from a CUDA graph; the eager per-call time is
-   printed beside it) against the bytes bound at 3.35 TB/s.
+   more headline tick are recorded, then kernel, its first version
+   (band_copy_v1, in turns with it), plain version and torch.where (a
+   yardstick the port never calls) are timed on them (device time,
+   replayed from a CUDA graph; the eager per-call time is printed beside
+   it) against the bytes bound at 3.35 TB/s, the same at whole 32-byte
+   sectors, and an empty kernel's time (the launch floor).  Every phase
+   that times the band copy does the same, and the last checks that each
+   path's calls took the kernel's path meant for them.
 6. matmul and sumsq kernels vs plain: bf16 and f32 products on
    [256,128]@[128,384], a multi-K [128,512]@[512,128] and an edge case
    [32,32]@[32,32]; in bf16 also ragged wgmma tiles ([384]^3, M=200 K=72
@@ -143,11 +154,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    the headline's 1393.25; every window's band-copy launches, full-pass
    and dense-fallback ticks; the kernel records in which a config's two
    windows differ, and whether the host called the same aten ops in
-   both), then 4 off/on pairs of 32-tick chunks in turns, each planes-on chunk
+   both), then 2 off/on pairs of 32-tick chunks in turns, each planes-on chunk
    tagged by a tracer span (span_trace_tag) and followed by a ClockSync
    sample.  Prints entries/s, host ms/tick (the median on/off pair ratio
    and its spread), launches, step host syncs (checked 1.00 per steady
-   tick on both), each config's band-copy launches over its 128 timed
+   tick on both), each config's band-copy launches over its 64 timed
    ticks (checked a mix of banded and full-pass ticks), commit and
    election p50/p99 (summarize_state checked equal to
    percentile_edge_device), events recorded, overwritten and tagged on all
@@ -165,10 +176,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    equal); the documented 256 x 100 sweep (0 violations; schedules/s,
    step host syncs a tick (0), kernel launches and ms over 8 profiled
    ticks and the busy share against 8 unprofiled ones); 16384 x 100
-   (schedules/s, peak memory); both mutation self-tests at 24 x 100
-   (caught, shrunk: seconds, evals and batched replays; the artifact
-   replayed exactly on the card and on the CPU); the term-inflation demo
-   (8 x 60) and the disruptive-rejoin, transfer-abuse and lost-tail demos
+   (schedules/s, peak memory); both mutation self-tests at 24 x
+   MUTATION_TICKS (caught, shrunk: seconds, evals and batched replays;
+   the artifact replayed exactly on the card and on the CPU); the
+   term-inflation, disruptive-rejoin, transfer-abuse and lost-tail demos
    at 8 x DEMO_TICKS (neutralized).
    The sweep's ring write is one band-copy launch a tick over all
    clusters' rows ([S*5, 64]): both sweeps' launches are counted from 0,
@@ -209,7 +220,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    n=16 peer_chunk=8 against 0, n=16 active_rows=8 against 0; window 8,
    apply_batch 16, max_props 8, keep 4, election_tick 10, seed 77) and
    DST5 with the flight recorder, telemetry and trace tags against
-   without: one 256 x 100 schedule batch each, explored on the card with
+   without: one 256 x 60 schedule batch each, explored on the card with
    the lever on and off (equal viol, first_tick, bits_by_tick, 0
    violations), the lever on against the CPU on the first 16 schedules
    (masks and every final field), schedules/s, step host syncs a tick (1
@@ -367,8 +378,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 27. the daemon over the network: a TLS cluster of swarmd processes on
    127.0.0.1 (`python -m swarmkit_tpu_torch.cmd.swarmd`, gRPC): 3
    managers, the 2nd and 3rd joined with the manager token `swarmctl
-   cluster-tokens` prints, then 10 test workers and one tpu worker joined
-   together with the worker token; 100 replicas through `swarmctl
+   cluster-tokens` prints, 10 test workers and one tpu worker joined
+   together with the worker token while they do; 100 replicas through `swarmctl
    service-create` (time to all RUNNING, p50/p90/p99); 2
    tpu://pallas_matmul n=8192 tasks on the tpu worker, their results
    from `swarmctl service-logs` bit-equal to phase 7's, mm_bf16_wgmma and
@@ -406,6 +417,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 
 Each path's band-copy launches are counted from 0 (the kernels' record
 carries them), and each phase-17 group's sched_place launches likewise.
+Each phase's line gives the seconds since the start and those the phase
+before it took.
 Before the last line it prints the kernels' JSON record and the card's
 `nvidia-smi` name/power line; the last line is the result JSON.  Without a CUDA card, or run from a directory that holds nothing
 else of the repo, it exits non-zero and prints no result.
@@ -549,33 +562,93 @@ def band_bytes(write) -> int:
     return write.numel() + int(write.sum()) * 16
 
 
+def band_sector_bytes(torch, ring, off: int, write) -> int:
+    """The same at device memory's 32-byte sector granularity: the mask
+    once, and each 32-byte sector of the two sources and of the two rings
+    that holds a written element, whole (the card's allocations start on
+    512-byte boundaries)."""
+    rows, cols = write.nonzero().unbind(1)
+    if rows.numel() == 0:
+        return write.numel()
+    src = torch.unique_consecutive((rows * write.shape[1] + cols) // 8)
+    dst = torch.unique_consecutive((rows * ring.shape[1] + off + cols) // 8)
+    return write.numel() + 2 * 32 * (src.numel() + dst.numel())
+
+
+# phase 2's cases: (rows, ring, offset, width, mask density, the path):
+# the headline's chunks of [4096, 8192] rings at mask densities 0 to 1, a
+# width that is no multiple of 16 and a misaligned chunk (both scalar),
+# the whole rings of the model checker's pass (n3h8, 1.3% written), the
+# DST sweep at S=16384, multiraft-1024x3 and one whose n * ring is no
+# multiple of 16 (flat, and its tail), those of fault_sweep and the
+# differential sweep and one whose n * ring is no multiple of 4 (words,
+# and its tail)
+BAND_CASES = (
+    (4096, 8192, 0, 1024, 0.0, "chunk"), (4096, 8192, 1024, 1024, 0.3,
+                                          "chunk"),
+    (4096, 8192, 3072, 1024, 1.0, "chunk"),
+    (4096, 8192, 7168, 1024, 0.5, "chunk"),
+    (4096, 8192, 4100, 1020, 0.5, "scalar"),
+    (4096, 8192, 3, 125, 0.5, "scalar"),
+    (3145728, 32, 0, 32, 0.013, "flat"), (3145728, 32, 0, 32, 0.0, "flat"),
+    (3145728, 32, 0, 32, 1.0, "flat"), (81920, 64, 0, 64, 0.3, "flat"),
+    (3072, 512, 0, 512, 0.3, "flat"), (80661, 13, 0, 13, 0.5, "flat"),
+    (40, 64, 0, 64, 0.1, "words"), (128, 128, 0, 128, 0.0, "words"),
+    (128, 128, 0, 128, 1.0, "words"), (1001, 13, 0, 13, 0.5, "words"))
+# the 64-bit index case: n * ring past 2^31 (two 8.6 GB rings)
+BAND_WIDE = (262152, 8192, 7168, 1024)
+
+
+def _band_case(torch, g, n, ring, c, density):
+    """Random rings, sources and a mask of the given density on the card,
+    made from generator g."""
+    def ints(shape):
+        return torch.randint(-2**31, 2**31, shape, dtype=torch.int32,
+                             device="cuda", generator=g)
+    w = torch.rand((n, c), device="cuda", generator=g) < density
+    return ints((n, ring)), ints((n, ring)), ints((n, c)), ints((n, c)), w
+
+
 def phase_kernel_vs_plain(torch, cuda_ops) -> int:
-    """Exact equality of kernel and plain version; returns max |diff|."""
+    """Exact equality of kernel and plain version on BAND_CASES, each on
+    the path it names (counted by the wrapper), and on BAND_WIDE; returns
+    max |diff|."""
     g = torch.Generator(device="cuda").manual_seed(1)
-    n, ring = 4096, 8192
     worst = 0
-    cases = [(0, 1024, 0.0), (1024, 1024, 0.3), (3072, 1024, 1.0),
-             (7168, 1024, 0.5), (4100, 1020, 0.5)]
-    for off, c, density in cases:
-        lt = torch.randint(-2**31, 2**31, (n, ring), dtype=torch.int32,
-                           device="cuda", generator=g)
-        ld = torch.randint(-2**31, 2**31, (n, ring), dtype=torch.int32,
-                           device="cuda", generator=g)
-        st = torch.randint(-2**31, 2**31, (n, c), dtype=torch.int32,
-                           device="cuda", generator=g)
-        sd = torch.randint(-2**31, 2**31, (n, c), dtype=torch.int32,
-                           device="cuda", generator=g)
-        w = torch.rand((n, c), device="cuda", generator=g) < density
+    for n, ring, off, c, density, path in BAND_CASES:
+        lt, ld, st, sd, w = _band_case(torch, g, n, ring, c, density)
         want_t, want_d = lt.clone(), ld.clone()
         cuda_ops.append_band_copy_plain(want_t, want_d, off, st, sd, w)
+        before = cuda_ops.LAUNCHES[f"append_band_copy_{path}"]
         cuda_ops.append_band_copy(lt, ld, off, st, sd, w)
         torch.cuda.synchronize()
         diff = max(int((lt.long() - want_t.long()).abs().max()),
                    int((ld.long() - want_d.long()).abs().max()))
-        log(f"  off={off} width={c} density={density}: max|diff|={diff}")
-        check(diff == 0, f"kernel != plain at off={off} width={c}")
+        log(f"  [{n}, {c}] of {ring} at off={off}, density={density} "
+            f"({path}): max|diff|={diff}")
+        check(cuda_ops.LAUNCHES[f"append_band_copy_{path}"] == before + 1,
+              f"[{n}, {c}] at off={off} did not take the {path} path")
+        check(diff == 0, f"kernel != plain on [{n}, {c}] at off={off}")
         worst = max(worst, diff)
-    return worst
+        del lt, ld, st, sd, w, want_t, want_d
+    n, ring, off, c = BAND_WIDE
+    lt = torch.zeros((n, ring), dtype=torch.int32, device="cuda")
+    ld = torch.zeros_like(lt)
+    _, _, st, sd, w = _band_case(torch, g, n, 0, c, 0.5)
+    cuda_ops.append_band_copy(lt, ld, off, st, sd, w)
+    torch.cuda.synchronize()
+    zero = torch.zeros((), dtype=torch.int32, device="cuda")
+    # elements that differ from plain's (the rings started at zero)
+    diff = sum(int(x) for x in (
+        (lt[:, off:off + c] != torch.where(w, st, zero)).sum(),
+        (ld[:, off:off + c] != torch.where(w, sd, zero)).sum(),
+        lt[:, :off].count_nonzero(), ld[:, :off].count_nonzero()))
+    log(f"  [{n}, {c}] of {ring} at off={off} (64-bit indices): "
+        f"{diff} elements differ")
+    check(diff == 0, f"kernel != plain on [{n}, {c}] of {ring}")
+    del lt, ld, st, sd, w
+    torch.cuda.empty_cache()
+    return max(worst, diff)
 
 
 def phase_card_vs_cpu(torch, sim, cuda_ops, dev: str = "cuda") -> dict:
@@ -1278,7 +1351,7 @@ def phase_dynamic_members(torch, sim) -> dict:
 
 def phase_lever_ab(torch, sim, st) -> dict:
     """64-tick chunks of the headline dense and with the bench's levers, in
-    turns (dense, levers, levers, dense, twice), continuing one state.  A
+    turns (dense, levers, levers, dense), continuing one state.  A
     dense step carries active_ttl unchanged, and in steady state every row
     that the slab needs is hot by its role, so the two configs can share
     it.  The tick is host-bound, so the CUDA events around a chunk time
@@ -1287,7 +1360,7 @@ def phase_lever_ab(torch, sim, st) -> dict:
             "dense": sim.SimConfig(**{**HEADLINE, **DENSE})}
     t = {k: {"host": [], "event": [], "committed": 0, "s": 0.0}
          for k in cfgs}
-    for name in ("dense", "levers", "levers", "dense") * 2:
+    for name in ("dense", "levers", "levers", "dense"):
         st, h, e, c = _timed_ticks(torch, sim, cfgs[name], st, 64)
         t[name]["host"].append(h)
         t[name]["event"].append(e)
@@ -1361,11 +1434,15 @@ def _record_band_copies(torch, sim, cuda_ops, cfg, st, tick=None) -> list:
     return rec.calls
 
 
-def _kernel_vs_plain(torch, cuda_ops, call) -> int:
-    """max |kernel - plain| of one recorded band-copy call."""
+def _kernel_vs_plain(torch, cuda_ops, call, variant: str = "") -> int:
+    """max |kernel - plain| of one recorded band-copy call (of the first
+    version with variant "v1")."""
     lt, ld, off, s_t, s_d, w = call
     kt, kd, pt, pd = lt.clone(), ld.clone(), lt.clone(), ld.clone()
-    cuda_ops.append_band_copy(kt, kd, off, s_t, s_d, w)
+    if variant:
+        cuda_ops._band_copy_launch(kt, kd, off, s_t, s_d, w, variant)
+    else:
+        cuda_ops.append_band_copy(kt, kd, off, s_t, s_d, w)
     cuda_ops.append_band_copy_plain(pt, pd, off, s_t, s_d, w)
     torch.cuda.synchronize()
     return max(int((kt.long() - pt.long()).abs().max()),
@@ -1395,25 +1472,43 @@ def phase_main_path_inputs(torch, sim, cuda_ops, st) -> dict:
     return out
 
 
+def launch_floor_ms(torch, cuda_ops) -> float:
+    """Device time of one empty one-block kernel from CUDA-graph replay
+    (graph_ms, as the band copy is timed): the floor under any launch."""
+    dev = torch.device("cuda", torch.cuda.current_device())
+    return graph_ms(torch, lambda: cuda_ops.launch_empty(dev))
+
+
 def _time_band_copies(torch, cuda_ops, calls) -> dict:
-    """Kernel, plain version and torch.where x2 (a yardstick the port never
-    calls) timed on recorded band-copy calls (device time from CUDA-graph
-    replay), against the bytes bound; the means over the calls, and the
-    largest |kernel - plain|."""
+    """Kernel, its first version (band_copy_v1, the yardstick it replaced),
+    plain version and torch.where x2 (a yardstick the port never calls)
+    timed on recorded band-copy calls (device time from CUDA-graph
+    replay), against the bytes bound and the launch floor; the means over
+    the calls, each call's path, and the largest |kernel - plain| (the
+    first version is held to plain too).  The bound at whole 32-byte
+    sectors (band_sector_bytes) is recorded beside the bytes bound."""
     launch = cuda_ops.append_band_copy
     err = 0
-    times = {"kernel": [], "plain": [], "library": []}
-    bound = []
+    times = {"kernel": [], "previous": [], "plain": [], "library": []}
+    bound, sectors, paths = [], [], []
     for call in calls:
         lt, ld, off, s_t, s_d, w = call
         c = w.shape[1]
-        err = max(err, _kernel_vs_plain(torch, cuda_ops, call))
+        err = max(err, _kernel_vs_plain(torch, cuda_ops, call),
+                  _kernel_vs_plain(torch, cuda_ops, call, "v1"))
         kt, kd = lt.clone(), ld.clone()
+        vt, vd = lt.clone(), ld.clone()
         pt, pd = lt.clone(), ld.clone()
         ct, cd = lt[:, off:off + c], ld[:, off:off + c]
+        paths.append(cuda_ops.band_copy_path(
+            lt.shape[0], lt.shape[1], off, c,
+            *(t.data_ptr() for t in (kt, kd, s_t, s_d, w))))
 
         def run_kernel():
             launch(kt, kd, off, s_t, s_d, w)
+
+        def run_previous():
+            cuda_ops._band_copy_launch(vt, vd, off, s_t, s_d, w, "v1")
 
         def run_plain():
             cuda_ops.append_band_copy_plain(pt, pd, off, s_t, s_d, w)
@@ -1422,24 +1517,36 @@ def _time_band_copies(torch, cuda_ops, calls) -> dict:
             torch.where(w, s_t, ct)
             torch.where(w, s_d, cd)
 
-        # device times from graph replay, in turns (plain, kernel, kernel,
-        # plain) so drift hits both alike
+        # device times from graph replay, in turns (plain, kernel, first
+        # version, first version, kernel, plain) so drift hits all alike
         p1, k1 = graph_ms(torch, run_plain), graph_ms(torch, run_kernel)
+        v1, v2 = graph_ms(torch, run_previous), graph_ms(torch, run_previous)
         k2, p2 = graph_ms(torch, run_kernel), graph_ms(torch, run_plain)
         times["kernel"].append((k1 + k2) / 2)
+        times["previous"].append((v1 + v2) / 2)
         times["plain"].append((p1 + p2) / 2)
         times["library"].append(graph_ms(torch, run_library))
         bound.append(band_bytes(w) / HBM_BYTES_PER_S * 1e3)
-        log(f"  chunk off={off} width={c} written={int(w.sum())}: device "
-            f"kernel {times['kernel'][-1]:.4f} ms, plain "
+        sectors.append(band_sector_bytes(torch, lt, off, w)
+                       / HBM_BYTES_PER_S * 1e3)
+        log(f"  chunk off={off} [{lt.shape[0]}, {c}] of {lt.shape[1]} "
+            f"({paths[-1]}) written={int(w.sum())}: device kernel "
+            f"{times['kernel'][-1]:.4f} ms (first version "
+            f"{times['previous'][-1]:.4f}), plain "
             f"{times['plain'][-1]:.4f} ms, torch.where x2 "
-            f"{times['library'][-1]:.4f} ms, bound {bound[-1]:.4f} ms; "
-            f"eager call: kernel {eager_ms(torch, run_kernel):.4f} ms, "
-            f"plain {eager_ms(torch, run_plain):.4f} ms")
+            f"{times['library'][-1]:.4f} ms, bound {bound[-1]:.4f} ms "
+            f"({bound[-1] / times['kernel'][-1]:.1%} of it; whole 32-byte "
+            f"sectors {sectors[-1]:.4f} ms); eager call: kernel "
+            f"{eager_ms(torch, run_kernel):.4f} ms, plain "
+            f"{eager_ms(torch, run_plain):.4f} ms")
     mean = lambda xs: sum(xs) / len(xs)  # noqa: E731
     return dict(calls=len(calls), err=err, ms=mean(times["kernel"]),
+                previous_ms=mean(times["previous"]),
                 plain_ms=mean(times["plain"]),
-                library_ms=mean(times["library"]), bound_ms=mean(bound))
+                library_ms=mean(times["library"]), bound_ms=mean(bound),
+                sector_bound_ms=mean(sectors),
+                launch_floor_ms=launch_floor_ms(torch, cuda_ops),
+                shape=list(calls[0][5].shape), paths=sorted(set(paths)))
 
 
 def _profiled_turns(torch, sim, cfgs: dict, st,
@@ -1674,11 +1781,11 @@ def phase_planes_headline(torch, sim, cuda_ops) -> dict:
     on, off): kernel launches and ms per tick, with each window's band-copy
     launches, full-pass and fallback ticks; the two windows of a config
     are compared by the aten ops the host called and by the kernel records
-    the profiler kept.  Then 4 off/on pairs of 32-tick run_ticks chunks in
+    the profiler kept.  Then 2 off/on pairs of 32-tick run_ticks chunks in
     turns (host ms/tick: the median pair ratio and its spread); every
     planes-on chunk runs inside a tracer span whose span_trace_tag tags its
     proposes, with a ClockSync sample after it.  The band-copy launches of
-    each config's 128 timed ticks are counted apart.  Then the p50/p99 from
+    each config's 64 timed ticks are counted apart.  Then the p50/p99 from
     summarize_state against percentile_edge_device, the event rings of all
     rows decoded, KernelObs and TelemetryObs published into a registry and
     rendered, a capture of rows 0-255 exported as a Chrome trace (checked
@@ -1733,7 +1840,7 @@ def phase_planes_headline(torch, sim, cuda_ops) -> dict:
                or "none"))
     tracer, clock = mtrace.Tracer(), flightrec.ClockSync()
     sim.sync_point(clock, states["on"])
-    order = ("off", "on", "on", "off") * 2     # 4 pairs, one of each
+    order = ("off", "on", "on", "off")     # 2 pairs, one of each
     for i, name in enumerate(order):
         cuda_ops.reset_launches()
         sim.kernel.reset_counts()
@@ -1871,7 +1978,16 @@ DST_STORAGE = dict(fsync_lag_ticks=4, ack_gating=True, collect_telemetry=True,
                    slo_log_occupancy=40, slo_fsync_lag=40)
 DST_TICKS = 100
 DST_WIDE = 16384      # the sweep's width at scale
-DEMO_TICKS = 80       # the rejoin, transfer-abuse and lost-tail demos
+# each demo's depth: its tool's 60 or 120 ticks cut to about 10 ticks past
+# the least that still neutralizes it on the batched tick's seeded
+# schedules (card = CPU, so a CPU run finds the least: term inflation 30,
+# rejoin 65, transfer abuse 40, lost tail 30 ticks)
+DEMO_TICKS = dict(term_inflation=40, disruptive_rejoin=75,
+                  transfer_abuse=50, lost_tail=40)
+# each mutation self-test's depth: commit_no_quorum first trips at tick 93
+# of the pinned 24 x 100 sweep; stale_lease_read is caught at 60 ticks
+# (first at 38)
+MUTATION_TICKS = dict(commit_no_quorum=DST_TICKS, stale_lease_read=60)
 
 
 def _dst_card_vs_cpu(torch, sim, dst, cfg, schedules: int, profiles,
@@ -1918,9 +2034,9 @@ def phase_dst(torch, sim, cuda_ops, outdir: str,
     storage configuration); the documented 256 x 100 sweep (0 violations;
     schedules/s, step host syncs a tick, launches a tick over 8 profiled
     ticks and the device busy share against 8 unprofiled ticks); 16384 x
-    100 (schedules/s); both mutation self-tests at 24 x 100 (caught,
-    shrunk, artifact replayed on the card and on the CPU); the four demos
-    (neutralized; three at DEMO_TICKS ticks).  The commit_no_quorum and
+    100 (schedules/s); both mutation self-tests at 24 x MUTATION_TICKS
+    (caught, shrunk, artifact replayed on the card and on the CPU); the
+    four demos at DEMO_TICKS (neutralized).  The commit_no_quorum and
     lost-tail artifacts are written to `outdir`, which the caller makes
     and removes, and their paths returned under "artifacts"."""
     import importlib
@@ -2034,9 +2150,9 @@ def phase_dst(torch, sim, cuda_ops, outdir: str,
         f"append_band_copy launches {wide_launched}")
 
     out["mutations"] = {}
-    for mutation in ("commit_no_quorum", "stale_lease_read"):
+    for mutation, ticks in MUTATION_TICKS.items():
         demo = dst_sweep.run_mutation_demo(
-            24, DST_TICKS, 0, 5, 2, mutation, verbose=False,
+            24, ticks, 0, 5, 2, mutation, verbose=False,
             out_path=f"{outdir}/{mutation}.json", device=dev)
         check(demo["caught"], f"mutation {mutation} was not caught")
         check(demo["replay_matches"],
@@ -2062,14 +2178,15 @@ def phase_dst(torch, sim, cuda_ops, outdir: str,
             f"replays exactly on the card and on the CPU (first tick "
             f"{demo['first_tick']})")
     demos = {
-        "term_inflation": dst_sweep.run_term_inflation_demo(device=dev),
+        "term_inflation": dst_sweep.run_term_inflation_demo(
+            ticks=DEMO_TICKS["term_inflation"], device=dev),
         "disruptive_rejoin": dst_sweep.run_disruptive_rejoin_demo(
-            ticks=DEMO_TICKS, device=dev),
+            ticks=DEMO_TICKS["disruptive_rejoin"], device=dev),
         "transfer_abuse": dst_sweep.run_transfer_abuse_demo(
-            ticks=DEMO_TICKS, device=dev),
+            ticks=DEMO_TICKS["transfer_abuse"], device=dev),
         "lost_tail": dst_sweep.run_lost_tail_demo(
-            ticks=DEMO_TICKS, out_path=f"{outdir}/lost_tail.json",
-            device=dev)}
+            ticks=DEMO_TICKS["lost_tail"],
+            out_path=f"{outdir}/lost_tail.json", device=dev)}
     out["artifacts"] = {"commit_no_quorum": f"{outdir}/commit_no_quorum.json",
                         "lost_tail": f"{outdir}/lost_tail.json"}
     for name, demo in demos.items():
@@ -2141,7 +2258,7 @@ def phase_oracle(torch, dst, dst13: dict, card: str = "cuda") -> dict:
 
 MULTIRAFT_GROUPS = 1024      # bench.py's multiraft-1024x3
 MULTIRAFT_TEL_GROUPS = 256   # bench.py's multiraft-telemetry
-MULTIRAFT_TEL_PAIRS = 2      # timed pairs in turns (bench.py: 8)
+MULTIRAFT_TEL_PAIRS = 1      # timed pairs in turns (bench.py: 8)
 
 
 def _group_safety(st) -> tuple[bool, bool]:
@@ -2444,6 +2561,11 @@ LEVER_CFGS = {
     "planes": (dict(LEVER_BASE, **PLANES), dict(LEVER_BASE)),
 }
 LEVER_S = 256        # the documented sweep width
+# each sweep's depth: the documented 100 ticks cut to 60, where every
+# check still fires (a CPU run of the same seeded batches, which the card
+# equals: the tiled log's sweep has 23 banded ticks, the slab runs every
+# tick, 0 violations and lever on = off in all four)
+LEVER_TICKS = 60
 LEVER_SUBSET = 16    # schedules run on the CPU beside the card
 
 
@@ -2470,10 +2592,10 @@ def _sweep_window(torch, sim, dexp, cfg, sched, dev) -> tuple:
 
 def phase_levers_batched(torch, sim, cuda_ops, card: str = "cuda") -> dict:
     """The levers and planes on the batched tick: each configuration of
-    LEVER_CFGS swept at 256 x 100 on the card with the lever on and off
-    (equal viol, first_tick, bits_by_tick; 0 violations), the lever on
-    against the CPU on the first 16 schedules (masks and every final
-    field), schedules/s, step host syncs and band-copy launches of each
+    LEVER_CFGS swept at LEVER_S x LEVER_TICKS on the card with the lever
+    on and off (equal viol, first_tick, bits_by_tick; 0 violations), the
+    lever on against the CPU on the first 16 schedules (masks and every
+    final field), schedules/s, step host syncs and band-copy launches of each
     sweep (counted from 0), slab and fallback ticks, kernel launches a
     tick over 4 profiled ticks, and the band copy of one more sweep tick
     against plain (timed on the tiled log's [256*5, 128] chunks)."""
@@ -2489,7 +2611,7 @@ def phase_levers_batched(torch, sim, cuda_ops, card: str = "cuda") -> dict:
     out = {}
     for name, (on_kw, off_kw) in LEVER_CFGS.items():
         on, off = sim.SimConfig(**on_kw), sim.SimConfig(**off_kw)
-        sched, names = dst.make_batch(off, DST_TICKS, LEVER_S, seed=9,
+        sched, names = dst.make_batch(off, LEVER_TICKS, LEVER_S, seed=9,
                                       device=dev)
         runs = {}
         for tag, cfg in (("off", off), ("on", on)):
@@ -2506,14 +2628,14 @@ def phase_levers_batched(torch, sim, cuda_ops, card: str = "cuda") -> dict:
               f"{name}: the masks differ between the lever on and off")
         check(len(r_on.violating) == 0,
               f"{name}: {len(r_on.violating)} violating schedules")
-        syncs = c_on["host_syncs"] / DST_TICKS
+        syncs = c_on["host_syncs"] / LEVER_TICKS
         want_syncs = 1 if (on.tiled or on.active_rows_on) else 0
         check(syncs == want_syncs and c_off["host_syncs"] == 0,
               f"{name}: {syncs} step host syncs a tick (want "
               f"{want_syncs}), {c_off['host_syncs']} with the lever off")
-        check(l_on >= DST_TICKS and l_off == DST_TICKS,
+        check(l_on >= LEVER_TICKS and l_off == LEVER_TICKS,
               f"{name}: append_band_copy launched {l_on} / {l_off} times "
-              f"in {DST_TICKS} ticks")
+              f"in {LEVER_TICKS} ticks")
         if on.active_rows_on:
             check(c_on["slab_ticks"] > 0, f"{name}: no tick ran on the slab")
         # the lever on, on the CPU, for the first 16 schedules
@@ -2540,7 +2662,7 @@ def phase_levers_batched(torch, sim, cuda_ops, card: str = "cuda") -> dict:
         # the next ticks up to the first banded one (the union band fits
         # only where no cluster elects or restores)
         box, calls = {"st": st}, []
-        for t in range(20 + PROFILED_TICKS, DST_TICKS):
+        for t in range(20 + PROFILED_TICKS, LEVER_TICKS):
             def sweep_tick(t=t):
                 box["st"], _ = dexp._tick_one(box["st"], on, sched.at_tick(t),
                                               2, None, dev)
@@ -2552,7 +2674,7 @@ def phase_levers_batched(torch, sim, cuda_ops, card: str = "cuda") -> dict:
         err = max(_kernel_vs_plain(torch, cuda_ops, c) for c in calls)
         check(err == 0, f"{name}: kernel != plain on a sweep tick ({err})")
         shapes = sorted({tuple(c[5].shape) for c in calls})
-        banded = (l_on - DST_TICKS) // (on.band_chunks - 1) if on.tiled \
+        banded = (l_on - LEVER_TICKS) // (on.band_chunks - 1) if on.tiled \
             else 0
         row = dict(schedules_per_s=r_on.schedules_per_sec,
                    schedules_per_s_off=r_off.schedules_per_sec,
@@ -2568,7 +2690,7 @@ def phase_levers_batched(torch, sim, cuda_ops, card: str = "cuda") -> dict:
             row["band_copy"] = _time_band_copies(torch, cuda_ops, chunks)
             row["banded_ticks"] = banded
         out[name] = row
-        log(f"  {name}, {LEVER_S} x {DST_TICKS}: lever on = off on viol, "
+        log(f"  {name}, {LEVER_S} x {LEVER_TICKS}: lever on = off on viol, "
             f"first_tick and bits_by_tick, 0 violations; card = CPU on "
             f"{k} schedules (masks and all {len(want)} final fields); "
             f"{r_on.schedules_per_sec:.1f} schedules/s on "
@@ -2576,7 +2698,7 @@ def phase_levers_batched(torch, sim, cuda_ops, card: str = "cuda") -> dict:
             f"{syncs:.2f}/tick; slab {c_on['slab_ticks']} / fallback "
             f"{c_on['dense_fallback_ticks']} ticks; append_band_copy "
             f"launches {l_on} on, {l_off} off"
-            + (f" ({banded} banded ticks, {DST_TICKS - banded} full-pass)"
+            + (f" ({banded} banded ticks, {LEVER_TICKS - banded} full-pass)"
                if on.tiled else "") + f"; {PROFILED_TICKS} profiled ticks: "
             f"{launches:.2f} kernel launches/tick, {kernel_ms:.3f} ms of "
             f"kernels/tick; band copy of {len(calls)} sweep-tick calls on "
@@ -2746,7 +2868,7 @@ def phase_mc(torch, sim, cuda_ops, outdir: str, card: str = "cuda") -> dict:
 
 # ---- phase 17: the scheduler's group placement at Docker's scale -------
 
-SCHED_HOST_PREFIX = 128      # tasks the host Pipeline places per group
+SCHED_HOST_PREFIX = 64       # tasks the host Pipeline places per group
 SCHED_PLAIN_PREFIX = 512     # tasks of the plain loop on the card
 # the group whose plain-loop launches are counted: tracing ~50,000
 # launches costs the profiler ~10 s a group
@@ -5549,8 +5671,10 @@ def phase_quorum(torch, cuda_ops, task7: dict, card: str = "cuda") -> dict:
     from swarmkit_tpu_torch.cmd import swarm_bench as sb
 
     card_name = card_line()
-    out = {"gc_objects": len(gc.get_objects())}
-    log(f"  the cyclic collector tracks {out['gc_objects']} objects")
+    out = {"gc_objects": len(gc.get_objects()),
+           "gc_frozen": gc.get_freeze_count()}
+    log(f"  the cyclic collector tracks {out['gc_objects']} objects "
+        f"besides the {out['gc_frozen']} frozen before this phase")
     for transport in ("inproc", "device"):
         with GcPauses() as pauses:
             r = asyncio.run(_appends_case(sb, transport, card))
@@ -6071,8 +6195,9 @@ def _wals(c: SwarmdCluster, names: list) -> list:
 
 def phase_swarmd(torch, task7: dict, card: str = "cuda") -> dict:
     """(a) D_MANAGERS managers, the 2nd and 3rd joined with the manager
-    token `swarmctl cluster-tokens` prints, then D_TEST_WORKERS test
-    workers and one tpu worker joined together with the worker token;
+    token `swarmctl cluster-tokens` prints, D_TEST_WORKERS test workers
+    and one tpu worker joined together with the worker token while the
+    managers join;
     (b) D_REPLICAS replicas on the test workers through `swarmctl
     service-create`; (c) D_PROGRAM_REPLICAS tpu://pallas_matmul tasks on
     the tpu worker, their results read from `swarmctl service-logs`, the
@@ -6134,17 +6259,19 @@ def phase_swarmd(torch, task7: dict, card: str = "cuda") -> dict:
         for m in managers[1:]:
             c.spawn(m, "--manager", "--join-addr", c.addr["m1"],
                     "--join-token", tokens["manager"], audit=True)
-        c.until(lambda: [v for v in _node_states(c, "m1").values()
-                         if v == ("manager", "ready")] == [("manager",
-                                                            "ready")] * 3,
-                "a 3-manager quorum")
-        out["quorum_s"] = time.perf_counter() - t0
+        # the workers start while the 2nd and 3rd managers join: their
+        # start-up (9-12 s) overlaps the managers' (torch's import first)
         t1 = time.perf_counter()
         for w in workers:
             c.spawn(w, "--join-addr", c.addr["m1"], "--join-token",
                     tokens["worker"])
         c.spawn(D_GPU, "--join-addr", c.addr["m1"], "--join-token",
                 tokens["worker"], executor="tpu")
+        c.until(lambda: [v for v in _node_states(c, "m1").values()
+                         if v == ("manager", "ready")] == [("manager",
+                                                            "ready")] * 3,
+                "a 3-manager quorum")
+        out["quorum_s"] = time.perf_counter() - t0
         everyone = managers + workers + [D_GPU]
         c.until(lambda: sorted(n for n, v in _node_states(c, "m1").items()
                                if v[1] == "ready") == sorted(everyone),
@@ -6630,9 +6757,15 @@ def main() -> int:
         return 2
 
     started = time.perf_counter()
+    last = [started]
 
     def stage(msg: str) -> None:
-        log(f"{msg} [at {time.perf_counter() - started:.1f} s]")
+        """The next phase's line, with the seconds since the start and
+        those the phase before it took."""
+        now = time.perf_counter()
+        log(f"{msg} [at {now - started:.1f} s; the phase before took "
+            f"{now - last[0]:.1f} s]")
+        last[0] = now
 
     stage("phase 1: card and build")
     card = card_line()
@@ -6724,7 +6857,7 @@ def main() -> int:
           "both wires)")
     mcpu = phase_multiraft_card_vs_cpu(torch, sim)
     stage(f"phase 15: the levers and planes on the batched tick ("
-          f"{LEVER_S} x {DST_TICKS} sweeps, lever on against off)")
+          f"{LEVER_S} x {LEVER_TICKS} sweeps, lever on against off)")
     levers = phase_levers_batched(torch, sim, cuda_ops)
     stage("phase 16: mc_sweep's n3h8 scope on the card, the mutation "
           "self-tests, the smoke scope against the CPU")
@@ -6812,6 +6945,11 @@ def main() -> int:
           f"managers x {Q_APPENDS} appends on both wires, cpl-batch64, "
           f"swarm-bench through a quorum, failover and restart, a global "
           f"service over Docker's world)")
+    # the quorum phases' event loops would pause for full collections over
+    # the millions of objects the earlier phases leave (phase 25's store of
+    # 30,000 replicas most): freeze them out of the collector's reach first
+    gc.collect()
+    gc.freeze()
     t26 = time.perf_counter()
     q26 = phase_quorum(torch, cuda_ops, task)
     q26["secs"] = time.perf_counter() - t26
@@ -6833,6 +6971,20 @@ def main() -> int:
     tools28["secs"] = time.perf_counter() - t28
     log(f"  phase 28 in {tools28['secs']:.1f} s")
 
+    # each path's recorded band copies took the kernel's path meant for it
+    for name, timed, want in (
+            ("the headline", k, "chunk"),
+            ("multiraft-1024x3", mraft["band_copy"], "flat"),
+            ("the tiled lever sweep", levers["log_chunk=128"]["band_copy"],
+             "chunk"),
+            ("the n3h8 pass", mc16["pass"]["band_copy"], "flat"),
+            ("the differential sweep", diff19["band_copy"], "words"),
+            ("fault_sweep", fault20["band_copy"], "words"),
+            ("the rung", mesh23["rung"]["band_copy"], "chunk"),
+            ("the row tick", row24["band_copy"], "chunk")):
+        check(want in timed["paths"], f"{name}'s band copies took the "
+              f"{timed['paths']} path(s), not {want}")
+    stage("done")
     elapsed = time.perf_counter() - started
     log(f"all phases passed in {elapsed:.1f} s")
     log("summary " + json.dumps({"card": card, "elapsed_s": elapsed,
@@ -6869,47 +7021,28 @@ def main() -> int:
         "multiraft_launches": mraft["band_copy_launches"],
         "multiraft_sweep_launches": tools18["sweep_launches"],
         "swarm_top_launches": tools18["top_launches"],
-        "multiraft_ms": mraft["band_copy"]["ms"],
-        "multiraft_plain_ms": mraft["band_copy"]["plain_ms"],
-        "multiraft_bound_ms": mraft["band_copy"]["bound_ms"],
-        "multiraft_library_ms": mraft["band_copy"]["library_ms"],
         "levers_launches": {n: r["band_copy_launches"]
                             for n, r in levers.items()},
-        "levers_tiled_ms": levers["log_chunk=128"]["band_copy"]["ms"],
-        "levers_tiled_plain_ms":
-            levers["log_chunk=128"]["band_copy"]["plain_ms"],
-        "levers_tiled_bound_ms":
-            levers["log_chunk=128"]["band_copy"]["bound_ms"],
-        "levers_tiled_library_ms":
-            levers["log_chunk=128"]["band_copy"]["library_ms"],
         "mc_launches": mc16["n3h8"]["band_copy_launches"],
-        "mc_ms": mc16["pass"]["band_copy"]["ms"],
-        "mc_plain_ms": mc16["pass"]["band_copy"]["plain_ms"],
-        "mc_bound_ms": mc16["pass"]["band_copy"]["bound_ms"],
-        "mc_library_ms": mc16["pass"]["band_copy"]["library_ms"],
         "differential_launches": diff19["band_copy_launches"],
         "fault_sweep_launches": fault20["band_copy_launches"],
-        "differential_ms": diff19["band_copy"]["ms"],
-        "differential_plain_ms": diff19["band_copy"]["plain_ms"],
-        "differential_bound_ms": diff19["band_copy"]["bound_ms"],
-        "differential_library_ms": diff19["band_copy"]["library_ms"],
-        "fault_sweep_ms": fault20["band_copy"]["ms"],
-        "fault_sweep_plain_ms": fault20["band_copy"]["plain_ms"],
-        "fault_sweep_bound_ms": fault20["band_copy"]["bound_ms"],
-        "fault_sweep_library_ms": fault20["band_copy"]["library_ms"],
         "sharded_dst_launches": mesh23["dst"]["launches"],
         "sharded_fleet_launches": mesh23["fleet"]["launches"],
         "sharded_mc_launches": mesh23["mc"]["launches"],
         "rung_launches": mesh23["rung"]["band_copy_launches"],
-        "rung_ms": mesh23["rung"]["band_copy"]["ms"],
-        "rung_plain_ms": mesh23["rung"]["band_copy"]["plain_ms"],
-        "rung_bound_ms": mesh23["rung"]["band_copy"]["bound_ms"],
-        "rung_library_ms": mesh23["rung"]["band_copy"]["library_ms"],
         "row_tick_launches": row24["band_copy_launches"],
-        "row_tick_ms": row24["band_copy"]["ms"],
-        "row_tick_plain_ms": row24["band_copy"]["plain_ms"],
-        "row_tick_bound_ms": row24["band_copy"]["bound_ms"],
-        "row_tick_library_ms": row24["band_copy"]["library_ms"],
+        # each other path's recorded calls, timed as the headline's
+        **{f"{path}_{key}": timed[key] for path, timed in (
+            ("multiraft", mraft["band_copy"]),
+            ("levers_tiled", levers["log_chunk=128"]["band_copy"]),
+            ("mc", mc16["pass"]["band_copy"]),
+            ("differential", diff19["band_copy"]),
+            ("fault_sweep", fault20["band_copy"]),
+            ("rung", mesh23["rung"]["band_copy"]),
+            ("row_tick", row24["band_copy"]))
+           for key in ("ms", "previous_ms", "plain_ms", "bound_ms",
+                       "sector_bound_ms", "library_ms", "shape",
+                       "paths")},
         "max_abs_err": max(err2, k["err"], err9, rmix["err"], planes["err"],
                            dst13["sweep_256"]["err"],
                            mraft["band_copy"]["err"],
@@ -6922,7 +7055,12 @@ def main() -> int:
                            mesh23["rung"]["band_copy"]["err"],
                            row24["band_copy"]["err"]),
         "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
-        "bound_by": "bytes", "library_ms": k["library_ms"]}]
+        "bound_by": "bytes", "library_ms": k["library_ms"],
+        # the first version (band_copy_v1) on the same calls, in turns
+        "previous_ms": k["previous_ms"],
+        "sector_bound_ms": k["sector_bound_ms"], "paths": k["paths"],
+        # an empty one-block kernel, timed the same way
+        "launch_floor_ms": k["launch_floor_ms"]}]
     for name, line, bound_by in (("matmul", 76, "operations"),
                                  ("sumsq", 141, "bytes")):
         t = f8[name]

@@ -5,7 +5,8 @@ checks its arguments, runs the plain PyTorch version when the tensors lie
 on the CPU, and otherwise launches its CUDA kernel (csrc/, built by
 _build.py for sm_90a) or raises — it never falls back.  `LAUNCHES` counts
 kernel launches per wrapper, so a run can show that its path went through
-the kernels; matmul also counts each of its three kernels under
+the kernels; append_band_copy also counts each of its paths under
+`append_band_copy_<path>`, matmul each of its three kernels under
 `matmul_<variant>`, and place_greedy each of its kernels under
 `sched_place_<variant>`.  `place_greedy` (the scheduler's group placement)
 has no Pallas ancestor: the JAX package runs that loop as plain jnp/lax.
@@ -20,6 +21,16 @@ import torch
 
 from swarmkit_tpu_torch import _build
 
+# band_copy.cu's paths, in its codes' order (band_copy_path says which
+# takes a call); its first version, "v1", is never on the path
+BAND_COPY_PATHS = ("flat", "chunk", "scalar", "words")
+# the whole rings that take the flat path's 512-element warp tiles; a
+# smaller one runs at about the launch floor, where one 4-element word a
+# thread (the words path) has the shorter chain of dependent reads: on the
+# H100 0.0017 against the tiles' 0.0023 ms on fault_sweep's [40, 64] ring,
+# level from [3072, 512] up, while the tiles stream a 100 MB mask with no
+# set byte 1.8 times as fast (tools/band_copy_probe.py)
+FLAT_TILES_MIN = 1 << 20
 MATMUL_VARIANTS = ("wgmma", "wmma", "simt")
 # sched_place.cu's kernels: the tree kernel (keys in two words where they
 # fit), the same comparing every key field by field, and the rescan kernel
@@ -27,6 +38,7 @@ MATMUL_VARIANTS = ("wgmma", "wmma", "simt")
 PLACE_VARIANTS = ("tree", "tree_fields", "rescan")
 LAUNCHES: dict[str, int] = {
     "append_band_copy": 0, "matmul": 0, "sumsq": 0, "sched_place": 0,
+    **{f"append_band_copy_{p}": 0 for p in (*BAND_COPY_PATHS, "v1")},
     **{f"matmul_{v}": 0 for v in MATMUL_VARIANTS},
     **{f"sched_place_{v}": 0 for v in PLACE_VARIANTS}}
 _launches_lock = threading.Lock()   # tasks launch from executor threads
@@ -34,7 +46,9 @@ _launches_lock = threading.Lock()   # tasks launch from executor threads
 _P, _I64, _I32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 # (csrc/<source>.cu, C function) -> its argument types
 _ENTRY = {
-    ("band_copy", "band_copy"): [_P] * 5 + [_I64] * 4 + [_P],
+    ("band_copy", "band_copy"): [_P] * 5 + [_I64] * 4 + [_I32, _P],
+    ("band_copy", "band_copy_v1"): [_P] * 5 + [_I64] * 4 + [_P],
+    ("band_copy", "band_copy_empty_launch"): [_P],
     **{("matmul", f"matmul_{v}"): [_P] * 3 + [_I64] * 3 + [_P]
        for v in MATMUL_VARIANTS},
     ("matmul", "matmul_wgmma_smem_bytes"): [],
@@ -159,10 +173,55 @@ def append_band_copy(log_term: torch.Tensor, log_data: torch.Tensor,
         return
     if log_term.device.type != "cuda":
         raise ValueError(f"no kernel for device {log_term.device}")
-    _launch("band_copy", log_term.device, log_term.data_ptr(),
-            log_data.data_ptr(), src_term.data_ptr(), src_data.data_ptr(),
-            write.data_ptr(), n, L, off, c)
+    _band_copy_launch(log_term, log_data, off, src_term, src_data, write)
+
+
+def band_copy_path(n: int, ring: int, off: int, width: int,
+                   *addresses: int) -> str:
+    """The path of band_copy.cu that takes a call on [n, ring] rings and
+    [n, width] chunks at `off`, whose tensors start at `addresses`: for
+    the whole ring (off 0, width = ring) "flat" from FLAT_TILES_MIN
+    elements up and "words" below; "chunk" for 16-element vectors (width
+    a multiple of 16 and at most 16 x 32 x 65535, the grid's column
+    tiles; off and ring multiples of 4); "scalar" for any other shape.
+    All but the scalar path need every base 16-byte aligned."""
+    if any(a % 16 for a in addresses):
+        return "scalar"
+    if off == 0 and width == ring:
+        return "flat" if n * ring >= FLAT_TILES_MIN else "words"
+    if width % 16 == 0 and width // 16 <= 32 * 65535 and off % 4 == 0 \
+            and ring % 4 == 0:
+        return "chunk"
+    return "scalar"
+
+
+def _band_copy_launch(log_term, log_data, off, src_term, src_data, write,
+                      variant: str = "") -> None:
+    """Launch the band copy on checked CUDA tensors and count it: the
+    kernel on the path band_copy_path names, or, with variant "v1", the
+    first version (only the card's tests, chip_smoke.py and
+    tools/band_copy_probe.py ask for it, to hold the two side by side on
+    the same inputs)."""
+    n, L = log_term.shape
+    c = write.shape[1]
+    ptrs = [t.data_ptr() for t in (log_term, log_data, src_term, src_data,
+                                   write)]
+    if variant == "v1":
+        _launch("band_copy", log_term.device, *ptrs, n, L, off, c,
+                name="band_copy_v1")
+        _count("append_band_copy_v1")
+        return
+    path = band_copy_path(n, L, off, c, *ptrs)
+    _launch("band_copy", log_term.device, *ptrs, n, L, off, c,
+            BAND_COPY_PATHS.index(path))
     _count("append_band_copy")
+    _count(f"append_band_copy_{path}")
+
+
+def launch_empty(device: torch.device) -> None:
+    """One empty kernel of one block on `device`'s current stream: the
+    launch floor chip_smoke.py times beside the band copy (not counted)."""
+    _launch("band_copy", device, name="band_copy_empty_launch")
 
 
 def matmul_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -41,33 +41,47 @@ def _need_card():
         pytest.skip("needs a CUDA card; run on the H100 (see README)")
 
 
-def _band_args(rng, m, ring, c):
+def _band_args(rng, m, ring, c, density=0.3):
     term = rng.integers(-2**31, 2**31, (m, ring), dtype=np.int64)
     data = rng.integers(-2**31, 2**31, (m, ring), dtype=np.int64)
     src_t = rng.integers(-2**31, 2**31, (m, c), dtype=np.int64)
     src_d = rng.integers(-2**31, 2**31, (m, c), dtype=np.int64)
-    write = rng.random((m, c)) < 0.3
+    write = rng.random((m, c)) < density
     return [torch.from_numpy(a.astype(np.int32)) for a in
             (term, data, src_t, src_d)] + [torch.from_numpy(write)]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("off,c", [(0, 128), (128, 256), (3, 125),
-                                   (384, 128)])
-def test_kernel_matches_plain_on_the_card(off, c):
+@pytest.mark.parametrize("density", [0.0, 0.013, 0.3, 1.0])
+@pytest.mark.parametrize("path,m,ring,off,c", [
+    ("chunk", 64, 512, 0, 128), ("chunk", 64, 512, 128, 256),
+    ("chunk", 61, 512, 384, 128), ("flat", 32768, 32, 0, 32),
+    ("flat", 80661, 13, 0, 13), ("words", 3 * 64, 32, 0, 32),
+    ("words", 5 * 16, 64, 0, 64), ("words", 61, 13, 0, 13),
+    ("scalar", 64, 512, 3, 125), ("scalar", 64, 512, 4, 120)])
+def test_kernel_matches_plain_on_the_card(path, m, ring, off, c, density):
     """The kernel against the plain version on the same card tensors, on
-    the 16-byte vector path (aligned offset and width) and the scalar
-    one; columns outside the chunk stay untouched."""
+    each of its paths (the chunk path's 16-element vectors; the whole
+    ring's flat tiles and its tail of n * ring % 16 elements, and its
+    words below FLAT_TILES_MIN elements and their tail of n * ring % 4;
+    the scalar path) at mask densities from none to all; columns outside
+    the chunk stay untouched.  The first version, kept as the yardstick,
+    equals the plain version too."""
     _need_card()
     lt, ld, st, sd, w = (x.cuda() for x in _band_args(
-        np.random.default_rng(off + c), 64, 512, c))
+        np.random.default_rng(off + c + m), m, ring, c, density))
     want_t, want_d = lt.clone(), ld.clone()
     cuda_ops.append_band_copy_plain(want_t, want_d, off, st, sd, w)
-    before = cuda_ops.LAUNCHES["append_band_copy"]
+    v1_t, v1_d = lt.clone(), ld.clone()
+    before = dict(cuda_ops.LAUNCHES)
     cuda_ops.append_band_copy(lt, ld, off, st, sd, w)
+    cuda_ops._band_copy_launch(v1_t, v1_d, off, st, sd, w, "v1")
     torch.cuda.synchronize()
-    assert cuda_ops.LAUNCHES["append_band_copy"] == before + 1
+    for name in ("append_band_copy", f"append_band_copy_{path}",
+                 "append_band_copy_v1"):
+        assert cuda_ops.LAUNCHES[name] == before[name] + 1, name
     assert torch.equal(lt, want_t) and torch.equal(ld, want_d)
+    assert torch.equal(v1_t, want_t) and torch.equal(v1_d, want_d)
 
 
 @pytest.mark.cuda
